@@ -6,20 +6,33 @@ Run from the root of a checkout, on a machine with a CUDA card and
 ``nvcc``. It
 
   1. prints the card (``nvidia-smi`` name and power limit), the torch and
-     CUDA versions and the TF32 flags (asserted off);
+     CUDA versions, the TF32 flags (asserted off) and whether the machine
+     has ``ml_dtypes`` (the port does not use it);
   2. builds the hand-written kernels from ``src/repro_torch/csrc`` (one
      ``nvcc`` per source, in parallel) and prints the build time;
   3. holds each kernel against its plain PyTorch version on the card at the
-     shapes resnet50@224 gives it (max|d|/max|plain| <= 2e-5), and times the
+     shapes resnet50@224 and the smollm-360m prefill give it
+     (max|d|/max|plain| <= 2e-5 in f32, <= 2e-2 in bf16), and times the
      kernel, the plain version and one library call with CUDA events;
-  4. drives the main path: resnet50 at image 224, width 1.0, from
+  4. drives the CNN path: resnet50 at image 224, width 1.0, from
      ``build_cnn`` through ``ColdEngine(store_fmt="super")``, ``decide`` with
      the real profiler, then ``run_cold``, and two more ``run_cold``s under
      pinned plans (Winograd for every 3x3/s1 conv with the packed head;
      im2col for every conv with the direct head), each output held to an
      all-plain forward on the card (max|d|/max|ref| <= 1e-4);
-  5. fails unless every kernel launched during the main path and no kernel
-     was demoted by the fault ladder.
+  5. drives the cold-LLM path: smollm-360m at its full published width
+     (d_model 960, 15/5 heads, d_ff 2560, vocab 49152) and ``LLM_DEPTH``
+     blocks, random weights from seed 0, a 64-token prompt, from
+     ``build_llm_graph`` through ``ColdEngine(store_fmt="super")``,
+     ``decide`` with the real profiler, ``run_cold`` in nnv12 and
+     sequential mode, ``run_cold`` under two pinned plans (``f32_direct``
+     everywhere; ``bf16_cast`` from the bf16 cache everywhere), and
+     ``run_warm``; each logits tensor is held to an all-plain forward on the
+     card (atol 0.1, rtol 0.05: the reference's own gate for this graph),
+     and the two pinned plans must give bitwise-equal logits;
+  6. fails unless every kernel of a path launched during that path's runs
+     (each path's launch counts are zeroed just before its runs and read
+     just after) and no kernel was demoted by the fault ladder.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -28,6 +41,7 @@ it, it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import importlib.metadata
 import json
 import subprocess
 import sys
@@ -39,16 +53,180 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# f32 without tensor cores / memory rate, by card (NVIDIA data sheets)
-PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
+# peak rates by card (NVIDIA data sheets, dense): f32 without tensor
+# cores, bf16 on the tensor cores, memory
+PEAKS = {"sxm": {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12},
+         "pcie": {"float32": 51e12, "bfloat16": 756e12, "bytes": 2.0e12}}
 
-KERNEL_TOL = 2e-5
+KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PATH_TOL = 1e-4
+LLM_ATOL, LLM_RTOL = 0.1, 0.05
+LLM_DEPTH = 32
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def llm_path(dev, depth: int) -> dict:
+    """smollm-360m cold prefill through the engine; returns the launch
+    counts of the path's runs (zeroed just before them)."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint.integrity import crc32c_backend
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import ColdEngine
+    from repro_torch.core.llm_graph import build_llm_graph
+    from repro_torch.core.scheduler import Choice
+    from repro_torch.executor.pool import reset_core_pool
+    from repro_torch.ioengine import reset_io_engine, reset_stage_engine
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import flash_attention_plain
+    from repro_torch.kernels.matmul import matmul_plain
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=depth)
+    print(f"main path: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}"
+          f"/{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} layers={cfg.num_layers} (of 32), "
+          f"store_fmt=super")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    layers, toks = build_llm_graph(cfg, params)
+    print(f"  weights + graph: {time.perf_counter() - t0:.2f} s, prompt "
+          f"{tuple(toks.shape)}")
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        saved = ops.matmul, ops.flash_attention
+        ops.matmul, ops.flash_attention = matmul_plain, flash_attention_plain
+        try:
+            yield
+        finally:
+            ops.matmul, ops.flash_attention = saved
+
+    with plain_kernels():
+        ref_out, _, _ = T.forward(
+            T.to_device(params, dev),
+            {"tokens": torch.from_numpy(toks).to(dev)}, cfg)
+    torch.cuda.synchronize()
+    del params
+    shape = (1, toks.shape[1], cfg.vocab_size)
+
+    def check_logits(label, out):
+        out = out.detach()
+        if tuple(out.shape) != shape or out.dtype != torch.float32 \
+                or not torch.isfinite(out).all():
+            fail(f"{label}: logits {tuple(out.shape)} {out.dtype} or "
+                 f"non-finite")
+        d = (out - ref_out).abs()
+        ok = bool((d <= LLM_ATOL + LLM_RTOL * ref_out.abs()).all())
+        print(f"  {label}: logits {shape}, max|d|={d.max().item():.4e} "
+              f"max|ref|={ref_out.abs().max().item():.4e} "
+              f"within atol {LLM_ATOL} rtol {LLM_RTOL}: {ok}")
+        if not ok:
+            fail(f"{label}: logits disagree with the all-plain forward")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_llm_") as tmp:
+        t0 = time.perf_counter()
+        eng = ColdEngine(layers, Path(tmp) / "store", store_fmt="super",
+                         device=dev)
+        print(f"  engine and store: {time.perf_counter() - t0:.2f} s "
+              f"(CRC-32C backend: {crc32c_backend()})")
+        t0 = time.perf_counter()
+        stats = eng.decide(toks)
+        print(f"  decide: {time.perf_counter() - t0:.2f} s, "
+              f"profile_calls={stats['profile_calls']} "
+              f"shape_classes={stats['shape_classes']} "
+              f"io_interference={stats['io_interference']:.3f} "
+              f"est_makespan_s={stats['est_makespan_s']:.6f}")
+        if stats.get("degraded"):
+            fail(f"decide degraded: {stats.get('error')}")
+        summary = {}
+        for kern, cached in stats["choices"].values():
+            key = f"{kern}/{'cache' if cached else 'raw'}"
+            summary[key] = summary.get(key, 0) + 1
+        print(f"  plan summary: {json.dumps(summary)}")
+        print(f"  planned cold read bytes: "
+              f"{json.dumps(stats['planned_cold_read_bytes'])}")
+        # the bf16 cache of every layer, for the pinned bf16_cast plan
+        weighted = [l for l in layers if l.spec.weight_shapes]
+        t0 = time.perf_counter()
+        for l in weighted:
+            if not eng.store.has_cached(l.spec.name, "bf16_cast"):
+                kern = next(k for k in eng._kernels_for(l.spec)
+                            if k.name == "bf16_cast")
+                eng.store.write_cached(
+                    l.spec.name, "bf16_cast",
+                    kern.transform(eng.store.read_raw(l.spec.name), l.spec))
+        eng.store.maintain()
+        raw_b = sum(eng.store.raw_bytes(l.spec.name) for l in weighted)
+        cache_b = sum(eng.store.cached_bytes(l.spec.name, "bf16_cast")
+                      for l in weighted)
+        print(f"  bf16 cache materialized: {time.perf_counter() - t0:.2f} s;"
+              f" raw bytes {raw_b}, bf16 cache bytes {cache_b}")
+        decided = eng.plan
+
+        def pinned(kernel, cached):
+            return replace(decided, choices=[
+                Choice(kernel if kernel != "f32_direct"
+                       or l.spec.op_type == "tblock" else "direct", cached)
+                for l in layers])
+
+        ops.reset_launch_counts()
+        outs = {}
+        for label, plan, mode in [
+                ("decided plan", None, "nnv12"),
+                ("decided plan", None, "sequential"),
+                ("pinned f32_direct", pinned("f32_direct", False), "nnv12"),
+                ("pinned bf16_cast cached", pinned("bf16_cast", True),
+                 "nnv12")]:
+            before = ops.launch_counts()
+            if plan is not None:
+                eng.set_plan(plan)
+            r = eng.run_cold(toks, mode=mode)
+            after = ops.launch_counts()
+            delta = {k: after[k] - before[k] for k in after
+                     if after[k] - before[k]}
+            print(f"  run_cold [{label}, {mode}]: total_s={r.total_s:.4f} "
+                  f"stage_seconds={json.dumps(r.stage_seconds())} "
+                  f"launches={json.dumps(delta)}")
+            check_logits(f"{label} {mode}", r.output)
+            outs[label, mode] = r.output
+        nnv12 = outs["decided plan", "nnv12"]
+        seq = outs["decided plan", "sequential"]
+        print(f"  nnv12 vs sequential: max|d|="
+              f"{(nnv12 - seq).abs().max().item():.3e}")
+        if not torch.equal(outs["pinned f32_direct", "nnv12"],
+                           outs["pinned bf16_cast cached", "nnv12"]):
+            fail("the f32_direct and bf16_cast plans differ")
+        print("  f32_direct and bf16_cast logits: bitwise equal")
+        eng.set_plan(decided)
+        before = ops.launch_counts()
+        warm = eng.run_warm(toks)
+        after = ops.launch_counts()
+        print(f"  run_warm: {warm:.4f} s (best of 3), launches="
+              f"{json.dumps({k: after[k] - before[k] for k in after if after[k] - before[k]})}")
+        counts = ops.launch_counts()
+        repairs = eng.repairs.counts()
+        open_breakers = eng.breaker.open_keys()
+        print(f"  repairs={json.dumps(repairs)} open_breakers={open_breakers}")
+        if repairs.get("kernel_demoted") or open_breakers:
+            fail(f"kernels were demoted on the LLM path: {repairs} "
+                 f"{open_breakers}")
+        out = {k: counts[k] for k in ("flash_attention", "matmul_bf16")}
+        for k, n in out.items():
+            if n <= 0:
+                fail(f"kernel {k} never launched on the LLM path")
+        del eng
+    reset_io_engine()
+    reset_stage_engine()
+    reset_core_pool()
+    return out
 
 
 def main() -> None:
@@ -59,6 +237,7 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -72,6 +251,7 @@ def main() -> None:
     from repro_torch.ioengine import (StageEngine, reset_io_engine,
                                       reset_stage_engine)
     from repro_torch.kernels import _native, ops
+    from repro_torch.kernels.attention import flash_attention_plain
     from repro_torch.kernels.conv_winograd import winograd_tile_matmul_plain
     from repro_torch.kernels.matmul import matmul_packed_plain, matmul_plain
     from repro_torch.models.cnn import build_cnn
@@ -85,15 +265,24 @@ def main() -> None:
     dev = resolve_device("cuda")
     set_f32_precision()
     name = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw = PEAKS["pcie" if "PCIe" in name else "sxm"]
+    peaks = PEAKS["pcie" if "PCIe" in name else "sxm"]
+    t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {name} count {torch.cuda.device_count()}")
     print(f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
+    # the port carries bf16 without ml_dtypes; report whether this machine
+    # has it, without importing it
+    try:
+        ml_dtypes = f"installed {importlib.metadata.version('ml_dtypes')}"
+    except importlib.metadata.PackageNotFoundError:
+        ml_dtypes = "not installed"
+    print(f"ml_dtypes: {ml_dtypes} (not used by the port)")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
-    print(f"peaks used for bounds: {peak_flops / 1e12:.0f} TFLOP/s f32, "
-          f"{peak_bw / 1e12:.2f} TB/s")
+    print(f"peaks used for bounds: {peaks['float32'] / 1e12:.0f} TFLOP/s "
+          f"f32 (CUDA cores), {peaks['bfloat16'] / 1e12:.0f} TFLOP/s bf16 "
+          f"(tensor cores), {peaks['bytes'] / 1e12:.2f} TB/s")
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -110,9 +299,10 @@ def main() -> None:
     stream = torch.cuda.Stream(dev)
     rng = np.random.default_rng(0)
 
-    def rand(*shape):
-        return torch.from_numpy(
-            rng.standard_normal(shape).astype(np.float32)).to(dev)
+    def rand(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)) * scale).to(
+                dev, dtype)
 
     def time_ms(fn, iters=20):
         with torch.cuda.stream(stream):
@@ -127,28 +317,31 @@ def main() -> None:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
+    def bound(flops, nbytes, dtype="float32"):
+        t_ops, t_bytes = flops / peaks[dtype], nbytes / peaks["bytes"]
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
 
-    def check(label, kernel, plain, library, flops, nbytes):
+    def check(label, kernel, plain, library, flops, nbytes,
+              dtype="float32"):
         torch.cuda.synchronize()  # inputs were copied on the default stream
         with torch.cuda.stream(stream):
             got, ref = kernel(), plain()
         stream.synchronize()
+        got, ref = got.to(torch.float32), ref.to(torch.float32)
         err = (got - ref).abs().max().item()
         scale = max(ref.abs().max().item(), 1e-30)
         ms, plain_ms = time_ms(kernel), time_ms(plain)
         lib_ms = time_ms(library) if library is not None else None
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = bound(flops, nbytes, dtype)
         print(f"  {label}: max|d|={err:.3e} rel={err / scale:.3e} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
               f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} "
-              f"bound_ms={b_ms:.4f} ({b_by})")
-        if not torch.isfinite(got).all() or err / scale > KERNEL_TOL:
+              f"bound_ms={b_ms:.6f} ({b_by}, {dtype} peak)")
+        tol = KERNEL_TOL[dtype]
+        if not torch.isfinite(got).all() or err / scale > tol:
             fail(f"{label}: kernel disagrees with its plain version "
-                 f"(rel {err / scale:.3e} > {KERNEL_TOL})")
+                 f"(rel {err / scale:.3e} > {tol})")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
@@ -186,7 +379,53 @@ def main() -> None:
               # reads the K*N real weights and no padding
               2 * M * N * K, 4 * (M * K + K * N + M * N))
     results["matmul_packed"] = {"head": r}
+
+    print("kernels vs plain versions (smollm-360m prefill shapes, bf16):")
+    # the seven projections of a block (M = 64 prompt tokens) and the head
+    for tag, M, K, N in [("d_model", 64, 960, 960), ("up", 64, 960, 2560),
+                         ("down", 64, 2560, 960), ("head", 64, 960, 49152)]:
+        x = rand(M, K, dtype=torch.bfloat16)
+        w = rand(K, N, dtype=torch.bfloat16, scale=K ** -0.5)
+        r = check(f"matmul_bf16 {tag} ({M},{K})x({K},{N})",
+                  lambda: ops.matmul(x, w), lambda: matmul_plain(x, w),
+                  lambda: torch.matmul(x, w),
+                  2 * M * N * K, 2 * (M * K + K * N + M * N), "bfloat16")
+        results.setdefault("matmul_bf16", {})[tag] = r
+
+    def visible_pairs(S, window):
+        rows = np.arange(S)
+        return int(np.minimum(rows + 1, window or S).sum())
+
+    # (tag, B, S, H, KV, D, window, softcap, dtype); causal throughout
+    for tag, B, S, H, KV, D, win, cap, dt in [
+            ("prefill64", 1, 64, 15, 5, 64, None, None, torch.bfloat16),
+            ("prefill2048", 1, 2048, 15, 5, 64, None, None, torch.bfloat16),
+            ("ragged100", 1, 100, 15, 5, 64, None, None, torch.bfloat16),
+            ("f32_window_softcap", 1, 1024, 15, 5, 64, 256, 50.0,
+             torch.float32),
+            # the other head dims the kernel is built for
+            ("d32_window", 2, 200, 8, 2, 32, 64, None, torch.bfloat16),
+            ("d128_softcap", 2, 130, 4, 4, 128, None, 30.0, torch.bfloat16)]:
+        q = rand(B, S, H, D, dtype=dt, scale=0.5)
+        k = rand(B, S, KV, D, dtype=dt, scale=0.5)
+        v = rand(B, S, KV, D, dtype=dt, scale=0.5)
+        kw = dict(causal=True, window=win, softcap=cap)
+        lib = None
+        if cap is None and win is None:
+            lib = (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True))
+        dname = str(dt).replace("torch.", "")
+        r = check(f"flash_attention {tag} B={B} S={S} H={H} KV={KV} D={D} "
+                  f"window={win} softcap={cap} {dname}",
+                  lambda: ops.flash_attention(q, k, v, **kw),
+                  lambda: flash_attention_plain(q, k, v, **kw), lib,
+                  4 * B * H * D * visible_pairs(S, win),
+                  q.element_size() * 2 * B * S * (H + KV) * D, dname)
+        results.setdefault("flash_attention", {})[tag] = r
     torch.cuda.synchronize()
+    print(f"  [kernel phases done at {time.perf_counter() - t_start:.1f} s]")
+    launches = {}
 
     # -- 4. the main path ---------------------------------------------------
     layers, x_np = build_cnn("resnet50", image=224, width=1.0, classes=100,
@@ -275,7 +514,9 @@ def main() -> None:
                   f"stage_seconds={json.dumps(r.stage_seconds())} "
                   f"launches={json.dumps(delta)}")
             check_output(label, r.output)
-        launches = ops.launch_counts()
+        cnn_counts = ops.launch_counts()
+        for k in ("matmul", "matmul_packed", "winograd_tile_matmul"):
+            launches[k] = cnn_counts[k]
         repairs = eng.repairs.counts()
         open_breakers = eng.breaker.open_keys()
         print(f"  repairs={json.dumps(repairs)} open_breakers={open_breakers}")
@@ -284,7 +525,7 @@ def main() -> None:
                  f"{open_breakers}")
         for k, n in launches.items():
             if n <= 0:
-                fail(f"kernel {k} never launched on the main path")
+                fail(f"kernel {k} never launched on the CNN path")
         # the other entry points of the slice, outside the counted window
         eng.set_plan(decided)
         for mode in ("sequential", "nnv12_nosteal"):
@@ -316,10 +557,16 @@ def main() -> None:
     reset_io_engine()
     reset_stage_engine()
     reset_core_pool()
+    print(f"  [CNN path done at {time.perf_counter() - t_start:.1f} s]")
 
-    # -- 5. report ----------------------------------------------------------
+    # -- 5. the cold-LLM path -----------------------------------------------
+    launches.update(llm_path(dev, LLM_DEPTH))
+    print(f"  [LLM path done at {time.perf_counter() - t_start:.1f} s]")
+
+    # -- 6. report ----------------------------------------------------------
     main_shape = {"winograd_tile_matmul": "stage0", "matmul": "im2col_s1b0",
-                  "matmul_packed": "head"}
+                  "matmul_packed": "head", "matmul_bf16": "head",
+                  "flash_attention": "prefill64"}
     out = []
     for k, (source, replaces) in ops.KERNELS.items():
         r = results[k][main_shape[k]]

@@ -15,7 +15,8 @@ opens + N copies. Layout::
 
 Dtypes are tagged by name ("float32", "bfloat16", "int8", ...); bfloat16 is
 stored natively — the payload *is* the bf16 bits, no ``.bf16.npy``
-uint16-view hack — and resolved through ``ml_dtypes`` on read.
+uint16-view hack — and read back as the port's ``bf16.BFLOAT16`` (uint16
+bit patterns under the "bfloat16" tag; no ``ml_dtypes``).
 
 Reads come in two flavors:
 
@@ -40,6 +41,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from repro_torch import bf16
+
 MAGIC = b"NNVB"
 VERSION = 1
 ALIGN = 64
@@ -48,18 +51,13 @@ _HEADER_FIXED = struct.calcsize(_HEADER_FMT)
 
 
 def _dtype_from_tag(tag: str) -> np.dtype:
-    if tag == "bfloat16":
-        import ml_dtypes
-
-        return np.dtype(ml_dtypes.bfloat16)
-    return np.dtype(tag)
+    return bf16.np_dtype(tag)
 
 
 def _dtype_tag(dt: np.dtype) -> str:
-    name = dt.name if hasattr(dt, "name") else str(dt)
-    if "bfloat16" in str(dt):
+    if bf16.is_bf16(np.dtype(dt)):
         return "bfloat16"
-    return name
+    return dt.name if hasattr(dt, "name") else str(dt)
 
 
 def _pad_to(n: int, align: int = ALIGN) -> int:

@@ -42,6 +42,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
+from repro_torch import bf16
 from repro_torch.checkpoint.bundle import (
     _dtype_from_tag, _parse_header_from, read_bundle, write_bundle,
 )
@@ -168,11 +169,9 @@ class _PendingBundleRead:
 # ---------------------------------------------------------------------------
 def _save_arr(path_base: Path, v: np.ndarray):
     """np.save with bf16 support (stored as uint16 + .bf16.npy suffix —
-    numpy cannot round-trip ml_dtypes through .npy)."""
-    import ml_dtypes
-
+    numpy has no bfloat16 to round-trip through .npy)."""
     v = np.asarray(v)
-    if v.dtype == ml_dtypes.bfloat16:
+    if bf16.is_bf16(v):
         np.save(path_base.with_suffix(".bf16.npy"), v.view(np.uint16),
                 allow_pickle=False)
     else:
@@ -180,13 +179,11 @@ def _save_arr(path_base: Path, v: np.ndarray):
 
 
 def _load_dir(d: Path) -> Dict[str, np.ndarray]:
-    import ml_dtypes
-
     out: Dict[str, np.ndarray] = {}
     for p in sorted(d.glob("*.npy")):
         if p.name.endswith(".bf16.npy"):
             out[p.name[: -len(".bf16.npy")]] = np.load(
-                p, allow_pickle=False).view(ml_dtypes.bfloat16)
+                p, allow_pickle=False).view(bf16.BFLOAT16)
         else:
             out[p.stem] = np.load(p, allow_pickle=False)
     return out

@@ -28,9 +28,9 @@ lives in ``docs/formats.md``)::
               tensors and its cache entries are adjacent)
 
 Offsets are absolute from the start of the file. Dtypes are tagged by
-name; bfloat16 is stored natively and resolved through ``ml_dtypes`` on
-read. Version-2 files (no checksums, no generation, header JSON at byte
-16) and v3 files (no quantized extents) still open read-only; any rewrite
+name; bfloat16 is stored natively and read back as ``bf16.BFLOAT16``.
+Version-2 files (no checksums, no generation, header JSON at byte 16) and
+v3 files (no quantized extents) still open read-only; any rewrite
 or in-place commit upgrades them to v4.
 
 Quantized cache extents (format v4): a weight dict written under the

@@ -1,0 +1,19 @@
+"""Mamba2-2.7B — attention-free SSD (state-space duality).
+
+[arXiv:2405.21060]
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mamba2-2.7b",
+    family="ssm",
+    num_layers=64,
+    d_model=2560,
+    d_ff=0,
+    vocab_size=50_280,
+    ssm_state=128,
+    ssm_expand=2,
+    ssm_head_dim=64,
+    tie_embeddings=True,
+    source="arXiv:2405.21060",
+)

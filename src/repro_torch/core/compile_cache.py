@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import bf16
 from repro_torch.device import as_device
 
 
@@ -86,7 +87,6 @@ class CompileCache:
 
 
 def _dtype_name(dt: Any) -> str:
-    """numpy-style dtype name ("float32") for torch and numpy dtypes."""
-    if isinstance(dt, torch.dtype):
-        return str(dt).replace("torch.", "")
-    return str(dt)
+    """numpy-style dtype name ("float32", "bfloat16") for torch and numpy
+    dtypes; a bf16 avatar keys as "bfloat16" in either form."""
+    return bf16.dtype_name(dt)

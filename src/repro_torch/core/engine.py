@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import bf16
 from repro_torch.checkpoint import LayerStore, atomic_write_text
 from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.pipeline import PipelineJob, PipelineRuntime, RunResult
@@ -174,7 +175,7 @@ class ColdEngine:
             for l in self.layers:
                 xs.append(to_numpy(y))
                 kern = self._kernels_for(l.spec)[0]
-                w = {k: torch.from_numpy(np.array(v)).to(self.device)
+                w = {k: bf16.to_tensor(np.array(v)).to(self.device)
                      for k, v in l.weights.items()}
                 y = kern.execute(w, y, l.spec)
             self._output_example = to_numpy(y)
@@ -187,8 +188,8 @@ class ColdEngine:
         per-layer path)."""
         xin = np.asarray(xin)
         kw = dict(
-            input_shape=tuple(xin.shape), input_dtype=str(xin.dtype),
-            weight_dtypes={k: str(np.asarray(v).dtype)
+            input_shape=tuple(xin.shape), input_dtype=bf16.dtype_name(xin),
+            weight_dtypes={k: bf16.dtype_name(np.asarray(v))
                            for k, v in l.weights.items()} or None,
         )
         key = shape_class_key(l.spec, **kw)
@@ -661,9 +662,7 @@ class ColdEngine:
 
     # ------------------------------------------------------------------
     def _avatar_dtype(self, name: str) -> torch.dtype:
-        if name == "bfloat16":
-            return torch.bfloat16
-        return torch.from_numpy(np.empty(0, np.dtype(name))).dtype
+        return bf16.to_tensor(np.empty(0, bf16.np_dtype(name))).dtype
 
     def _jitted_map(self, choices: List[Choice], x_example) -> Dict[str, Callable]:
         """Execute callables per layer (through the kernel cache, keyed by
@@ -702,7 +701,7 @@ class ColdEngine:
                 w_ex = {}
             xin = np.asarray(xin)
             x_ex = torch.empty(tuple(xin.shape),
-                               dtype=self._avatar_dtype(str(xin.dtype)),
+                               dtype=self._avatar_dtype(bf16.dtype_name(xin)),
                                device="meta")
             fn = (lambda kern, spec: lambda w, x: kern.execute(w, x, spec))(kern, l.spec)
             compiled = self.compile_cache.get(kern.name, l.spec, fn, w_ex,

@@ -36,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import bf16
 from repro_torch.core.registry import Kernel, LayerSpec, OpKind
 from repro_torch.core.staging import consume, stage_weights
 from repro_torch.device import as_device, new_stream, on_stream, to_device
@@ -99,7 +100,7 @@ def avatars_of(weights: Dict[str, Any]) -> Dict[str, Any]:
     """JSON-able {name: [shape, dtype_str]} description of a weight dict —
     the transformed-weight avatars ``OpProfile`` carries and the engine
     rehydrates into meta-tensor examples for the compile cache."""
-    return {k: [list(np.asarray(v).shape), str(np.asarray(v).dtype)]
+    return {k: [list(np.asarray(v).shape), bf16.dtype_name(np.asarray(v))]
             for k, v in weights.items()}
 
 

@@ -11,7 +11,8 @@ off the critical exec chain.
 into anonymous memory first: the stage op pays the page-in and transfer
 cost, and execute runs against device-resident buffers that can never
 touch the disk. Heap arrays produced by kernel transforms pass straight
-through. The profiler uses the same helper, so measured ``stage_s`` is
+through. bf16 host arrays (uint16 bit patterns under ``bf16.BFLOAT16``)
+become ``torch.bfloat16`` tensors by a view. The profiler uses the same helper, so measured ``stage_s`` is
 the cost the runtime actually pays.
 
 On a CUDA device the copies run on the device's dedicated copy stream and
@@ -30,6 +31,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import bf16
 from repro_torch.device import as_device
 
 
@@ -63,7 +65,7 @@ def stage_weights(w: Dict[str, Any], device) -> StagedWeights:
         v = np.asarray(v)
         if not v.flags.writeable:
             v = np.array(v)  # fault file-backed pages into anonymous memory
-        host[k] = torch.from_numpy(np.ascontiguousarray(v))
+        host[k] = bf16.to_tensor(np.ascontiguousarray(v))
     if device.type != "cuda":
         staged.update(host)
         return staged

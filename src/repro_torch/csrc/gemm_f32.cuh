@@ -1,10 +1,14 @@
-// Shared-memory tiled f32 GEMM for Hopper (sm_90a), IEEE f32 FMA on the
-// CUDA cores: f32 in, f32 accumulated, f32 out. No TF32 — the lossless
-// cold-inference path must match the f32 reference, and the tensor cores
-// have no plain-f32 mode.
+// Shared-memory tiled GEMM for Hopper (sm_90a) with an f32 accumulator,
+// IEEE f32 FMA on the CUDA cores. The element type T is float (f32 in and
+// out; no TF32 — the lossless cold-inference path must match the f32
+// reference, and the tensor cores have no plain-f32 mode) or
+// __nv_bfloat16 (bf16 in and out: converted to f32 on load into shared
+// memory, rounded to nearest-even on store — the Pallas matmul under bf16
+// inputs, f32 accumulate, bf16 out).
 //
 // One template serves the three ported Pallas kernels:
-//   * matmul                 C(M,N) = A(M,K) · B(K,N), row-major B;
+//   * matmul                 C(M,N) = A(M,K) · B(K,N), row-major B, f32 or
+//                            bf16;
 //   * matmul_packed          B in LinearPacked's (N/128, K/128, 128, 128)
 //                            layout, read in place (PACKED = true);
 //   * winograd_tile_matmul   the same GEMM batched over the 16 Winograd
@@ -17,10 +21,20 @@
 // in device memory.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace repro_torch {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 constexpr int kBM = 64;
 constexpr int kBN = 64;
@@ -40,10 +54,10 @@ __device__ __forceinline__ size_t b_offset(int k, int n, int N, int nK) {
   return (size_t)k * N + n;
 }
 
-template <bool PACKED>
+template <bool PACKED, typename T>
 __global__ void __launch_bounds__(kThreads)
-    gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                    float* __restrict__ C, int M, int N, int K,
+    gemm_f32_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                    T* __restrict__ C, int M, int N, int K,
                     long long batch_a, long long batch_b, long long batch_c,
                     int nK) {
   __shared__ __align__(16) float As[kBK][kBM + 4];
@@ -77,14 +91,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 4; ++j) {
       const int k = k0 + a_k + j;
       As[a_k + j][a_row] =
-          (am < M && k < K) ? A[(size_t)am * K + k] : 0.0f;
+          (am < M && k < K) ? to_f32(A[(size_t)am * K + k]) : 0.0f;
     }
     const int bk = k0 + b_k;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + b_col + j;
       Bs[b_k][b_col + j] =
-          (bk < K && n < N) ? B[b_offset<PACKED>(bk, n, N, nK)] : 0.0f;
+          (bk < K && n < N) ? to_f32(B[b_offset<PACKED>(bk, n, N, nK)])
+                           : 0.0f;
     }
     __syncthreads();
 
@@ -109,21 +124,21 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n < N) C[(size_t)m * N + n] = acc[i][j];
+      if (n < N) store_f32(&C[(size_t)m * N + n], acc[i][j]);
     }
   }
 }
 
 // Enqueue one (batched) GEMM on `stream`; returns cudaGetLastError() so a
 // refused launch is reported to the caller instead of passing unseen.
-template <bool PACKED>
-inline int launch_gemm_f32(const float* A, const float* B, float* C, int M,
+template <bool PACKED, typename T>
+inline int launch_gemm_f32(const T* A, const T* B, T* C, int M,
                            int N, int K, int batch, long long batch_a,
                            long long batch_b, long long batch_c, int nK,
                            cudaStream_t stream) {
   if (M <= 0 || N <= 0 || batch <= 0) return (int)cudaGetLastError();
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, batch);
-  gemm_f32_kernel<PACKED><<<grid, kThreads, 0, stream>>>(
+  gemm_f32_kernel<PACKED, T><<<grid, kThreads, 0, stream>>>(
       A, B, C, M, N, K, batch_a, batch_b, batch_c, nK);
   return (int)cudaGetLastError();
 }

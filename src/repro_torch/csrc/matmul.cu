@@ -1,6 +1,7 @@
 // matmul and matmul_packed: the Hopper ports of the Pallas kernels in
-// repro/kernels/matmul.py (_mm_kernel, _mm_packed_kernel). Plain C entry
-// points, loaded with ctypes by repro_torch/kernels/_native.py.
+// repro/kernels/matmul.py (_mm_kernel, _mm_packed_kernel); matmul in f32
+// and in bf16 (f32 accumulate, bf16 out). Plain C entry points, loaded with
+// ctypes by repro_torch/kernels/_native.py.
 #include "gemm_f32.cuh"
 
 extern "C" {
@@ -8,6 +9,14 @@ extern "C" {
 // out(M,N) = x(M,K) · w(K,N); all row-major f32, contiguous.
 int repro_matmul_f32(const float* x, const float* w, float* out, int M, int N,
                      int K, void* stream) {
+  return repro_torch::launch_gemm_f32<false>(
+      x, w, out, M, N, K, 1, 0, 0, 0, 0, static_cast<cudaStream_t>(stream));
+}
+
+// out(M,N) = x(M,K) · w(K,N); all row-major bf16, contiguous; f32
+// accumulator, each output rounded to bf16 once.
+int repro_matmul_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                      __nv_bfloat16* out, int M, int N, int K, void* stream) {
   return repro_torch::launch_gemm_f32<false>(
       x, w, out, M, N, K, 1, 0, 0, 0, 0, static_cast<cudaStream_t>(stream));
 }

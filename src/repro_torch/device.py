@@ -19,6 +19,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import bf16
+
 DeviceLike = Union[str, torch.device]
 
 
@@ -79,7 +81,7 @@ def to_device(x, device: torch.device, stream=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         t = x
     else:
-        t = torch.from_numpy(np.array(x, copy=True))
+        t = bf16.to_tensor(np.array(x, copy=True))
     if t.device == device:
         return t
     with on_stream(stream):
@@ -89,6 +91,7 @@ def to_device(x, device: torch.device, stream=None) -> torch.Tensor:
 
 
 def to_numpy(t) -> np.ndarray:
+    """Host array of a tensor; bf16 comes back as ``bf16.BFLOAT16``."""
     if isinstance(t, torch.Tensor):
-        return t.detach().cpu().numpy()
+        return bf16.to_numpy(t.detach().cpu())
     return np.asarray(t)

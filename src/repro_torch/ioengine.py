@@ -1069,6 +1069,7 @@ class StageEngine:
     def _dma_loop(self) -> None:
         import torch
 
+        from repro_torch import bf16
         from repro_torch.core.staging import StagedWeights, copy_stream
         while True:
             item = self._q.get()
@@ -1087,7 +1088,7 @@ class StageEngine:
                         host = slab.numpy()[:arr.nbytes].view(arr.dtype) \
                             .reshape(arr.shape)
                         np.copyto(host, arr)   # page-in + copy, one pass
-                        staged[k] = torch.from_numpy(host).to(
+                        staged[k] = bf16.to_tensor(host).to(
                             device, non_blocking=True)
                     staged.event = torch.cuda.Event()
                     staged.event.record(stream)

@@ -1,10 +1,13 @@
-"""Blocked f32 GEMMs for Hopper — the port of ``repro/kernels/matmul.py``.
+"""Blocked GEMMs for Hopper — the port of ``repro/kernels/matmul.py``.
 
 Two wrappers, each with its plain PyTorch version beside it:
 
   * ``matmul`` replaces the Pallas ``matmul`` (``_mm_kernel``): (M,K)x(K,N)
-    with an f32 accumulator. Consumers: ``LinearDirect`` and the patch GEMM
-    of ``ConvIm2col``.
+    with an f32 accumulator, in f32 (f32 out) or in bf16 (bf16 out, each
+    output rounded once). Consumers: ``LinearDirect`` and the patch GEMM of
+    ``ConvIm2col`` in f32; the seven projections of every decoder block and
+    the LM head of the cold-LLM graph in bf16 (``models.layers``,
+    ``core.llm_graph``).
   * ``matmul_packed`` replaces the Pallas ``matmul_packed``
     (``_mm_packed_kernel``): it reads ``LinearPacked``'s (N/128, K/128,
     128, 128) layout in place, so each K step of a block loads rows of one
@@ -12,7 +15,9 @@ Two wrappers, each with its plain PyTorch version beside it:
 
 Kernel: ``csrc/gemm_f32.cuh`` via ``csrc/matmul.cu`` (64x64 block tile, K
 step 16, 4x4 outputs per thread, IEEE f32 FMA, no TF32; ragged M/N/K edges
-masked in the kernel, nothing padded in device memory).
+masked in the kernel, nothing padded in device memory). The bf16 entry
+converts on load and rounds on store; its products stay on the CUDA cores
+(``wgmma`` is later work).
 
 Bound on an H100 SXM (67 TFLOP/s f32 without tensor cores, 3.35 TB/s):
 max(2·M·N·K / 67e12, 4·(MK + KN + MN) / 3.35e12). The im2col GEMMs of
@@ -21,7 +26,11 @@ GFLOP each — are bound by operations (≈27.6 µs); the packed head
 (1,256)x(256,100) is bound by launch latency. The design keeps the f32
 FMA units fed from shared memory (two float4 shared loads per 16 FMAs) and
 reads each A and B element from device memory once per block; raising
-the tile and pipelining the loads is later work.
+the tile and pipelining the loads is later work. The bf16 GEMMs of the
+smollm-360m prefill (M = 64 tokens) are bound by reading the weights at
+3.35 TB/s (the head, (64,960)x(960,49152), moves 101 MB: 30 µs) or by
+launch latency; with M = 64 the 64x64 tile gives only N/64 blocks (15 for
+the d_model projections), so this kernel leaves most SMs idle there.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — there is no fallback. ``launches`` counts
@@ -36,7 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _native
 
-launches = {"matmul": 0, "matmul_packed": 0}
+launches = {"matmul": 0, "matmul_bf16": 0, "matmul_packed": 0}
 _lock = threading.Lock()
 
 
@@ -54,21 +63,24 @@ def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w (K, N) in x's dtype (float32 or bfloat16; w the same)."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul: bad shapes {tuple(x.shape)} x {tuple(w.shape)}")
-    if _native.on_cpu("matmul", x, w):
+    if _native.on_cpu("matmul", x, w,
+                      dtypes=(torch.float32, torch.bfloat16)):
         return matmul_plain(x, w)
     M, K = x.shape
     N = w.shape[1]
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M and N:
         lib = _native.library("matmul")
+        bf16 = x.dtype == torch.bfloat16
+        fn = lib.repro_matmul_bf16 if bf16 else lib.repro_matmul_f32
         with torch.cuda.device(x.device):
-            rc = lib.repro_matmul_f32(
-                x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
-                torch.cuda.current_stream(x.device).cuda_stream)
+            rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+                    torch.cuda.current_stream(x.device).cuda_stream)
         _native.check(rc, "matmul")
-        _count("matmul")
+        _count("matmul_bf16" if bf16 else "matmul")
     return out
 
 

@@ -10,24 +10,31 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import conv_winograd as _wino
 from repro_torch.kernels import matmul as _mm
 
 matmul = _mm.matmul
 matmul_packed = _mm.matmul_packed
 winograd_tile_matmul = _wino.winograd_tile_matmul
+flash_attention = _attn.flash_attention
 
-# name -> (CUDA source, TPU kernel it replaces)
+# launch-count name -> (CUDA source, TPU kernel it replaces); ``matmul``
+# counts the f32 launches of the one wrapper, ``matmul_bf16`` its bf16 ones
 KERNELS = {
     "matmul": ("src/repro_torch/csrc/matmul.cu",
                "src/repro/kernels/matmul.py:37"),
+    "matmul_bf16": ("src/repro_torch/csrc/matmul.cu",
+                    "src/repro/kernels/matmul.py:37"),
     "matmul_packed": ("src/repro_torch/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:81"),
     "winograd_tile_matmul": ("src/repro_torch/csrc/conv_winograd.cu",
                              "src/repro/kernels/conv_winograd.py:39"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/attention.py:75"),
 }
 
-_COUNTERS = (_mm.launches, _wino.launches)
+_COUNTERS = (_mm.launches, _wino.launches, _attn.launches)
 
 
 def launch_counts() -> Dict[str, int]:

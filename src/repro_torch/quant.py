@@ -183,10 +183,12 @@ def quantize_weights(raw: Dict[str, np.ndarray], *, bits: int = 8,
     """Kernel-transform helper: quantize every 2-D float tensor of a raw
     weight dict (the matmul operands), pass everything else — biases,
     norms, already-integer tensors — through unchanged."""
+    from repro_torch.bf16 import is_bf16
+
     out: Dict[str, np.ndarray] = {}
     for name, v in raw.items():
         a = np.asarray(v)
-        floaty = a.dtype.kind == "f" or "bfloat16" in str(a.dtype)
+        floaty = a.dtype.kind == "f" or is_bf16(a)
         if a.ndim == 2 and a.size >= min_size and floaty:
             out.update(quantize_weight(name, np.asarray(a, np.float32),
                                        bits=bits, axis=axis))

@@ -1,13 +1,13 @@
 """The port stands alone: no file under src/repro_torch/, and not
-chip_smoke.py, imports jax, jaxlib or the JAX package (repro); and the
-smoke script reports nothing where it cannot run."""
+chip_smoke.py, imports jax, jaxlib, ml_dtypes or the JAX package (repro);
+and the smoke script reports nothing where it cannot run."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -35,6 +35,10 @@ def test_scan_covers_the_port():
     for must in ("src/repro_torch/core/engine.py",
                  "src/repro_torch/kernels/matmul.py",
                  "src/repro_torch/kernels/conv_winograd.py",
+                 "src/repro_torch/kernels/attention.py",
+                 "src/repro_torch/core/llm_graph.py",
+                 "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/configs/base.py",
                  "chip_smoke.py"):
         assert must in names
 

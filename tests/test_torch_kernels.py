@@ -64,6 +64,27 @@ def test_matmul_matches_pallas(M, K, N):
            R.matmul_ref(jnp.asarray(x), jnp.asarray(w)), K)
 
 
+@pytest.mark.parametrize("M,K,N", [(128, 128, 128), (200, 300, 150),
+                                   (64, 512, 96), (1, 128, 128)])
+def test_matmul_bf16_matches_pallas(M, K, N):
+    """bf16 in and out, f32 accumulate: the reference sweep's bf16 arm at
+    its tolerance (5e-2, atol scaled by sqrt(K))."""
+    from repro_torch import bf16
+
+    rng = _rng(4, M, K, N)
+    x = jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+    w = jnp.asarray(rng.standard_normal((K, N)), jnp.bfloat16)
+    want = pallas_matmul(x, w, interpret=True)
+    tx, tw = (bf16.to_tensor(np.array(np.asarray(a))) for a in (x, w))
+    got = ops.matmul(tx, tw)
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    for out in (got, matmul_plain(tx, tw)):
+        np.testing.assert_allclose(
+            out.to(torch.float32).numpy(), np.asarray(want, np.float32),
+            atol=5e-2 * np.sqrt(K), rtol=5e-2)
+    assert ops.launch_counts()["matmul_bf16"] == 0
+
+
 @pytest.mark.parametrize("K,N", [(300, 150), (128, 128), (100, 37)])
 def test_matmul_packed_matches_pallas(K, N):
     rng = _rng(2, K, N)
