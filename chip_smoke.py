@@ -12,14 +12,19 @@ Run from the root of a checkout, on a machine with a CUDA card and
      ``nvcc`` per source, in parallel) and prints the build time;
   3. holds each kernel against its plain PyTorch version on the card at the
      shapes resnet50@224 and the smollm-360m prefill give it
-     (max|d|/max|plain| <= 2e-5 in f32, <= 2e-2 in bf16), and times the
-     kernel, the plain version and one library call with CUDA events;
+     (max|d|/max|plain| <= 2e-5 in f32, <= 2e-2 in bf16; the dequant
+     kernels bitwise, max|d| = 0), and times the kernel, the plain version
+     and one library call with CUDA events;
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
      ``build_cnn`` through ``ColdEngine(store_fmt="super")``, ``decide`` with
      the real profiler, then ``run_cold``, and two more ``run_cold``s under
      pinned plans (Winograd for every 3x3/s1 conv with the packed head;
      im2col for every conv with the direct head), each output held to an
-     all-plain forward on the card (max|d|/max|ref| <= 1e-4);
+     all-plain forward on the card (max|d|/max|ref| <= 1e-4); then the
+     lossy CNN path: a second engine with ``allow_lossy=True``, ``decide``
+     with ``SyntheticProfiler``, and ``run_cold`` with the head on the
+     ``int8``, ``int4`` and ``bf16`` caches (im2col convs), each held to an
+     all-plain forward whose head uses the same (dequantized) weights;
   5. drives the cold-LLM path: smollm-360m at its full published width
      (d_model 960, 15/5 heads, d_ff 2560, vocab 49152) and ``LLM_DEPTH``
      blocks, random weights from seed 0, a 64-token prompt, from
@@ -29,7 +34,14 @@ Run from the root of a checkout, on a machine with a CUDA card and
      everywhere; ``bf16_cast`` from the bf16 cache everywhere), and
      ``run_warm``; each logits tensor is held to an all-plain forward on the
      card (atol 0.1, rtol 0.05: the reference's own gate for this graph),
-     and the two pinned plans must give bitwise-equal logits;
+     and the two pinned plans must give bitwise-equal logits; then the
+     lossy LLM path at ``LOSSY_DEPTH`` blocks: ``allow_lossy=True``,
+     ``decide`` with ``SyntheticProfiler``, the ``int8``, ``int4`` and
+     ``bf16_cast`` caches, and ``run_cold`` under the decided plan and with
+     every tblock and the head pinned to each cache, each held to an
+     all-plain forward on the same dequantized weights (same gate); the
+     cache bytes of the matmul layers must be >= 1.8x (int8) and >= 3x
+     (int4) below ``bf16_cast``;
   6. fails unless every kernel of a path launched during that path's runs
      (each path's launch counts are zeroed just before its runs and read
      just after) and no kernel was demoted by the fault ladder.
@@ -41,8 +53,10 @@ it, it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.metadata
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -62,6 +76,9 @@ KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PATH_TOL = 1e-4
 LLM_ATOL, LLM_RTOL = 0.1, 0.05
 LLM_DEPTH = 32
+LOSSY_DEPTH = 32
+# cache bytes of the matmul layers (tblocks + LM head) below bf16_cast
+LOSSY_BYTE_FLOORS = {"int8": 1.8, "int4": 3.0}
 
 
 def fail(msg: str) -> None:
@@ -69,10 +86,70 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper of ``ops`` swapped for its plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant as Q
+    from repro_torch.kernels.attention import flash_attention_plain
+    from repro_torch.kernels.matmul import matmul_plain
+
+    plain = {"matmul": matmul_plain, "flash_attention": flash_attention_plain,
+             "dequant_int8": Q.dequant_int8_plain,
+             "dequant_int4": Q.dequant_int4_plain,
+             "matmul_dequant_int8": Q.matmul_dequant_int8_plain,
+             "matmul_dequant_int4": Q.matmul_dequant_int4_plain}
+    saved = {k: getattr(ops, k) for k in plain}
+    for k, fn in plain.items():
+        setattr(ops, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(ops, k, fn)
+
+
+def plan_summary(choices) -> dict:
+    summary = {}
+    for kern, cached in choices:
+        key = f"{kern}/{'cache' if cached else 'raw'}"
+        summary[key] = summary.get(key, 0) + 1
+    return summary
+
+
+def materialize(eng, layer, kernel) -> None:
+    """Write ``layer``'s cache entry for ``kernel`` unless it exists."""
+    if not eng.store.has_cached(layer.spec.name, kernel):
+        kern = next(k for k in eng._kernels_for(layer.spec)
+                    if k.name == kernel)
+        eng.store.write_cached(
+            layer.spec.name, kernel,
+            kern.transform(eng.store.read_raw(layer.spec.name), layer.spec))
+
+
+def layer_weights(eng, layer, kernel, cached, dev) -> dict:
+    """The weights a run of ``kernel`` executes for ``layer``, as device
+    tensors: the cache entry (or the transform of the raw weights), with
+    quantized tensors dequantized in numpy (``quant.dequantize_weight``)."""
+    import numpy as np
+
+    from repro_torch import bf16, quant
+
+    kern = next(k for k in eng._kernels_for(layer.spec) if k.name == kernel)
+    name = layer.spec.name
+    entry = (eng.store.read_cached(name, kernel) if cached
+             else kern.transform(eng.store.read_raw(name), layer.spec))
+    groups, rest = quant.split_groups(entry)
+    w = {k: bf16.to_tensor(np.array(v)).to(dev) for k, v in rest.items()}
+    for base in groups:
+        w[base] = bf16.to_tensor(quant.dequantize_weight(
+            entry, base, layer.spec.weight_shapes[base])).to(dev)
+    return w
+
+
 def llm_path(dev, depth: int) -> dict:
     """smollm-360m cold prefill through the engine; returns the launch
     counts of the path's runs (zeroed just before them)."""
-    import contextlib
     import dataclasses
 
     import torch
@@ -85,8 +162,6 @@ def llm_path(dev, depth: int) -> dict:
     from repro_torch.executor.pool import reset_core_pool
     from repro_torch.ioengine import reset_io_engine, reset_stage_engine
     from repro_torch.kernels import ops
-    from repro_torch.kernels.attention import flash_attention_plain
-    from repro_torch.kernels.matmul import matmul_plain
     from repro_torch.models import transformer as T
 
     cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=depth)
@@ -99,15 +174,6 @@ def llm_path(dev, depth: int) -> dict:
     layers, toks = build_llm_graph(cfg, params)
     print(f"  weights + graph: {time.perf_counter() - t0:.2f} s, prompt "
           f"{tuple(toks.shape)}")
-
-    @contextlib.contextmanager
-    def plain_kernels():
-        saved = ops.matmul, ops.flash_attention
-        ops.matmul, ops.flash_attention = matmul_plain, flash_attention_plain
-        try:
-            yield
-        finally:
-            ops.matmul, ops.flash_attention = saved
 
     with plain_kernels():
         ref_out, _, _ = T.forward(
@@ -146,23 +212,15 @@ def llm_path(dev, depth: int) -> dict:
               f"est_makespan_s={stats['est_makespan_s']:.6f}")
         if stats.get("degraded"):
             fail(f"decide degraded: {stats.get('error')}")
-        summary = {}
-        for kern, cached in stats["choices"].values():
-            key = f"{kern}/{'cache' if cached else 'raw'}"
-            summary[key] = summary.get(key, 0) + 1
-        print(f"  plan summary: {json.dumps(summary)}")
+        print(f"  plan summary: "
+              f"{json.dumps(plan_summary(stats['choices'].values()))}")
         print(f"  planned cold read bytes: "
               f"{json.dumps(stats['planned_cold_read_bytes'])}")
         # the bf16 cache of every layer, for the pinned bf16_cast plan
         weighted = [l for l in layers if l.spec.weight_shapes]
         t0 = time.perf_counter()
         for l in weighted:
-            if not eng.store.has_cached(l.spec.name, "bf16_cast"):
-                kern = next(k for k in eng._kernels_for(l.spec)
-                            if k.name == "bf16_cast")
-                eng.store.write_cached(
-                    l.spec.name, "bf16_cast",
-                    kern.transform(eng.store.read_raw(l.spec.name), l.spec))
+            materialize(eng, l, "bf16_cast")
         eng.store.maintain()
         raw_b = sum(eng.store.raw_bytes(l.spec.name) for l in weighted)
         cache_b = sum(eng.store.cached_bytes(l.spec.name, "bf16_cast")
@@ -229,6 +287,165 @@ def llm_path(dev, depth: int) -> dict:
     return out
 
 
+def llm_lossy_path(dev, depth: int) -> dict:
+    """smollm-360m cold prefill on the quantized caches
+    (``ColdEngine(allow_lossy=True)``); returns the launch counts of the
+    path's runs (zeroed just before them)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import ColdEngine
+    from repro_torch.core.llm_graph import (EmbedDirect, HeadDirect,
+                                            TBlockF32Direct, build_llm_graph)
+    from repro_torch.core.profiler import SyntheticProfiler
+    from repro_torch.core.scheduler import Choice
+    from repro_torch.executor.pool import reset_core_pool
+    from repro_torch.ioengine import reset_io_engine, reset_stage_engine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=depth)
+    print(f"lossy LLM path: {cfg.name} full width, layers={depth} (of 32), "
+          f"allow_lossy=True, store_fmt=super")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    layers, toks = build_llm_graph(cfg, params)
+    del params
+    print(f"  weights + graph: {time.perf_counter() - t0:.2f} s")
+    weighted = [l for l in layers if l.spec.weight_shapes]
+    matmul_layers = [l for l in layers if l.spec.op_type in ("tblock",
+                                                             "lmhead")]
+    shape = (1, toks.shape[1], cfg.vocab_size)
+    direct = {"embed": EmbedDirect(), "tblock": TBlockF32Direct(),
+              "lmhead": HeadDirect()}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lossy_llm_") as tmp:
+        t0 = time.perf_counter()
+        eng = ColdEngine(layers, Path(tmp) / "store", store_fmt="super",
+                         allow_lossy=True, device=dev)
+        eng.profiler_factory = SyntheticProfiler
+        print(f"  engine and store: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        stats = eng.decide(toks, calibrate_interference=False)
+        print(f"  decide (SyntheticProfiler): {time.perf_counter() - t0:.2f}"
+              f" s, profile_calls={stats['profile_calls']} "
+              f"shape_classes={stats['shape_classes']} "
+              f"est_makespan_s={stats['est_makespan_s']:.6f}")
+        if stats.get("degraded"):
+            fail(f"decide degraded: {stats.get('error')}")
+        print(f"  plan summary: "
+              f"{json.dumps(plan_summary(stats['choices'].values()))}")
+        print(f"  planned cold read bytes: "
+              f"{json.dumps(stats['planned_cold_read_bytes'])}")
+        decided = eng.plan
+        t0 = time.perf_counter()
+        for l in weighted:
+            for kernel in ("bf16_cast", "int8", "int4"):
+                if l.spec.op_type != "embed" or kernel == "bf16_cast":
+                    materialize(eng, l, kernel)
+        eng.store.maintain()
+        print(f"  int8, int4 and bf16_cast caches materialized: "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        def pinned(kernel):
+            return replace(decided, choices=[
+                Choice("bf16_cast" if l.spec.op_type == "embed" else kernel,
+                       True) for l in layers])
+
+        def plain_forward(plan):
+            """All-plain forward on the weights the run reads, quantized
+            ones dequantized, each cast to bf16 by the lossless kernels."""
+            y = torch.from_numpy(toks).to(dev)
+            with plain_kernels():
+                for l, c in zip(layers, plan.choices):
+                    w = layer_weights(eng, l, c.kernel, c.use_cache, dev)
+                    y = direct[l.spec.op_type].execute(w, y, l.spec)
+            torch.cuda.synchronize()
+            return y
+
+        # each pinned arm twice: the first run reads (and CRC-audits) its
+        # extents for the first time, the second finds them read once
+        arms = ("bf16_cast", "int8", "int4")
+        ops.reset_launch_counts()
+        outs, served, matmul_b, model_b = {}, {}, {}, {}
+        for label, plan in ([("decided", decided)]
+                            + [(a, pinned(a)) for a in arms]
+                            + [(f"{a} again", pinned(a)) for a in arms]):
+            eng.set_plan(plan)
+            before, s0 = ops.launch_counts(), eng.store.bytes_served()
+            r = eng.run_cold(toks)
+            after = ops.launch_counts()
+            served[label] = eng.store.bytes_served() - s0
+            delta = {k: after[k] - before[k] for k in after
+                     if after[k] - before[k]}
+            cached = {l.spec.name: c for l, c in zip(layers, plan.choices)}
+            matmul_b[label] = sum(
+                eng.store.cached_bytes(l.spec.name, cached[l.spec.name].kernel)
+                for l in matmul_layers if cached[l.spec.name].use_cache)
+            model_b[label] = sum(
+                eng.store.cached_bytes(l.spec.name, cached[l.spec.name].kernel)
+                for l in weighted if cached[l.spec.name].use_cache)
+            print(f"  run_cold [{label}, nnv12]: total_s={r.total_s:.4f} "
+                  f"stage_seconds={json.dumps(r.stage_seconds())} "
+                  f"launches={json.dumps(delta)} bytes_served={served[label]}"
+                  f" cache bytes: matmul layers {matmul_b[label]}, "
+                  f"whole model {model_b[label]}")
+            out = r.output.detach()
+            if tuple(out.shape) != shape or out.dtype != torch.float32 \
+                    or not torch.isfinite(out).all():
+                fail(f"lossy {label}: logits {tuple(out.shape)} {out.dtype} "
+                     f"or non-finite")
+            ref = plain_forward(plan)
+            d = (out - ref).abs()
+            ok = bool((d <= LLM_ATOL + LLM_RTOL * ref.abs()).all())
+            print(f"    vs all-plain forward on the same weights: "
+                  f"max|d|={d.max().item():.4e} "
+                  f"max|ref|={ref.abs().max().item():.4e} within atol "
+                  f"{LLM_ATOL} rtol {LLM_RTOL}: {ok}")
+            if not ok:
+                fail(f"lossy {label}: logits disagree with the all-plain "
+                     f"forward")
+            outs[label] = out
+        counts = ops.launch_counts()
+        for a in arms:
+            if not torch.equal(outs[a], outs[f"{a} again"]):
+                fail(f"lossy {a}: two runs of one plan differ")
+        print("  each pinned arm's two runs: bitwise equal logits")
+        base = outs["bf16_cast"].cpu().numpy().ravel()
+        for arm, floor in LOSSY_BYTE_FLOORS.items():
+            ratio_mm = matmul_b["bf16_cast"] / max(matmul_b[arm], 1)
+            ratio_model = model_b["bf16_cast"] / max(model_b[arm], 1)
+            ratio_served = served["bf16_cast"] / max(served[arm], 1)
+            corr = float(np.corrcoef(outs[arm].cpu().numpy().ravel(),
+                                     base)[0, 1])
+            print(f"  {arm} against bf16_cast: matmul-layer cache bytes "
+                  f"{ratio_mm:.4f}x below (gate >= {floor}x), whole-model "
+                  f"cache bytes {ratio_model:.4f}x, bytes_served "
+                  f"{ratio_served:.4f}x, logits correlation {corr:.6f}")
+            if ratio_mm < floor:
+                fail(f"{arm}: matmul-layer cache bytes only {ratio_mm:.4f}x "
+                     f"below bf16_cast (< {floor}x)")
+        repairs = eng.repairs.counts()
+        open_breakers = eng.breaker.open_keys()
+        print(f"  repairs={json.dumps(repairs)} open_breakers={open_breakers}")
+        if repairs.get("kernel_demoted") or open_breakers:
+            fail(f"kernels were demoted on the lossy LLM path: {repairs} "
+                 f"{open_breakers}")
+        out = {k: counts[k] for k in ("dequant_int8", "dequant_int4")}
+        for k in ("dequant_int8", "dequant_int4", "matmul_bf16",
+                  "flash_attention"):
+            if counts[k] <= 0:
+                fail(f"kernel {k} never launched on the lossy LLM path")
+        del eng
+    reset_io_engine()
+    reset_stage_engine()
+    reset_core_pool()
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: the repository's sources (src/repro_torch) are not "
@@ -243,7 +460,9 @@ def main() -> None:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         sys.exit(2)
 
+    from repro_torch import quant
     from repro_torch.core.engine import ColdEngine
+    from repro_torch.core.profiler import SyntheticProfiler
     from repro_torch.core.registry import ConvDirect
     from repro_torch.core.scheduler import Choice
     from repro_torch.device import resolve_device, set_f32_precision
@@ -251,6 +470,7 @@ def main() -> None:
     from repro_torch.ioengine import (StageEngine, reset_io_engine,
                                       reset_stage_engine)
     from repro_torch.kernels import _native, ops
+    from repro_torch.kernels import quant as Q
     from repro_torch.kernels.attention import flash_attention_plain
     from repro_torch.kernels.conv_winograd import winograd_tile_matmul_plain
     from repro_torch.kernels.matmul import matmul_packed_plain, matmul_plain
@@ -291,9 +511,12 @@ def main() -> None:
           f"({_native.stats['built']} of {len(_native.SOURCES)} libraries "
           f"built, the rest found in {_native.build_dir()})")
     for src, log in _native.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                                log))
+        if regs:
+            print(f"  ptxas {src}: {len(regs)} kernels, {min(regs)}-"
+                  f"{max(regs)} registers, {spills} bytes of spill stores")
 
     # -- 3. kernels against their plain versions ------------------------------
     stream = torch.cuda.Stream(dev)
@@ -323,7 +546,7 @@ def main() -> None:
                 "operations" if t_ops >= t_bytes else "bytes")
 
     def check(label, kernel, plain, library, flops, nbytes,
-              dtype="float32"):
+              dtype="float32", peak=None, exact=False):
         torch.cuda.synchronize()  # inputs were copied on the default stream
         with torch.cuda.stream(stream):
             got, ref = kernel(), plain()
@@ -333,12 +556,12 @@ def main() -> None:
         scale = max(ref.abs().max().item(), 1e-30)
         ms, plain_ms = time_ms(kernel), time_ms(plain)
         lib_ms = time_ms(library) if library is not None else None
-        b_ms, b_by = bound(flops, nbytes, dtype)
+        b_ms, b_by = bound(flops, nbytes, peak or dtype)
         print(f"  {label}: max|d|={err:.3e} rel={err / scale:.3e} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
               f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} "
-              f"bound_ms={b_ms:.6f} ({b_by}, {dtype} peak)")
-        tol = KERNEL_TOL[dtype]
+              f"bound_ms={b_ms:.6f} ({b_by}, {peak or dtype} peak)")
+        tol = 0.0 if exact else KERNEL_TOL[dtype]
         if not torch.isfinite(got).all() or err / scale > tol:
             fail(f"{label}: kernel disagrees with its plain version "
                  f"(rel {err / scale:.3e} > {tol})")
@@ -423,6 +646,69 @@ def main() -> None:
                   4 * B * H * D * visible_pairs(S, win),
                   q.element_size() * 2 * B * S * (H + KV) * D, dname)
         results.setdefault("flash_attention", {})[tag] = r
+
+    print("kernels vs plain versions (quantized cache: smollm-360m block "
+          "and head, resnet50 head):")
+    # a tblock's seven projections and the LM head, then ragged shapes
+    # (odd K for int4); exact: one f32 multiply of exact values
+    for tag, K, N in [("d_model", 960, 960), ("kv", 960, 320),
+                      ("up", 960, 2560), ("down", 2560, 960),
+                      ("head", 960, 49152), ("ragged37x16", 37, 16),
+                      ("ragged129x7", 129, 7)]:
+        a = rng.standard_normal((K, N)).astype(np.float32) * K ** -0.5
+        q8, s8, _ = quant.quantize_int8(a)
+        p4, s4 = quant.quantize_int4(a)
+        tq8, ts8, tp4, ts4 = (torch.from_numpy(v).to(dev)
+                              for v in (q8, s8, p4, s4))
+        r = check(f"dequant_int8 {tag} ({K},{N})",
+                  lambda: ops.dequant_int8(tq8, ts8),
+                  lambda: Q.dequant_int8_plain(tq8, ts8),
+                  lambda: torch.mul(tq8, ts8),
+                  K * N, K * N + 4 * N + 4 * K * N, exact=True)
+        results.setdefault("dequant_int8", {})[tag] = r
+        r = check(f"dequant_int4 {tag} ({K},{N})",
+                  lambda: ops.dequant_int4(tp4, ts4, K),
+                  lambda: Q.dequant_int4_plain(tp4, ts4, K), None,
+                  K * N, (K + 1) // 2 * N + 4 * N + 4 * K * N, exact=True)
+        results.setdefault("dequant_int4", {})[tag] = r
+    # the fused kernels: resnet50's head (the main path's shape), a tblock
+    # up projection in f32 and bf16, a ragged case; operations at the peak
+    # of x's type (int8 and int4 weights are exact in bf16, so bf16 x could
+    # run at the bf16 tensor-core rate)
+    for tag, M, K, N, dt in [
+            ("resnet_head", 1, 256, 100, torch.float32),
+            ("up_f32", 64, 960, 2560, torch.float32),
+            ("up_bf16", 64, 960, 2560, torch.bfloat16),
+            ("ragged", 3, 129, 7, torch.float32)]:
+        x = rand(M, K, dtype=dt)
+        a = rng.standard_normal((K, N)).astype(np.float32) * K ** -0.5
+        q8, s8, _ = quant.quantize_int8(a)
+        p4, s4 = quant.quantize_int4(a)
+        tq8, ts8, tp4, ts4 = (torch.from_numpy(v).to(dev)
+                              for v in (q8, s8, p4, s4))
+        dname, es = str(dt).replace("torch.", ""), x.element_size()
+        io = es * M * K + 4 * N + es * M * N
+        r = check(f"matmul_dequant_int8 {tag} ({M},{K})x({K},{N}) {dname}",
+                  lambda: ops.matmul_dequant_int8(x, tq8, ts8),
+                  lambda: Q.matmul_dequant_int8_plain(x, tq8, ts8), None,
+                  2 * M * N * K, io + K * N, dname)
+        results.setdefault("matmul_dequant_int8", {})[tag] = r
+        r = check(f"matmul_dequant_int4 {tag} ({M},{K})x({K},{N}) {dname}",
+                  lambda: ops.matmul_dequant_int4(x, tp4, ts4, K),
+                  lambda: Q.matmul_dequant_int4_plain(x, tp4, ts4, K), None,
+                  2 * M * N * K, io + (K + 1) // 2 * N, dname)
+        results.setdefault("matmul_dequant_int4", {})[tag] = r
+    # the bf16 matmul's f32-out entry at LinearLowPrecision's resnet50 head;
+    # the products of bf16 values are exact in f32, so the f32 tolerance
+    M, K, N = 1, 256, 100
+    x = rand(M, K, dtype=torch.bfloat16)
+    w = rand(K, N, dtype=torch.bfloat16, scale=K ** -0.5)
+    r = check(f"matmul_bf16 f32-out resnet_head ({M},{K})x({K},{N})",
+              lambda: ops.matmul(x, w, out_dtype=torch.float32),
+              lambda: matmul_plain(x, w, torch.float32), None,
+              2 * M * N * K, 2 * (M * K + K * N) + 4 * M * N, "float32",
+              peak="bfloat16")
+    results["matmul_bf16"]["resnet_head_f32out"] = r
     torch.cuda.synchronize()
     print(f"  [kernel phases done at {time.perf_counter() - t_start:.1f} s]")
     launches = {}
@@ -431,7 +717,9 @@ def main() -> None:
     layers, x_np = build_cnn("resnet50", image=224, width=1.0, classes=100,
                              seed=0)
 
-    def plain_forward(x_in):
+    def plain_forward(x_in, head=None):
+        """All-plain forward: cuDNN convs (TF32 off) and a plain head,
+        ``head(y, layer)`` where given."""
         y = torch.from_numpy(x_in).to(dev)
         direct = ConvDirect()
         for l in layers:
@@ -441,19 +729,21 @@ def main() -> None:
             w = {k: torch.from_numpy(v).to(dev) for k, v in l.weights.items()}
             if l.spec.op_type == "conv2d":
                 y = direct.execute(w, y, l.spec)
+            elif head is not None:
+                y = head(y, l)
             else:
                 y = matmul_plain(y, w["w"]) + w["b"]
         torch.cuda.synchronize()
         return y
 
     ref_out = plain_forward(x_np)
-    ref_scale = ref_out.abs().max().item()
 
-    def check_output(label, out):
+    def check_output(label, out, ref=ref_out):
         out = out.detach()
         if tuple(out.shape) != (1, 100) or not torch.isfinite(out).all():
             fail(f"{label}: output shape {tuple(out.shape)} or non-finite")
-        rel = (out - ref_out).abs().max().item() / max(ref_scale, 1e-30)
+        rel = ((out - ref).abs().max().item()
+               / max(ref.abs().max().item(), 1e-30))
         print(f"  {label}: output (1, 100), max|d|/max|ref| = {rel:.3e}")
         if rel > PATH_TOL:
             fail(f"{label}: output disagrees with the all-plain forward "
@@ -554,6 +844,71 @@ def main() -> None:
             if e.repairs.counts().get("kernel_demoted"):
                 fail(f"kernels were demoted: {e.repairs.counts()}")
         host_stage.close()
+
+        # the lossy CNN path: the head on the int8, int4 and bf16 caches
+        print("lossy CNN path: resnet50 image=224 width=1.0, allow_lossy=True,"
+              " store_fmt=super")
+        leng = ColdEngine(layers, Path(tmp) / "store_lossy",
+                          store_fmt="super", allow_lossy=True, device="cuda")
+        leng.profiler_factory = SyntheticProfiler
+        t0 = time.perf_counter()
+        stats = leng.decide(x_np, calibrate_interference=False)
+        print(f"  decide (SyntheticProfiler): {time.perf_counter() - t0:.2f}"
+              f" s, profile_calls={stats['profile_calls']} "
+              f"shape_classes={stats['shape_classes']}")
+        if stats.get("degraded"):
+            fail(f"decide degraded: {stats.get('error')}")
+        print(f"  plan summary: "
+              f"{json.dumps(plan_summary(stats['choices'].values()))}")
+        head = next(l for l in layers if l.spec.op_type == "linear")
+        print(f"  plan for the head: {json.dumps(stats['choices'][head.spec.name])}")
+        for kernel in ("int8", "int4", "bf16"):
+            materialize(leng, head, kernel)
+        leng.store.maintain()
+
+        def lossy_head(kernel):
+            w = layer_weights(leng, head, kernel, True, dev)
+            if kernel == "bf16":  # bf16 operands, f32 accumulation
+                return lambda y, l: matmul_plain(
+                    y.to(torch.bfloat16), w["w"], torch.float32) + w["b"]
+            return lambda y, l: matmul_plain(y, w["w"]) + w["b"]
+
+        # the head's kernel for each arm: one launch a run, and none of the
+        # other arms' kernels
+        head_kernels = {"int8": "matmul_dequant_int8",
+                        "int4": "matmul_dequant_int4", "bf16": "matmul_bf16"}
+        ops.reset_launch_counts()
+        for kernel in ("int8", "int4", "bf16"):
+            pin = [Choice(kernel, True) if l.spec.op_type == "linear" else c
+                   for l, c in zip(layers, pinned("im2col_sgemm",
+                                                  "im2col_sgemm", "direct"))]
+            leng.set_plan(replace(leng.plan, choices=pin))
+            before = ops.launch_counts()
+            r = leng.run_cold(x_np)
+            after = ops.launch_counts()
+            delta = {k: after[k] - before[k] for k in after
+                     if after[k] - before[k]}
+            print(f"  run_cold [head {kernel} cached, im2col convs]: "
+                  f"total_s={r.total_s:.4f} "
+                  f"stage_seconds={json.dumps(r.stage_seconds())} "
+                  f"launches={json.dumps(delta)} cache bytes of the head "
+                  f"{leng.store.cached_bytes(head.spec.name, kernel)}")
+            check_output(f"lossy head {kernel}", r.output,
+                         plain_forward(x_np, lossy_head(kernel)))
+            for arm, k in head_kernels.items():
+                want = 1 if arm == kernel else 0
+                if delta.get(k, 0) != want:
+                    fail(f"lossy head {kernel}: {k} launched "
+                         f"{delta.get(k, 0)} times in the run, expected "
+                         f"{want}")
+        lossy_counts = ops.launch_counts()
+        for k in ("matmul_dequant_int8", "matmul_dequant_int4"):
+            launches[k] = lossy_counts[k]
+            if lossy_counts[k] <= 0:
+                fail(f"kernel {k} never launched on the lossy CNN path")
+        if leng.repairs.counts().get("kernel_demoted") \
+                or leng.breaker.open_keys():
+            fail(f"kernels were demoted: {leng.repairs.counts()}")
     reset_io_engine()
     reset_stage_engine()
     reset_core_pool()
@@ -562,11 +917,16 @@ def main() -> None:
     # -- 5. the cold-LLM path -----------------------------------------------
     launches.update(llm_path(dev, LLM_DEPTH))
     print(f"  [LLM path done at {time.perf_counter() - t_start:.1f} s]")
+    launches.update(llm_lossy_path(dev, LOSSY_DEPTH))
+    print(f"  [lossy LLM path done at {time.perf_counter() - t_start:.1f} s]")
 
     # -- 6. report ----------------------------------------------------------
     main_shape = {"winograd_tile_matmul": "stage0", "matmul": "im2col_s1b0",
                   "matmul_packed": "head", "matmul_bf16": "head",
-                  "flash_attention": "prefill64"}
+                  "flash_attention": "prefill64", "dequant_int8": "head",
+                  "dequant_int4": "head",
+                  "matmul_dequant_int8": "resnet_head",
+                  "matmul_dequant_int4": "resnet_head"}
     out = []
     for k, (source, replaces) in ops.KERNELS.items():
         r = results[k][main_shape[k]]
@@ -574,6 +934,7 @@ def main() -> None:
                     "replaces": replaces, "launches": launches[k],
                     "shape": main_shape[k], **r})
     print(f"kernels: " + ", ".join(f"{k}={n}" for k, n in launches.items()))
+    print(card)  # again near the end, where a clipped log still shows it
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -84,10 +84,6 @@ class ColdEngine:
         stage_engine: Any = "auto",
         device: Any = "cuda",
     ):
-        if allow_lossy:
-            raise NotImplementedError(
-                "allow_lossy: the bf16/int8/int4 linear kernels are not "
-                "ported yet")
         self.device = resolve_device(device)
         self._stream = new_stream(self.device)  # trace / warm / fallback
         self.layers = layers

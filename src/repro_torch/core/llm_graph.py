@@ -1,5 +1,5 @@
 """Cold-start LLM serving: express a transformer as a ColdEngine layer graph
-— the port of ``repro/core/llm_graph.py``, lossless kernels.
+— the port of ``repro/core/llm_graph.py``.
 
 Each decoder block is one schedulable unit ('tblock') whose weights stream
 from disk, so the paper's three knobs apply to LLM serving directly:
@@ -18,9 +18,15 @@ Execution is bf16 on the hand-written kernels: the seven projections of a
 block and the head go through the bf16 ``matmul``, the attention through
 ``flash_attention`` (``models.layers``). ``transform`` is numpy and
 byte-identical to the reference's: ``bf16_cast`` rounds to nearest-even
-into ``bf16.BFLOAT16`` arrays, the bytes ``ml_dtypes`` gives there. The
-int8/int4 tblock and lmhead kernels wait for the lossy slice
-(``ColdEngine(allow_lossy=True)`` raises until then).
+into ``bf16.BFLOAT16`` arrays, the bytes ``ml_dtypes`` gives there.
+
+Under ``ColdEngine(allow_lossy=True)`` the tblock and lmhead also take the
+quantized cache (knob C's last rungs): ``int8``/``int4`` store every 2-D
+matmul operand per channel (``quant.quantize_weights``) and 1-D gains as
+bf16. ``_dequant`` expands them with the ``dequant_int8``/``dequant_int4``
+kernels to f32, which the bf16 block forward casts to bf16, as the
+reference does — the weights the bf16 GEMMs see are exactly the
+reference's.
 """
 from __future__ import annotations
 
@@ -32,7 +38,10 @@ import torch
 from repro_torch import bf16
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import LayerDef
-from repro_torch.core.registry import KERNEL_REGISTRY, Kernel, LayerSpec
+from repro_torch.core.registry import (
+    KERNEL_REGISTRY, LOSSY_KERNELS, Kernel, LayerSpec,
+)
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 _BF16 = torch.bfloat16
@@ -127,9 +136,92 @@ class HeadBf16(Kernel):
         return L._mm(h, w["w"]).to(torch.float32)
 
 
+def _dequant(w: Dict[str, torch.Tensor], spec: LayerSpec
+             ) -> Dict[str, torch.Tensor]:
+    """Expand a companion-key weight dict (``repro_torch.quant``
+    convention) to a plain dict: int8/int4 tensors dequantized to f32 by
+    the ``dequant_int8``/``dequant_int4`` kernels, everything else passed
+    through. The logical K of a packed int4 tensor comes from the layer
+    spec."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in w.items():
+        if k.endswith(":qscale") or k.endswith(":qzero"):
+            continue
+        if k.endswith(":q8"):
+            base = k[: -len(":q8")]
+            out[base] = ops.dequant_int8(v, w[base + ":qscale"])
+        elif k.endswith(":q4"):
+            base = k[: -len(":q4")]
+            out[base] = ops.dequant_int4(v, w[base + ":qscale"],
+                                         spec.weight_shapes[base][0])
+        else:
+            out[k] = v
+    return out
+
+
+def _quantize(raw: Dict[str, np.ndarray], bits: int) -> Dict[str, np.ndarray]:
+    """2-D matmul operands per channel in ``bits``, 1-D gains as bf16."""
+    from repro_torch import quant
+
+    out = quant.quantize_weights(raw, bits=bits)
+    return {k: (bf16.from_float(v) if getattr(v, "ndim", 0) == 1 else v)
+            for k, v in out.items()}
+
+
+class TBlockInt8(Kernel):
+    """Quantized transform cache for a decoder block: every 2-D matmul
+    operand stored as per-channel int8 (+f32 scales in the extent header),
+    1-D norm gains as bf16 — ~4x fewer cold cache bytes than f32, ~2x
+    fewer than bf16_cast. Execution dequantizes on the card and runs the
+    same bf16 block forward. Lossy (bounded per-weight error), so gated
+    behind the engine's ``allow_lossy``."""
+    name = "int8"
+    op_type = "tblock"
+    bits = 8
+
+    def transform(self, raw, spec):
+        return _quantize(raw, self.bits)
+
+    def execute(self, w, x, spec):
+        return _block_forward(_dequant(w, spec), x, spec.config["cfg"], _BF16)
+
+
+class TBlockInt4(TBlockInt8):
+    """Nibble-packed int4 block cache: ~8x fewer cold cache bytes than f32
+    — the last rung of the read-bytes ladder; coarser than int8."""
+    name = "int4"
+    bits = 4
+
+
+class HeadInt8(Kernel):
+    """lm_head with the vocab-projection matrix as per-channel int8."""
+    name = "int8"
+    op_type = "lmhead"
+    bits = 8
+
+    def transform(self, raw, spec):
+        return _quantize(raw, self.bits)
+
+    def execute(self, w, x, spec):
+        cfg = spec.config["cfg"]
+        wd = _dequant(w, spec)
+        h = L.rms_norm(x, wd["final_norm"].to(_BF16), cfg.norm_eps)
+        return L._mm(h, wd["w"].to(_BF16)).to(torch.float32)
+
+
+class HeadInt4(HeadInt8):
+    name = "int4"
+    bits = 4
+
+
 KERNEL_REGISTRY.setdefault("tblock", [TBlockF32Direct(), TBlockBf16()])
 KERNEL_REGISTRY.setdefault("embed", [EmbedDirect(), EmbedBf16()])
 KERNEL_REGISTRY.setdefault("lmhead", [HeadDirect(), HeadBf16()])
+# quantized variants are lossy: eligible only under the engine's allow_lossy
+# (embed stays unquantized — it's a gather, not a matmul, and its rows feed
+# the residual stream directly)
+LOSSY_KERNELS.setdefault("tblock", [TBlockInt8(), TBlockInt4()])
+LOSSY_KERNELS.setdefault("lmhead", [HeadInt8(), HeadInt4()])
 
 
 def _f32(a: torch.Tensor) -> np.ndarray:

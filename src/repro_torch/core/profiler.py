@@ -355,7 +355,7 @@ class SyntheticProfiler(Profiler):
             ebytes = max(quant.logical_nbytes(transformed), rbytes)
             # one extra compute-bandwidth pass over the quantized payload:
             # the fused kernels unpack/scale in VMEM with the per-channel
-            # scale factored out of the K loop (repro.kernels.quant)
+            # scale factored out of the K loop (repro_torch.kernels.quant)
             dequant_s = tbytes / self.EXEC_GB_S
         return OpProfile(
             layer=spec.name, kernel=kernel.name,

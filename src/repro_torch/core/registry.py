@@ -18,8 +18,11 @@ through the hand-written kernels of ``repro_torch.kernels.ops``
 (``LinearDirect``/``ConvIm2col`` -> ``matmul``, ``LinearPacked`` ->
 ``matmul_packed``, ``ConvWinograd`` -> ``winograd_tile_matmul``).
 ``ConvDirect`` stays a library convolution (``lax.conv`` in the reference,
-not a Pallas kernel), run with cuDNN's TF32 off. The lossy linear kernels
-(bf16/int8/int4) are not ported yet.
+not a Pallas kernel), run with cuDNN's TF32 off. The lossy linear kernels,
+eligible only under ``registry_for(..., allow_lossy=True)``:
+``LinearLowPrecision`` -> bf16 ``matmul`` with f32 out, ``LinearInt8`` ->
+``matmul_dequant_int8``, ``LinearInt4`` -> ``matmul_dequant_int4`` (the
+scale applied once after the contraction, as the reference's ``execute``).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import bf16
 from repro_torch.kernels import ops
 
 
@@ -229,6 +233,82 @@ class LinearPacked(Kernel):
         return y.reshape(*lead, N)
 
 
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1]).contiguous()
+
+
+class LinearLowPrecision(Kernel):
+    """bf16-converted weights: halves the bytes read back from the
+    transformed-weights cache (a disk-I/O/exec trade, like the paper's pack4
+    variants). Matmul runs in bf16 with f32 accumulation and f32 out (the
+    bf16 ``matmul`` kernel's f32-out entry) — bitwise-identical outputs are
+    NOT guaranteed, so this kernel is only eligible when the engine is
+    configured with ``allow_lossy`` (off by default: the paper's
+    zero-accuracy-loss principle)."""
+    name = "bf16"
+    op_type = "linear"
+
+    def transform(self, raw, spec):
+        out = {"w": bf16.from_float(raw["w"])}
+        if "b" in raw:
+            out["b"] = raw["b"]
+        return out
+
+    def execute(self, w, x, spec):
+        W = w["w"]
+        y = ops.matmul(_flat(x.to(torch.bfloat16)), W,
+                       out_dtype=torch.float32)
+        y = y.reshape(*x.shape[:-1], W.shape[1])
+        if "b" in w:
+            y = y + w["b"]
+        return y
+
+
+class LinearInt8(Kernel):
+    """Per-channel symmetric int8 cache entry (``repro_torch.quant``
+    companion keys): ~4x fewer cold cache bytes than f32, ~2x fewer than
+    bf16. Executes on the fused ``matmul_dequant_int8`` kernel: the int8
+    tile converts on load and the per-output-channel scale multiplies the
+    finished accumulator once (``(x @ q) * scale``). Lossy (bounded by
+    scale/2 per weight), so gated behind ``allow_lossy`` like the bf16
+    kernel."""
+    name = "int8"
+    op_type = "linear"
+    bits = 8
+
+    def transform(self, raw, spec):
+        from repro_torch import quant
+
+        out = quant.quantize_weight("w", np.asarray(raw["w"], np.float32),
+                                    bits=self.bits)
+        if "b" in raw:
+            out["b"] = raw["b"]
+        return out
+
+    def _matmul(self, x, w, spec):
+        return ops.matmul_dequant_int8(x, w["w:q8"], w["w:qscale"])
+
+    def execute(self, w, x, spec):
+        y = self._matmul(_flat(x), w, spec)
+        y = y.reshape(*x.shape[:-1], y.shape[-1])
+        if "b" in w:
+            y = y + w["b"]
+        return y
+
+
+class LinearInt4(LinearInt8):
+    """Nibble-packed int4 cache entry: ~8x fewer cold cache bytes than f32.
+    Executes on the fused ``matmul_dequant_int4`` kernel, which reads the
+    packed bytes and unpacks them on chip. Coarser than int8 — last rung
+    of the read-bytes ladder."""
+    name = "int4"
+    bits = 4
+
+    def _matmul(self, x, w, spec):
+        return ops.matmul_dequant_int4(x, w["w:q4"], w["w:qscale"],
+                                       spec.weight_shapes["w"][0])
+
+
 # ---------------------------------------------------------------------------
 # conv2d kernels (NHWC, filters OIHW in raw checkpoints — ncnn-style)
 # ---------------------------------------------------------------------------
@@ -400,8 +480,13 @@ KERNEL_REGISTRY: Dict[str, List[Kernel]] = {
     "conv2d": [ConvDirect(), ConvIm2col(), ConvWinograd()],
 }
 
+LOSSY_KERNELS: Dict[str, List[Kernel]] = {
+    "linear": [LinearLowPrecision(), LinearInt8(), LinearInt4()],
+}
+
+
 def registry_for(op_type: str, *, allow_lossy: bool = False) -> List[Kernel]:
+    ks = list(KERNEL_REGISTRY.get(op_type, []))
     if allow_lossy:
-        raise NotImplementedError(
-            "the lossy linear kernels (bf16/int8/int4) are not ported yet")
-    return list(KERNEL_REGISTRY.get(op_type, []))
+        ks += LOSSY_KERNELS.get(op_type, [])
+    return ks

@@ -10,8 +10,8 @@ extern "C" {
 // out(P,T,O)[p] = V(P,T,C)[p] · U(P,C,O)[p]; all f32, contiguous.
 int repro_winograd_tile_matmul_f32(const float* V, const float* U, float* out,
                                    int P, int T, int C, int O, void* stream) {
-  return repro_torch::launch_gemm_f32<false>(
-      V, U, out, T, O, C, P, (long long)T * C, (long long)C * O,
+  return repro_torch::launch_gemm_f32<repro_torch::BMode::kRowMajor>(
+      V, U, out, nullptr, T, O, C, P, (long long)T * C, (long long)C * O,
       (long long)T * O, 0, static_cast<cudaStream_t>(stream));
 }
 

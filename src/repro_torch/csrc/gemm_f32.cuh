@@ -1,29 +1,39 @@
 // Shared-memory tiled GEMM for Hopper (sm_90a) with an f32 accumulator,
-// IEEE f32 FMA on the CUDA cores. The element type T is float (f32 in and
-// out; no TF32 — the lossless cold-inference path must match the f32
-// reference, and the tensor cores have no plain-f32 mode) or
-// __nv_bfloat16 (bf16 in and out: converted to f32 on load into shared
-// memory, rounded to nearest-even on store — the Pallas matmul under bf16
-// inputs, f32 accumulate, bf16 out).
+// IEEE f32 FMA on the CUDA cores. A is float or __nv_bfloat16, converted to
+// f32 on load into shared memory; C is float or __nv_bfloat16, rounded to
+// nearest-even on store (no TF32 — the lossless cold-inference path must
+// match the f32 reference, and the tensor cores have no plain-f32 mode).
+// How B is read is the BMode parameter, also converted to f32 on load:
+//   kRowMajor  B(K,N) row-major, float or bf16;
+//   kPacked    LinearPacked's (N/128, K/128, 128, 128) layout, in place;
+//   kInt8      B(K,N) int8 (exact in f32);
+//   kInt4      B packed ((K+1)/2, N) uint8, row 2i in the low nibble and
+//              2i+1 in the high one, sign-extended on load: device memory
+//              is read at the packed byte count.
+// With SCALE, the finished accumulator of column n is multiplied once by
+// col_scale[n] before the store — the per-output-channel scale of the
+// fused dequant-matmul, factored out of the K loop.
 //
-// One template serves the three ported Pallas kernels:
-//   * matmul                 C(M,N) = A(M,K) · B(K,N), row-major B, f32 or
-//                            bf16;
-//   * matmul_packed          B in LinearPacked's (N/128, K/128, 128, 128)
-//                            layout, read in place (PACKED = true);
+// One template serves the ported Pallas kernels:
+//   * matmul                 C(M,N) = A(M,K) · B(K,N), f32, bf16, or bf16
+//                            in with f32 out;
+//   * matmul_packed          kPacked;
 //   * winograd_tile_matmul   the same GEMM batched over the 16 Winograd
-//                            positions on blockIdx.z, with batch strides.
+//                            positions on blockIdx.z, with batch strides;
+//   * matmul_dequant_int8/4  kInt8 / kInt4 with SCALE.
 //
 // Block tile 64x64, K step 16, 256 threads, 4x4 outputs per thread. A is
 // staged transposed in shared memory (As[k][m]) so that each thread reads
 // its 4 rows and 4 columns of a K step as two float4 loads. The ragged M,
 // N and K edges are masked in the loads and the store: nothing is padded
-// in device memory.
+// in device memory (an odd K never reads the high nibble of kInt4's last
+// byte, nor A past column K).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace repro_torch {
 
@@ -42,24 +52,35 @@ constexpr int kBK = 16;
 constexpr int kThreads = 256;
 constexpr int kPackTile = 128;  // LinearPacked's bk = bn = 128
 
-template <bool PACKED>
-__device__ __forceinline__ size_t b_offset(int k, int n, int N, int nK) {
-  if (PACKED) {
-    // element (k, n) of the logical (Kp, Np) matrix inside the packed
-    // (nN, nK, 128, 128) array: one contiguous 64 KB tile per (n/128, k/128)
-    return ((size_t)(n / kPackTile) * nK + (size_t)(k / kPackTile)) *
-               (kPackTile * kPackTile) +
-           (size_t)(k % kPackTile) * kPackTile + (size_t)(n % kPackTile);
+enum class BMode { kRowMajor, kPacked, kInt8, kInt4 };
+
+// element (k, n) of the logical (K, N) matrix B, as f32
+template <BMode MODE, typename TB>
+__device__ __forceinline__ float load_b(const TB* __restrict__ B, int k,
+                                        int n, int N, int nK) {
+  if constexpr (MODE == BMode::kRowMajor) {
+    return to_f32(B[(size_t)k * N + n]);
+  } else if constexpr (MODE == BMode::kPacked) {
+    // one contiguous 64 KB tile per (n/128, k/128) of the padded matrix
+    return to_f32(B[((size_t)(n / kPackTile) * nK + (size_t)(k / kPackTile)) *
+                        (kPackTile * kPackTile) +
+                    (size_t)(k % kPackTile) * kPackTile +
+                    (size_t)(n % kPackTile)]);
+  } else if constexpr (MODE == BMode::kInt8) {
+    return (float)B[(size_t)k * N + n];
+  } else {
+    const unsigned byte = B[(size_t)(k >> 1) * N + n];
+    const int nib = (k & 1) ? (int)(byte >> 4) : (int)(byte & 0xF);
+    return (float)((nib ^ 8) - 8);  // sign-extend 4 bits
   }
-  return (size_t)k * N + n;
 }
 
-template <bool PACKED, typename T>
+template <BMode MODE, bool SCALE, typename TA, typename TB, typename TC>
 __global__ void __launch_bounds__(kThreads)
-    gemm_f32_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                    T* __restrict__ C, int M, int N, int K,
-                    long long batch_a, long long batch_b, long long batch_c,
-                    int nK) {
+    gemm_f32_kernel(const TA* __restrict__ A, const TB* __restrict__ B,
+                    TC* __restrict__ C, const float* __restrict__ col_scale,
+                    int M, int N, int K, long long batch_a,
+                    long long batch_b, long long batch_c, int nK) {
   __shared__ __align__(16) float As[kBK][kBM + 4];
   __shared__ __align__(16) float Bs[kBK][kBN];
 
@@ -98,8 +119,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + b_col + j;
       Bs[b_k][b_col + j] =
-          (bk < K && n < N) ? to_f32(B[b_offset<PACKED>(bk, n, N, nK)])
-                           : 0.0f;
+          (bk < K && n < N) ? load_b<MODE>(B, bk, n, N, nK) : 0.0f;
     }
     __syncthreads();
 
@@ -124,22 +144,26 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n < N) store_f32(&C[(size_t)m * N + n], acc[i][j]);
+      if (n >= N) continue;
+      float v = acc[i][j];
+      if constexpr (SCALE) v *= col_scale[n];
+      store_f32(&C[(size_t)m * N + n], v);
     }
   }
 }
 
 // Enqueue one (batched) GEMM on `stream`; returns cudaGetLastError() so a
 // refused launch is reported to the caller instead of passing unseen.
-template <bool PACKED, typename T>
-inline int launch_gemm_f32(const T* A, const T* B, T* C, int M,
-                           int N, int K, int batch, long long batch_a,
-                           long long batch_b, long long batch_c, int nK,
-                           cudaStream_t stream) {
+template <BMode MODE, bool SCALE = false, typename TA, typename TB,
+          typename TC>
+inline int launch_gemm_f32(const TA* A, const TB* B, TC* C,
+                           const float* col_scale, int M, int N, int K,
+                           int batch, long long batch_a, long long batch_b,
+                           long long batch_c, int nK, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || batch <= 0) return (int)cudaGetLastError();
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, batch);
-  gemm_f32_kernel<PACKED, T><<<grid, kThreads, 0, stream>>>(
-      A, B, C, M, N, K, batch_a, batch_b, batch_c, nK);
+  gemm_f32_kernel<MODE, SCALE, TA, TB, TC><<<grid, kThreads, 0, stream>>>(
+      A, B, C, col_scale, M, N, K, batch_a, batch_b, batch_c, nK);
   return (int)cudaGetLastError();
 }
 

@@ -24,13 +24,14 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("matmul", "conv_winograd", "flash_attention")  # csrc/<name>.cu
+SOURCES = ("matmul", "conv_winograd", "flash_attention",
+           "quant")  # csrc/<name>.cu
 HEADERS = ("gemm_f32.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,10 +40,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = {
     "repro_matmul_f32": [_P, _P, _P, _I, _I, _I, _P],
     "repro_matmul_bf16": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_matmul_bf16_f32out": [_P, _P, _P, _I, _I, _I, _P],
     "repro_matmul_packed_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_winograd_tile_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
     "repro_flash_attention_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
+    "repro_dequant_int8": [_P, _P, _P, _I, _I, _P],
+    "repro_dequant_int4": [_P, _P, _P, _I, _I, _P],
+    "repro_matmul_dequant_int8_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_matmul_dequant_int8_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_matmul_dequant_int4_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_matmul_dequant_int4_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -143,22 +151,30 @@ def check(rc: int, kernel: str) -> None:
 
 
 def on_cpu(kernel: str, *ts,
-           dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> bool:
+           dtypes: Tuple[torch.dtype, ...] = (torch.float32,),
+           each: Optional[Sequence[Tuple[torch.dtype, ...]]] = None) -> bool:
     """True when every tensor lies on the CPU (the wrapper then runs the
     plain version). Otherwise the tensors must share one of ``dtypes``
-    (float32 unless the kernel takes more), be contiguous and lie on one
-    CUDA device, or this raises: there is no fallback."""
+    (float32 unless the kernel takes more), or, where ``each`` is given,
+    tensor i must have one of ``each[i]``; they must be contiguous and lie
+    on one CUDA device, or this raises: there is no fallback."""
     devs = {t.device for t in ts}
     if {d.type for d in devs} == {"cpu"}:
         return True
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(f"{kernel}: tensors must lie on the CPU or on one "
                          f"CUDA device, got {sorted(map(str, devs))}")
-    kinds = {t.dtype for t in ts}
-    if len(kinds) != 1 or next(iter(kinds)) not in dtypes:
-        raise TypeError(f"{kernel}: the CUDA kernel takes one dtype of "
-                        f"{[str(d) for d in dtypes]}, got "
-                        f"{sorted(map(str, kinds))}")
+    if each is None:
+        kinds = {t.dtype for t in ts}
+        if len(kinds) != 1 or next(iter(kinds)) not in dtypes:
+            raise TypeError(f"{kernel}: the CUDA kernel takes one dtype of "
+                            f"{[str(d) for d in dtypes]}, got "
+                            f"{sorted(map(str, kinds))}")
+    else:
+        for t, ok in zip(ts, each, strict=True):
+            if t.dtype not in ok:
+                raise TypeError(f"{kernel}: the CUDA kernel takes "
+                                f"{[str(d) for d in ok]}, got {t.dtype}")
     for t in ts:
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: the CUDA kernel takes contiguous "

@@ -3,11 +3,14 @@
 Two wrappers, each with its plain PyTorch version beside it:
 
   * ``matmul`` replaces the Pallas ``matmul`` (``_mm_kernel``): (M,K)x(K,N)
-    with an f32 accumulator, in f32 (f32 out) or in bf16 (bf16 out, each
-    output rounded once). Consumers: ``LinearDirect`` and the patch GEMM of
-    ``ConvIm2col`` in f32; the seven projections of every decoder block and
-    the LM head of the cold-LLM graph in bf16 (``models.layers``,
-    ``core.llm_graph``).
+    with an f32 accumulator, in f32 (f32 out), in bf16 (bf16 out, each
+    output rounded once) or bf16 in with f32 out (``out_dtype=float32``:
+    the accumulator stored as it is, ``jnp.dot(bf16, bf16,
+    preferred_element_type=f32)``). Consumers: ``LinearDirect`` and the
+    patch GEMM of ``ConvIm2col`` in f32; the seven projections of every
+    decoder block and the LM head of the cold-LLM graph in bf16
+    (``models.layers``, ``core.llm_graph``); ``LinearLowPrecision`` with
+    f32 out.
   * ``matmul_packed`` replaces the Pallas ``matmul_packed``
     (``_mm_packed_kernel``): it reads ``LinearPacked``'s (N/128, K/128,
     128, 128) layout in place, so each K step of a block loads rows of one
@@ -16,8 +19,9 @@ Two wrappers, each with its plain PyTorch version beside it:
 Kernel: ``csrc/gemm_f32.cuh`` via ``csrc/matmul.cu`` (64x64 block tile, K
 step 16, 4x4 outputs per thread, IEEE f32 FMA, no TF32; ragged M/N/K edges
 masked in the kernel, nothing padded in device memory). The bf16 entry
-converts on load and rounds on store; its products stay on the CUDA cores
-(``wgmma`` is later work).
+converts on load and rounds on store (or, with f32 out, stores the
+accumulator as it is); its products stay on the CUDA cores (``wgmma`` is
+later work).
 
 Bound on an H100 SXM (67 TFLOP/s f32 without tensor cores, 3.35 TB/s):
 max(2·M·N·K / 67e12, 4·(MK + KN + MN) / 3.35e12). The im2col GEMMs of
@@ -39,6 +43,7 @@ kernel launches only.
 from __future__ import annotations
 
 import threading
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -57,25 +62,34 @@ def _count(name: str) -> None:
 # ---------------------------------------------------------------------------
 # matmul
 # ---------------------------------------------------------------------------
-def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """f32-accumulated x @ w, cast back to x's dtype (``matmul_ref``)."""
-    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+def matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """f32-accumulated x @ w, cast to ``out_dtype`` (default x's dtype;
+    ``matmul_ref``)."""
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(
+        out_dtype or x.dtype)
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ w (K, N) in x's dtype (float32 or bfloat16; w the same)."""
+def matmul(x: torch.Tensor, w: torch.Tensor,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x (M, K) @ w (K, N) (float32 or bfloat16; w the same) in
+    ``out_dtype``: x's dtype by default, or float32 for bf16 inputs."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul: bad shapes {tuple(x.shape)} x {tuple(w.shape)}")
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"matmul: no {out_dtype} output for {x.dtype} inputs")
     if _native.on_cpu("matmul", x, w,
                       dtypes=(torch.float32, torch.bfloat16)):
-        return matmul_plain(x, w)
+        return matmul_plain(x, w, out_dtype)
     M, K = x.shape
     N = w.shape[1]
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M and N:
         lib = _native.library("matmul")
         bf16 = x.dtype == torch.bfloat16
-        fn = lib.repro_matmul_bf16 if bf16 else lib.repro_matmul_f32
+        fn = ((lib.repro_matmul_bf16_f32out if out_dtype == torch.float32
+               else lib.repro_matmul_bf16) if bf16 else lib.repro_matmul_f32)
         with torch.cuda.device(x.device):
             rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
                     torch.cuda.current_stream(x.device).cuda_stream)

@@ -13,14 +13,20 @@ from typing import Dict
 from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import conv_winograd as _wino
 from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import quant as _quant
 
 matmul = _mm.matmul
 matmul_packed = _mm.matmul_packed
 winograd_tile_matmul = _wino.winograd_tile_matmul
 flash_attention = _attn.flash_attention
+dequant_int8 = _quant.dequant_int8
+dequant_int4 = _quant.dequant_int4
+matmul_dequant_int8 = _quant.matmul_dequant_int8
+matmul_dequant_int4 = _quant.matmul_dequant_int4
 
 # launch-count name -> (CUDA source, TPU kernel it replaces); ``matmul``
 # counts the f32 launches of the one wrapper, ``matmul_bf16`` its bf16 ones
+# (bf16 or f32 out)
 KERNELS = {
     "matmul": ("src/repro_torch/csrc/matmul.cu",
                "src/repro/kernels/matmul.py:37"),
@@ -32,9 +38,17 @@ KERNELS = {
                              "src/repro/kernels/conv_winograd.py:39"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/attention.py:75"),
+    "dequant_int8": ("src/repro_torch/csrc/quant.cu",
+                     "src/repro/kernels/quant.py:55"),
+    "dequant_int4": ("src/repro_torch/csrc/quant.cu",
+                     "src/repro/kernels/quant.py:84"),
+    "matmul_dequant_int8": ("src/repro_torch/csrc/quant.cu",
+                            "src/repro/kernels/quant.py:131"),
+    "matmul_dequant_int4": ("src/repro_torch/csrc/quant.cu",
+                            "src/repro/kernels/quant.py:179"),
 }
 
-_COUNTERS = (_mm.launches, _wino.launches, _attn.launches)
+_COUNTERS = (_mm.launches, _wino.launches, _attn.launches, _quant.launches)
 
 
 def launch_counts() -> Dict[str, int]:

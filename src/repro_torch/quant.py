@@ -29,9 +29,9 @@ int4 post-transform cache entries:
     expands back to the identical companion dict. ``docs/formats.md``
     has the byte-level spec.
 
-The jnp/Pallas consumers (dequant-on-the-fly and fused dequant-matmul)
-live in ``repro.kernels.quant``; this module stays numpy-only so the
-checkpoint layer can import it without pulling in jax.
+The CUDA consumers (dequant-on-the-fly and fused dequant-matmul) live in
+``repro_torch.kernels.quant``; this module stays numpy-only so the
+checkpoint layer can import it without pulling in torch.
 """
 from __future__ import annotations
 

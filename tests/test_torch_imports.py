@@ -36,6 +36,7 @@ def test_scan_covers_the_port():
                  "src/repro_torch/kernels/matmul.py",
                  "src/repro_torch/kernels/conv_winograd.py",
                  "src/repro_torch/kernels/attention.py",
+                 "src/repro_torch/kernels/quant.py",
                  "src/repro_torch/core/llm_graph.py",
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/configs/base.py",

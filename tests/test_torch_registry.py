@@ -116,13 +116,21 @@ def test_linear_kernels_match_reference(kernel, lead, K, N):
 
 
 def test_registry_names_and_order_match():
-    for op in ("linear", "conv2d"):
-        assert ([type(k).__name__ for k in PR.registry_for(op)]
-                == [type(k).__name__ for k in RR.registry_for(op)])
-        assert ([k.name for k in PR.registry_for(op)]
-                == [k.name for k in RR.registry_for(op)])
-    with pytest.raises(NotImplementedError):
-        PR.registry_for("linear", allow_lossy=True)
+    """Lossless and lossy (``allow_lossy=True``) candidate lists: the same
+    class names and kernel names in the reference's order, for every op
+    type (the LLM graph modules register tblock/embed/lmhead)."""
+    import repro.core.llm_graph  # noqa: F401
+    import repro_torch.core.llm_graph  # noqa: F401
+
+    for lossy in (False, True):
+        for op in ("linear", "conv2d", "tblock", "embed", "lmhead"):
+            mine = PR.registry_for(op, allow_lossy=lossy)
+            theirs = RR.registry_for(op, allow_lossy=lossy)
+            assert ([type(k).__name__ for k in mine]
+                    == [type(k).__name__ for k in theirs])
+            assert [k.name for k in mine] == [k.name for k in theirs]
+    assert [k.name for k in PR.registry_for("linear", allow_lossy=True)] \
+        == ["direct", "packed", "bf16", "int8", "int4"]
 
 
 @pytest.mark.parametrize("case", range(4))
