@@ -11,10 +11,12 @@ Run from the root of a checkout, on a machine with a CUDA card and
   2. builds the hand-written kernels from ``src/repro_torch/csrc`` (one
      ``nvcc`` per source, in parallel) and prints the build time;
   3. holds each kernel against its plain PyTorch version on the card at the
-     shapes resnet50@224 and the smollm-360m prefill give it
+     shapes resnet50@224 and the smollm-360m prefill and decode give it
      (max|d|/max|plain| <= 2e-5 in f32, <= 2e-2 in bf16; the dequant
      kernels bitwise, max|d| = 0), and times the kernel, the plain version
-     and one library call with CUDA events;
+     and one library call with CUDA events; ``decode_attention`` also over
+     the Pallas sweep in its prefix form, a wrapped ring with a window, the
+     int8 cache and a softcap;
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
      ``build_cnn`` through ``ColdEngine(store_fmt="super")``, ``decide`` with
      the real profiler, then ``run_cold``, and two more ``run_cold``s under
@@ -42,7 +44,19 @@ Run from the root of a checkout, on a machine with a CUDA card and
      all-plain forward on the same dequantized weights (same gate); the
      cache bytes of the matmul layers must be >= 1.8x (int8) and >= 3x
      (int4) below ``bf16_cast``;
-  6. fails unless every kernel of a path launched during that path's runs
+  6. drives the serving path: smollm-360m at full width and ``SERVE_DEPTH``
+     blocks through ``ColdServer(device="cuda")`` -> ``add_model`` ->
+     ``decide`` -> ``cold_start_llm(max_new_tokens=16)``: the first token
+     must precede the last decode prep, at least one weight prep must
+     overlap the exec chain, 16 tokens must come back, ``decode_attention``
+     must launch once a block for every ``decode_step``, the prefill
+     logits must pass the LLM gate and the KV reservation must leave the
+     ``MemoryBudget``; then teacher-forced ``decode_step`` over 48 tokens
+     with the kernels against the plain versions (bf16 cache, int8 cache,
+     a 32-entry window ring; LLM gate) and a ``BatchedServer(max_batch=4,
+     max_len=512)`` run of 6 greedy requests, each of which must finish
+     with its token count (agreement with the plain run is reported);
+  7. fails unless every kernel of a path launched during that path's runs
      (each path's launch counts are zeroed just before its runs and read
      just after) and no kernel was demoted by the fault ladder.
 
@@ -77,6 +91,7 @@ PATH_TOL = 1e-4
 LLM_ATOL, LLM_RTOL = 0.1, 0.05
 LLM_DEPTH = 32
 LOSSY_DEPTH = 32
+SERVE_DEPTH = 32
 # cache bytes of the matmul layers (tblocks + LM head) below bf16_cast
 LOSSY_BYTE_FLOORS = {"int8": 1.8, "int4": 3.0}
 
@@ -91,10 +106,12 @@ def plain_kernels():
     """Every kernel wrapper of ``ops`` swapped for its plain version."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant as Q
-    from repro_torch.kernels.attention import flash_attention_plain
+    from repro_torch.kernels.attention import (decode_attention_plain,
+                                               flash_attention_plain)
     from repro_torch.kernels.matmul import matmul_plain
 
     plain = {"matmul": matmul_plain, "flash_attention": flash_attention_plain,
+             "decode_attention": decode_attention_plain,
              "dequant_int8": Q.dequant_int8_plain,
              "dequant_int4": Q.dequant_int4_plain,
              "matmul_dequant_int8": Q.matmul_dequant_int8_plain,
@@ -446,6 +463,256 @@ def llm_lossy_path(dev, depth: int) -> dict:
     return out
 
 
+def serving_path(dev, depth: int) -> dict:
+    """smollm-360m cold serving: ``ColdServer`` -> ``add_model`` ->
+    ``decide`` -> ``cold_start_llm`` (streamed prefill, first token, packs,
+    then decode on a ``BatchedServer``); then teacher-forced
+    ``decode_step`` against the plain kernels (bf16 cache, int8 cache, a
+    32-entry window ring over 48 positions) and a ``BatchedServer`` run
+    with slots recycled. Returns the launch counts of the cold start
+    (zeroed just before it). Launch counts are checked at the end, so a
+    CPU rehearsal runs every part before it stops there."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.llm_graph import build_llm_graph
+    from repro_torch.executor.llm_bridge import cold_start_llm
+    from repro_torch.executor.pool import reset_core_pool
+    from repro_torch.executor.server import ColdServer
+    from repro_torch.ioengine import reset_io_engine, reset_stage_engine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.runtime_flags import FLAGS
+    from repro_torch.serving import BatchedServer, Request
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=depth)
+    print(f"serving path: {cfg.name} full width, layers={depth} (of 32), "
+          f"ColdServer -> decide -> cold_start_llm(max_new_tokens=16) -> "
+          f"BatchedServer")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    layers, toks = build_llm_graph(cfg, params)
+    print(f"  weights + graph: {time.perf_counter() - t0:.2f} s, prompt "
+          f"{tuple(toks.shape)}")
+    pdev = T.to_device(params, dev)
+    del params
+    failures = []
+    launch_gates = []   # (label, kernel, launched, expected or None)
+
+    def gate(ok, msg):
+        if not ok:
+            failures.append(msg)
+
+    def gpu_ms(fn, iters=20):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / iters
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        srv = ColdServer(Path(tmp) / "server", device=dev)
+        eng = srv.add_model("smollm", layers, store_fmt="super")
+        t0 = time.perf_counter()
+        stats = srv.decide("smollm", toks)
+        print(f"  decide: {time.perf_counter() - t0:.2f} s, "
+              f"profile_calls={stats['profile_calls']} plan summary "
+              f"{json.dumps(plan_summary(stats['choices'].values()))}")
+        gate(not stats.get("degraded"), f"decide degraded: {stats.get('error')}")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = cold_start_llm(eng, cfg, toks[0], max_new_tokens=16,
+                             server=srv, model_name="smollm")
+        wall = time.perf_counter() - t0
+        cold_counts = ops.launch_counts()
+        n_dec = res.decode_ticks      # decode_step calls after decode-ready
+        print(f"  cold_start_llm: wall {wall:.3f} s; first_token_s="
+              f"{res.first_token_s:.4f} last_weight_prep_s="
+              f"{res.last_weight_prep_s:.4f} decode_prep_s="
+              f"{res.decode_prep_s:.4f} decode_ready_s="
+              f"{res.decode_ready_s:.4f} overlapped_layers="
+              f"{res.overlapped_layers} overlapped_packs="
+              f"{res.overlapped_packs} decode_steps={res.decode_steps} "
+              f"decode_s={res.decode_s:.4f} "
+              f"({res.decode_s * 1e3 / max(n_dec, 1):.3f} ms per decoded "
+              f"token over {n_dec} ticks)")
+        print(f"  cold run stage_seconds="
+              f"{json.dumps(res.run.stage_seconds())}")
+        print(f"  tokens: {res.tokens}")
+        print(f"  launches: "
+              f"{json.dumps({k: n for k, n in cold_counts.items() if n})}")
+        gate(res.first_token_before_last_prep,
+             "first token not before the last decode prep")
+        gate(res.overlapped_layers >= 1, "no weight prep overlapped")
+        gate(len(res.tokens) == 16, f"{len(res.tokens)} tokens, not 16")
+        gate(res.tokens[0] == res.first_token, "tokens[0] != first_token")
+        gate(n_dec == len(res.tokens) - 3,
+             f"{n_dec} ticks timed after decode-ready, not "
+             f"{len(res.tokens) - 3}")
+        launch_gates.append(("cold start", "decode_attention",
+                             cold_counts["decode_attention"],
+                             depth * res.decode_steps))
+        for k in ("flash_attention", "matmul_bf16"):
+            launch_gates.append(("cold start", k, cold_counts[k], None))
+        # the streamed prefill's logits against an all-plain forward
+        with plain_kernels():
+            ref, _, _ = T.forward(
+                pdev, {"tokens": torch.from_numpy(toks).to(dev)}, cfg)
+        d = (res.run.output - ref).abs()
+        ok = bool((d <= LLM_ATOL + LLM_RTOL * ref.abs()).all())
+        print(f"  prefill logits vs all-plain forward: max|d|="
+              f"{d.max().item():.4e} within atol {LLM_ATOL} rtol "
+              f"{LLM_RTOL}: {ok}; first token {res.first_token}, plain "
+              f"argmax {int(torch.argmax(ref[0, -1]))}")
+        gate(ok, "serving prefill logits disagree with the plain forward")
+        budget = srv.budget.snapshot()
+        kv_left = sum(n for t, n in budget["by_tag"].items()
+                      if t.startswith("kv:"))
+        print(f"  MemoryBudget after close: {json.dumps(budget)} "
+              f"(KV reservations left: {kv_left} B; resident "
+              f"{srv.resident_bytes()} B)")
+        gate(kv_left == 0 and budget["used"] == srv.resident_bytes(),
+             "the KV reservation did not return to the budget")
+        repairs = eng.repairs.counts()
+        gate(not repairs.get("kernel_demoted") and not eng.breaker.open_keys(),
+             f"kernels were demoted on the serving path: {repairs}")
+        del srv, eng, res
+    reset_io_engine()
+    reset_stage_engine()
+    reset_core_pool()
+
+    # the tied head copies the embedding (.T.contiguous()) every step
+    emb = pdev["embed"]
+    print(f"  tied-head embed.T.contiguous() per decode step: "
+          f"{gpu_ms(lambda: emb.T.contiguous()):.4f} ms "
+          f"({emb.numel() * emb.element_size()} B)")
+
+    # teacher-forced decode_step: kernels against the plain versions
+    S, B = 48, 2
+    tf_toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(B, S))).to(dev)
+
+    def teacher_forced(c, plain):
+        state = T.init_decode_state(c, B, S, device=dev)
+        outs = []
+        with plain_kernels() if plain else contextlib.nullcontext():
+            for t in range(S):
+                lg, state = T.decode_step(pdev, state,
+                                          {"tokens": tf_toks[:, t:t + 1]}, t, c)
+                outs.append(lg[:, 0])
+        torch.cuda.synchronize()
+        return torch.stack(outs, 1), state
+
+    for arm, c, int8 in [("bf16 cache", cfg, False),
+                         ("int8 cache", cfg, True),
+                         ("window-32 ring", cfg.with_sliding_window(32), False)]:
+        saved = FLAGS["kv_cache_int8"]
+        FLAGS["kv_cache_int8"] = int8
+        try:
+            before = ops.launch_counts()["decode_attention"]
+            t0 = time.perf_counter()
+            got, state = teacher_forced(c, False)
+            t_k = time.perf_counter() - t0
+            launched = ops.launch_counts()["decode_attention"] - before
+            t0 = time.perf_counter()
+            want, _ = teacher_forced(c, True)
+            t_p = time.perf_counter() - t0
+        finally:
+            FLAGS["kv_cache_int8"] = saved
+        d = (got - want).abs()
+        ok = bool(torch.isfinite(got).all()) and bool(
+            (d <= LLM_ATOL + LLM_RTOL * want.abs()).all())
+        print(f"  teacher-forced [{arm}]: {S} steps B={B} cache "
+              f"{tuple(state['k'].shape)} {state['k'].dtype}; logits max|d|="
+              f"{d.max().item():.4e} max|ref|={want.abs().max().item():.4e} "
+              f"within atol {LLM_ATOL} rtol {LLM_RTOL}: {ok}; "
+              f"{t_k * 1e3 / S:.3f} ms/step (plain {t_p * 1e3 / S:.3f})")
+        gate(ok, f"teacher-forced {arm}: logits disagree with the plain run")
+        launch_gates.append((f"teacher-forced {arm}", "decode_attention",
+                             launched, depth * S))
+
+    # where a decode step's time goes: device busy time under the profiler
+    # (B=1 at the cold start's cache length; reported, not gated)
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        state = T.init_decode_state(cfg, 1, 82, device=dev)
+        one = tf_toks[:1]
+        for t in range(4):  # warm
+            T.decode_step(pdev, state, {"tokens": one[:, t:t + 1]}, t, cfg)
+        torch.cuda.synchronize()
+        n = 8
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in range(4, 4 + n):
+                T.decode_step(pdev, state, {"tokens": one[:, t:t + 1]}, t,
+                              cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # kernels only: an aten op's device time is its kernels' again
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3  # ms
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+        top += [e for e in kern if "decode_kernel" in e.key and e not in top]
+        print(f"  profiler, {n} decode steps B=1 W=82: wall "
+              f"{wall * 1e3 / n:.3f} ms/step, device busy "
+              f"{busy / n:.3f} ms/step (idle share "
+              f"{1 - busy / (wall * 1e3):.3f}); kernels by device time: "
+              + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.4f}"
+                          f" ms/step in {e.count / n:g} launches"
+                          for e in top))
+    except Exception as e:  # a breakdown only: report it, never fail on it
+        print(f"  profiler: unavailable ({type(e).__name__}: {e})")
+
+    # BatchedServer: 6 greedy requests through 4 slots (recycled)
+    rng = np.random.default_rng(2)
+    shapes = [(8, 8), (64, 32), (23, 16), (40, 24), (12, 12), (57, 20)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n, _ in shapes]
+
+    def batched(plain):
+        srv = BatchedServer(pdev, cfg, max_batch=4, max_len=512, device=dev)
+        for i, (p, (_, m)) in enumerate(zip(prompts, shapes)):
+            srv.submit(Request(rid=i, prompt=p, max_new_tokens=m))
+        before = ops.launch_counts()["decode_attention"]
+        t0 = time.perf_counter()
+        with plain_kernels() if plain else contextlib.nullcontext():
+            done = srv.run_until_drained()
+        dt = time.perf_counter() - t0
+        return ({r.rid: r.out_tokens for r in done}, srv.decode_steps, dt,
+                ops.launch_counts()["decode_attention"] - before)
+
+    got, steps, dt, launched = batched(False)
+    want, _, dt_p, _ = batched(True)
+    agree = sum(a == b for i in got for a, b in zip(got[i], want.get(i, [])))
+    total = sum(m for _, m in shapes)
+    finished = all(len(got.get(i, [])) == m for i, (_, m) in enumerate(shapes))
+    print(f"  BatchedServer(max_batch=4, max_len=512): 6 requests, prompts "
+          f"{[n for n, _ in shapes]}, max_new_tokens {[m for _, m in shapes]};"
+          f" all finished with their counts: {finished}; {steps} "
+          f"decode_steps in {dt:.3f} s ({dt * 1e3 / steps:.3f} ms per step; "
+          f"plain {dt_p * 1e3 / steps:.3f}); tokens agreeing with the plain "
+          f"kernels' run: {agree}/{total}")
+    gate(finished, "a batched request did not finish with its token count")
+    launch_gates.append(("batched", "decode_attention", launched,
+                         depth * steps))
+
+    for label, k, n, want_n in launch_gates:
+        if n <= 0 or (want_n is not None and n != want_n):
+            failures.append(f"{label}: {k} launched {n} times"
+                            + (f", expected {want_n}" if want_n else ""))
+    if failures:
+        fail("serving path: " + "; ".join(failures))
+    return {"decode_attention": cold_counts["decode_attention"]}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: the repository's sources (src/repro_torch) are not "
@@ -471,7 +738,9 @@ def main() -> None:
                                       reset_stage_engine)
     from repro_torch.kernels import _native, ops
     from repro_torch.kernels import quant as Q
-    from repro_torch.kernels.attention import flash_attention_plain
+    from repro_torch.kernels.attention import (decode_attention_plain,
+                                               flash_attention_plain)
+    from repro_torch.kernels.attention import visible as attn_visible
     from repro_torch.kernels.conv_winograd import winograd_tile_matmul_plain
     from repro_torch.kernels.matmul import matmul_packed_plain, matmul_plain
     from repro_torch.models.cnn import build_cnn
@@ -646,6 +915,73 @@ def main() -> None:
                   4 * B * H * D * visible_pairs(S, win),
                   q.element_size() * 2 * B * S * (H + KV) * D, dname)
         results.setdefault("flash_attention", {})[tag] = r
+
+    print("kernels vs plain versions (decode_attention: the Pallas sweep in "
+          "its prefix form, smollm-360m decode shapes, a wrapped ring with a "
+          "window, the int8 cache, a softcap):")
+
+    def decode_case(tag, B, W, H, KV, D, dt, pos, window=None, softcap=None,
+                    int8=False):
+        """Hold decode_attention against its plain version; bound by the
+        bytes of the visible cache entries (the kernel reads no other),
+        q, the output and pos; SDPA with the same mask where it computes
+        the same function (no softcap, no int8 cache)."""
+        q = rand(B, H, D, dtype=dt, scale=0.5)
+        es = q.element_size()
+        if int8:
+            k, v = (torch.from_numpy(rng.integers(
+                -127, 128, (B, W, KV, D)).astype(np.int8)).to(dev)
+                for _ in range(2))
+            ks, vs = (torch.from_numpy((rng.random((B, W, KV)) * 0.02
+                                        + 1e-3).astype(np.float32)).to(dev)
+                      for _ in range(2))
+            entry_b = KV * (2 * D + 2 * 4)
+        else:
+            k, v = rand(B, W, KV, D, dtype=dt), rand(B, W, KV, D, dtype=dt)
+            ks = vs = None
+            entry_b = 2 * KV * D * es
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        mask = attn_visible(p, W, window)
+        n_vis = int(mask.sum().item())
+        kw = dict(window=window, softcap=softcap, k_scale=ks, v_scale=vs)
+        lib = None
+        if not int8 and softcap is None:
+            qs, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+            m4 = mask[:, None, None, :]
+            lib = (lambda: F.scaled_dot_product_attention(
+                qs, kt, vt, attn_mask=m4, enable_gqa=True))
+        dname = str(dt).replace("torch.", "")
+        r = check(f"decode_attention {tag} B={B} W={W} H={H} KV={KV} D={D} "
+                  f"window={window} softcap={softcap} "
+                  f"{'int8 cache' if int8 else dname} visible={n_vis}",
+                  lambda: ops.decode_attention(q, k, v, p, **kw),
+                  lambda: decode_attention_plain(q, k, v, p, **kw), lib,
+                  4 * H * D * n_vis,
+                  n_vis * entry_b + 2 * B * H * D * es + 4 * B, dname)
+        results.setdefault("decode_attention", {})[tag] = r
+
+    # the Pallas sweep (tests/test_kernels.py), prefix lengths as positions
+    for S, H, KV, D in [(512, 8, 4, 64), (300, 4, 4, 32), (256, 8, 2, 128)]:
+        lens = rng.integers(1, S + 1, size=3)
+        decode_case(f"sweep_S{S}_D{D}", 3, S, H, KV, D, torch.float32,
+                    [int(n) - 1 for n in lens])
+    # smollm-360m: 15 heads, 5 kv heads, D 64; a full cache (pos = W - 1);
+    # W 82 is the cold-start decode's max_len, 512 the batched server's
+    for B in (1, 4):
+        for W in (82, 512, 4096):
+            for dt in (torch.bfloat16, torch.float32):
+                decode_case(f"B{B}_W{W}_{str(dt)[6:]}", B, W, 15, 5, 64, dt,
+                            [W - 1] * B)
+    decode_case("ring_window32_W32", 2, 32, 15, 5, 64, torch.bfloat16,
+                [47, 40], window=32)
+    decode_case("ring_window1024_W4096", 4, 4096, 15, 5, 64, torch.bfloat16,
+                [5000, 4200, 9000, 4095], window=1024)
+    decode_case("int8_B4_W512", 4, 512, 15, 5, 64, torch.bfloat16,
+                [511] * 4, int8=True)
+    decode_case("int8_ring_B4_W4096", 4, 4096, 15, 5, 64, torch.bfloat16,
+                [6000, 4095, 5000, 7000], window=2048, int8=True)
+    decode_case("softcap_d128", 2, 1024, 32, 16, 128, torch.bfloat16,
+                [1023, 700], window=512, softcap=50.0)
 
     print("kernels vs plain versions (quantized cache: smollm-360m block "
           "and head, resnet50 head):")
@@ -920,10 +1256,16 @@ def main() -> None:
     launches.update(llm_lossy_path(dev, LOSSY_DEPTH))
     print(f"  [lossy LLM path done at {time.perf_counter() - t_start:.1f} s]")
 
-    # -- 6. report ----------------------------------------------------------
+    # -- 6. the serving path -------------------------------------------------
+    launches.update(serving_path(dev, SERVE_DEPTH))
+    print(f"  [serving path done at {time.perf_counter() - t_start:.1f} s]")
+
+    # -- 7. report ----------------------------------------------------------
     main_shape = {"winograd_tile_matmul": "stage0", "matmul": "im2col_s1b0",
                   "matmul_packed": "head", "matmul_bf16": "head",
-                  "flash_attention": "prefill64", "dequant_int8": "head",
+                  "flash_attention": "prefill64",
+                  "decode_attention": "B1_W82_bfloat16",
+                  "dequant_int8": "head",
                   "dequant_int4": "head",
                   "matmul_dequant_int8": "resnet_head",
                   "matmul_dequant_int4": "resnet_head"}

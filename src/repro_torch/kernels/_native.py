@@ -30,7 +30,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("matmul", "conv_winograd", "flash_attention",
+SOURCES = ("matmul", "conv_winograd", "flash_attention", "decode_attention",
            "quant")  # csrc/<name>.cu
 HEADERS = ("gemm_f32.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,6 +45,8 @@ ARGTYPES = {
     "repro_winograd_tile_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
     "repro_flash_attention_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
+    "repro_decode_attention_f32": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "repro_decode_attention_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
     "repro_dequant_int8": [_P, _P, _P, _I, _I, _P],
     "repro_dequant_int4": [_P, _P, _P, _I, _I, _P],
     "repro_matmul_dequant_int8_f32": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -19,6 +19,7 @@ matmul = _mm.matmul
 matmul_packed = _mm.matmul_packed
 winograd_tile_matmul = _wino.winograd_tile_matmul
 flash_attention = _attn.flash_attention
+decode_attention = _attn.decode_attention
 dequant_int8 = _quant.dequant_int8
 dequant_int4 = _quant.dequant_int4
 matmul_dequant_int8 = _quant.matmul_dequant_int8
@@ -38,6 +39,8 @@ KERNELS = {
                              "src/repro/kernels/conv_winograd.py:39"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/attention.py:75"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/attention.py:163"),
     "dequant_int8": ("src/repro_torch/csrc/quant.cu",
                      "src/repro/kernels/quant.py:55"),
     "dequant_int4": ("src/repro_torch/csrc/quant.cu",

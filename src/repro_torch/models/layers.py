@@ -1,5 +1,5 @@
-"""Core layer library, prefill subset: norms, RoPE, attention, MLP — the
-port of ``repro/models/layers.py``.
+"""Core layer library: norms, RoPE, attention (prefill and decode), MLP —
+the port of ``repro/models/layers.py``.
 
 Functions take and return torch tensors; parameters are plain dicts.
 Computation is in the tensors' dtype (bf16 in the deployed model) with f32
@@ -11,15 +11,21 @@ hand-written kernels, on a CPU tensor their plain versions.
 
 ``full_attention`` stays as the reference computes it — scores rounded to
 the input dtype before the f32 softmax (``layers.py:89`` of the
-reference) — and is the plain whole-block reference of the tests. The
-decode, sequence-parallel and sharded functions wait for the serving
-slice.
+reference) — and is the plain whole-block reference of the tests.
+
+``attn_decode_step`` is the reference's unsharded decode path: one token
+against a ring-buffer KV cache (optionally int8 with per-entry scales),
+read through ``kernels.ops.decode_attention``. It writes the new entry
+into the cache tensors in place (the reference returns updated copies)
+and returns them. The sharded read (``_flash_decode_sharded``) and the
+sequence-parallel prefill need a device mesh and stay out of the port.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -154,3 +160,71 @@ def attn_apply_seq(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                               softcap=cfg.attn_softcap)
     out = _mm(out.reshape(B, S, cfg.num_heads * cfg.head_dim), p["wo"])
     return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# attention apply (decode: one token against the KV cache)
+# ---------------------------------------------------------------------------
+_INV_127 = float(np.float32(1.0 / 127.0))
+
+
+def _quantize_kv(k: torch.Tensor):
+    """(B, 1, KV, hd) -> (int8 values, f32 scale (B, 1, KV)).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does; the scale
+    is ``amax · f32(1/127)``, which is what XLA compiles the reference's
+    ``/ 127.0`` to under ``jit`` (its served path)."""
+    kf = k.to(torch.float32)
+    amax = torch.amax(torch.abs(kf), dim=-1)
+    scale = torch.clamp(amax, min=1e-6) * _INV_127
+    q = torch.clamp(torch.round(kf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def attn_decode_step(
+    p: dict,
+    x: torch.Tensor,        # (B, 1, d)
+    cache_k: torch.Tensor,  # (B, W, KV, hd), int8 when quantized
+    cache_v: torch.Tensor,
+    pos: int,               # position of the new token, one for the batch
+    cfg,
+    *,
+    window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # (B, W, KV) f32 if int8 cache
+    v_scale: Optional[torch.Tensor] = None,
+):
+    """One decode step. The cache is a ring buffer of length W; for full
+    attention W == max_len and no entry is ever overwritten. Writes the
+    new entry at slot ``pos % W`` in place and returns
+    (out, (cache_k, cache_v[, k_scale, v_scale]))."""
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    W = cache_k.shape[1]
+    pos = int(pos)
+    quant = k_scale is not None
+    q = _mm(x, p["wq"]).reshape(B, 1, H, hd)
+    k = _mm(x, p["wk"]).reshape(B, 1, KV, hd)
+    v = _mm(x, p["wv"]).reshape(B, 1, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    posv = torch.full((B,), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, posv[:, None], cfg.rope_theta)
+    k = rope(k, posv[:, None], cfg.rope_theta)
+    slot = pos % W
+    if quant:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        cache_k[:, slot] = kq[:, 0]
+        cache_v[:, slot] = vq[:, 0]
+        k_scale[:, slot] = ks[:, 0]
+        v_scale[:, slot] = vs[:, 0]
+    else:
+        cache_k[:, slot] = k[:, 0]
+        cache_v[:, slot] = v[:, 0]
+    out = ops.decode_attention(q[:, 0].contiguous(), cache_k, cache_v, posv,
+                               window=window, softcap=cfg.attn_softcap,
+                               k_scale=k_scale, v_scale=v_scale)
+    out = _mm(out.reshape(B, 1, H * hd), p["wo"])
+    caches = ((cache_k, cache_v, k_scale, v_scale) if quant
+              else (cache_k, cache_v))
+    return out, caches

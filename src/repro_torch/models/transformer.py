@@ -11,8 +11,15 @@ values: parity tests and weight transfer go through it.
 local/global layer pattern), a Python loop over the stacked blocks in
 place of ``lax.scan``. Attention goes through the flash kernel at every
 sequence length (the reference switches to ``chunked_attention`` above
-8192 tokens; the kernel is that path's analogue). The moe, ssm and hybrid
-families, decode and training wait for later slices.
+8192 tokens; the kernel is that path's analogue).
+
+``init_decode_state`` and ``decode_step`` are the dense branch of the
+reference's decode: plain, local/global (gemma2: a window ring for the
+local layers, a full cache for the global ones) and the int8 KV cache
+(``runtime_flags.FLAGS["kv_cache_int8"]``), again a loop over the blocks.
+Each step's attention runs on the ``decode_attention`` kernel. The cache
+tensors are updated in place and returned as the new state. The moe, ssm
+and hybrid families and training wait for later slices.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 from repro_torch import bf16
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.runtime_flags import FLAGS
 
 Params = Dict[str, Any]
 
@@ -154,3 +162,73 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+def init_decode_state(cfg: ArchConfig, batch: int, context_len: int, *,
+                      device="cpu") -> Params:
+    """Zero-initialised decode caches sized for ``context_len`` history
+    (the reference's shapes and dtypes)."""
+    _check_dense(cfg)
+    dt = _dtype(cfg)
+    KV, hd, Lr = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.local_global_pattern:
+        Wl = min(cfg.sliding_window, context_len)
+        return {
+            "k_local": zeros(Lr // 2, batch, Wl, KV, hd),
+            "v_local": zeros(Lr // 2, batch, Wl, KV, hd),
+            "k_global": zeros(Lr // 2, batch, context_len, KV, hd),
+            "v_global": zeros(Lr // 2, batch, context_len, KV, hd),
+        }
+    W = (min(cfg.sliding_window, context_len) if cfg.sliding_window
+         else context_len)
+    if FLAGS.get("kv_cache_int8", False):
+        return {
+            "k": zeros(Lr, batch, W, KV, hd, dtype=torch.int8),
+            "v": zeros(Lr, batch, W, KV, hd, dtype=torch.int8),
+            "k_scale": zeros(Lr, batch, W, KV, dtype=torch.float32),
+            "v_scale": zeros(Lr, batch, W, KV, dtype=torch.float32),
+        }
+    return {"k": zeros(Lr, batch, W, KV, hd), "v": zeros(Lr, batch, W, KV, hd)}
+
+
+def _attn_block_decode(bp, x, ck, cv, pos, cfg, window, ks=None, vs=None):
+    h, _ = L.attn_decode_step(
+        bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), ck, cv, pos, cfg,
+        window=window, k_scale=ks, v_scale=vs)
+    x = x + h
+    xn = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + L.mlp_apply(bp["mlp"], xn)
+
+
+def decode_step(params: Params, state: Params,
+                batch: Dict[str, torch.Tensor], pos: int, cfg: ArchConfig):
+    """One token decode for a batch at position ``pos`` (one for the
+    batch, as in the reference). Returns (logits (B,1,V), state); the
+    state's cache tensors are updated in place."""
+    _check_dense(cfg)
+    x = params["embed"][batch["tokens"]]
+    blocks = params["blocks"]
+    if cfg.local_global_pattern:
+        for i in range(cfg.num_layers // 2):
+            x = _attn_block_decode(
+                _layer(blocks, 2 * i), x, state["k_local"][i],
+                state["v_local"][i], pos, cfg, cfg.sliding_window)
+            x = _attn_block_decode(
+                _layer(blocks, 2 * i + 1), x, state["k_global"][i],
+                state["v_global"][i], pos, cfg, None)
+    else:
+        quant = "k_scale" in state
+        for i in range(cfg.num_layers):
+            x = _attn_block_decode(
+                _layer(blocks, i), x, state["k"][i], state["v"][i], pos, cfg,
+                cfg.sliding_window,
+                state["k_scale"][i] if quant else None,
+                state["v_scale"][i] if quant else None)
+    return _lm_logits(params, cfg, x), state

@@ -40,6 +40,10 @@ def test_scan_covers_the_port():
                  "src/repro_torch/core/llm_graph.py",
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/configs/base.py",
+                 "src/repro_torch/models/runtime_flags.py",
+                 "src/repro_torch/serving/server.py",
+                 "src/repro_torch/executor/server.py",
+                 "src/repro_torch/executor/llm_bridge.py",
                  "chip_smoke.py"):
         assert must in names
 
