@@ -16,7 +16,10 @@ Run from the root of a checkout, on a machine with a CUDA card and
      kernels bitwise, max|d| = 0), and times the kernel, the plain version
      and one library call with CUDA events; ``decode_attention`` also over
      the Pallas sweep in its prefix form, a wrapped ring with a window, the
-     int8 cache and a softcap;
+     int8 cache and a softcap; ``gmm_blocks`` at granite-moe-3b-a800m's
+     expert GEMMs (C 8 at decode, 208 at a 512-token prefill) and over the
+     Pallas sweep; ``ssd_scan`` at mamba2-2.7b's S 1024 from a zero and a
+     random state (y and the final state) and over the Pallas sweep;
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
      ``build_cnn`` through ``ColdEngine(store_fmt="super")``, ``decide`` with
      the real profiler, then ``run_cold``, and two more ``run_cold``s under
@@ -56,9 +59,31 @@ Run from the root of a checkout, on a machine with a CUDA card and
      a 32-entry window ring; LLM gate) and a ``BatchedServer(max_batch=4,
      max_len=512)`` run of 6 greedy requests, each of which must finish
      with its token count (agreement with the plain run is reported);
-  7. fails unless every kernel of a path launched during that path's runs
+  7. drives the moe family: granite-moe-3b-a800m at full width, all 32
+     layers (``MOE_DEPTH``), bf16, weights drawn on the card: ``forward``
+     on a 512-token prompt against the all-plain forward, one MoE layer on
+     identical inputs, decode by steps against ``forward`` on 32 tokens and
+     the ``BatchedServer`` run of the serving phase; a bf16 rounding
+     upstream of the f32 router can flip a near-tie between experts, so
+     the logits gates compare runs under the same routing (one replays the
+     other's experts) and the free-running kernel and plain forwards must
+     share 90 % of their (token, expert) assignments; then
+     the ssm family: mamba2-2.7b at full width, all 64 layers
+     (``SSM_DEPTH``): in bf16 ``forward`` on 1024 tokens, each layer held
+     to its plain version on the same input and the whole model's
+     difference from the all-plain forward reported, and the same
+     ``BatchedServer`` run; in f32
+     ``forward`` against the all-plain forward and decode by steps against
+     ``forward`` over two 256-token chunks (LLM gate);
+  8. fails unless every kernel of a path launched during that path's runs
      (each path's launch counts are zeroed just before its runs and read
-     just after) and no kernel was demoted by the fault ladder.
+     just after; ``gmm_blocks`` 3 times a layer per ``forward`` or
+     ``decode_step``, ``ssd_scan`` once a layer per ``forward``) and no
+     kernel was demoted by the fault ladder.
+
+``LLM_DEPTH``, ``LOSSY_DEPTH`` and ``SERVE_DEPTH`` (all 32 blocks of
+smollm-360m) are the first to cut should the run near its time limit; the
+kernels run at full width either way.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -92,6 +117,11 @@ LLM_ATOL, LLM_RTOL = 0.1, 0.05
 LLM_DEPTH = 32
 LOSSY_DEPTH = 32
 SERVE_DEPTH = 32
+MOE_DEPTH = 32
+SSM_DEPTH = 64
+# whole-model MoE runs, kernels against plain: the share of (token, expert)
+# assignments that must agree (a wrong hidden state routes near k/E = 0.2)
+ROUTE_AGREE = 0.9
 # cache bytes of the matmul layers (tblocks + LM head) below bf16_cast
 LOSSY_BYTE_FLOORS = {"int8": 1.8, "int4": 3.0}
 
@@ -108,14 +138,17 @@ def plain_kernels():
     from repro_torch.kernels import quant as Q
     from repro_torch.kernels.attention import (decode_attention_plain,
                                                flash_attention_plain)
+    from repro_torch.kernels.gmm import gmm_blocks_plain
     from repro_torch.kernels.matmul import matmul_plain
+    from repro_torch.kernels.ssd import ssd_scan_plain
 
     plain = {"matmul": matmul_plain, "flash_attention": flash_attention_plain,
              "decode_attention": decode_attention_plain,
              "dequant_int8": Q.dequant_int8_plain,
              "dequant_int4": Q.dequant_int4_plain,
              "matmul_dequant_int8": Q.matmul_dequant_int8_plain,
-             "matmul_dequant_int4": Q.matmul_dequant_int4_plain}
+             "matmul_dequant_int4": Q.matmul_dequant_int4_plain,
+             "gmm_blocks": gmm_blocks_plain, "ssd_scan": ssd_scan_plain}
     saved = {k: getattr(ops, k) for k in plain}
     for k, fn in plain.items():
         setattr(ops, k, fn)
@@ -124,6 +157,110 @@ def plain_kernels():
     finally:
         for k, fn in saved.items():
             setattr(ops, k, fn)
+
+
+# the batched-serving request mix of every LLM path: (prompt length, new
+# tokens), prompts drawn from numpy seed 2
+BATCH_SHAPES = [(8, 8), (64, 32), (23, 16), (40, 24), (12, 12), (57, 20)]
+
+
+def batched_run(params, cfg, dev, plain: bool):
+    """The ``BATCH_SHAPES`` requests, greedy, through a
+    ``BatchedServer(max_batch=4, max_len=512)`` (slots recycled). Returns
+    ({rid: tokens}, decode steps, seconds, the launch counts of the run,
+    zeroed just before it)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import BatchedServer, Request
+
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n, _ in BATCH_SHAPES]
+    srv = BatchedServer(params, cfg, max_batch=4, max_len=512, device=dev)
+    for i, (p, (_, m)) in enumerate(zip(prompts, BATCH_SHAPES)):
+        srv.submit(Request(rid=i, prompt=p, max_new_tokens=m))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        done = srv.run_until_drained()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    srv.close()
+    return {r.rid: r.out_tokens for r in done}, srv.decode_steps, dt, counts
+
+
+def report_batched(got, want, steps, dt, dt_p) -> bool:
+    """Print a batched run against the plain kernels' run; True when every
+    request finished with its token count."""
+    agree = sum(a == b for i in got for a, b in zip(got[i], want.get(i, [])))
+    total = sum(m for _, m in BATCH_SHAPES)
+    finished = all(len(got.get(i, [])) == m
+                   for i, (_, m) in enumerate(BATCH_SHAPES))
+    print(f"  BatchedServer(max_batch=4, max_len=512): 6 requests, prompts "
+          f"{[n for n, _ in BATCH_SHAPES]}, max_new_tokens "
+          f"{[m for _, m in BATCH_SHAPES]}; all finished with their counts: "
+          f"{finished}; {steps} decode_steps in {dt:.3f} s "
+          f"({dt * 1e3 / steps:.3f} ms per step; plain "
+          f"{dt_p * 1e3 / steps:.3f}); tokens agreeing with the plain "
+          f"kernels' run: {agree}/{total}")
+    return finished
+
+
+def profile_steps(label, step, n, extra=()) -> None:
+    """Device busy time of ``step(0) .. step(n-1)`` under the profiler,
+    kernels only (an aten op's device time is its kernels' again), and the
+    five kernels with the most device time plus any whose name holds one of
+    ``extra``. A breakdown only: reported, never gated."""
+    import torch
+
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n):
+                step(i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3  # ms
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+        top += [e for e in kern if any(x in e.key for x in extra)
+                and e not in top]
+        print(f"  profiler, {label}: wall {wall * 1e3 / n:.3f} ms/step, "
+              f"device busy {busy / n:.3f} ms/step (idle share "
+              f"{1 - busy / (wall * 1e3):.3f}); kernels by device time: "
+              + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.4f}"
+                          f" ms/step in {e.count / n:g} launches"
+                          for e in top))
+    except Exception as e:  # a breakdown only: report it, never fail on it
+        print(f"  profiler: unavailable ({type(e).__name__}: {e})")
+
+
+def leaves(tree):
+    """The tensors of a nested dict."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def wall_ms(fn, iters=10):
+    """Host time of one call of ``fn``, synchronized, after a warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
 
 
 def plan_summary(choices) -> dict:
@@ -499,21 +636,8 @@ def serving_path(dev, depth: int) -> dict:
           f"{tuple(toks.shape)}")
     pdev = T.to_device(params, dev)
     del params
-    failures = []
-    launch_gates = []   # (label, kernel, launched, expected or None)
-
-    def gate(ok, msg):
-        if not ok:
-            failures.append(msg)
-
-    def gpu_ms(fn, iters=20):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3 / iters
+    gates = PathGates("serving path")
+    gate = gates.check
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
         srv = ColdServer(Path(tmp) / "server", device=dev)
@@ -554,11 +678,11 @@ def serving_path(dev, depth: int) -> dict:
         gate(n_dec == len(res.tokens) - 3,
              f"{n_dec} ticks timed after decode-ready, not "
              f"{len(res.tokens) - 3}")
-        launch_gates.append(("cold start", "decode_attention",
-                             cold_counts["decode_attention"],
-                             depth * res.decode_steps))
+        gates.launched("cold start", "decode_attention",
+                       cold_counts["decode_attention"],
+                       depth * res.decode_steps)
         for k in ("flash_attention", "matmul_bf16"):
-            launch_gates.append(("cold start", k, cold_counts[k], None))
+            gates.launched("cold start", k, cold_counts[k])
         # the streamed prefill's logits against an all-plain forward
         with plain_kernels():
             ref, _, _ = T.forward(
@@ -589,7 +713,7 @@ def serving_path(dev, depth: int) -> dict:
     # the tied head copies the embedding (.T.contiguous()) every step
     emb = pdev["embed"]
     print(f"  tied-head embed.T.contiguous() per decode step: "
-          f"{gpu_ms(lambda: emb.T.contiguous()):.4f} ms "
+          f"{wall_ms(lambda: emb.T.contiguous(), 20):.4f} ms "
           f"({emb.numel() * emb.element_size()} B)")
 
     # teacher-forced decode_step: kernels against the plain versions
@@ -633,84 +757,444 @@ def serving_path(dev, depth: int) -> dict:
               f"within atol {LLM_ATOL} rtol {LLM_RTOL}: {ok}; "
               f"{t_k * 1e3 / S:.3f} ms/step (plain {t_p * 1e3 / S:.3f})")
         gate(ok, f"teacher-forced {arm}: logits disagree with the plain run")
-        launch_gates.append((f"teacher-forced {arm}", "decode_attention",
-                             launched, depth * S))
+        gates.launched(f"teacher-forced {arm}", "decode_attention",
+                       launched, depth * S)
 
     # where a decode step's time goes: device busy time under the profiler
     # (B=1 at the cold start's cache length; reported, not gated)
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        state = T.init_decode_state(cfg, 1, 82, device=dev)
-        one = tf_toks[:1]
-        for t in range(4):  # warm
-            T.decode_step(pdev, state, {"tokens": one[:, t:t + 1]}, t, cfg)
-        torch.cuda.synchronize()
-        n = 8
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for t in range(4, 4 + n):
-                T.decode_step(pdev, state, {"tokens": one[:, t:t + 1]}, t,
-                              cfg)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # kernels only: an aten op's device time is its kernels' again
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        busy = sum(e.self_device_time_total for e in kern) / 1e3  # ms
-        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
-        top += [e for e in kern if "decode_kernel" in e.key and e not in top]
-        print(f"  profiler, {n} decode steps B=1 W=82: wall "
-              f"{wall * 1e3 / n:.3f} ms/step, device busy "
-              f"{busy / n:.3f} ms/step (idle share "
-              f"{1 - busy / (wall * 1e3):.3f}); kernels by device time: "
-              + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.4f}"
-                          f" ms/step in {e.count / n:g} launches"
-                          for e in top))
-    except Exception as e:  # a breakdown only: report it, never fail on it
-        print(f"  profiler: unavailable ({type(e).__name__}: {e})")
+    state = T.init_decode_state(cfg, 1, 82, device=dev)
+    one = tf_toks[:1]
+    for t in range(4):  # warm
+        T.decode_step(pdev, state, {"tokens": one[:, t:t + 1]}, t, cfg)
+    profile_steps("8 decode steps B=1 W=82", lambda i: T.decode_step(
+        pdev, state, {"tokens": one[:, 4 + i:5 + i]}, 4 + i, cfg), 8,
+        extra=("decode_kernel",))
 
     # BatchedServer: 6 greedy requests through 4 slots (recycled)
-    rng = np.random.default_rng(2)
-    shapes = [(8, 8), (64, 32), (23, 16), (40, 24), (12, 12), (57, 20)]
-    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n, _ in shapes]
-
-    def batched(plain):
-        srv = BatchedServer(pdev, cfg, max_batch=4, max_len=512, device=dev)
-        for i, (p, (_, m)) in enumerate(zip(prompts, shapes)):
-            srv.submit(Request(rid=i, prompt=p, max_new_tokens=m))
-        before = ops.launch_counts()["decode_attention"]
-        t0 = time.perf_counter()
-        with plain_kernels() if plain else contextlib.nullcontext():
-            done = srv.run_until_drained()
-        dt = time.perf_counter() - t0
-        return ({r.rid: r.out_tokens for r in done}, srv.decode_steps, dt,
-                ops.launch_counts()["decode_attention"] - before)
-
-    got, steps, dt, launched = batched(False)
-    want, _, dt_p, _ = batched(True)
-    agree = sum(a == b for i in got for a, b in zip(got[i], want.get(i, [])))
-    total = sum(m for _, m in shapes)
-    finished = all(len(got.get(i, [])) == m for i, (_, m) in enumerate(shapes))
-    print(f"  BatchedServer(max_batch=4, max_len=512): 6 requests, prompts "
-          f"{[n for n, _ in shapes]}, max_new_tokens {[m for _, m in shapes]};"
-          f" all finished with their counts: {finished}; {steps} "
-          f"decode_steps in {dt:.3f} s ({dt * 1e3 / steps:.3f} ms per step; "
-          f"plain {dt_p * 1e3 / steps:.3f}); tokens agreeing with the plain "
-          f"kernels' run: {agree}/{total}")
-    gate(finished, "a batched request did not finish with its token count")
-    launch_gates.append(("batched", "decode_attention", launched,
-                         depth * steps))
-
-    for label, k, n, want_n in launch_gates:
-        if n <= 0 or (want_n is not None and n != want_n):
-            failures.append(f"{label}: {k} launched {n} times"
-                            + (f", expected {want_n}" if want_n else ""))
-    if failures:
-        fail("serving path: " + "; ".join(failures))
+    got, steps, dt, counts = batched_run(pdev, cfg, dev, plain=False)
+    want, _, dt_p, _ = batched_run(pdev, cfg, dev, plain=True)
+    gate(report_batched(got, want, steps, dt, dt_p),
+         "a batched request did not finish with its token count")
+    gates.launched("batched", "decode_attention", counts["decode_attention"],
+                   depth * steps)
+    gates.finish()
     return {"decode_attention": cold_counts["decode_attention"]}
+
+
+@contextlib.contextmanager
+def routing_log(replay=None):
+    """Record every MoE ``route`` call's top-k experts, (T, k) on the host,
+    in call order. With ``replay`` (such a record), each call takes the
+    recorded experts in place of its own top k, weighted by its own
+    probabilities renormalized over them: two runs then make the same
+    discrete choices and differ only by rounding."""
+    from repro_torch.models import moe as MOE
+
+    log = []
+    route = MOE.route
+
+    def recording(xf, router, cfg):
+        probs, top_p, top_e = route(xf, router, cfg)
+        if replay is not None:
+            top_e = replay[len(log)].to(probs.device)
+            top_p = probs.gather(1, top_e)
+            top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+        log.append(top_e.cpu())
+        return probs, top_p, top_e
+
+    MOE.route = recording
+    try:
+        yield log
+    finally:
+        MOE.route = route
+
+
+def routing_agreement(a, b):
+    """Two runs' routing logs (lists of (T, k), the same calls in the same
+    order): the share of (token, expert) assignments that agree, and (T,)
+    True where a token took the same experts in every call."""
+    same = total = 0
+    alike = None
+    for x, y in zip(a, b, strict=True):
+        hit = (x[:, :, None] == y[:, None, :]).any(-1)   # x's expert in y's
+        same, total = same + int(hit.sum()), total + hit.numel()
+        alike = hit.all(-1) if alike is None else alike & hit.all(-1)
+    return same / max(total, 1), alike
+
+
+def logits_gate(got, ref):
+    """(rows within atol/rtol of ``ref``, (rows,) bool; max|d|; max|ref|)
+    over the logits' rows (every leading index)."""
+    d = (got - ref).abs()
+    ok = (d <= LLM_ATOL + LLM_RTOL * ref.abs()).reshape(
+        -1, ref.shape[-1]).all(dim=1)
+    return ok.cpu(), d.max().item(), ref.abs().max().item()
+
+
+class PathGates:
+    """A path's gates, reported together at its end (``finish``), so that a
+    CPU rehearsal runs every part of the path first; ``main`` sums the
+    launch counts of the path's main runs."""
+
+    def __init__(self, name: str):
+        self.name, self.failures, self.main = name, [], {}
+
+    def check(self, ok, msg: str) -> None:
+        if not ok:
+            self.failures.append(msg)
+
+    def launched(self, label, kernel, n, expected=None) -> None:
+        """``kernel`` launched ``n`` times in ``label``: at least once, and
+        ``expected`` times where that is given."""
+        self.check(n > 0 and expected in (None, n),
+                   f"{label}: {kernel} launched {n} times"
+                   + ("" if expected is None else f", expected {expected}"))
+
+    def add(self, counts) -> None:
+        for k, n in counts.items():
+            self.main[k] = self.main.get(k, 0) + n
+
+    def logits(self, label, got, ref) -> None:
+        """Every row of ``got`` within the LLM gate of ``ref``."""
+        import torch
+
+        ok, dmax, rmax = logits_gate(got, ref)
+        print(f"  {label}: logits {tuple(got.shape)} max|d|={dmax:.4e} "
+              f"max|ref|={rmax:.4e}; rows within atol {LLM_ATOL} rtol "
+              f"{LLM_RTOL}: {int(ok.sum())}/{len(ok)}")
+        self.check(bool(torch.isfinite(got).all()) and bool(ok.all()),
+                   f"{label}: logits leave the gate")
+
+    def finish(self) -> None:
+        if self.failures:
+            fail(f"{self.name}: " + "; ".join(self.failures))
+
+
+def moe_path(dev, depth: int) -> dict:
+    """granite-moe-3b-a800m at full width, ``depth`` layers, bf16, random
+    weights from seed 0 drawn on the card: ``forward`` on a 512-token
+    prompt with the kernels against the all-plain forward; one MoE layer
+    on identical inputs, kernel against plain; decode by steps against
+    ``forward`` on a 32-token prompt; a ``BatchedServer`` run against the
+    plain kernels' run. A bf16 difference upstream of the f32 router can
+    flip a near-tie between experts, and a flipped token's hidden state
+    reaches the other tokens through attention; so each whole-model logits
+    gate compares two runs under the same routing (the second replays the
+    first's experts), and the free-running kernel and plain forwards must
+    share ``ROUTE_AGREE`` of their (token, expert) assignments. Returns the
+    launch counts of the main runs (the kernel forward, the decode steps
+    and the batched server), each zeroed just before it; launch gates are
+    checked last, so a CPU rehearsal runs every part."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              num_layers=depth)
+    print(f"moe path: {cfg.name} full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} "
+          f"experts of d_ff {cfg.d_ff}, top-{cfg.top_k}, vocab "
+          f"{cfg.vocab_size}), layers={depth} (of 32), {cfg.dtype}: forward, "
+          f"decode_step, BatchedServer")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    print(f"  weights: {n_params} params drawn on {dev} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gates = PathGates("moe path")
+
+    def agreement(label, a, b):
+        share, alike = routing_agreement(a, b)
+        print(f"  routing, {label}: {share:.4f} of (token, expert) "
+              f"assignments agree; {int(alike.sum())}/{len(alike)} tokens "
+              f"took the same experts in every layer")
+        return share
+
+    # forward on a 512-token prompt: kernels against the all-plain forward
+    S = 512
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(1, S))).to(dev)
+    with routing_log() as klog:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, aux, _ = T.forward(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    gates.add(counts)
+    with routing_log() as plog, plain_kernels():
+        t0 = time.perf_counter()
+        _, ref_aux, _ = T.forward(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+    with routing_log(replay=klog), plain_kernels():
+        ref, _, _ = T.forward(params, {"tokens": toks}, cfg)
+    print(f"  forward (1, {S}): {t_k * 1e3:.1f} ms with the kernels "
+          f"(first call), {t_p * 1e3:.1f} ms all-plain; aux {aux.item():.5f} "
+          f"(plain {ref_aux.item():.5f}); launches "
+          f"{json.dumps({k: n for k, n in counts.items() if n})}")
+    C = MOE.capacity(S, cfg)
+    dropped = sum(int((torch.bincount(e.reshape(-1), minlength=cfg.num_experts)
+                       - C).clamp_min(0).sum()) for e in klog)
+    print(f"  capacity C={C} a block: {dropped} of {S * cfg.top_k * depth} "
+          f"(token, expert) assignments dropped over the {depth} layers")
+    share = agreement("forward, kernels vs all-plain", klog, plog)
+    gates.check(share >= ROUTE_AGREE, f"only {share:.4f} of the forward's "
+                f"routing assignments agree with the all-plain forward's "
+                f"(< {ROUTE_AGREE})")
+    gates.logits(f"forward (1, {S}) vs all-plain under the kernels' routing",
+                 logits, ref)
+    gates.launched("forward", "gmm_blocks", counts["gmm_blocks"], 3 * depth)
+    gates.launched("forward", "flash_attention", counts["flash_attention"],
+                   depth)
+    del logits, ref
+    profile_steps(f"forward (1, {S})", lambda i: T.forward(
+        params, {"tokens": toks}, cfg), 1, extra=("gemm", "flash"))
+
+    # one MoE layer on identical inputs (routing identical by construction)
+    bp = T._layer(params["blocks"], 0)["moe"]
+    xn = torch.randn((1, S, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev).to(torch.bfloat16)
+    with routing_log() as klog:
+        y_k, _ = MOE.moe_apply(bp, xn, cfg)
+    with routing_log() as plog, plain_kernels():
+        y_p, _ = MOE.moe_apply(bp, xn, cfg)
+    torch.cuda.synchronize()
+    rel = ((y_k.float() - y_p.float()).abs().max()
+           / y_p.float().abs().max().clamp_min(1e-30)).item()
+    share, _ = routing_agreement(klog, plog)
+    ms_k = wall_ms(lambda: MOE.moe_apply(bp, xn, cfg))
+    with plain_kernels():
+        ms_p = wall_ms(lambda: MOE.moe_apply(bp, xn, cfg))
+    print(f"  one MoE layer on identical inputs (1, {S}, {cfg.d_model}), "
+          f"C={MOE.capacity(S, cfg)}: max|d|/max|plain|={rel:.3e} (tol "
+          f"{KERNEL_TOL['bfloat16']}); routing {share:.4f} alike; "
+          f"{ms_k:.3f} ms with the kernels, {ms_p:.3f} ms plain")
+    gates.check(rel <= KERNEL_TOL["bfloat16"]
+                and bool(torch.isfinite(y_k).all()),
+                f"one MoE layer disagrees with its plain version ({rel:.3e})")
+
+    # decode by steps against forward on a short prompt: free-running for
+    # the launch counts and the routing agreement, then under the
+    # forward's routing for the logits gate. Decode routes one token at a
+    # time and never fills a block (C = 8), while a forward drops the
+    # tokens past C; so this forward runs with a capacity factor of E/k,
+    # which gives C >= T and drops nothing (decode's C is 8 either way)
+    Sd = 32
+    dtoks = toks[:, :Sd]
+    ncfg = dataclasses.replace(cfg, moe_capacity_factor=cfg.num_experts
+                               / cfg.top_k)
+    with routing_log() as flog:
+        fl, _, _ = T.forward(params, {"tokens": dtoks}, ncfg)
+    # the forward's choices in decode's call order (step-major)
+    replay = [flog[l][t:t + 1] for t in range(Sd) for l in range(depth)]
+
+    def decode(log_replay=None):
+        state = T.init_decode_state(ncfg, 1, Sd, device=dev)
+        outs = []
+        with routing_log(replay=log_replay) as dlog:
+            for t in range(Sd):
+                lg, state = T.decode_step(
+                    params, state, {"tokens": dtoks[:, t:t + 1]}, t, ncfg)
+                outs.append(lg[:, 0])
+        torch.cuda.synchronize()
+        return torch.stack(outs, 1), [torch.cat(dlog[l::depth])
+                                      for l in range(depth)]
+
+    ops.reset_launch_counts()
+    dec, dlog = decode()
+    counts = ops.launch_counts()
+    gates.add(counts)
+    ok, dmax, _ = logits_gate(dec, fl)
+    print(f"  decode by steps, free-running ({Sd} tokens, kernels): max|d| "
+          f"vs forward {dmax:.4e}, rows within the gate {int(ok.sum())}/"
+          f"{len(ok)}")
+    agreement("decode by steps vs forward", dlog, flog)
+    gates.logits(f"decode by steps vs forward ({Sd} tokens, kernels) under "
+                 f"the forward's routing", decode(replay)[0], fl)
+    gates.launched("decode", "gmm_blocks", counts["gmm_blocks"],
+                   3 * depth * Sd)
+    gates.launched("decode", "decode_attention", counts["decode_attention"],
+                   depth * Sd)
+
+    # where a decode step's time goes (B=1; reported, not gated)
+    state = T.init_decode_state(cfg, 1, 64, device=dev)
+    for t in range(4):  # warm
+        T.decode_step(params, state, {"tokens": toks[:, t:t + 1]}, t, cfg)
+    profile_steps("8 decode steps B=1", lambda i: T.decode_step(
+        params, state, {"tokens": toks[:, 4 + i:5 + i]}, 4 + i, cfg), 8,
+        extra=("decode_kernel", "ssd"))
+
+    # BatchedServer: the serving path's request mix
+    got, steps, dt, counts = batched_run(params, cfg, dev, plain=False)
+    gates.add(counts)
+    want, _, dt_p, _ = batched_run(params, cfg, dev, plain=True)
+    gates.check(report_batched(got, want, steps, dt, dt_p),
+                "a batched request did not finish with its token count")
+    print(f"  batched launches: "
+          f"{json.dumps({k: n for k, n in counts.items() if n})}")
+    gates.launched("batched", "gmm_blocks", counts["gmm_blocks"],
+                   3 * depth * steps)
+    gates.launched("batched", "decode_attention", counts["decode_attention"],
+                   depth * steps)
+    print(f"  moe path launches (forward + decode steps + batched): "
+          f"{json.dumps({k: n for k, n in gates.main.items() if n})}")
+    gates.finish()
+    return {"gmm_blocks": gates.main["gmm_blocks"]}
+
+
+def ssm_path(dev, depth: int) -> dict:
+    """mamba2-2.7b at full width, ``depth`` layers, random weights from
+    seed 0 drawn on the card. In bf16, the served precision: ``forward`` on
+    a 1024-token prompt with the kernels, each layer held to its plain
+    version on the same input (lockstep through the layers), the whole
+    model's difference from the all-plain forward reported (this
+    random-weight model amplifies a rounding-size difference about 25-fold
+    over 64 layers, so no logits gate holds between two bf16 roundings of
+    it), and a ``BatchedServer`` run against the plain kernels' run. In f32, where a rounding difference stays small: the
+    kernels' forward against the all-plain forward, and decode by steps
+    against ``forward`` over two 256-token chunks (the kernel's chunked
+    scan against the recurrence of ``ssd_decode_step``), both within the
+    LLM gate. Returns the launch counts of the main runs (both forwards,
+    the decode steps and the batched server), each zeroed just before it;
+    launch gates are checked last."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    base = dataclasses.replace(get_config("mamba2-2.7b"), num_layers=depth)
+    print(f"ssm path: {base.name} full width (d_model {base.d_model}, inner "
+          f"{base.ssm_inner}, {base.ssm_heads} heads of P {base.ssm_head_dim},"
+          f" N {base.ssm_state}, chunk {base.ssm_chunk}, vocab "
+          f"{base.vocab_size}), layers={depth} (of 64): forward, decode_step,"
+          f" BatchedServer in bf16; forward and decode against forward in "
+          f"f32")
+    gates = PathGates("ssm path")
+
+    def draw(dtype):
+        c = dataclasses.replace(base, dtype=dtype)
+        t0 = time.perf_counter()
+        p = T.init_params(c, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        print(f"  {dtype} weights: {sum(t.numel() for t in leaves(p))} "
+              f"params drawn on {dev} in {time.perf_counter() - t0:.2f} s")
+        return c, p
+
+    def counted_forward(params, cfg, toks):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _, _ = T.forward(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        gates.add(counts)
+        print(f"  {cfg.dtype} forward {tuple(toks.shape)}: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms with the kernels "
+              f"(first call); launches "
+              f"{json.dumps({k: n for k, n in counts.items() if n})}")
+        gates.launched(f"{cfg.dtype} forward", "ssd_scan",
+                       counts["ssd_scan"], depth)
+        return logits
+
+    S = 1024
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, base.vocab_size, size=(1, S))).to(dev)
+
+    # -- bf16 ----------------------------------------------------------------
+    cfg, params = draw("bfloat16")
+    logits = counted_forward(params, cfg, toks)
+    with plain_kernels():
+        t0 = time.perf_counter()
+        ref, _, _ = T.forward(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+    _, dmax, rmax = logits_gate(logits, ref)
+    print(f"  bf16 forward (1, {S}) vs all-plain ({t_p * 1e3:.1f} ms): "
+          f"max|d|={dmax:.4e} max|ref|={rmax:.4e} (reported, not gated)")
+    gates.check(bool(torch.isfinite(logits).all()),
+                "bf16 forward: non-finite")
+    del logits, ref
+    # each layer against its plain version on the same input, in lockstep
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+
+    x = params["embed"][toks]
+    worst = (0.0, -1)
+    for i in range(depth):
+        bp = T._layer(params["blocks"], i)
+        y, _ = T._mamba_block_seq(bp, x, cfg)
+        with plain_kernels():
+            want, _ = T._mamba_block_seq(bp, x, cfg)
+        worst = max(worst, (rel(y, want), i))
+        x = y
+    print(f"  bf16 layers in lockstep, each kernel layer against its plain "
+          f"version on the same input: worst max|d|/max|plain| "
+          f"{worst[0]:.3e} (layer {worst[1]}, tol {KERNEL_TOL['bfloat16']})")
+    gates.check(worst[0] <= KERNEL_TOL["bfloat16"],
+                f"bf16 layer {worst[1]} disagrees with its plain version "
+                f"({worst[0]:.3e})")
+    profile_steps(f"bf16 forward (1, {S})", lambda i: T.forward(
+        params, {"tokens": toks}, cfg), 1, extra=("ssd",))
+    state = T.init_decode_state(cfg, 1, 64, device=dev)
+    for t in range(4):  # warm
+        T.decode_step(params, state, {"tokens": toks[:, t:t + 1]}, t, cfg)
+    profile_steps("8 bf16 decode steps B=1", lambda i: T.decode_step(
+        params, state, {"tokens": toks[:, 4 + i:5 + i]}, 4 + i, cfg), 8)
+    got, steps, dt, counts = batched_run(params, cfg, dev, plain=False)
+    gates.add(counts)
+    want, _, dt_p, _ = batched_run(params, cfg, dev, plain=True)
+    gates.check(report_batched(got, want, steps, dt, dt_p),
+                "a batched request did not finish with its token count")
+    print(f"  batched launches: "
+          f"{json.dumps({k: n for k, n in counts.items() if n})}")
+    # six projections a layer and the tied head, one launch each a step
+    gates.launched("batched", "matmul_bf16", counts["matmul_bf16"],
+                   (6 * depth + 1) * steps)
+    del params, state
+    torch.cuda.empty_cache()
+
+    # -- f32 -----------------------------------------------------------------
+    cfg, params = draw("float32")
+    logits = counted_forward(params, cfg, toks)
+    with plain_kernels():
+        ref, _, _ = T.forward(params, {"tokens": toks}, cfg)
+    gates.logits(f"f32 forward (1, {S}) vs all-plain", logits, ref)
+    del logits, ref
+    Sd = 2 * cfg.ssm_chunk
+    fl = counted_forward(params, cfg, toks[:, :Sd])
+    state = T.init_decode_state(cfg, 1, Sd, device=dev)
+    outs = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in range(Sd):
+        lg, state = T.decode_step(params, state, {"tokens": toks[:, t:t + 1]},
+                                  t, cfg)
+        outs.append(lg[:, 0])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    gates.add(counts)
+    print(f"  f32 decode: {Sd} steps B=1 in {time.perf_counter() - t0:.2f} s; "
+          f"launches {json.dumps({k: n for k, n in counts.items() if n})}")
+    gates.logits(f"f32 decode by steps vs forward ({Sd} tokens, two chunks)",
+                 torch.stack(outs, 1), fl)
+    gates.launched("f32 decode", "matmul", counts["matmul"],
+                   (6 * depth + 1) * Sd)
+    print(f"  ssm path launches (forwards + decode steps + batched): "
+          f"{json.dumps({k: n for k, n in gates.main.items() if n})}")
+    gates.finish()
+    return {"ssd_scan": gates.main["ssd_scan"]}
 
 
 def main() -> None:
@@ -742,7 +1226,9 @@ def main() -> None:
                                                flash_attention_plain)
     from repro_torch.kernels.attention import visible as attn_visible
     from repro_torch.kernels.conv_winograd import winograd_tile_matmul_plain
+    from repro_torch.kernels.gmm import gmm_blocks_plain
     from repro_torch.kernels.matmul import matmul_packed_plain, matmul_plain
+    from repro_torch.kernels.ssd import ssd_scan_plain
     from repro_torch.models.cnn import build_cnn
 
     # -- 1. the card --------------------------------------------------------
@@ -816,13 +1302,20 @@ def main() -> None:
 
     def check(label, kernel, plain, library, flops, nbytes,
               dtype="float32", peak=None, exact=False):
+        """A kernel returning a tuple is held to its plain version output
+        by output, each to its own max|plain|: the worst is reported."""
         torch.cuda.synchronize()  # inputs were copied on the default stream
         with torch.cuda.stream(stream):
             got, ref = kernel(), plain()
         stream.synchronize()
-        got, ref = got.to(torch.float32), ref.to(torch.float32)
-        err = (got - ref).abs().max().item()
-        scale = max(ref.abs().max().item(), 1e-30)
+        outs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        err, scale, finite = 0.0, 1e-30, True
+        for g, r in outs:
+            g, r = g.to(torch.float32), r.to(torch.float32)
+            e, sc = (g - r).abs().max().item(), max(r.abs().max().item(), 1e-30)
+            if e / sc >= err / scale:
+                err, scale = e, sc
+            finite = finite and bool(torch.isfinite(g).all())
         ms, plain_ms = time_ms(kernel), time_ms(plain)
         lib_ms = time_ms(library) if library is not None else None
         b_ms, b_by = bound(flops, nbytes, peak or dtype)
@@ -831,7 +1324,7 @@ def main() -> None:
               f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} "
               f"bound_ms={b_ms:.6f} ({b_by}, {peak or dtype} peak)")
         tol = 0.0 if exact else KERNEL_TOL[dtype]
-        if not torch.isfinite(got).all() or err / scale > tol:
+        if not finite or err / scale > tol:
             fail(f"{label}: kernel disagrees with its plain version "
                  f"(rel {err / scale:.3e} > {tol})")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1045,6 +1538,68 @@ def main() -> None:
               2 * M * N * K, 2 * (M * K + K * N) + 4 * M * N, "float32",
               peak="bfloat16")
     results["matmul_bf16"]["resnet_head_f32out"] = r
+
+    print("kernels vs plain versions (gmm_blocks: granite-moe-3b-a800m's "
+          "expert GEMMs at decode and at a 512-token prefill, bf16; the "
+          "Pallas sweep in f32 and bf16):")
+    # (tag, E, C, d, n, dtype); C = 8 at decode (4 slots x top-8 of 40
+    # experts), 208 at a 512-token prefill (capacity factor 2)
+    for tag, E, C, d, n, dt in [
+            ("decode_gate", 40, 8, 1536, 512, torch.bfloat16),
+            ("decode_down", 40, 8, 512, 1536, torch.bfloat16),
+            ("prefill_gate", 40, 208, 1536, 512, torch.bfloat16),
+            ("sweep_4x64x32x48_f32", 4, 64, 32, 48, torch.float32),
+            ("sweep_8x128x128x128_f32", 8, 128, 128, 128, torch.float32),
+            ("sweep_3x40x20x9_f32", 3, 40, 20, 9, torch.float32),
+            ("sweep_4x64x32x48_bf16", 4, 64, 32, 48, torch.bfloat16),
+            ("sweep_8x128x128x128_bf16", 8, 128, 128, 128, torch.bfloat16),
+            ("sweep_3x40x20x9_bf16", 3, 40, 20, 9, torch.bfloat16)]:
+        x = rand(E, C, d, dtype=dt)
+        w = rand(E, d, n, dtype=dt, scale=d ** -0.5)
+        dname, es = str(dt).replace("torch.", ""), x.element_size()
+        r = check(f"gmm_blocks {tag} ({E},{C},{d})x({E},{d},{n}) {dname}",
+                  lambda: ops.gmm_blocks(x, w), lambda: gmm_blocks_plain(x, w),
+                  lambda: torch.bmm(x, w), 2 * E * C * d * n,
+                  es * (E * C * d + E * d * n + E * C * n), dname)
+        results.setdefault("gmm_blocks", {})[tag] = r
+
+    print("kernels vs plain versions (ssd_scan: mamba2-2.7b at S 1024 from a "
+          "zero and a random state, y and the final state; the Pallas "
+          "sweep):")
+    # (tag, B, S, H, P, N, Q, dtype, init state)
+    for tag, B, S, H, P, N, Q, dt, init in [
+            ("mamba2_S1024", 1, 1024, 80, 64, 128, 256, torch.bfloat16, False),
+            ("mamba2_S1024_init", 1, 1024, 80, 64, 128, 256, torch.bfloat16,
+             True),
+            ("sweep_S256_N32", 2, 256, 4, 64, 32, 64, torch.float32, False),
+            ("sweep_S128_N16", 2, 128, 2, 32, 16, 32, torch.float32, False),
+            ("sweep_S192_N64", 2, 192, 4, 64, 64, 64, torch.float32, True)]:
+        x = rand(B, S, H, P, dtype=dt, scale=0.3)
+        sdt = (torch.from_numpy(np.abs(rng.standard_normal(
+            (B, S, H))).astype(np.float32)) * 0.3).to(dev)
+        A = -torch.linspace(0.5, 2.0, H, device=dev)
+        Bm, Cm = rand(B, S, N, dtype=dt, scale=0.3), rand(B, S, N, dtype=dt,
+                                                         scale=0.3)
+        D = torch.ones(H, device=dev)
+        st = rand(B, H, P, N, scale=0.3) if init else None
+        dname, es = str(dt).replace("torch.", ""), x.element_size()
+        # operations the function needs over each chunk's lower triangle:
+        # C·B^T on Q(Q+1)/2 pairs once per (b, chunk), since every head
+        # shares B and C (G = 1); per head its product with x on those
+        # pairs, C·state and the state update on Q x N x P
+        nc, pairs = S // Q, Q * (Q + 1) // 2
+        flops = (2 * B * nc * pairs * N
+                 + 2 * B * H * nc * (pairs * P + 2 * Q * N * P))
+        nbytes = (es * (2 * B * S * H * P + 2 * B * S * N)
+                  + 4 * (B * S * H + 2 * H) + 4 * B * H * P * N * (1 + init))
+        r = check(f"ssd_scan {tag} B={B} S={S} H={H} P={P} N={N} Q={Q} "
+                  f"{dname} init_state={init}",
+                  lambda: ops.ssd_scan(x, sdt, A, Bm, Cm, D, chunk=Q,
+                                       init_state=st),
+                  lambda: ssd_scan_plain(x, sdt, A, Bm, Cm, D, chunk=Q,
+                                         init_state=st),
+                  None, flops, nbytes, dname, peak="float32")
+        results.setdefault("ssd_scan", {})[tag] = r
     torch.cuda.synchronize()
     print(f"  [kernel phases done at {time.perf_counter() - t_start:.1f} s]")
     launches = {}
@@ -1260,7 +1815,15 @@ def main() -> None:
     launches.update(serving_path(dev, SERVE_DEPTH))
     print(f"  [serving path done at {time.perf_counter() - t_start:.1f} s]")
 
-    # -- 7. report ----------------------------------------------------------
+    # -- 7. the moe and ssm families ------------------------------------------
+    launches.update(moe_path(dev, MOE_DEPTH))
+    torch.cuda.empty_cache()
+    print(f"  [moe path done at {time.perf_counter() - t_start:.1f} s]")
+    launches.update(ssm_path(dev, SSM_DEPTH))
+    torch.cuda.empty_cache()
+    print(f"  [ssm path done at {time.perf_counter() - t_start:.1f} s]")
+
+    # -- 8. report ----------------------------------------------------------
     main_shape = {"winograd_tile_matmul": "stage0", "matmul": "im2col_s1b0",
                   "matmul_packed": "head", "matmul_bf16": "head",
                   "flash_attention": "prefill64",
@@ -1268,7 +1831,9 @@ def main() -> None:
                   "dequant_int8": "head",
                   "dequant_int4": "head",
                   "matmul_dequant_int8": "resnet_head",
-                  "matmul_dequant_int4": "resnet_head"}
+                  "matmul_dequant_int4": "resnet_head",
+                  "gmm_blocks": "decode_gate",
+                  "ssd_scan": "mamba2_S1024"}
     out = []
     for k, (source, replaces) in ops.KERNELS.items():
         r = results[k][main_shape[k]]

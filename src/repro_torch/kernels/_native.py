@@ -31,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("matmul", "conv_winograd", "flash_attention", "decode_attention",
-           "quant")  # csrc/<name>.cu
+           "quant", "gmm", "ssd")  # csrc/<name>.cu
 HEADERS = ("gemm_f32.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,6 +53,10 @@ ARGTYPES = {
     "repro_matmul_dequant_int8_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_matmul_dequant_int4_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_matmul_dequant_int4_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_gmm_blocks_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_gmm_blocks_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_ssd_scan_f32": [_P] * 9 + [_I] * 6 + [_P],
+    "repro_ssd_scan_bf16": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -12,8 +12,10 @@ from typing import Dict
 
 from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import conv_winograd as _wino
+from repro_torch.kernels import gmm as _gmm
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import quant as _quant
+from repro_torch.kernels import ssd as _ssd
 
 matmul = _mm.matmul
 matmul_packed = _mm.matmul_packed
@@ -24,6 +26,8 @@ dequant_int8 = _quant.dequant_int8
 dequant_int4 = _quant.dequant_int4
 matmul_dequant_int8 = _quant.matmul_dequant_int8
 matmul_dequant_int4 = _quant.matmul_dequant_int4
+gmm_blocks = _gmm.gmm_blocks
+ssd_scan = _ssd.ssd_scan
 
 # launch-count name -> (CUDA source, TPU kernel it replaces); ``matmul``
 # counts the f32 launches of the one wrapper, ``matmul_bf16`` its bf16 ones
@@ -49,9 +53,14 @@ KERNELS = {
                             "src/repro/kernels/quant.py:131"),
     "matmul_dequant_int4": ("src/repro_torch/csrc/quant.cu",
                             "src/repro/kernels/quant.py:179"),
+    "gmm_blocks": ("src/repro_torch/csrc/gmm.cu",
+                   "src/repro/kernels/gmm.py:36"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd.cu",
+                 "src/repro/kernels/ssd.py:64"),
 }
 
-_COUNTERS = (_mm.launches, _wino.launches, _attn.launches, _quant.launches)
+_COUNTERS = (_mm.launches, _wino.launches, _attn.launches, _quant.launches,
+             _gmm.launches, _ssd.launches)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,25 +1,31 @@
-"""Config-driven decoder, dense family — the port of
+"""Config-driven decoder, dense, moe and ssm families — the port of
 ``repro/models/transformer.py``.
 
-``init_params`` draws from an explicit ``torch.Generator``: torch cannot
-reproduce ``jax.random``, so its weights are the port's own (same shapes,
-same scales, same parameter tree). ``from_reference`` takes the JAX
-package's params as numpy arrays and returns the port's, with the same
-values: parity tests and weight transfer go through it.
+``init_params`` draws from an explicit ``torch.Generator`` on the
+generator's device: torch cannot reproduce ``jax.random``, so its weights
+are the port's own (same shapes, same scales, same parameter tree).
+``from_reference`` takes the JAX package's params as numpy arrays and
+returns the port's, with the same values: parity tests and weight
+transfer go through it.
 
-``forward`` is the dense branch of the reference's (plain and gemma2's
-local/global layer pattern), a Python loop over the stacked blocks in
-place of ``lax.scan``. Attention goes through the flash kernel at every
-sequence length (the reference switches to ``chunked_attention`` above
-8192 tokens; the kernel is that path's analogue).
+``forward`` is the reference's forward for the dense family (plain and
+gemma2's local/global layer pattern), the moe family (the MLP replaced by
+``moe.moe_apply``, whose load-balance losses sum into the aux loss) and
+the ssm family (mamba2 blocks, ``ssm.mamba_apply_seq``), a Python loop
+over the stacked blocks in place of ``lax.scan``. Attention goes through
+the flash kernel at every sequence length (the reference switches to
+``chunked_attention`` above 8192 tokens; the kernel is that path's
+analogue), the expert FFNs through ``gmm_blocks`` and the SSD scan through
+``ssd_scan``.
 
-``init_decode_state`` and ``decode_step`` are the dense branch of the
-reference's decode: plain, local/global (gemma2: a window ring for the
+``init_decode_state`` and ``decode_step`` are the reference's decode for
+the same families: plain, local/global (gemma2: a window ring for the
 local layers, a full cache for the global ones) and the int8 KV cache
-(``runtime_flags.FLAGS["kv_cache_int8"]``), again a loop over the blocks.
-Each step's attention runs on the ``decode_attention`` kernel. The cache
-tensors are updated in place and returned as the new state. The moe, ssm
-and hybrid families and training wait for later slices.
+(``runtime_flags.FLAGS["kv_cache_int8"]``) for dense and moe, whose caches
+are the same; the conv and SSM states for ssm. Each step's attention runs
+on the ``decode_attention`` kernel. The state tensors are updated in place
+and returned as the new state. The hybrid, vlm and audio families and
+training wait for later slices.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ import torch
 from repro_torch import bf16
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.runtime_flags import FLAGS
 
 Params = Dict[str, Any]
@@ -41,50 +49,64 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.input_mode != "tokens":
+FAMILIES = ("dense", "moe", "ssm")
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in FAMILIES or cfg.input_mode != "tokens":
         raise NotImplementedError(
-            f"{cfg.name}: the port's decoder covers the dense family with "
-            f"token input; {cfg.family}/{cfg.input_mode} waits for a later "
-            f"slice")
+            f"{cfg.name}: the port's decoder covers the {'/'.join(FAMILIES)} "
+            f"families with token input; {cfg.family}/{cfg.input_mode} waits "
+            f"for a later slice")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 def _normal(g: torch.Generator, shape, scale: float, dt) -> torch.Tensor:
-    return (torch.randn(shape, generator=g, dtype=torch.float32)
-            * scale).to(dt)
+    return (torch.randn(shape, generator=g, dtype=torch.float32,
+                        device=g.device) * scale).to(dt)
 
 
 def init_params(cfg: ArchConfig, g: torch.Generator) -> Params:
     """Random weights from ``g`` in the reference's tree and scales (embed
     N(0, .02²), projections N(0, 1/fan_in), norms zero), stacked (L, ...)
-    per block weight, in ``cfg.dtype``, on the CPU."""
-    _check_dense(cfg)
+    per block weight, in ``cfg.dtype``, on ``g``'s device (the CPU for a
+    default generator; a CUDA generator draws a full-width model on the
+    card, with no f32 copy on the host)."""
+    _check_family(cfg)
     dt = _dtype(cfg)
+    dev = g.device
     d, V, Lr = cfg.d_model, cfg.vocab_size, cfg.num_layers
     H, KV, hd, ff = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
 
     def dense(shape):
         return _normal(g, (Lr, *shape), 1.0 / math.sqrt(shape[0]), dt)
 
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
     params: Params = {"embed": _normal(g, (V, d), 0.02, dt)}
     if not cfg.tie_embeddings:
         params["lm_head"] = _normal(g, (d, V), 1.0 / math.sqrt(d), dt)
-    attn = {"wq": dense((d, H * hd)), "wk": dense((d, KV * hd)),
-            "wv": dense((d, KV * hd)), "wo": dense((H * hd, d))}
-    if cfg.qk_norm:
-        attn["q_norm"] = torch.zeros((Lr, hd), dtype=dt)
-        attn["k_norm"] = torch.zeros((Lr, hd), dtype=dt)
-    params["blocks"] = {
-        "ln1": torch.zeros((Lr, d), dtype=dt),
-        "ln2": torch.zeros((Lr, d), dtype=dt),
-        "attn": attn,
-        "mlp": {"w_gate": dense((d, ff)), "w_up": dense((d, ff)),
-                "w_down": dense((ff, d))},
-    }
-    params["final_norm"] = torch.zeros((d,), dtype=dt)
+    if cfg.family == "ssm":
+        params["blocks"] = {"ln1": zeros(Lr, d),
+                            "mamba": SSM.mamba_init(cfg, g, Lr)}
+    else:
+        attn = {"wq": dense((d, H * hd)), "wk": dense((d, KV * hd)),
+                "wv": dense((d, KV * hd)), "wo": dense((H * hd, d))}
+        if cfg.qk_norm:
+            attn["q_norm"] = zeros(Lr, hd)
+            attn["k_norm"] = zeros(Lr, hd)
+        params["blocks"] = {"ln1": zeros(Lr, d), "ln2": zeros(Lr, d),
+                            "attn": attn}
+        if cfg.is_moe:
+            params["blocks"]["moe"] = MOE.moe_init(cfg, g, Lr)
+        else:
+            params["blocks"]["mlp"] = {
+                "w_gate": dense((d, ff)), "w_up": dense((d, ff)),
+                "w_down": dense((ff, d))}
+    params["final_norm"] = zeros(d)
     return params
 
 
@@ -106,13 +128,27 @@ def to_device(params: Params, device) -> Params:
 # ---------------------------------------------------------------------------
 # block bodies
 # ---------------------------------------------------------------------------
+def _ffn(bp, xn, cfg):
+    """The block's MLP or MoE: (out, aux loss or None)."""
+    if "moe" in bp:
+        return MOE.moe_apply(bp["moe"], xn, cfg)
+    return L.mlp_apply(bp["mlp"], xn), None
+
+
 def _attn_block_seq(bp, x, cfg, positions, window):
     h, _ = L.attn_apply_seq(
         bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg, positions,
         window=window)
     x = x + h
-    xn = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(bp["mlp"], xn)
+    h2, aux = _ffn(bp, L.rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
+    return x + h2, aux
+
+
+def _mamba_block_seq(bp, x, cfg, conv_states=None, ssm_state=None):
+    h, states = SSM.mamba_apply_seq(
+        bp["mamba"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg,
+        conv_states=conv_states, ssm_state=ssm_state)
+    return x + h, states
 
 
 def _embed_input(params, cfg, batch):
@@ -140,22 +176,29 @@ def _lm_logits(params, cfg, x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     """Full-sequence forward. Returns (logits, aux_loss, (None, mask)), the
-    reference's return shape (a dense model has no aux loss; the KV cache
-    for decode waits for the serving slice)."""
-    _check_dense(cfg)
+    reference's return shape: the aux loss sums the MoE layers'
+    load-balance losses (zero for dense and ssm); the prefill cache
+    (``collect_cache``) is not ported, decode starts from
+    ``init_decode_state``."""
+    _check_family(cfg)
     x, loss_mask = _embed_input(params, cfg, batch)
     B, S, _ = x.shape
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            x, _ = _mamba_block_seq(_layer(params["blocks"], i), x, cfg)
+        return _lm_logits(params, cfg, x), aux, (None, loss_mask)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     for i in range(cfg.num_layers):
         window = cfg.sliding_window
         if cfg.local_global_pattern and i % 2 == 1:
             window = None  # (local, global) pairs: odd layers are global
-        x = _attn_block_seq(_layer(params["blocks"], i), x, cfg, positions,
-                            window)
-    logits = _lm_logits(params, cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, aux, (None, loss_mask)
+        x, a = _attn_block_seq(_layer(params["blocks"], i), x, cfg,
+                               positions, window)
+        if a is not None:
+            aux = aux + a
+    return _lm_logits(params, cfg, x), aux, (None, loss_mask)
 
 
 def _layer(tree, i: int):
@@ -170,13 +213,18 @@ def _layer(tree, i: int):
 def init_decode_state(cfg: ArchConfig, batch: int, context_len: int, *,
                       device="cpu") -> Params:
     """Zero-initialised decode caches sized for ``context_len`` history
-    (the reference's shapes and dtypes)."""
-    _check_dense(cfg)
+    (the reference's shapes and dtypes): KV caches for dense and moe, the
+    per-layer conv and SSM states for ssm."""
+    _check_family(cfg)
     dt = _dtype(cfg)
     KV, hd, Lr = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
 
     def zeros(*shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.family == "ssm":
+        s = SSM.mamba_state_init(cfg, batch, dt, device=device)
+        return {k: zeros(Lr, *v.shape, dtype=v.dtype) for k, v in s.items()}
 
     if cfg.local_global_pattern:
         Wl = min(cfg.sliding_window, context_len)
@@ -203,19 +251,36 @@ def _attn_block_decode(bp, x, ck, cv, pos, cfg, window, ks=None, vs=None):
         bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), ck, cv, pos, cfg,
         window=window, k_scale=ks, v_scale=vs)
     x = x + h
-    xn = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(bp["mlp"], xn)
+    h2, _ = _ffn(bp, L.rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
+    return x + h2
+
+
+_MAMBA_STATE = ("conv_x", "conv_B", "conv_C", "ssm")
+
+
+def _mamba_block_decode(bp, x, st, cfg):
+    h, ((sx, sB, sC), ssm) = SSM.mamba_decode_step(
+        bp["mamba"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg,
+        (st["conv_x"], st["conv_B"], st["conv_C"]), st["ssm"])
+    return x + h, {"conv_x": sx, "conv_B": sB, "conv_C": sC, "ssm": ssm}
 
 
 def decode_step(params: Params, state: Params,
                 batch: Dict[str, torch.Tensor], pos: int, cfg: ArchConfig):
     """One token decode for a batch at position ``pos`` (one for the
     batch, as in the reference). Returns (logits (B,1,V), state); the
-    state's cache tensors are updated in place."""
-    _check_dense(cfg)
+    state's tensors are updated in place (an ssm model ignores ``pos``)."""
+    _check_family(cfg)
     x = params["embed"][batch["tokens"]]
     blocks = params["blocks"]
-    if cfg.local_global_pattern:
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            x, st = _mamba_block_decode(
+                _layer(blocks, i), x, {k: state[k][i] for k in _MAMBA_STATE},
+                cfg)
+            for k in _MAMBA_STATE:
+                state[k][i].copy_(st[k])
+    elif cfg.local_global_pattern:
         for i in range(cfg.num_layers // 2):
             x = _attn_block_decode(
                 _layer(blocks, 2 * i), x, state["k_local"][i],
