@@ -16,10 +16,21 @@ Run from the root of a checkout, on a machine with a CUDA card and
      kernels bitwise, max|d| = 0), and times the kernel, the plain version
      and one library call with CUDA events; ``decode_attention`` also over
      the Pallas sweep in its prefix form, a wrapped ring with a window, the
-     int8 cache and a softcap; ``gmm_blocks`` at granite-moe-3b-a800m's
-     expert GEMMs (C 8 at decode, 208 at a 512-token prefill) and over the
-     Pallas sweep; ``ssd_scan`` at mamba2-2.7b's S 1024 from a zero and a
-     random state (y and the final state) and over the Pallas sweep;
+     int8 cache and a softcap; the bf16 ``matmul`` also at the decode
+     projections (M 1 and 4) of smollm-360m, granite-moe-3b-a800m and
+     mamba2-2.7b, the prefill projections of granite (512 tokens) and
+     mamba2 (1024), the tied heads at decode and prefill reading
+     ``embed`` K-major in place, and ragged, unaligned edges;
+     ``gmm_blocks`` at granite-moe-3b-a800m's expert GEMMs (C 8 at decode,
+     208 at a 512-token prefill), with ``group_sizes`` from a top-8-of-40
+     routing of 1 and of 4 tokens and a clipped prefill, and over the
+     Pallas sweep; for these two kernels two launches on the same inputs
+     must give the same bits, and their device time (the calls replayed
+     from a CUDA graph) is printed beside the host-timed one;
+     ``ssd_scan`` at mamba2-2.7b's S 1024 from a zero and a random state (y
+     and the final state) and over the Pallas sweep; with
+     ``--kernels-only`` the script stops here (a first check of a new
+     kernel, without the paths or a result line);
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
      ``build_cnn`` through ``ColdEngine(store_fmt="super")``, ``decide`` with
      the real profiler, then ``run_cold``, and two more ``run_cold``s under
@@ -58,7 +69,8 @@ Run from the root of a checkout, on a machine with a CUDA card and
      with the kernels against the plain versions (bf16 cache, int8 cache,
      a 32-entry window ring; LLM gate) and a ``BatchedServer(max_batch=4,
      max_len=512)`` run of 6 greedy requests, each of which must finish
-     with its token count (agreement with the plain run is reported);
+     with its token count (agreement with the plain run is reported,
+     and for each request that leaves it, its first flip);
   7. drives the moe family: granite-moe-3b-a800m at full width, all 32
      layers (``MOE_DEPTH``), bf16, weights drawn on the card: ``forward``
      on a 512-token prompt against the all-plain forward, one MoE layer on
@@ -67,7 +79,9 @@ Run from the root of a checkout, on a machine with a CUDA card and
      upstream of the f32 router can flip a near-tie between experts, so
      the logits gates compare runs under the same routing (one replays the
      other's experts) and the free-running kernel and plain forwards must
-     share 90 % of their (token, expert) assignments; then
+     share 90 % of their (token, expert) assignments; the kernels'
+     batched run is repeated replaying the plain run's routing
+     (reported); then
      the ssm family: mamba2-2.7b at full width, all 64 layers
      (``SSM_DEPTH``): in bf16 ``forward`` on 1024 tokens, each layer held
      to its plain version on the same input and the whole model's
@@ -80,6 +94,12 @@ Run from the root of a checkout, on a machine with a CUDA card and
      just after; ``gmm_blocks`` 3 times a layer per ``forward`` or
      ``decode_step``, ``ssd_scan`` once a layer per ``forward``) and no
      kernel was demoted by the fault ladder.
+
+Every run of a decided plan in the CNN and LLM phases (nnv12,
+sequential, nnv12_nosteal) starts from the first arm's state: the store
+reopened with its lazy CRC-32C audit pending and its files fsynced and
+evicted from the page cache (``posix_fadvise(DONTNEED)``); each
+``run_cold`` line prints its starting state.
 
 ``LLM_DEPTH``, ``LOSSY_DEPTH`` and ``SERVE_DEPTH`` (all 32 blocks of
 smollm-360m) are the first to cut should the run near its time limit; the
@@ -95,6 +115,7 @@ from __future__ import annotations
 import contextlib
 import importlib.metadata
 import json
+import os
 import re
 import subprocess
 import sys
@@ -168,9 +189,10 @@ def batched_run(params, cfg, dev, plain: bool):
     """The ``BATCH_SHAPES`` requests, greedy, through a
     ``BatchedServer(max_batch=4, max_len=512)`` (slots recycled). Returns
     ({rid: tokens}, decode steps, seconds, the launch counts of the run,
-    zeroed just before it)."""
+    zeroed just before it, {rid: [(slot, f32 logits row)]} of every pick)."""
     import numpy as np
 
+    from repro_torch.device import on_stream
     from repro_torch.kernels import ops
     from repro_torch.serving import BatchedServer, Request
 
@@ -179,6 +201,19 @@ def batched_run(params, cfg, dev, plain: bool):
     srv = BatchedServer(params, cfg, max_batch=4, max_len=512, device=dev)
     for i, (p, (_, m)) in enumerate(zip(prompts, BATCH_SHAPES)):
         srv.submit(Request(rid=i, prompt=p, max_new_tokens=m))
+    picks, pick = {}, srv._pick
+
+    def recording(req, row):
+        tok = pick(req, row)
+        # copied on the server's stream: the row's memory goes back to
+        # that stream's pool when the step's logits are freed
+        with on_stream(srv.stream):
+            picks.setdefault(req.rid, []).append(
+                (next(s for s, r in enumerate(srv.slot_req) if r is req),
+                 row.float().clone()))
+        return tok
+
+    srv._pick = recording
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with plain_kernels() if plain else contextlib.nullcontext():
@@ -186,12 +221,22 @@ def batched_run(params, cfg, dev, plain: bool):
     dt = time.perf_counter() - t0
     counts = ops.launch_counts()
     srv.close()
-    return {r.rid: r.out_tokens for r in done}, srv.decode_steps, dt, counts
+    return ({r.rid: r.out_tokens for r in done}, srv.decode_steps, dt,
+            counts, picks)
 
 
-def report_batched(got, want, steps, dt, dt_p) -> bool:
+def report_batched(got, want, steps, dt, dt_p, picks, picks_p) -> bool:
     """Print a batched run against the plain kernels' run; True when every
-    request finished with its token count."""
+    request finished with its token count. Greedy decoding diverges for
+    good at the first flipped argmax, so for each request it also prints
+    its slot, its logits rows up to its first flip against the LLM gate,
+    and at the flip: max|d| of the two rows and how far the plain run
+    preferred its token over the kernels' one (the plain margin). A
+    recycled slot keeps its earlier requests' cache or state, so a
+    request's history is the same in both runs only while the earlier
+    requests of its slot gave the same tokens: the line says where not."""
+    import torch
+
     agree = sum(a == b for i in got for a, b in zip(got[i], want.get(i, [])))
     total = sum(m for _, m in BATCH_SHAPES)
     finished = all(len(got.get(i, [])) == m
@@ -203,6 +248,35 @@ def report_batched(got, want, steps, dt, dt_p) -> bool:
           f"({dt * 1e3 / steps:.3f} ms per step; plain "
           f"{dt_p * 1e3 / steps:.3f}); tokens agreeing with the plain "
           f"kernels' run: {agree}/{total}")
+    margins = [float(torch.topk(r, 2).values.diff().abs()) for rs in
+               picks_p.values() for _, r in rs]
+    slot = {i: rs[0][0] for i, rs in picks.items() if rs}
+    lines = []
+    for i in sorted(got):
+        a, b = got[i], want.get(i, [])
+        n = min(len(a), len(b), len(picks.get(i, [])), len(picks_p.get(i, [])))
+        j = next((k for k in range(n) if a[k] != b[k]), None)
+        end = n if j is None else j + 1
+        if end == 0:
+            continue
+        rows = torch.stack([r for _, r in picks[i][:end]])
+        rows_p = torch.stack([r for _, r in picks_p[i][:end]])
+        ok, _, _ = logits_gate(rows, rows_p)
+        text = (f"req {i} slot {slot[i]}: rows in the gate "
+                f"{int(ok.sum())}/{end}")
+        if j is not None:
+            at, at_p = rows[j], rows_p[j]
+            text += (f", first flip at step {j}/{len(a)} (max|d| "
+                     f"{float((at - at_p).abs().max()):.4f}, plain margin "
+                     f"{float(at_p[b[j]] - at_p[a[j]]):.4f})")
+        after = [r for r in sorted(got) if r < i and slot.get(r) == slot[i]
+                 and got[r] != want.get(r)]
+        if after:
+            text += f", history differs (its slot served diverged {after})"
+        lines.append(text)
+    print(f"  per request, up to its first flip (the plain run's median "
+          f"top-2 margin {float(torch.tensor(margins).median()):.4f}): "
+          + "; ".join(lines))
     return finished
 
 
@@ -239,6 +313,33 @@ def profile_steps(label, step, n, extra=()) -> None:
                           for e in top))
     except Exception as e:  # a breakdown only: report it, never fail on it
         print(f"  profiler: unavailable ({type(e).__name__}: {e})")
+
+
+def first_read_state(store) -> str:
+    """Put ``store`` back where the first decided-plan arm found it: the
+    reader closed, so the next read reopens the container with every lazy
+    CRC-32C audit pending, and every file of the store flushed (fsync) and
+    dropped from the page cache (``posix_fadvise(DONTNEED)``). Returns the
+    starting state for the arm's log line."""
+    t0 = time.perf_counter()
+    store.close()
+    files = nbytes = 0
+    for p in sorted(store.root.rglob("*")):
+        if not p.is_file():
+            continue
+        fd = os.open(p, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+        files, nbytes = files + 1, nbytes + p.stat().st_size
+    return (f"first read (store reopened, audit pending; {files} files, "
+            f"{nbytes} B fsynced and evicted in "
+            f"{time.perf_counter() - t0:.3f} s)")
+
+
+AS_LEFT = "as the previous arm left it"
 
 
 def leaves(tree):
@@ -400,11 +501,14 @@ def llm_path(dev, depth: int) -> dict:
             before = ops.launch_counts()
             if plan is not None:
                 eng.set_plan(plan)
+            start = (first_read_state(eng.store) if plan is None
+                     else AS_LEFT)
             r = eng.run_cold(toks, mode=mode)
             after = ops.launch_counts()
             delta = {k: after[k] - before[k] for k in after
                      if after[k] - before[k]}
-            print(f"  run_cold [{label}, {mode}]: total_s={r.total_s:.4f} "
+            print(f"  run_cold [{label}, {mode}; start: {start}]: "
+                  f"total_s={r.total_s:.4f} "
                   f"stage_seconds={json.dumps(r.stage_seconds())} "
                   f"launches={json.dumps(delta)}")
             check_logits(f"{label} {mode}", r.output)
@@ -424,6 +528,8 @@ def llm_path(dev, depth: int) -> dict:
         print(f"  run_warm: {warm:.4f} s (best of 3), launches="
               f"{json.dumps({k: after[k] - before[k] for k in after if after[k] - before[k]})}")
         counts = ops.launch_counts()
+        print(f"  bf16 template launches by path (the runs above): "
+              f"{json.dumps(ops.gemm_path_counts())}")
         repairs = eng.repairs.counts()
         open_breakers = eng.breaker.open_keys()
         print(f"  repairs={json.dumps(repairs)} open_breakers={open_breakers}")
@@ -654,6 +760,8 @@ def serving_path(dev, depth: int) -> dict:
                              server=srv, model_name="smollm")
         wall = time.perf_counter() - t0
         cold_counts = ops.launch_counts()
+        print(f"  bf16 template launches by path (cold start): "
+              f"{json.dumps(ops.gemm_path_counts())}")
         n_dec = res.decode_ticks      # decode_step calls after decode-ready
         print(f"  cold_start_llm: wall {wall:.3f} s; first_token_s="
               f"{res.first_token_s:.4f} last_weight_prep_s="
@@ -710,12 +818,6 @@ def serving_path(dev, depth: int) -> dict:
     reset_stage_engine()
     reset_core_pool()
 
-    # the tied head copies the embedding (.T.contiguous()) every step
-    emb = pdev["embed"]
-    print(f"  tied-head embed.T.contiguous() per decode step: "
-          f"{wall_ms(lambda: emb.T.contiguous(), 20):.4f} ms "
-          f"({emb.numel() * emb.element_size()} B)")
-
     # teacher-forced decode_step: kernels against the plain versions
     S, B = 48, 2
     tf_toks = torch.from_numpy(np.random.default_rng(1).integers(
@@ -771,9 +873,9 @@ def serving_path(dev, depth: int) -> dict:
         extra=("decode_kernel",))
 
     # BatchedServer: 6 greedy requests through 4 slots (recycled)
-    got, steps, dt, counts = batched_run(pdev, cfg, dev, plain=False)
-    want, _, dt_p, _ = batched_run(pdev, cfg, dev, plain=True)
-    gate(report_batched(got, want, steps, dt, dt_p),
+    got, steps, dt, counts, picks = batched_run(pdev, cfg, dev, plain=False)
+    want, _, dt_p, _, picks_p = batched_run(pdev, cfg, dev, plain=True)
+    gate(report_batched(got, want, steps, dt, dt_p, picks, picks_p),
          "a batched request did not finish with its token count")
     gates.launched("batched", "decode_attention", counts["decode_attention"],
                    depth * steps)
@@ -783,8 +885,8 @@ def serving_path(dev, depth: int) -> dict:
 
 @contextlib.contextmanager
 def routing_log(replay=None):
-    """Record every MoE ``route`` call's top-k experts, (T, k) on the host,
-    in call order. With ``replay`` (such a record), each call takes the
+    """Record every MoE ``route`` call's top-k experts, (T, k) on their
+    device (no host sync), in call order. With ``replay`` (such a record), each call takes the
     recorded experts in place of its own top k, weighted by its own
     probabilities renormalized over them: two runs then make the same
     discrete choices and differ only by rounding."""
@@ -799,7 +901,7 @@ def routing_log(replay=None):
             top_e = replay[len(log)].to(probs.device)
             top_p = probs.gather(1, top_e)
             top_p = top_p / top_p.sum(dim=-1, keepdim=True)
-        log.append(top_e.cpu())
+        log.append(top_e.clone())
         return probs, top_p, top_e
 
     MOE.route = recording
@@ -929,6 +1031,8 @@ def moe_path(dev, depth: int) -> dict:
         t_k = time.perf_counter() - t0
         counts = ops.launch_counts()
     gates.add(counts)
+    print(f"  bf16 template launches by path (forward): "
+          f"{json.dumps(ops.gemm_path_counts())}")
     with routing_log() as plog, plain_kernels():
         t0 = time.perf_counter()
         _, ref_aux, _ = T.forward(params, {"tokens": toks}, cfg)
@@ -1012,6 +1116,8 @@ def moe_path(dev, depth: int) -> dict:
     dec, dlog = decode()
     counts = ops.launch_counts()
     gates.add(counts)
+    print(f"  bf16 template launches by path (decode, {Sd} steps): "
+          f"{json.dumps(ops.gemm_path_counts())}")
     ok, dmax, _ = logits_gate(dec, fl)
     print(f"  decode by steps, free-running ({Sd} tokens, kernels): max|d| "
           f"vs forward {dmax:.4e}, rows within the gate {int(ok.sum())}/"
@@ -1033,10 +1139,12 @@ def moe_path(dev, depth: int) -> dict:
         extra=("decode_kernel", "ssd"))
 
     # BatchedServer: the serving path's request mix
-    got, steps, dt, counts = batched_run(params, cfg, dev, plain=False)
+    got, steps, dt, counts, picks = batched_run(params, cfg, dev,
+                                                plain=False)
     gates.add(counts)
-    want, _, dt_p, _ = batched_run(params, cfg, dev, plain=True)
-    gates.check(report_batched(got, want, steps, dt, dt_p),
+    with routing_log() as blog:
+        want, _, dt_p, _, picks_p = batched_run(params, cfg, dev, plain=True)
+    gates.check(report_batched(got, want, steps, dt, dt_p, picks, picks_p),
                 "a batched request did not finish with its token count")
     print(f"  batched launches: "
           f"{json.dumps({k: n for k, n in counts.items() if n})}")
@@ -1044,6 +1152,14 @@ def moe_path(dev, depth: int) -> dict:
                    3 * depth * steps)
     gates.launched("batched", "decode_attention", counts["decode_attention"],
                    depth * steps)
+    # why the kernels' tokens leave the plain run's: the kernels' run
+    # again, replaying the plain run's routing (reported, not gated; its
+    # launches are not counted)
+    with routing_log(replay=blog):
+        got_r, _, dt, _, picks = batched_run(params, cfg, dev, plain=False)
+    print("  the kernels' batched run again, replaying the plain run's "
+          "routing:")
+    report_batched(got_r, want, steps, dt, dt_p, picks, picks_p)
     print(f"  moe path launches (forward + decode steps + batched): "
           f"{json.dumps({k: n for k, n in gates.main.items() if n})}")
     gates.finish()
@@ -1099,6 +1215,8 @@ def ssm_path(dev, depth: int) -> dict:
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         gates.add(counts)
+        print(f"  bf16 template launches by path ({cfg.dtype} forward): "
+              f"{json.dumps(ops.gemm_path_counts())}")
         print(f"  {cfg.dtype} forward {tuple(toks.shape)}: "
               f"{(time.perf_counter() - t0) * 1e3:.1f} ms with the kernels "
               f"(first call); launches "
@@ -1152,10 +1270,11 @@ def ssm_path(dev, depth: int) -> dict:
         T.decode_step(params, state, {"tokens": toks[:, t:t + 1]}, t, cfg)
     profile_steps("8 bf16 decode steps B=1", lambda i: T.decode_step(
         params, state, {"tokens": toks[:, 4 + i:5 + i]}, 4 + i, cfg), 8)
-    got, steps, dt, counts = batched_run(params, cfg, dev, plain=False)
+    got, steps, dt, counts, picks = batched_run(params, cfg, dev,
+                                                plain=False)
     gates.add(counts)
-    want, _, dt_p, _ = batched_run(params, cfg, dev, plain=True)
-    gates.check(report_batched(got, want, steps, dt, dt_p),
+    want, _, dt_p, _, picks_p = batched_run(params, cfg, dev, plain=True)
+    gates.check(report_batched(got, want, steps, dt, dt_p, picks, picks_p),
                 "a batched request did not finish with its token count")
     print(f"  batched launches: "
           f"{json.dumps({k: n for k, n in counts.items() if n})}")
@@ -1227,7 +1346,8 @@ def main() -> None:
     from repro_torch.kernels.attention import visible as attn_visible
     from repro_torch.kernels.conv_winograd import winograd_tile_matmul_plain
     from repro_torch.kernels.gmm import gmm_blocks_plain
-    from repro_torch.kernels.matmul import matmul_packed_plain, matmul_plain
+    from repro_torch.kernels.matmul import (matmul_packed_plain, matmul_plain,
+                                            plan_bf16_gemm)
     from repro_torch.kernels.ssd import ssd_scan_plain
     from repro_torch.models.cnn import build_cnn
 
@@ -1272,6 +1392,9 @@ def main() -> None:
         if regs:
             print(f"  ptxas {src}: {len(regs)} kernels, {min(regs)}-"
                   f"{max(regs)} registers, {spills} bytes of spill stores")
+        for line in [l for l in log.splitlines()
+                     if "warning" in l.lower()][:8]:
+            print(f"  nvcc {src}: {line.strip()[:200]}")
 
     # -- 3. kernels against their plain versions ------------------------------
     stream = torch.cuda.Stream(dev)
@@ -1295,19 +1418,55 @@ def main() -> None:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
+    def device_ms(fn, iters=20, library=False):
+        """Device time of one call of ``fn``: ``iters`` calls captured in
+        one CUDA graph, replayed and timed with CUDA events, so the host's
+        cost of a wrapper call drops out. A port's wrapper that cannot be
+        captured fails the run (decode is to run as CUDA graphs); a
+        ``library`` call that cannot gives None."""
+        try:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=stream):
+                for _ in range(iters):
+                    fn()
+            with torch.cuda.stream(stream):
+                g.replay()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                for _ in range(3):
+                    g.replay()
+                end.record(stream)
+            end.synchronize()
+            del g
+            return start.elapsed_time(end) / (3 * iters)
+        except Exception as e:
+            if not library:
+                fail(f"a kernel wrapper cannot be captured in a CUDA graph "
+                     f"({type(e).__name__}: {e})")
+            print(f"  (library call: no graph capture: "
+                  f"{type(e).__name__}: {e})")
+            torch.cuda.synchronize()
+            return None
+
     def bound(flops, nbytes, dtype="float32"):
         t_ops, t_bytes = flops / peaks[dtype], nbytes / peaks["bytes"]
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
 
     def check(label, kernel, plain, library, flops, nbytes,
-              dtype="float32", peak=None, exact=False):
+              dtype="float32", peak=None, exact=False, repeat_equal=False):
         """A kernel returning a tuple is held to its plain version output
-        by output, each to its own max|plain|: the worst is reported."""
+        by output, each to its own max|plain|: the worst is reported. With
+        ``repeat_equal`` a second launch on the same inputs must give the
+        same bits."""
         torch.cuda.synchronize()  # inputs were copied on the default stream
         with torch.cuda.stream(stream):
             got, ref = kernel(), plain()
+            again = kernel() if repeat_equal else None
         stream.synchronize()
+        if repeat_equal and not torch.equal(got, again):
+            fail(f"{label}: two launches on the same inputs differ")
         outs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
         err, scale, finite = 0.0, 1e-30, True
         for g, r in outs:
@@ -1319,16 +1478,31 @@ def main() -> None:
         ms, plain_ms = time_ms(kernel), time_ms(plain)
         lib_ms = time_ms(library) if library is not None else None
         b_ms, b_by = bound(flops, nbytes, peak or dtype)
+        # the redesigned kernels: device time too (the wrapper's host cost
+        # bounds ms from below at small shapes)
+        dev = {}
+        if repeat_equal:
+            dev["device_ms"] = device_ms(kernel)
+            dev["library_device_ms"] = (device_ms(library, library=True)
+                                        if library is not None else None)
+
+        def fmt(v):
+            return "-" if v is None else f"{v:.4f}"
+
         print(f"  {label}: max|d|={err:.3e} rel={err / scale:.3e} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-              f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} "
-              f"bound_ms={b_ms:.6f} ({b_by}, {peak or dtype} peak)")
+              f"{fmt(lib_ms)} bound_ms={b_ms:.6f} ({b_by}, {peak or dtype} "
+              f"peak)" + (f"; device_ms={fmt(dev['device_ms'])} "
+                          f"library_device_ms="
+                          f"{fmt(dev['library_device_ms'])}; two launches "
+                          f"bitwise equal" if repeat_equal else ""))
         tol = 0.0 if exact else KERNEL_TOL[dtype]
         if not finite or err / scale > tol:
             fail(f"{label}: kernel disagrees with its plain version "
                  f"(rel {err / scale:.3e} > {tol})")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                **dev}
 
     print("kernels vs plain versions (resnet50@224 shapes):")
     results = {}
@@ -1374,8 +1548,58 @@ def main() -> None:
         r = check(f"matmul_bf16 {tag} ({M},{K})x({K},{N})",
                   lambda: ops.matmul(x, w), lambda: matmul_plain(x, w),
                   lambda: torch.matmul(x, w),
-                  2 * M * N * K, 2 * (M * K + K * N + M * N), "bfloat16")
+                  2 * M * N * K, 2 * (M * K + K * N + M * N), "bfloat16",
+                  repeat_equal=True)
         results.setdefault("matmul_bf16", {})[tag] = r
+
+    print("kernels vs plain versions (bf16 matmul on the tensor cores: the "
+          "decode projections at M 1 and 4 of smollm-360m, granite-moe-3b-"
+          "a800m and mamba2-2.7b, mamba2's prefill projection, the tied "
+          "heads reading embed (V, d) K-major in place, ragged and "
+          "unaligned edges):")
+    # (tag, M, K, N, K-major w: a (N, K) tensor passed as its .T)
+    mm_rows = [("smollm_head_tied_M64", 64, 960, 49152, True)]
+    for M in (1, 4):
+        mm_rows += [(f"smollm_d_model_M{M}", M, 960, 960, False),
+                    (f"smollm_up_M{M}", M, 960, 2560, False),
+                    (f"smollm_down_M{M}", M, 2560, 960, False),
+                    (f"smollm_head_tied_M{M}", M, 960, 49152, True),
+                    (f"granite_q_o_M{M}", M, 1536, 1536, False),
+                    (f"granite_kv_M{M}", M, 1536, 512, False),
+                    (f"granite_head_tied_M{M}", M, 1536, 49155, True)]
+    # the prefill projections and tied heads of granite (512 tokens) and
+    # mamba2 (1024): the only 128-row tiles reading a K-major w
+    mm_rows += [("granite_q_o_prefill", 512, 1536, 1536, False),
+                ("granite_kv_prefill", 512, 1536, 512, False),
+                ("granite_head_tied_prefill", 512, 1536, 49155, True),
+                ("mamba2_in_prefill", 1024, 2560, 5120, False),
+                ("mamba2_bc_prefill", 1024, 2560, 128, False),
+                ("mamba2_dt_prefill", 1024, 2560, 80, False),
+                ("mamba2_out_prefill", 1024, 5120, 2560, False),
+                ("mamba2_head_tied_prefill", 1024, 2560, 50280, True),
+                ("mamba2_in_M4", 4, 2560, 5120, False),
+                ("mamba2_out_M4", 4, 5120, 2560, False),
+                ("mamba2_head_tied_M4", 4, 2560, 50280, True),
+                # scalar copies: K, N or both not a multiple of 8
+                ("ragged_skinny", 3, 129, 7, False),
+                ("ragged_tile", 100, 200, 49155, False),
+                ("ragged_kmajor", 20, 37, 50, True),
+                ("unaligned_n_skinny", 5, 1536, 49155, False)]
+    for tag, M, K, N, kmajor in mm_rows:
+        x = rand(M, K, dtype=torch.bfloat16)
+        w = (rand(N, K, dtype=torch.bfloat16, scale=K ** -0.5).T if kmajor
+             else rand(K, N, dtype=torch.bfloat16, scale=K ** -0.5))
+        plan = plan_bf16_gemm(M, N, K)
+        r = check(f"matmul_bf16 {tag} ({M},{K})x({K},{N}) "
+                  f"{'K-major' if kmajor else 'row-major'} w, {plan.path} "
+                  f"path bm {plan.bm} split {plan.split} ({plan.blocks} "
+                  f"blocks)",
+                  lambda: ops.matmul(x, w), lambda: matmul_plain(x, w),
+                  lambda: torch.matmul(x, w),
+                  2 * M * N * K, 2 * (M * K + K * N + M * N), "bfloat16",
+                  repeat_equal=True)
+        results["matmul_bf16"][tag] = {**r, "path": plan.path,
+                                       "split": plan.split}
 
     def visible_pairs(S, window):
         rows = np.arange(S)
@@ -1538,6 +1762,16 @@ def main() -> None:
               2 * M * N * K, 2 * (M * K + K * N) + 4 * M * N, "float32",
               peak="bfloat16")
     results["matmul_bf16"]["resnet_head_f32out"] = r
+    # and at mamba2's prefill projection, the one bound by operations
+    M, K, N = 1024, 2560, 5120
+    x = rand(M, K, dtype=torch.bfloat16)
+    w = rand(K, N, dtype=torch.bfloat16, scale=K ** -0.5)
+    r = check(f"matmul_bf16 f32-out mamba2_in_prefill ({M},{K})x({K},{N})",
+              lambda: ops.matmul(x, w, out_dtype=torch.float32),
+              lambda: matmul_plain(x, w, torch.float32), None,
+              2 * M * N * K, 2 * (M * K + K * N) + 4 * M * N, "float32",
+              peak="bfloat16", repeat_equal=True)
+    results["matmul_bf16"]["mamba2_in_prefill_f32out"] = r
 
     print("kernels vs plain versions (gmm_blocks: granite-moe-3b-a800m's "
           "expert GEMMs at decode and at a 512-token prefill, bf16; the "
@@ -1560,8 +1794,49 @@ def main() -> None:
         r = check(f"gmm_blocks {tag} ({E},{C},{d})x({E},{d},{n}) {dname}",
                   lambda: ops.gmm_blocks(x, w), lambda: gmm_blocks_plain(x, w),
                   lambda: torch.bmm(x, w), 2 * E * C * d * n,
-                  es * (E * C * d + E * d * n + E * C * n), dname)
+                  es * (E * C * d + E * d * n + E * C * n), dname,
+                  repeat_equal=True)
         results.setdefault("gmm_blocks", {})[tag] = r
+    # with group sizes: decode's top-8-of-40 routing of 1 and of 4 tokens
+    # (C 8), a 512-token prefill's counts clipped at C 208 with two idle
+    # experts, and the f32 entry with an empty, a partial and a full
+    # expert. The bound counts what these sizes need: the rows that hold
+    # tokens, the weights of the experts that have any, the whole output;
+    # no single PyTorch call computes this function, so no library time
+    E, d, n = 40, 1536, 512
+    routed_cases = []
+    for T in (1, 4):
+        picks = np.concatenate([rng.choice(E, 8, replace=False)
+                                for _ in range(T)])
+        routed_cases.append((f"decode_gate_routed_T{T}", 8,
+                             np.bincount(picks, minlength=E), torch.bfloat16))
+    counts = np.minimum(rng.multinomial(512 * 8, np.ones(E) / E), 208)
+    counts[[3, 17]] = 0
+    routed_cases.append(("prefill_gate_routed", 208, counts, torch.bfloat16))
+    for tag, C, gs_np, dt in routed_cases:
+        x = rand(E, C, d, dtype=dt)
+        w = rand(E, d, n, dtype=dt, scale=d ** -0.5)
+        gs = torch.from_numpy(gs_np.astype(np.int32)).to(dev)
+        rows, active = int(gs_np.sum()), int((gs_np > 0).sum())
+        r = check(f"gmm_blocks {tag} ({E},{C},{d})x({E},{d},{n}) bfloat16, "
+                  f"{rows} rows in {active} experts",
+                  lambda: ops.gmm_blocks(x, w, gs),
+                  lambda: gmm_blocks_plain(x, w, gs), None,
+                  2 * rows * d * n, 2 * (rows * d + active * d * n + E * C * n),
+                  "bfloat16", repeat_equal=True)
+        results["gmm_blocks"][tag] = {**r, "experts_read": active}
+    for dt in (torch.float32, torch.bfloat16):
+        E3, C3, d3, n3 = 3, 40, 20, 9
+        x, w = rand(E3, C3, d3, dtype=dt), rand(E3, d3, n3, dtype=dt)
+        gs = torch.tensor([0, 17, 40], dtype=torch.int32, device=dev)
+        dname = str(dt).replace("torch.", "")
+        r = check(f"gmm_blocks sweep_3x40x20x9_group_sizes_0_17_40 {dname}",
+                  lambda: ops.gmm_blocks(x, w, gs),
+                  lambda: gmm_blocks_plain(x, w, gs), None,
+                  2 * 57 * d3 * n3,
+                  x.element_size() * (57 * d3 + 2 * d3 * n3 + E3 * C3 * n3),
+                  dname, repeat_equal=True)
+        results["gmm_blocks"][f"sweep_group_sizes_{dname}"] = r
 
     print("kernels vs plain versions (ssd_scan: mamba2-2.7b at S 1024 from a "
           "zero and a random state, y and the final state; the Pallas "
@@ -1602,6 +1877,9 @@ def main() -> None:
         results.setdefault("ssd_scan", {})[tag] = r
     torch.cuda.synchronize()
     print(f"  [kernel phases done at {time.perf_counter() - t_start:.1f} s]")
+    if "--kernels-only" in sys.argv[1:]:
+        print("chip_smoke: --kernels-only: stopped after the kernel checks")
+        sys.exit(0)
     launches = {}
 
     # -- 4. the main path ---------------------------------------------------
@@ -1687,11 +1965,13 @@ def main() -> None:
             before = ops.launch_counts()
             if pin is not None:
                 eng.set_plan(replace(decided, choices=pin))
+            start = first_read_state(eng.store) if pin is None else AS_LEFT
             r = eng.run_cold(x_np)
             after = ops.launch_counts()
             delta = {k: after[k] - before[k] for k in after}
             per_run.append((label, delta))
-            print(f"  run_cold [{label}]: total_s={r.total_s:.4f} "
+            print(f"  run_cold [{label}; start: {start}]: "
+                  f"total_s={r.total_s:.4f} "
                   f"stage_seconds={json.dumps(r.stage_seconds())} "
                   f"launches={json.dumps(delta)}")
             check_output(label, r.output)
@@ -1710,8 +1990,10 @@ def main() -> None:
         # the other entry points of the slice, outside the counted window
         eng.set_plan(decided)
         for mode in ("sequential", "nnv12_nosteal"):
+            start = first_read_state(eng.store)
             r = eng.run_cold(x_np, mode=mode)
-            print(f"  run_cold [{mode}]: total_s={r.total_s:.4f}")
+            print(f"  run_cold [decided plan, {mode}; start: {start}]: "
+                  f"total_s={r.total_s:.4f}")
             check_output(mode, r.output)
         print(f"  run_warm: {eng.run_warm(x_np):.4f} s")
         # staging through the pinned-slab DMA thread against inline host

@@ -28,6 +28,12 @@
 // N and K edges are masked in the loads and the store: nothing is padded
 // in device memory (an odd K never reads the high nibble of kInt4's last
 // byte, nor A past column K).
+//
+// With row_limit (one int per batch entry, read on the device), rows
+// r >= row_limit[z] of batch entry z are written as zeros and never read
+// from A, and a block whose rows all lie past the limit loads nothing
+// (gmm_blocks' group_sizes: an expert with no rows reads none of its
+// weights).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,7 +86,8 @@ __global__ void __launch_bounds__(kThreads)
     gemm_f32_kernel(const TA* __restrict__ A, const TB* __restrict__ B,
                     TC* __restrict__ C, const float* __restrict__ col_scale,
                     int M, int N, int K, long long batch_a,
-                    long long batch_b, long long batch_c, int nK) {
+                    long long batch_b, long long batch_c, int nK,
+                    const int* __restrict__ row_limit) {
   __shared__ __align__(16) float As[kBK][kBM + 4];
   __shared__ __align__(16) float Bs[kBK][kBN];
 
@@ -92,6 +99,11 @@ __global__ void __launch_bounds__(kThreads)
   A += (size_t)blockIdx.z * batch_a;
   B += (size_t)blockIdx.z * batch_b;
   C += (size_t)blockIdx.z * batch_c;
+  int Mz = M;  // rows of this batch entry that hold data
+  if (row_limit != nullptr) {
+    const int r = row_limit[blockIdx.z];
+    Mz = r < 0 ? 0 : (r < M ? r : M);
+  }
 
   // load assignment: A tile (64 rows x 16 k), 4 consecutive k per thread;
   // B tile (16 k x 64 cols), 4 consecutive columns per thread
@@ -106,13 +118,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
+  for (int k0 = 0; m0 < Mz && k0 < K; k0 += kBK) {
     const int am = m0 + a_row;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int k = k0 + a_k + j;
       As[a_k + j][a_row] =
-          (am < M && k < K) ? to_f32(A[(size_t)am * K + k]) : 0.0f;
+          (am < Mz && k < K) ? to_f32(A[(size_t)am * K + k]) : 0.0f;
     }
     const int bk = k0 + b_k;
 #pragma unroll
@@ -145,7 +157,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
       if (n >= N) continue;
-      float v = acc[i][j];
+      float v = m < Mz ? acc[i][j] : 0.0f;
       if constexpr (SCALE) v *= col_scale[n];
       store_f32(&C[(size_t)m * N + n], v);
     }
@@ -159,11 +171,12 @@ template <BMode MODE, bool SCALE = false, typename TA, typename TB,
 inline int launch_gemm_f32(const TA* A, const TB* B, TC* C,
                            const float* col_scale, int M, int N, int K,
                            int batch, long long batch_a, long long batch_b,
-                           long long batch_c, int nK, cudaStream_t stream) {
+                           long long batch_c, int nK, cudaStream_t stream,
+                           const int* row_limit = nullptr) {
   if (M <= 0 || N <= 0 || batch <= 0) return (int)cudaGetLastError();
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, batch);
   gemm_f32_kernel<MODE, SCALE, TA, TB, TC><<<grid, kThreads, 0, stream>>>(
-      A, B, C, col_scale, M, N, K, batch_a, batch_b, batch_c, nK);
+      A, B, C, col_scale, M, N, K, batch_a, batch_b, batch_c, nK, row_limit);
   return (int)cudaGetLastError();
 }
 

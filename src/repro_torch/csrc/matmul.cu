@@ -1,7 +1,11 @@
 // matmul and matmul_packed: the Hopper ports of the Pallas kernels in
-// repro/kernels/matmul.py (_mm_kernel, _mm_packed_kernel); matmul in f32,
-// in bf16 (f32 accumulate, bf16 out) and bf16 in with f32 out. Plain C
-// entry points, loaded with ctypes by repro_torch/kernels/_native.py.
+// repro/kernels/matmul.py (_mm_kernel, _mm_packed_kernel). matmul in f32
+// runs on the f32 template (gemm_f32.cuh, IEEE FMA, no TF32); in bf16
+// (bf16 out, or f32 out) on the tensor-core template (gemm_bf16_tc.cuh),
+// along the path, K split and B layout that the host planner
+// (kernels/matmul.py plan_bf16_gemm) passes in. Plain C entry points,
+// loaded with ctypes by repro_torch/kernels/_native.py.
+#include "gemm_bf16_tc.cuh"
 #include "gemm_f32.cuh"
 
 using repro_torch::BMode;
@@ -16,22 +20,29 @@ int repro_matmul_f32(const float* x, const float* w, float* out, int M, int N,
       static_cast<cudaStream_t>(stream));
 }
 
-// out(M,N) = x(M,K) · w(K,N); all row-major bf16, contiguous; f32
-// accumulator, each output rounded to bf16 once.
+// out(M,N) = x(M,K) · w(K,N), bf16, f32 accumulator, each output rounded
+// to bf16 once. x and out row-major, contiguous; w row-major (K,N) with
+// leading dimension ldb, or with b_kmajor an (N,K) matrix with leading
+// dimension ldb read as its transpose (w.T contiguous). path, bm and split
+// as plan_bf16_gemm decided; split > 1 needs split·M·N floats of scratch.
 int repro_matmul_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                      __nv_bfloat16* out, int M, int N, int K, void* stream) {
-  return repro_torch::launch_gemm_f32<BMode::kRowMajor>(
-      x, w, out, nullptr, M, N, K, 1, 0, 0, 0, 0,
-      static_cast<cudaStream_t>(stream));
+                      __nv_bfloat16* out, int M, int N, int K, int ldb,
+                      int b_kmajor, int path, int bm, int split,
+                      float* scratch, void* stream) {
+  return repro_torch::tc::launch_gemm_bf16_tc(
+      x, w, out, nullptr, M, N, K, ldb, b_kmajor != 0, 1, 0, 0, 0, path, bm,
+      split, scratch, static_cast<cudaStream_t>(stream));
 }
 
-// out(M,N) = x(M,K) · w(K,N); x and w bf16, out f32 (the f32 accumulator
-// stored as it is: jnp.dot(bf16, bf16, preferred_element_type=f32)).
+// The same with f32 out: the accumulator stored as it is
+// (jnp.dot(bf16, bf16, preferred_element_type=f32)).
 int repro_matmul_bf16_f32out(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                             float* out, int M, int N, int K, void* stream) {
-  return repro_torch::launch_gemm_f32<BMode::kRowMajor>(
-      x, w, out, nullptr, M, N, K, 1, 0, 0, 0, 0,
-      static_cast<cudaStream_t>(stream));
+                             float* out, int M, int N, int K, int ldb,
+                             int b_kmajor, int path, int bm, int split,
+                             float* scratch, void* stream) {
+  return repro_torch::tc::launch_gemm_bf16_tc(
+      x, w, out, nullptr, M, N, K, ldb, b_kmajor != 0, 1, 0, 0, 0, path, bm,
+      split, scratch, static_cast<cudaStream_t>(stream));
 }
 
 // out(M,N) = x(M,K) · W[:K, :N], where W is stored packed as

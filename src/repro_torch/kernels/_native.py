@@ -32,15 +32,16 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("matmul", "conv_winograd", "flash_attention", "decode_attention",
            "quant", "gmm", "ssd")  # csrc/<name>.cu
-HEADERS = ("gemm_f32.cuh",)
+HEADERS = ("gemm_f32.cuh", "gemm_bf16_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = {
     "repro_matmul_f32": [_P, _P, _P, _I, _I, _I, _P],
-    "repro_matmul_bf16": [_P, _P, _P, _I, _I, _I, _P],
-    "repro_matmul_bf16_f32out": [_P, _P, _P, _I, _I, _I, _P],
+    # x, w, out, M, N, K, ldb, b_kmajor, path, bm, split, scratch, stream
+    "repro_matmul_bf16": [_P, _P, _P] + [_I] * 8 + [_P, _P],
+    "repro_matmul_bf16_f32out": [_P, _P, _P] + [_I] * 8 + [_P, _P],
     "repro_matmul_packed_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_winograd_tile_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
@@ -53,8 +54,9 @@ ARGTYPES = {
     "repro_matmul_dequant_int8_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_matmul_dequant_int4_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_matmul_dequant_int4_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "repro_gmm_blocks_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_gmm_blocks_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, out, group_sizes, E, C, d, n, [path, bm, split, scratch,] stream
+    "repro_gmm_blocks_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_gmm_blocks_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_P, _P],
     "repro_ssd_scan_f32": [_P] * 9 + [_I] * 6 + [_P],
     "repro_ssd_scan_bf16": [_P] * 9 + [_I] * 6 + [_P],
 }

@@ -4,65 +4,102 @@
 x (E, C, d), expert-sorted tokens gathered into fixed-capacity blocks (what
 ``models.moe._gffn_blocks`` forms), times per-expert weights w (E, d, n),
 gives (E, C, n): one GEMM per expert with an f32 accumulator, out in x's
-dtype. float32 or bfloat16, w in x's dtype.
+dtype. float32 or bfloat16, w in x's dtype. With ``group_sizes`` ((E,)
+int32 on x's device), output rows r >= group_sizes[e] of expert e are
+zero; without it the function is exactly the Pallas kernel's.
 
-Kernel: ``csrc/gmm.cu``, the shared tiled GEMM of ``csrc/gemm_f32.cuh``
-(64x64 block tile, K step 16, IEEE f32 FMA on the CUDA cores, no TF32)
-with the expert on ``blockIdx.z``: each block reads the contiguous weight
-rows of its expert and column tile. Ragged C, d and n are masked in the
-kernel; nothing is padded in device memory.
+Kernels (``csrc/gmm.cu``), the expert on ``blockIdx.z``, each block
+reading the contiguous weight rows of its expert and column tile; ragged
+C, d and n masked in the kernel, nothing padded in device memory. bf16:
+the tensor-core template ``csrc/gemm_bf16_tc.cuh`` along the path that
+``matmul.plan_bf16_gemm`` picks for (C, n, d, E): the skinny path (one
+``mma.sync`` tile of 16 rows streaming a 64-column slab of w once) at
+decode's C = 8, the ``wgmma`` tile path at a prefill's C = 208. f32: the
+f32 template ``csrc/gemm_f32.cuh`` (IEEE FMA, no TF32) with the same
+per-expert row limit. The kernels read ``group_sizes`` themselves (no
+host sync): a tile whose rows all lie past its expert's size loads
+nothing, so an expert with no rows reads none of its weights.
 
 Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): granite-moe-3b-a800m
-(E 40, d 1536, n 512, bf16) at decode has C = 8, so each projection reads
-all 40 experts' weights, 62.9 MB, for 0.25 GFLOP: bound by bytes (0.019
-ms). At a 512-token prefill C = 208: 97 MB against 13.1 GFLOP, still bound
-by bytes at the tensor-core rate (0.029 ms). This first kernel runs its
-products on the CUDA cores and wastes 56 of the 64 tile rows at C = 8;
-skipping empty experts and fusing the capacity-block gather are later work.
+(E 40, d 1536, n 512, bf16) at decode has C = 8; without group sizes each
+projection reads all 40 experts' weights, 62.9 MB, for 0.25 GFLOP: bound
+by bytes (0.019 ms). A decode step routes 8 experts a token, so with
+group sizes it reads at most 8 experts' weights at batch 1 (12.6 MB,
+0.004 ms). At a 512-token prefill C = 208: 97 MB against 13.1 GFLOP,
+bound by bytes at the tensor-core rate (0.029 ms).
 
 ``gmm_blocks_plain`` is the plain version (``ref.gmm_ref``): the f32
-einsum, cast to x's dtype. On a CPU tensor the wrapper runs it; on a CUDA
-tensor it launches the kernel or raises — there is no fallback.
-``launches`` counts kernel launches only.
+einsum, cast to x's dtype, rows past the group sizes set to zero. On a CPU
+tensor the wrapper runs it; on a CUDA tensor it launches the kernel or
+raises — there is no fallback. ``launches`` counts kernel launches only
+(a split-K launch and its reduction count once).
 """
 from __future__ import annotations
 
 import threading
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _native
+from repro_torch.kernels.matmul import launch_bf16, plan_bf16_gemm
 
 launches = {"gmm_blocks": 0}
 _lock = threading.Lock()
 
 
-def gmm_blocks_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """f32-accumulated per-expert x[e] @ w[e], cast to x's dtype."""
-    return torch.einsum("ecd,edn->ecn", x.to(torch.float32),
-                        w.to(torch.float32)).to(x.dtype)
+def gmm_blocks_plain(x: torch.Tensor, w: torch.Tensor,
+                     group_sizes: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """f32-accumulated per-expert x[e] @ w[e], cast to x's dtype; rows
+    r >= group_sizes[e] of expert e are zero where group sizes are given."""
+    y = torch.einsum("ecd,edn->ecn", x.to(torch.float32), w.to(torch.float32))
+    if group_sizes is not None:
+        keep = (torch.arange(x.shape[1], device=x.device)[None, :]
+                < group_sizes.to(x.device)[:, None])
+        y = torch.where(keep[..., None], y, torch.zeros((), device=y.device))
+    return y.to(x.dtype)
 
 
-def gmm_blocks(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (E, C, d) @ w (E, d, n) -> (E, C, n) in x's dtype."""
+def gmm_blocks(x: torch.Tensor, w: torch.Tensor,
+               group_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (E, C, d) @ w (E, d, n) -> (E, C, n) in x's dtype; rows past
+    ``group_sizes`` ((E,) int32) zero."""
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"gmm_blocks: bad shapes {tuple(x.shape)} x "
                          f"{tuple(w.shape)}")
+    if group_sizes is not None and tuple(group_sizes.shape) != (x.shape[0],):
+        raise ValueError(f"gmm_blocks: group_sizes {tuple(group_sizes.shape)}"
+                         f" for {x.shape[0]} experts")
     if _native.on_cpu("gmm_blocks", x, w,
                       dtypes=(torch.float32, torch.bfloat16)):
-        return gmm_blocks_plain(x, w)
+        if group_sizes is not None and group_sizes.device.type != "cpu":
+            raise ValueError("gmm_blocks: group_sizes on another device")
+        return gmm_blocks_plain(x, w, group_sizes)
+    gs_ptr = None
+    if group_sizes is not None:
+        if group_sizes.device != x.device or group_sizes.dtype != torch.int32 \
+                or not group_sizes.is_contiguous():
+            raise TypeError("gmm_blocks: the CUDA kernel takes group_sizes "
+                            "as contiguous int32 on x's device")
+        gs_ptr = group_sizes.data_ptr()
     E, C, d = x.shape
     n = w.shape[2]
     out = torch.empty((E, C, n), dtype=x.dtype, device=x.device)
     if E and C and n:
         lib = _native.library("gmm")
-        fn = (lib.repro_gmm_blocks_bf16 if x.dtype == torch.bfloat16
-              else lib.repro_gmm_blocks_f32)
-        with torch.cuda.device(x.device):
-            rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, n,
-                    torch.cuda.current_stream(x.device).cuda_stream)
-        _native.check(rc, "gmm_blocks")
+        args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), gs_ptr, E, C, d,
+                n)
+        if x.dtype == torch.bfloat16:
+            launch_bf16("gmm_blocks", lib.repro_gmm_blocks_bf16,
+                        plan_bf16_gemm(C, n, d, E), x.device, E * C * n,
+                        *args)
+        else:
+            with torch.cuda.device(x.device):
+                rc = lib.repro_gmm_blocks_f32(
+                    *args, torch.cuda.current_stream(x.device).cuda_stream)
+            _native.check(rc, "gmm_blocks")
         with _lock:
             launches["gmm_blocks"] += 1
     return out

@@ -16,25 +16,37 @@ Two wrappers, each with its plain PyTorch version beside it:
     128, 128) layout in place, so each K step of a block loads rows of one
     contiguous 64 KB weight tile — the point of the packing transform.
 
-Kernel: ``csrc/gemm_f32.cuh`` via ``csrc/matmul.cu`` (64x64 block tile, K
-step 16, 4x4 outputs per thread, IEEE f32 FMA, no TF32; ragged M/N/K edges
-masked in the kernel, nothing padded in device memory). The bf16 entry
-converts on load and rounds on store (or, with f32 out, stores the
-accumulator as it is); its products stay on the CUDA cores (``wgmma`` is
-later work).
+Kernels (``csrc/matmul.cu``). f32: the shared f32 template
+``csrc/gemm_f32.cuh`` (64x64 block tile, K step 16, 4x4 outputs per
+thread, IEEE f32 FMA, no TF32; ragged M/N/K edges masked in the kernel,
+nothing padded in device memory). bf16 (bf16 out, or f32 out): the
+tensor-core template ``csrc/gemm_bf16_tc.cuh``, along the path and K
+split that ``plan_bf16_gemm`` picks on the host:
+  * ``tile`` (M > 16): a 64- or 128-row by 128-column block tile of
+    ``wgmma.mma_async`` m64n128k16 (one or two warpgroups), fed by a
+    3-deep ring of 16-byte ``cp.async`` copies into the 128-byte
+    swizzled layout of the wgmma descriptors;
+  * ``skinny`` (M <= 16: decode at batch 1-4): each block streams a
+    64-column slab of w once and runs ``mma.sync`` m16n8k16 on it, A's
+    rows padded to 16 in shared memory only;
+  * K is split (in a divisor of its 64-deep steps) when the output tiles
+    alone give fewer than 132 blocks; a second kernel sums the f32
+    partials in split order, so a shape's result is the same bits on
+    every launch. Both launches count as one.
+``w`` is read in place either row-major (contiguous) or K-major (a view
+whose ``.T`` is contiguous, such as the tied head's ``embed.T``): no copy
+of the embedding. The f32 kernel takes a row-major w only; the wrapper
+copies a K-major f32 w.
 
-Bound on an H100 SXM (67 TFLOP/s f32 without tensor cores, 3.35 TB/s):
-max(2·M·N·K / 67e12, 4·(MK + KN + MN) / 3.35e12). The im2col GEMMs of
-resnet50@224 — (12544,576)x(576,128) and (3136,1152)x(1152,256), 1.85
-GFLOP each — are bound by operations (≈27.6 µs); the packed head
-(1,256)x(256,100) is bound by launch latency. The design keeps the f32
-FMA units fed from shared memory (two float4 shared loads per 16 FMAs) and
-reads each A and B element from device memory once per block; raising
-the tile and pipelining the loads is later work. The bf16 GEMMs of the
-smollm-360m prefill (M = 64 tokens) are bound by reading the weights at
-3.35 TB/s (the head, (64,960)x(960,49152), moves 101 MB: 30 µs) or by
-launch latency; with M = 64 the 64x64 tile gives only N/64 blocks (15 for
-the d_model projections), so this kernel leaves most SMs idle there.
+Bound on an H100 SXM (67 TFLOP/s f32 without tensor cores, 989 TFLOP/s
+bf16 on them, 3.35 TB/s): max(2·M·N·K / peak, bytes / 3.35e12). The f32
+im2col GEMMs of resnet50@224 — (12544,576)x(576,128) and
+(3136,1152)x(1152,256), 1.85 GFLOP each — are bound by operations
+(≈27.6 µs); the packed head (1,256)x(256,100) by launch latency. The bf16
+GEMMs: mamba2-2.7b's (1024,2560)x(2560,5120) prefill projections by
+operations (27 µs at the tensor-core rate); every decode projection
+(M = 1-4) and the smollm-360m LM head (64,960)x(960,49152) (101 MB, 30 µs)
+by reading the weights, which the skinny path streams once.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — there is no fallback. ``launches`` counts
@@ -42,8 +54,9 @@ kernel launches only.
 """
 from __future__ import annotations
 
+import functools
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,12 +64,93 @@ import torch.nn.functional as F
 from repro_torch.kernels import _native
 
 launches = {"matmul": 0, "matmul_bf16": 0, "matmul_packed": 0}
+# launches of the bf16 tensor-core template (matmul and gmm_blocks) by
+# path; "split" counts the launches of either path that split K
+gemm_paths = {"tile": 0, "skinny": 0, "split": 0}
 _lock = threading.Lock()
 
 
 def _count(name: str) -> None:
     with _lock:
         launches[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# the bf16 template's host planner
+# ---------------------------------------------------------------------------
+SMS = 132            # streaming multiprocessors of an H100 SXM
+SKINNY_MAX_M = 16    # rows of one mma.sync tile
+GEMM_BK = 64         # K step of both paths
+_PATH_CODE = {"skinny": 0, "tile": 1}
+
+
+class GemmPlan(NamedTuple):
+    path: str     # "skinny" (M <= 16) or "tile"
+    bm: int       # rows a block: 16, or 64 / 128 (one / two warpgroups)
+    bn: int       # columns a block: 64 (skinny), 128 (tile)
+    split: int    # K split, a divisor of ksteps (1: none)
+    ksteps: int   # 64-deep K steps
+    blocks: int   # blocks of the main launch
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_bf16_gemm(M: int, N: int, K: int, batch: int = 1) -> GemmPlan:
+    """Path, block tile and K split of the bf16 template for ``batch``
+    GEMMs of (M,K)x(K,N). M <= 16 takes the skinny path; otherwise the
+    tile path, with 128-row tiles where those alone give at least ``SMS``
+    blocks. When the output tiles give fewer than ``SMS`` blocks, K is
+    split by the smallest divisor of its steps that reaches ``SMS``
+    blocks; where none does (smollm-360m's (64,960)x(960,960): 8 tiles,
+    15 steps), by the steps themselves, one a block, as near the card's
+    width as the K steps allow."""
+    ksteps = -(-K // GEMM_BK)
+    if M <= SKINNY_MAX_M:
+        path, bm, bn = "skinny", SKINNY_MAX_M, 64
+    else:
+        path, bn = "tile", 128
+        big = batch * -(-M // 128) * -(-N // bn)
+        bm = 128 if M > 64 and big >= SMS else 64
+    tiles = batch * -(-M // bm) * -(-N // bn)
+    split = 1
+    if tiles < SMS:
+        split = next((d for d in range(2, ksteps + 1)
+                      if ksteps % d == 0 and tiles * d >= SMS),
+                     max(ksteps, 1))
+    return GemmPlan(path, bm, bn, split, ksteps, tiles * split)
+
+
+def _count_path(plan: GemmPlan) -> None:
+    with _lock:
+        gemm_paths[plan.path] += 1
+        if plan.split > 1:
+            gemm_paths["split"] += 1
+
+
+def launch_bf16(kernel: str, fn, plan: GemmPlan, device, out_elems: int,
+                *args) -> None:
+    """Call ``kernel``'s C entry on the bf16 template, ``fn(*args, path,
+    bm, split, scratch, stream)``, with the f32 scratch for the partials
+    (``split`` times ``out_elems``) that a split plan needs; count the
+    path."""
+    scratch = (torch.empty(plan.split * out_elems, dtype=torch.float32,
+                           device=device) if plan.split > 1 else None)
+    with torch.cuda.device(device):
+        rc = fn(*args, _PATH_CODE[plan.path], plan.bm, plan.split,
+                None if scratch is None else scratch.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
+    _native.check(rc, kernel)
+    _count_path(plan)
+
+
+def b_layout(w: torch.Tensor) -> Optional[Tuple[bool, int]]:
+    """(K-major, leading dimension) of a 2-D ``w`` (K, N) that the matmul
+    kernels read in place: row-major when contiguous, K-major when
+    ``w.T`` is contiguous; None for any other strides."""
+    if w.is_contiguous():
+        return False, w.shape[1]
+    if w.T.is_contiguous():
+        return True, w.shape[0]
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -73,13 +167,17 @@ def matmul_plain(x: torch.Tensor, w: torch.Tensor,
 def matmul(x: torch.Tensor, w: torch.Tensor,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x (M, K) @ w (K, N) (float32 or bfloat16; w the same) in
-    ``out_dtype``: x's dtype by default, or float32 for bf16 inputs."""
+    ``out_dtype``: x's dtype by default, or float32 for bf16 inputs. ``w``
+    is contiguous or K-major (``w.T`` contiguous, read in place)."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul: bad shapes {tuple(x.shape)} x {tuple(w.shape)}")
     out_dtype = out_dtype or x.dtype
     if out_dtype not in (x.dtype, torch.float32):
         raise TypeError(f"matmul: no {out_dtype} output for {x.dtype} inputs")
-    if _native.on_cpu("matmul", x, w,
+    # any other strides reach on_cpu as they are: fine on the CPU, refused
+    # (not contiguous) on the card
+    kmajor, ldb = b_layout(w) or (False, 0)
+    if _native.on_cpu("matmul", x, w.T if kmajor else w,
                       dtypes=(torch.float32, torch.bfloat16)):
         return matmul_plain(x, w, out_dtype)
     M, K = x.shape
@@ -87,14 +185,22 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M and N:
         lib = _native.library("matmul")
-        bf16 = x.dtype == torch.bfloat16
-        fn = ((lib.repro_matmul_bf16_f32out if out_dtype == torch.float32
-               else lib.repro_matmul_bf16) if bf16 else lib.repro_matmul_f32)
-        with torch.cuda.device(x.device):
-            rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+        if x.dtype == torch.bfloat16:
+            fn = (lib.repro_matmul_bf16_f32out if out_dtype == torch.float32
+                  else lib.repro_matmul_bf16)
+            launch_bf16("matmul", fn, plan_bf16_gemm(M, N, K), x.device,
+                        M * N,
+                        x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+                        ldb, int(kmajor))
+            _count("matmul_bf16")
+        else:
+            w = w.contiguous()  # the f32 template reads w row-major
+            with torch.cuda.device(x.device):
+                rc = lib.repro_matmul_f32(
+                    x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
                     torch.cuda.current_stream(x.device).cuda_stream)
-        _native.check(rc, "matmul")
-        _count("matmul_bf16" if bf16 else "matmul")
+            _native.check(rc, "matmul")
+            _count("matmul")
     return out
 
 

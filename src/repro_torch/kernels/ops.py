@@ -71,6 +71,12 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for c in _COUNTERS:
+    for c in _COUNTERS + (_mm.gemm_paths,):
         for k in c:
             c[k] = 0
+
+
+def gemm_path_counts() -> Dict[str, int]:
+    """Launches of the bf16 tensor-core template (``matmul`` and
+    ``gmm_blocks``) by path: tile, skinny, and those that split K."""
+    return dict(_mm.gemm_paths)

@@ -35,9 +35,13 @@ NEG_INF = -2.0e38  # large-negative float that survives bf16/f32 casts
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., K) @ w (K, N) on the matmul kernel."""
+    """x (..., K) @ w (K, N) on the matmul kernel. A K-major ``w`` (``w.T``
+    contiguous, e.g. the tied head's ``embed.T``) goes to the kernel as it
+    is, read in place; any other strided ``w`` is copied."""
     lead = x.shape[:-1]
-    y = ops.matmul(x.reshape(-1, x.shape[-1]).contiguous(), w.contiguous())
+    if not (w.is_contiguous() or w.T.is_contiguous()):
+        w = w.contiguous()
+    y = ops.matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
     return y.reshape(*lead, w.shape[1])
 
 

@@ -116,8 +116,13 @@ def _gffn_blocks(xs_pad, offsets, group_sizes, w_gate, w_up, w_down, C):
     ar = torch.arange(C, device=xs_pad.device)
     rows = offsets[:, None] + ar[None, :]                      # (E, C)
     blk = xs_pad[rows]                                         # (E, C, d)
-    h = F.silu(ops.gmm_blocks(blk, w_gate)) * ops.gmm_blocks(blk, w_up)
-    yb = ops.gmm_blocks(h, w_down)                             # (E, C, d_out)
+    # rows past a group's size come out of the kernels as zeros, and an
+    # expert with no rows reads none of its weights; the mask below keeps
+    # the output the reference's either way
+    gs = group_sizes.to(torch.int32)
+    h = (F.silu(ops.gmm_blocks(blk, w_gate, gs))
+         * ops.gmm_blocks(blk, w_up, gs))
+    yb = ops.gmm_blocks(h, w_down, gs)                         # (E, C, d_out)
     yb = torch.where((ar[None, :] < group_sizes[:, None])[..., None], yb,
                      torch.zeros((), dtype=yb.dtype, device=yb.device))
     y = torch.zeros((xs_pad.shape[0], d_out), dtype=xs_pad.dtype,

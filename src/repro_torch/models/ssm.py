@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -164,7 +165,10 @@ def mamba_decode_step(p: dict, x: torch.Tensor, cfg, conv_states,
     return _out_proj(p, y.reshape(B, 1, cfg.ssm_inner), z, cfg), (conv, state)
 
 
-def mamba_state_init(cfg, batch: int, dtype, device="cpu") -> dict:
+def mamba_state_init(cfg, batch: int, dtype, device="cuda") -> dict:
+    """Zero conv and SSM states of one mamba layer, on the card unless
+    ``device`` says otherwise; raises without one."""
+    device = resolve_device(device)
     K = cfg.ssm_conv_width
 
     def zeros(*shape, dt=dtype):

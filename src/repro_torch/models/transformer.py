@@ -37,6 +37,7 @@ import torch
 
 from repro_torch import bf16
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -211,11 +212,13 @@ def _layer(tree, i: int):
 # decode
 # ---------------------------------------------------------------------------
 def init_decode_state(cfg: ArchConfig, batch: int, context_len: int, *,
-                      device="cpu") -> Params:
+                      device="cuda") -> Params:
     """Zero-initialised decode caches sized for ``context_len`` history
     (the reference's shapes and dtypes): KV caches for dense and moe, the
-    per-layer conv and SSM states for ssm."""
+    per-layer conv and SSM states for ssm. On the card unless ``device``
+    says otherwise; raises without one."""
     _check_family(cfg)
+    device = resolve_device(device)
     dt = _dtype(cfg)
     KV, hd, Lr = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
 

@@ -149,3 +149,152 @@ def test_native_build_is_named_by_source_digest(tmp_path, monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS
     with pytest.raises(RuntimeError):
         _native.check(1, "matmul")
+
+
+# ---------------------------------------------------------------------------
+# the bf16 template: a K-major w read in place, and the host planner
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(4, 96, 200), (64, 128, 37)])
+def test_matmul_kmajor_w_matches_pallas(M, K, N, dtype):
+    """A w whose .T is contiguous (the tied head's embed.T) against the
+    Pallas matmul on the contiguous copy, at each dtype's tolerance."""
+    from repro_torch import bf16
+
+    rng = _rng(5, M, K, N)
+    x = jnp.asarray(rng.standard_normal((M, K)), dtype)
+    emb = jnp.asarray(rng.standard_normal((N, K)), dtype)   # (V, d)
+    want = pallas_matmul(x, jnp.asarray(np.asarray(emb).T.copy()),
+                         interpret=True)
+    tx, temb = (bf16.to_tensor(np.array(np.asarray(a))) for a in (x, emb))
+    w = temb.T
+    assert w.stride() == (1, K) and not w.is_contiguous()
+    got = ops.matmul(tx, w)
+    assert got.shape == (M, N) and got.dtype == tx.dtype
+    tol = 5e-2 if dtype == "bfloat16" else 1e-4
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol * np.sqrt(K), rtol=tol)
+
+
+def test_mm_passes_kmajor_w_without_a_copy(monkeypatch):
+    """``layers._mm`` hands a K-major w to ``ops.matmul`` as it is (stride
+    (1, K), the embedding's own storage); any other strided w is copied."""
+    from repro_torch.models import layers as L
+
+    seen = []
+
+    def spy(x, w, out_dtype=None):
+        seen.append(w)
+        return matmul_plain(x, w, out_dtype)
+
+    monkeypatch.setattr(ops, "matmul", spy)
+    emb = torch.randn(50, 8, dtype=torch.bfloat16)
+    x = torch.randn(2, 3, 8, dtype=torch.bfloat16)
+    y = L._mm(x, emb.T)
+    assert y.shape == (2, 3, 50)
+    assert seen[-1].stride() == (1, 8)
+    assert seen[-1].data_ptr() == emb.data_ptr()
+    strided = torch.randn(8, 100)[:, ::2]          # neither layout
+    L._mm(x.float(), strided)
+    assert seen[-1].is_contiguous()
+
+
+def test_tied_head_reads_embed_in_place(monkeypatch):
+    """The tied LM head of ``transformer._lm_logits`` reads ``embed``
+    itself: no ``.contiguous()`` copy of ``embed.T`` on the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("smollm-360m").reduced()
+    assert cfg.tie_embeddings
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    seen = []
+
+    def spy(x, w, out_dtype=None):
+        seen.append(w)
+        return matmul_plain(x, w, out_dtype)
+
+    monkeypatch.setattr(ops, "matmul", spy)
+    h = torch.randn(1, 3, cfg.d_model).to(params["embed"].dtype)
+    logits = T._lm_logits(params, cfg, h)
+    assert logits.shape == (1, 3, cfg.vocab_size)
+    w = seen[-1]
+    assert w.data_ptr() == params["embed"].data_ptr()
+    assert w.stride() == (1, cfg.d_model)
+
+
+def test_matmul_refuses_kmajor_w_off_cpu_and_cuda():
+    # a K-major w on neither a CPU nor a CUDA device: no fallback
+    with pytest.raises(ValueError):
+        ops.matmul(torch.zeros(4, 8, device="meta"),
+                   torch.zeros(3, 8, device="meta").T)
+
+
+# (M, K, N, batch): every matmul_bf16 and gmm_blocks bf16 row of
+# chip_smoke.py, with the path the planner must pick
+PLANNER_ROWS = [
+    ((64, 960, 960, 1), "tile"), ((64, 960, 2560, 1), "tile"),
+    ((64, 2560, 960, 1), "tile"), ((64, 960, 49152, 1), "tile"),
+    ((1, 960, 960, 1), "skinny"), ((1, 960, 2560, 1), "skinny"),
+    ((1, 2560, 960, 1), "skinny"), ((1, 960, 49152, 1), "skinny"),
+    ((4, 960, 960, 1), "skinny"), ((4, 960, 2560, 1), "skinny"),
+    ((4, 2560, 960, 1), "skinny"), ((4, 960, 49152, 1), "skinny"),
+    ((1, 1536, 1536, 1), "skinny"), ((1, 1536, 512, 1), "skinny"),
+    ((1, 1536, 49155, 1), "skinny"), ((4, 1536, 1536, 1), "skinny"),
+    ((4, 1536, 512, 1), "skinny"), ((4, 1536, 49155, 1), "skinny"),
+    ((512, 1536, 1536, 1), "tile"), ((512, 1536, 512, 1), "tile"),
+    ((512, 1536, 49155, 1), "tile"), ((1024, 2560, 128, 1), "tile"),
+    ((1024, 2560, 80, 1), "tile"), ((1024, 5120, 2560, 1), "tile"),
+    ((1024, 2560, 50280, 1), "tile"),
+    ((1024, 2560, 5120, 1), "tile"), ((4, 2560, 5120, 1), "skinny"),
+    ((4, 5120, 2560, 1), "skinny"), ((4, 2560, 50280, 1), "skinny"),
+    ((3, 129, 7, 1), "skinny"), ((100, 200, 49155, 1), "tile"),
+    ((20, 37, 50, 1), "tile"), ((5, 1536, 49155, 1), "skinny"),
+    ((1, 256, 100, 1), "skinny"),
+    ((8, 1536, 512, 40), "skinny"), ((8, 512, 1536, 40), "skinny"),
+    ((208, 1536, 512, 40), "tile"), ((64, 32, 48, 4), "tile"),
+    ((128, 128, 128, 8), "tile"), ((40, 20, 9, 3), "tile")]
+
+
+@pytest.mark.parametrize("shape,path", PLANNER_ROWS,
+                         ids=["x".join(map(str, s)) for s, _ in PLANNER_ROWS])
+def test_plan_bf16_gemm(shape, path):
+    from repro_torch.kernels.matmul import SMS, plan_bf16_gemm
+
+    M, K, N, batch = shape
+    p = plan_bf16_gemm(M, N, K, batch)
+    assert p.path == path
+    assert p.bm == (16 if path == "skinny" else p.bm) and p.bm in (16, 64, 128)
+    assert p.bn == (64 if path == "skinny" else 128)
+    assert p.ksteps == -(-K // 64) and p.ksteps % p.split == 0
+    tiles = batch * -(-M // p.bm) * -(-N // p.bn)
+    assert p.blocks == tiles * p.split
+    if tiles >= SMS:
+        assert p.split == 1
+    elif p.split > 1:
+        # the smallest divisor that fills the card, or, where none does,
+        # one K step a block
+        fills = [d for d in range(2, p.ksteps + 1)
+                 if p.ksteps % d == 0 and tiles * d >= SMS]
+        assert p.split == (fills[0] if fills else p.ksteps)
+        assert p.blocks >= SMS or p.split == p.ksteps
+
+
+def test_plan_bf16_gemm_decisions():
+    """The decisions the design rests on: 128-row tiles for mamba2's
+    prefill projection, the LM head unsplit, decode projections split to
+    fill the card, granite's decode expert blocks on the skinny path."""
+    from repro_torch.kernels.matmul import SMS, plan_bf16_gemm
+
+    assert plan_bf16_gemm(1024, 5120, 2560).bm == 128
+    # the prefill tied heads: 128-row tiles (read K-major), unsplit
+    for M, N, K in [(512, 49155, 1536), (1024, 50280, 2560)]:
+        p = plan_bf16_gemm(M, N, K)
+        assert (p.path, p.bm, p.split) == ("tile", 128, 1)
+    assert plan_bf16_gemm(64, 49152, 960).split == 1
+    p = plan_bf16_gemm(4, 5120, 2560)
+    assert p.split == 2 and p.blocks >= SMS
+    p = plan_bf16_gemm(8, 512, 1536, 40)
+    assert (p.path, p.split, p.blocks) == ("skinny", 1, 320)
+    assert plan_bf16_gemm(2, 5, 0).split == 1          # K = 0: no K steps

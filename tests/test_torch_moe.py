@@ -104,6 +104,76 @@ def test_gmm_blocks_wrapper_checks():
     assert ops.gmm_blocks(x, torch.zeros(2, 4, 3)).shape == (2, 8, 3)
 
 
+@pytest.mark.parametrize("E,C,d,n,sizes", [
+    (4, 64, 32, 48, (0, 64, 17, 1)), (3, 40, 20, 9, (40, 0, 0)),
+    (5, 8, 128, 128, (1, 0, 8, 3, 2))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_blocks_group_sizes_match_pallas(E, C, d, n, sizes, dtype):
+    """With group sizes, the rows r < size equal the Pallas kernel's (at the
+    sweep's tolerance) and every other row is exactly zero, an expert with
+    no rows included."""
+    rng = _rng(7, E, C, d, n)
+    x = jnp.asarray(rng.standard_normal((E, C, d)) * 0.3, dtype)
+    w = jnp.asarray(rng.standard_normal((E, d, n)) * 0.3, dtype)
+    want = _np(pallas_gmm(x, w, bc=32, bn=32, bk=32, interpret=True))
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    for got in (ops.gmm_blocks(_t(x), _t(w), gs),
+                gmm_blocks_plain(_t(x), _t(w), gs)):
+        assert got.shape == (E, C, n) and bf16.dtype_name(got.dtype) == dtype
+        got = _np(got.float())
+        tol = _tol(dtype)
+        for e, size in enumerate(sizes):
+            np.testing.assert_allclose(got[e, :size], want[e, :size],
+                                       atol=tol * np.sqrt(d), rtol=tol)
+            assert not got[e, size:].any()
+    # without group sizes: the Pallas kernel's function, every row
+    np.testing.assert_allclose(_np(gmm_blocks_plain(_t(x), _t(w)).float()),
+                               want, atol=_tol(dtype) * np.sqrt(d),
+                               rtol=_tol(dtype))
+
+
+def test_gmm_blocks_group_sizes_checks():
+    x, w = torch.zeros(2, 8, 4), torch.zeros(2, 4, 3)
+    with pytest.raises(ValueError):
+        ops.gmm_blocks(x, w, torch.zeros(3, dtype=torch.int32))
+    # rows past the sizes are zero even where the product is not finite
+    w_inf = torch.full((2, 4, 3), float("inf"))
+    y = ops.gmm_blocks(torch.ones(2, 8, 4), w_inf,
+                       torch.tensor([0, 2], dtype=torch.int32))
+    assert not y[0].any() and not y[1, 2:].any()
+    assert torch.isinf(y[1, :2]).all()
+
+
+def test_gffn_blocks_passes_group_sizes(monkeypatch):
+    """``_gffn_blocks`` hands its group sizes (int32) to every
+    ``gmm_blocks`` launch, and its output is the reference's."""
+    rng = _rng(8)
+    E, d, ff, C = 4, 8, 16, 8
+    sizes = np.array([3, 0, 8, 5])
+    xs = rng.standard_normal((int(sizes.sum()), d)).astype(np.float32)
+    wg, wu, wd = _expert_weights(rng, E, d, ff)
+    seen = []
+    real = ops.gmm_blocks
+
+    def spy(x, w, group_sizes=None):
+        seen.append(group_sizes)
+        return real(x, w, group_sizes)
+
+    monkeypatch.setattr(ops, "gmm_blocks", spy)
+    offsets = np.cumsum(sizes) - sizes
+    xs_pad = np.pad(xs, ((0, C), (0, 0)))
+    got = M._gffn_blocks(torch.from_numpy(xs_pad), torch.from_numpy(offsets),
+                         torch.from_numpy(sizes), torch.from_numpy(wg),
+                         torch.from_numpy(wu), torch.from_numpy(wd), C)
+    want = RM._gffn_blocks(jnp.asarray(xs_pad), jnp.asarray(offsets),
+                           jnp.asarray(sizes, jnp.int32), jnp.asarray(wg),
+                           jnp.asarray(wu), jnp.asarray(wd), C)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5, rtol=1e-5)
+    assert len(seen) == 3
+    for gs in seen:
+        assert gs.dtype == torch.int32 and gs.tolist() == sizes.tolist()
+
+
 # ---------------------------------------------------------------------------
 # grouped FFN and routing
 # ---------------------------------------------------------------------------

@@ -239,7 +239,7 @@ def test_mamba_apply_seq_matches_reference(dtype):
 def test_mamba_decode_step_matches_reference(dtype):
     rcfg, cfg, rp, pp = _mixer(dtype, seed=1)
     rst = RS.mamba_state_init(rcfg, 2, jnp.dtype(dtype))
-    st = SM.mamba_state_init(cfg, 2, getattr(torch, dtype))
+    st = SM.mamba_state_init(cfg, 2, getattr(torch, dtype), device="cpu")
     for k in rst:
         assert tuple(st[k].shape) == rst[k].shape
         assert bf16.dtype_name(st[k].dtype) == str(rst[k].dtype)
@@ -345,3 +345,17 @@ def test_decode_matches_own_forward():
                                   {"tokens": toks[:, t:t + 1]}, t, cfg)
         outs.append(lg[:, 0])
     assert float((torch.stack(outs, dim=1) - logits).abs().max()) < 0.08
+
+
+@pytest.mark.parametrize("fn", ["init_decode_state", "mamba_state_init"])
+def test_decode_state_defaults_to_the_card(fn):
+    """``init_decode_state`` and ``mamba_state_init`` default to "cuda",
+    the port's rule for entry points, and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default does not raise")
+    cfg = get_config(ARCH).reduced()
+    with pytest.raises(RuntimeError):
+        if fn == "init_decode_state":
+            T.init_decode_state(cfg, 1, 8)
+        else:
+            SM.mamba_state_init(cfg, 1, torch.float32)
