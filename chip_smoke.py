@@ -14,19 +14,28 @@ Run from the root of a checkout, on a machine with a CUDA card and
      shapes resnet50@224 and the smollm-360m prefill and decode give it
      (max|d|/max|plain| <= 2e-5 in f32, <= 2e-2 in bf16; the dequant
      kernels bitwise, max|d| = 0), and times the kernel, the plain version
-     and one library call with CUDA events; ``decode_attention`` also over
-     the Pallas sweep in its prefix form, a wrapped ring with a window, the
-     int8 cache and a softcap; the bf16 ``matmul`` also at the decode
-     projections (M 1 and 4) of smollm-360m, granite-moe-3b-a800m and
-     mamba2-2.7b, the prefill projections of granite (512 tokens) and
-     mamba2 (1024), the tied heads at decode and prefill reading
+     and one library call with CUDA events; ``decode_attention``
+     also over the Pallas sweep in its prefix form, a wrapped ring with a
+     window, the int8 cache, a softcap, granite-moe-3b-a800m's heads,
+     zamba2-2.7b's head dim 80 and head dims 100, 67 and 256, each row
+     printing its
+     split plan; the f32 ``matmul`` also at granite-moe-3b-a800m's router
+     (decode at 1 and 4 tokens, a 512-token prefill), mamba2-2.7b's f32
+     decode projections and its tied head reading ``embed`` K-major in
+     place (decode and a 1024-token prefill), ragged and unaligned edges,
+     each row printing its path, tile and split; the bf16 ``matmul`` also
+     at the decode projections (M 1 and 4) of smollm-360m,
+     granite-moe-3b-a800m and mamba2-2.7b, the prefill projections of
+     granite (512 tokens) and mamba2 (1024), the tied heads at decode and
+     prefill reading
      ``embed`` K-major in place, and ragged, unaligned edges;
      ``gmm_blocks`` at granite-moe-3b-a800m's expert GEMMs (C 8 at decode,
      208 at a 512-token prefill), with ``group_sizes`` from a top-8-of-40
      routing of 1 and of 4 tokens and a clipped prefill, and over the
-     Pallas sweep; for these two kernels two launches on the same inputs
-     must give the same bits, and their device time (the calls replayed
-     from a CUDA graph) is printed beside the host-timed one;
+     Pallas sweep; for the bf16 ``matmul``, ``gmm_blocks``,
+     ``decode_attention`` and the f32 ``matmul`` two launches on the same
+     inputs must give the same bits, and their device time (the calls
+     replayed from a CUDA graph) is printed beside the host-timed one;
      ``ssd_scan`` at mamba2-2.7b's S 1024 from a zero and a random state (y
      and the final state) and over the Pallas sweep; with
      ``--kernels-only`` the script stops here (a first check of a new
@@ -158,7 +167,8 @@ def plain_kernels():
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant as Q
     from repro_torch.kernels.attention import (decode_attention_plain,
-                                               flash_attention_plain)
+                                               flash_attention_plain,
+                                               plan_decode)
     from repro_torch.kernels.gmm import gmm_blocks_plain
     from repro_torch.kernels.matmul import matmul_plain
     from repro_torch.kernels.ssd import ssd_scan_plain
@@ -870,7 +880,7 @@ def serving_path(dev, depth: int) -> dict:
         T.decode_step(pdev, state, {"tokens": one[:, t:t + 1]}, t, cfg)
     profile_steps("8 decode steps B=1 W=82", lambda i: T.decode_step(
         pdev, state, {"tokens": one[:, 4 + i:5 + i]}, 4 + i, cfg), 8,
-        extra=("decode_kernel",))
+        extra=("decode_",))
 
     # BatchedServer: 6 greedy requests through 4 slots (recycled)
     got, steps, dt, counts, picks = batched_run(pdev, cfg, dev, plain=False)
@@ -1058,6 +1068,8 @@ def moe_path(dev, depth: int) -> dict:
     gates.launched("forward", "gmm_blocks", counts["gmm_blocks"], 3 * depth)
     gates.launched("forward", "flash_attention", counts["flash_attention"],
                    depth)
+    # the f32 router GEMM: one matmul launch a layer
+    gates.launched("forward", "matmul", counts["matmul"], depth)
     del logits, ref
     profile_steps(f"forward (1, {S})", lambda i: T.forward(
         params, {"tokens": toks}, cfg), 1, extra=("gemm", "flash"))
@@ -1129,6 +1141,7 @@ def moe_path(dev, depth: int) -> dict:
                    3 * depth * Sd)
     gates.launched("decode", "decode_attention", counts["decode_attention"],
                    depth * Sd)
+    gates.launched("decode", "matmul", counts["matmul"], depth * Sd)
 
     # where a decode step's time goes (B=1; reported, not gated)
     state = T.init_decode_state(cfg, 1, 64, device=dev)
@@ -1136,7 +1149,7 @@ def moe_path(dev, depth: int) -> dict:
         T.decode_step(params, state, {"tokens": toks[:, t:t + 1]}, t, cfg)
     profile_steps("8 decode steps B=1", lambda i: T.decode_step(
         params, state, {"tokens": toks[:, 4 + i:5 + i]}, 4 + i, cfg), 8,
-        extra=("decode_kernel", "ssd"))
+        extra=("decode_", "gemm_f32"))
 
     # BatchedServer: the serving path's request mix
     got, steps, dt, counts, picks = batched_run(params, cfg, dev,
@@ -1152,6 +1165,7 @@ def moe_path(dev, depth: int) -> dict:
                    3 * depth * steps)
     gates.launched("batched", "decode_attention", counts["decode_attention"],
                    depth * steps)
+    gates.launched("batched", "matmul", counts["matmul"], depth * steps)
     # why the kernels' tokens leave the plain run's: the kernels' run
     # again, replaying the plain run's routing (reported, not gated; its
     # launches are not counted)
@@ -1163,7 +1177,8 @@ def moe_path(dev, depth: int) -> dict:
     print(f"  moe path launches (forward + decode steps + batched): "
           f"{json.dumps({k: n for k, n in gates.main.items() if n})}")
     gates.finish()
-    return {"gmm_blocks": gates.main["gmm_blocks"]}
+    return {"gmm_blocks": gates.main["gmm_blocks"],
+            "matmul": gates.main["matmul"]}
 
 
 def ssm_path(dev, depth: int) -> dict:
@@ -1223,6 +1238,9 @@ def ssm_path(dev, depth: int) -> dict:
               f"{json.dumps({k: n for k, n in counts.items() if n})}")
         gates.launched(f"{cfg.dtype} forward", "ssd_scan",
                        counts["ssd_scan"], depth)
+        if cfg.dtype == "float32":  # six projections a layer, the tied head
+            gates.launched(f"{cfg.dtype} forward", "matmul", counts["matmul"],
+                           6 * depth + 1)
         return logits
 
     S = 1024
@@ -1310,10 +1328,14 @@ def ssm_path(dev, depth: int) -> dict:
                  torch.stack(outs, 1), fl)
     gates.launched("f32 decode", "matmul", counts["matmul"],
                    (6 * depth + 1) * Sd)
+    profile_steps("8 f32 decode steps B=1", lambda i: T.decode_step(
+        params, state, {"tokens": toks[:, Sd + i:Sd + i + 1]}, Sd + i, cfg),
+        8, extra=("gemm_f32",))
     print(f"  ssm path launches (forwards + decode steps + batched): "
           f"{json.dumps({k: n for k, n in gates.main.items() if n})}")
     gates.finish()
-    return {"ssd_scan": gates.main["ssd_scan"]}
+    return {"ssd_scan": gates.main["ssd_scan"],
+            "matmul": gates.main["matmul"]}
 
 
 def main() -> None:
@@ -1342,12 +1364,13 @@ def main() -> None:
     from repro_torch.kernels import _native, ops
     from repro_torch.kernels import quant as Q
     from repro_torch.kernels.attention import (decode_attention_plain,
-                                               flash_attention_plain)
+                                               flash_attention_plain,
+                                               plan_decode)
     from repro_torch.kernels.attention import visible as attn_visible
     from repro_torch.kernels.conv_winograd import winograd_tile_matmul_plain
     from repro_torch.kernels.gmm import gmm_blocks_plain
     from repro_torch.kernels.matmul import (matmul_packed_plain, matmul_plain,
-                                            plan_bf16_gemm)
+                                            plan_bf16_gemm, plan_f32_gemm)
     from repro_torch.kernels.ssd import ssd_scan_plain
     from repro_torch.models.cnn import build_cnn
 
@@ -1516,15 +1539,47 @@ def main() -> None:
                   lambda: torch.bmm(V, U),
                   2 * 16 * T * C * O, 4 * 16 * (T * C + C * O + T * O))
         results.setdefault("winograd_tile_matmul", {})[tag] = r
-    mm_shapes = [("im2col_s1b0", 12544, 576, 128),
-                 ("im2col_s2b0", 3136, 1152, 256), ("head", 1, 256, 100)]
-    for tag, M, K, N in mm_shapes:
-        x, w = rand(M, K), rand(K, N)
-        r = check(f"matmul {tag} ({M},{K})x({K},{N})",
+    # the f32 matmul along plan_f32_gemm's paths: resnet50's im2col GEMMs
+    # and head, granite-moe-3b-a800m's f32 router (decode at 1 and 4
+    # tokens, a 512-token prefill), mamba2-2.7b's f32 decode projections
+    # and its tied head reading embed (V, d) K-major in place (decode and a
+    # 1024-token prefill), ragged and unaligned edges. (tag, M, K, N,
+    # K-major w, x offset in floats: 1 puts x off its 16-byte boundary)
+    mm_rows = [("im2col_s1b0", 12544, 576, 128, False, 0),
+               ("im2col_s2b0", 3136, 1152, 256, False, 0),
+               ("head", 1, 256, 100, False, 0),
+               ("granite_router_M1", 1, 1536, 40, False, 0),
+               ("granite_router_M4", 4, 1536, 40, False, 0),
+               ("granite_router_prefill", 512, 1536, 40, False, 0),
+               ("mamba2_in_M1", 1, 2560, 5120, False, 0),
+               ("mamba2_bc_M1", 1, 2560, 128, False, 0),
+               ("mamba2_dt_M1", 1, 2560, 80, False, 0),
+               ("mamba2_out_M1", 1, 5120, 2560, False, 0),
+               ("mamba2_head_tied_M1", 1, 2560, 50280, True, 0),
+               ("mamba2_head_tied_prefill", 1024, 2560, 50280, True, 0),
+               ("mamba2_in_prefill", 1024, 2560, 5120, False, 0),
+               ("ragged_skinny", 3, 129, 7, False, 0),
+               ("ragged_tile", 100, 200, 4099, False, 0),
+               ("ragged_kmajor_tile", 20, 37, 50, True, 0),
+               ("ragged_kmajor_skinny", 5, 37, 50, True, 0),
+               ("unaligned_x_skinny", 4, 1536, 40, False, 1),
+               ("unaligned_x_tile", 64, 576, 128, False, 1)]
+    for tag, M, K, N, kmajor, shift in mm_rows:
+        x = rand(M * K + shift)[shift:].view(M, K)
+        w = rand(N, K).T if kmajor else rand(K, N)
+        plan = plan_f32_gemm(M, N, K, kmajor)
+        r = check(f"matmul {tag} ({M},{K})x({K},{N}) "
+                  f"{'K-major' if kmajor else 'row-major'} w"
+                  f"{', x off 16 B' if shift else ''}, {plan.path} path "
+                  f"{plan.bm}x{plan.bn} split {plan.split} ({plan.blocks} "
+                  f"blocks)",
                   lambda: ops.matmul(x, w), lambda: matmul_plain(x, w),
                   lambda: torch.matmul(x, w),
-                  2 * M * N * K, 4 * (M * K + K * N + M * N))
-        results.setdefault("matmul", {})[tag] = r
+                  2 * M * N * K, 4 * (M * K + K * N + M * N),
+                  repeat_equal=True)
+        results.setdefault("matmul", {})[tag] = {
+            **r, "path": plan.path, "tile": [plan.bm, plan.bn],
+            "split": plan.split}
     M, K, N = 1, 256, 100
     x = rand(M, K)
     wp = torch.zeros(1, 2, 128, 128, device=dev)
@@ -1668,14 +1723,20 @@ def main() -> None:
             lib = (lambda: F.scaled_dot_product_attention(
                 qs, kt, vt, attn_mask=m4, enable_gqa=True))
         dname = str(dt).replace("torch.", "")
+        plan = plan_decode(B, W, H, KV, D)
         r = check(f"decode_attention {tag} B={B} W={W} H={H} KV={KV} D={D} "
                   f"window={window} softcap={softcap} "
-                  f"{'int8 cache' if int8 else dname} visible={n_vis}",
+                  f"{'int8 cache' if int8 else dname} visible={n_vis}; "
+                  f"split {plan.split} of {plan.chunk} entries, {plan.hg} "
+                  f"heads a block, {plan.lpr} lanes a row ({plan.blocks} "
+                  f"blocks)",
                   lambda: ops.decode_attention(q, k, v, p, **kw),
                   lambda: decode_attention_plain(q, k, v, p, **kw), lib,
                   4 * H * D * n_vis,
-                  n_vis * entry_b + 2 * B * H * D * es + 4 * B, dname)
-        results.setdefault("decode_attention", {})[tag] = r
+                  n_vis * entry_b + 2 * B * H * D * es + 4 * B, dname,
+                  repeat_equal=True)
+        results.setdefault("decode_attention", {})[tag] = {
+            **r, "split": plan.split, "chunk": plan.chunk}
 
     # the Pallas sweep (tests/test_kernels.py), prefix lengths as positions
     for S, H, KV, D in [(512, 8, 4, 64), (300, 4, 4, 32), (256, 8, 2, 128)]:
@@ -1699,6 +1760,23 @@ def main() -> None:
                 [6000, 4095, 5000, 7000], window=2048, int8=True)
     decode_case("softcap_d128", 2, 1024, 32, 16, 128, torch.bfloat16,
                 [1023, 700], window=512, softcap=50.0)
+    # granite-moe-3b-a800m (24 heads, 8 kv heads, D 64)
+    for B, W in ((1, 512), (4, 4096)):
+        decode_case(f"granite_B{B}_W{W}", B, W, 24, 8, 64, torch.bfloat16,
+                    [W - 1] * B)
+    # zamba2-2.7b's shared attention (32 heads, 32 kv heads, D 80)
+    decode_case("zamba2_d80_B1_W4096", 1, 4096, 32, 32, 80, torch.bfloat16,
+                [4095])
+    decode_case("zamba2_d80_ring_B4_W512", 4, 512, 32, 32, 80,
+                torch.bfloat16, [700, 511, 100, 1500], window=256)
+    decode_case("d80_int8_B2_W512", 2, 512, 32, 32, 80, torch.bfloat16,
+                [511, 300], int8=True)
+    # head dims that are not a multiple of 8: 100 in f32 (16-byte rows, a
+    # lane with half a chunk), 67 in bf16 (134-byte rows: element loads)
+    decode_case("d100_f32", 2, 600, 8, 2, 100, torch.float32, [599, 250])
+    decode_case("d67_bf16_softcap", 2, 600, 6, 3, 67, torch.bfloat16,
+                [599, 1000], window=300, softcap=30.0)
+    decode_case("d256_bf16", 1, 1024, 8, 1, 256, torch.bfloat16, [1023])
 
     print("kernels vs plain versions (quantized cache: smollm-360m block "
           "and head, resnet50 head):")
@@ -2098,12 +2176,16 @@ def main() -> None:
     print(f"  [serving path done at {time.perf_counter() - t_start:.1f} s]")
 
     # -- 7. the moe and ssm families ------------------------------------------
-    launches.update(moe_path(dev, MOE_DEPTH))
-    torch.cuda.empty_cache()
-    print(f"  [moe path done at {time.perf_counter() - t_start:.1f} s]")
-    launches.update(ssm_path(dev, SSM_DEPTH))
-    torch.cuda.empty_cache()
-    print(f"  [ssm path done at {time.perf_counter() - t_start:.1f} s]")
+    # the f32 matmul's launches sum the CNN path's, granite's router and
+    # mamba2's f32 runs
+    for family, path, depth in (("moe", moe_path, MOE_DEPTH),
+                                ("ssm", ssm_path, SSM_DEPTH)):
+        counts = path(dev, depth)
+        launches["matmul"] += counts.pop("matmul")
+        launches.update(counts)
+        torch.cuda.empty_cache()
+        print(f"  [{family} path done at "
+              f"{time.perf_counter() - t_start:.1f} s]")
 
     # -- 8. report ----------------------------------------------------------
     main_shape = {"winograd_tile_matmul": "stage0", "matmul": "im2col_s1b0",

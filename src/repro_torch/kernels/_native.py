@@ -16,6 +16,7 @@ unseen.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,13 +33,14 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("matmul", "conv_winograd", "flash_attention", "decode_attention",
            "quant", "gmm", "ssd")  # csrc/<name>.cu
-HEADERS = ("gemm_f32.cuh", "gemm_bf16_tc.cuh")
+HEADERS = ("gemm_f32.cuh", "gemm_f32_paths.cuh", "gemm_bf16_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = {
-    "repro_matmul_f32": [_P, _P, _P, _I, _I, _I, _P],
+    # x, w, out, M, N, K, ldb, b_kmajor, path, bm, bn, split, scratch, stream
+    "repro_matmul_f32": [_P, _P, _P] + [_I] * 9 + [_P, _P],
     # x, w, out, M, N, K, ldb, b_kmajor, path, bm, split, scratch, stream
     "repro_matmul_bf16": [_P, _P, _P] + [_I] * 8 + [_P, _P],
     "repro_matmul_bf16_f32out": [_P, _P, _P] + [_I] * 8 + [_P, _P],
@@ -46,8 +48,12 @@ ARGTYPES = {
     "repro_winograd_tile_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
     "repro_flash_attention_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
-    "repro_decode_attention_f32": [_P] * 7 + [_I] * 6 + [_F, _P],
-    "repro_decode_attention_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
+    # q, k, v, k_scale, v_scale, pos, o, scratch, B, W, H, KV, D, window,
+    # softcap, hg, hgroups, lpr, chunk, split, stream
+    "repro_decode_attention_f32": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 5
+    + [_P],
+    "repro_decode_attention_bf16": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 5
+    + [_P],
     "repro_dequant_int8": [_P, _P, _P, _I, _I, _P],
     "repro_dequant_int4": [_P, _P, _P, _I, _I, _P],
     "repro_matmul_dequant_int8_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -156,6 +162,29 @@ def load_all() -> Dict[str, ctypes.CDLL]:
 def check(rc: int, kernel: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
+
+
+# the current stream's raw handle in one call (what torch's own generated
+# code uses); a torch built without CUDA has none, and never launches
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, where a kernel
+    launches; cheaper than ``torch.cuda.current_stream(device)``, which
+    builds a Stream object on every decode step's call."""
+    if _raw_stream is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    idx = device.index
+    return _raw_stream(torch.cuda.current_device() if idx is None else idx)
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` the current CUDA device for a launch,
+    or nothing when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def on_cpu(kernel: str, *ts,

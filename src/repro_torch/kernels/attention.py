@@ -35,26 +35,34 @@ window, > ``pos - window`` (``layers.attn_decode_step``'s rule; with
 ``pos = length - 1`` and W = S it is the Pallas kernel's valid prefix).
 The cache is in q's dtype, or int8 with per-entry scales (B, W, KV) f32,
 dequantized as the reference rounds it: ``cache.to(q) * scale.to(q)``.
-Softcap and GQA as in prefill. Kernel: ``csrc/decode_attention.cu``, one
-block per (b, kv head) with the group's query heads folded in, an online
-softmax over tiles of 64 cache entries; tiles and entries that the mask
-hides are not read. For bf16 q the unnormalized p is rounded to bf16
-before P·V, as in the Pallas kernel. Bound on an H100 SXM: the cache bytes,
-2·B·W·KV·D elements a step (6.26 µs at B 4, W 4096, KV 5, D 64 in bf16).
-``decode_attention_plain`` is the masked full softmax in f32.
+Softcap and GQA as in prefill; any head dim up to 256. Kernel:
+``csrc/decode_attention.cu``, split over W (flash decoding): block (b, kv
+head, group of up to 4 query heads, split) walks one chunk of the cache
+with cp.async copies of the rows in their own dtype, a row's dot product
+reduced over lanes by shuffles, and writes its chunk's (m, l, acc); a
+second kernel merges the splits in split order (one launch counted).
+``plan_decode`` picks the head groups, lanes a row and chunk from the
+shapes alone, never from ``pos``, so a decode step can be captured in a
+CUDA graph. Entries that the mask hides are not read. For bf16 q the
+unnormalized p is rounded to bf16 before P·V, as in the Pallas kernel.
+Bound on an H100 SXM: the cache bytes, 2·B·W·KV·D elements a step (6.26
+µs at B 4, W 4096, KV 5, D 64 in bf16). ``decode_attention_plain`` is the
+masked full softmax in f32.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. ``launches`` counts kernel launches only.
 """
 from __future__ import annotations
 
+import functools
 import math
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _native
+from repro_torch.kernels.matmul import SMS
 
 NEG_INF = -2.0e38
 HEAD_DIMS = (32, 64, 128)
@@ -119,12 +127,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         lib = _native.library("flash_attention")
         fn = (lib.repro_flash_attention_bf16 if q.dtype == torch.bfloat16
               else lib.repro_flash_attention_f32)
-        with torch.cuda.device(q.device):
+        with _native.on_device(q.device):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     B, S, H, k.shape[2], D, int(causal),
                     int(window) if window is not None else 0,
                     float(softcap) if softcap else 0.0,
-                    torch.cuda.current_stream(q.device).cuda_stream)
+                    _native.current_stream(q.device))
         _native.check(rc, "flash_attention")
         with _lock:
             launches["flash_attention"] += 1
@@ -155,6 +163,50 @@ def _check_decode(q, k, v, pos, k_scale, v_scale) -> None:
         raise ValueError(f"decode_attention: scales must be "
                          f"{tuple(k.shape[:3])}, got {tuple(k_scale.shape)},"
                          f" {tuple(v_scale.shape)}")
+
+
+DECODE_MAX_D = 256       # 32 lanes x 8 elements
+_DECODE_WARPS = 4        # warps a block
+_DECODE_RPS = 4          # rows a lane group takes per stage
+_DECODE_HG = 4           # most query heads a block
+_DECODE_CHUNK = 256      # most cache entries a split, where SMS are filled
+
+
+class DecodePlan(NamedTuple):
+    hg: int        # query heads a block, 1 to 4 (a smaller last group masks)
+    hgroups: int   # head groups a kv head
+    lpr: int       # lanes that hold one cache row (8 elements each)
+    tile: int      # cache entries a block takes per stage
+    chunk: int     # cache entries a split: a multiple of tile
+    split: int     # splits of W (1: no merge kernel)
+    tiles: int     # ceil(W / tile)
+    blocks: int    # blocks of the main launch
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_decode(B: int, W: int, H: int, KV: int, D: int) -> DecodePlan:
+    """How ``decode_attention``'s kernel cuts (B, W, H, KV, D): from the
+    shapes alone (never ``pos``), so that a decode step can be captured in
+    a CUDA graph. The query heads of a kv head go to ceil(g/4) groups; D to
+    the fewest lanes (4, 8, 16, 32) that hold it at 8 elements a lane; W to
+    ``split`` chunks of whole tiles, as many as it takes for B·KV·groups·
+    split blocks to reach ``SMS`` where W has the tiles (else one tile a
+    split), and chunks of at most ``_DECODE_CHUNK`` entries, so that more
+    blocks hide each other's latency."""
+    if D > DECODE_MAX_D:
+        raise ValueError(f"decode_attention: the CUDA kernel takes head_dim "
+                         f"up to {DECODE_MAX_D}, got {D}")
+    g = H // KV
+    hgroups = -(-g // _DECODE_HG)
+    per = -(-g // hgroups)          # heads a block
+    lpr = next(n for n in (4, 8, 16, 32) if 8 * n >= D)
+    tile = _DECODE_WARPS * (32 // lpr) * _DECODE_RPS
+    tiles = -(-W // tile)
+    base = B * KV * hgroups
+    per_split = max(1, min(tiles // -(-SMS // base), _DECODE_CHUNK // tile))
+    split = -(-tiles // per_split)
+    return DecodePlan(per, hgroups, lpr, tile, per_split * tile, split,
+                      tiles, base * split)
 
 
 def visible(pos: torch.Tensor, W: int,
@@ -212,28 +264,30 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       v_scale=v_scale)
     B, H, D = q.shape
     W, KV = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: the CUDA kernel takes head_dim "
-                         f"in {HEAD_DIMS}, got {D}")
     if window is not None and window <= 0:
         raise ValueError(f"decode_attention: window must be positive, "
                          f"got {window}")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("decode_attention: the CUDA kernel takes k and v "
-                         "on 16-byte boundaries")
+    plan = plan_decode(B, W, H, KV, D)
     out = torch.empty_like(q)
     if B and H:
+        # the splits' (acc, m, l) in f32, merged by the second kernel
+        scratch = (torch.empty(plan.split * B * H * (D + 2),
+                               dtype=torch.float32, device=q.device)
+                   if plan.split > 1 else None)
         lib = _native.library("decode_attention")
         fn = (lib.repro_decode_attention_bf16 if q.dtype == torch.bfloat16
               else lib.repro_decode_attention_f32)
-        with torch.cuda.device(q.device):
+        with _native.on_device(q.device):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     k_scale.data_ptr() if quant else None,
                     v_scale.data_ptr() if quant else None,
-                    pos.data_ptr(), out.data_ptr(), B, W, H, KV, D,
+                    pos.data_ptr(), out.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(),
+                    B, W, H, KV, D,
                     int(window) if window is not None else 0,
                     float(softcap) if softcap else 0.0,
-                    torch.cuda.current_stream(q.device).cuda_stream)
+                    plan.hg, plan.hgroups, plan.lpr, plan.chunk, plan.split,
+                    _native.current_stream(q.device))
         _native.check(rc, "decode_attention")
         with _lock:
             launches["decode_attention"] += 1

@@ -50,10 +50,10 @@ def winograd_tile_matmul(V: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     out = torch.empty((P, T, O), dtype=torch.float32, device=V.device)
     if P and T and O:
         lib = _native.library("conv_winograd")
-        with torch.cuda.device(V.device):
+        with _native.on_device(V.device):
             rc = lib.repro_winograd_tile_matmul_f32(
                 V.data_ptr(), U.data_ptr(), out.data_ptr(), P, T, C, O,
-                torch.cuda.current_stream(V.device).cuda_stream)
+                _native.current_stream(V.device))
         _native.check(rc, "winograd_tile_matmul")
         with _lock:
             launches["winograd_tile_matmul"] += 1

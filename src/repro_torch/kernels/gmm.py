@@ -96,9 +96,9 @@ def gmm_blocks(x: torch.Tensor, w: torch.Tensor,
                         plan_bf16_gemm(C, n, d, E), x.device, E * C * n,
                         *args)
         else:
-            with torch.cuda.device(x.device):
+            with _native.on_device(x.device):
                 rc = lib.repro_gmm_blocks_f32(
-                    *args, torch.cuda.current_stream(x.device).cuda_stream)
+                    *args, _native.current_stream(x.device))
             _native.check(rc, "gmm_blocks")
         with _lock:
             launches["gmm_blocks"] += 1

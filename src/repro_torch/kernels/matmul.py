@@ -16,10 +16,21 @@ Two wrappers, each with its plain PyTorch version beside it:
     128, 128) layout in place, so each K step of a block loads rows of one
     contiguous 64 KB weight tile — the point of the packing transform.
 
-Kernels (``csrc/matmul.cu``). f32: the shared f32 template
-``csrc/gemm_f32.cuh`` (64x64 block tile, K step 16, 4x4 outputs per
-thread, IEEE f32 FMA, no TF32; ragged M/N/K edges masked in the kernel,
-nothing padded in device memory). bf16 (bf16 out, or f32 out): the
+Kernels (``csrc/matmul.cu``). f32: the f32 path template
+``csrc/gemm_f32_paths.cuh`` (IEEE f32 FMA on the CUDA cores, no TF32),
+along the path, block tile and K split that ``plan_f32_gemm`` picks on
+the host:
+  * ``tile`` (M > 16): a BM x BN block tile (BM 64, 96 or 128; BN 64 or
+    128) and K split chosen so that the grid fills the 132 SMs in whole
+    waves, up to 8 x 8 outputs a thread, K steps of 32 through a 3-deep
+    ring of 16-byte ``cp.async`` copies read back as float4;
+  * ``skinny`` (M <= 16: decode, the MoE router): w streamed once in
+    16-byte loads, x's rows in shared memory;
+  * K split in units of 16, the partials summed in split order by a
+    second kernel, as for bf16 below.
+``matmul_packed`` stays on the older f32 template ``csrc/gemm_f32.cuh``
+(64x64 block tile, 4x4 outputs a thread), as do the Winograd, fused
+dequant and f32 ``gmm_blocks`` GEMMs. bf16 (bf16 out, or f32 out): the
 tensor-core template ``csrc/gemm_bf16_tc.cuh``, along the path and K
 split that ``plan_bf16_gemm`` picks on the host:
   * ``tile`` (M > 16): a 64- or 128-row by 128-column block tile of
@@ -34,9 +45,8 @@ split that ``plan_bf16_gemm`` picks on the host:
     partials in split order, so a shape's result is the same bits on
     every launch. Both launches count as one.
 ``w`` is read in place either row-major (contiguous) or K-major (a view
-whose ``.T`` is contiguous, such as the tied head's ``embed.T``): no copy
-of the embedding. The f32 kernel takes a row-major w only; the wrapper
-copies a K-major f32 w.
+whose ``.T`` is contiguous, such as the tied head's ``embed.T``), in f32
+and bf16 alike: no copy of the embedding.
 
 Bound on an H100 SXM (67 TFLOP/s f32 without tensor cores, 989 TFLOP/s
 bf16 on them, 3.35 TB/s): max(2·M·N·K / peak, bytes / 3.35e12). The f32
@@ -86,10 +96,12 @@ _PATH_CODE = {"skinny": 0, "tile": 1}
 
 class GemmPlan(NamedTuple):
     path: str     # "skinny" (M <= 16) or "tile"
-    bm: int       # rows a block: 16, or 64 / 128 (one / two warpgroups)
-    bn: int       # columns a block: 64 (skinny), 128 (tile)
+    bm: int       # rows a block: 16 (skinny); bf16 tile 64 / 128 (one /
+                  # two warpgroups); f32 tile 64, 96 or 128
+    bn: int       # columns a block: bf16 64 (skinny), 128 (tile); f32 128
+                  # or 32 (skinny, row-major / K-major w), 64 or 128 (tile)
     split: int    # K split, a divisor of ksteps (1: none)
-    ksteps: int   # 64-deep K steps
+    ksteps: int   # K steps: 64 deep (bf16), 16 deep (f32)
     blocks: int   # blocks of the main launch
 
 
@@ -134,10 +146,10 @@ def launch_bf16(kernel: str, fn, plan: GemmPlan, device, out_elems: int,
     path."""
     scratch = (torch.empty(plan.split * out_elems, dtype=torch.float32,
                            device=device) if plan.split > 1 else None)
-    with torch.cuda.device(device):
+    with _native.on_device(device):
         rc = fn(*args, _PATH_CODE[plan.path], plan.bm, plan.split,
                 None if scratch is None else scratch.data_ptr(),
-                torch.cuda.current_stream(device).cuda_stream)
+                _native.current_stream(device))
     _native.check(rc, kernel)
     _count_path(plan)
 
@@ -151,6 +163,75 @@ def b_layout(w: torch.Tensor) -> Optional[Tuple[bool, int]]:
     if w.T.is_contiguous():
         return True, w.shape[0]
     return None
+
+
+# ---------------------------------------------------------------------------
+# the f32 template's host planner
+# ---------------------------------------------------------------------------
+F32_BK = 16             # K unit of the f32 split (and the skinny path's step)
+F32_TILE_BM = (128, 96, 64)   # rows of an f32 tile
+F32_TILE_BN = (128, 64)       # columns of an f32 tile
+F32_X_FLOATS = 12288    # skinny: floats of x (M rows, a split's k) a block holds
+F32_SKINNY_COLS = {False: 128, True: 32}   # columns a block, by K-major w
+F32_SKINNY_MIN_STEPS = 4   # fewest K steps a skinny split (where K has them)
+
+
+def _f32_skinny_split(tiles: int, ksteps: int, max_steps: int) -> int:
+    """The smallest divisor of ``ksteps`` that gives ``tiles`` x split >=
+    ``SMS`` blocks with ``F32_SKINNY_MIN_STEPS`` to ``max_steps`` K steps a
+    split; where none reaches ``SMS``, the largest such divisor. Splits of
+    fewer K steps add more to the partials' sum than their extra blocks
+    save (granite's router at one step a split: 0.0050 ms against 0.0042
+    at four, CUDA-graph device time on an H100 SXM)."""
+    if ksteps == 0:
+        return 1
+    fits = [d for d in range(1, ksteps + 1)
+            if ksteps % d == 0 and ksteps // d <= max_steps]
+    long = [d for d in fits if ksteps // d >= F32_SKINNY_MIN_STEPS]
+    if not long:        # every split that fits is short: the longest
+        return fits[0]
+    return next((d for d in long if tiles * d >= SMS), long[-1])
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_f32_gemm(M: int, N: int, K: int, kmajor: bool = False) -> GemmPlan:
+    """Path, block tile and K split of the f32 template for (M,K)x(K,N),
+    from the shapes alone. M <= 16 takes the skinny path (128 columns a
+    block, 32 for a K-major w), split as ``_f32_skinny_split`` says within
+    the x slice a block holds. Otherwise the tile path: each tile of
+    ``F32_TILE_BM`` x ``F32_TILE_BN`` (BN 128 only where N > 64) with no
+    split where its tiles reach ``SMS`` blocks, else with each divisor of
+    the K steps that does; of these, the least work on the fullest SM
+    (waves x tile x K steps a split), then two blocks an SM (they hide
+    each other's latency), then the smaller split, then the taller
+    tile."""
+    ksteps = -(-K // F32_BK)
+    if M <= SKINNY_MAX_M:
+        bn = F32_SKINNY_COLS[bool(kmajor)]
+        tiles = -(-N // bn)
+        split = _f32_skinny_split(tiles, ksteps,
+                                  F32_X_FLOATS // (F32_BK * max(M, 1)))
+        return GemmPlan("skinny", SKINNY_MAX_M, bn, split, ksteps,
+                        tiles * split)
+    best = None
+    for bn in F32_TILE_BN:
+        if bn == 128 and N <= 64:
+            continue
+        for bm in F32_TILE_BM:
+            tiles = -(-M // bm) * -(-N // bn)
+            if tiles >= SMS or ksteps <= 1:
+                splits = [1]
+            else:
+                splits = [d for d in range(2, ksteps + 1)
+                          if ksteps % d == 0 and tiles * d >= SMS] or [ksteps]
+            for d in splits:
+                waves = -(-tiles * d // SMS)
+                key = (waves * bm * bn * (ksteps // d), abs(waves - 2), d,
+                       -bm)
+                if best is None or key < best[0]:
+                    best = (key, GemmPlan("tile", bm, bn, d, ksteps,
+                                          tiles * d))
+    return best[1]
 
 
 # ---------------------------------------------------------------------------
@@ -194,11 +275,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
                         ldb, int(kmajor))
             _count("matmul_bf16")
         else:
-            w = w.contiguous()  # the f32 template reads w row-major
-            with torch.cuda.device(x.device):
+            plan = plan_f32_gemm(M, N, K, kmajor)
+            scratch = (torch.empty(plan.split * M * N, dtype=torch.float32,
+                                   device=x.device)
+                       if plan.split > 1 else None)
+            with _native.on_device(x.device):
                 rc = lib.repro_matmul_f32(
-                    x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
-                    torch.cuda.current_stream(x.device).cuda_stream)
+                    x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, ldb,
+                    int(kmajor), _PATH_CODE[plan.path], plan.bm, plan.bn,
+                    plan.split,
+                    None if scratch is None else scratch.data_ptr(),
+                    _native.current_stream(x.device))
             _native.check(rc, "matmul")
             _count("matmul")
     return out
@@ -239,10 +326,10 @@ def matmul_packed(x: torch.Tensor, w_packed: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M and N:
         lib = _native.library("matmul")
-        with torch.cuda.device(x.device):
+        with _native.on_device(x.device):
             rc = lib.repro_matmul_packed_f32(
                 x.data_ptr(), w_packed.data_ptr(), out.data_ptr(), M, N, K,
-                nK, torch.cuda.current_stream(x.device).cuda_stream)
+                nK, _native.current_stream(x.device))
         _native.check(rc, "matmul_packed")
         _count("matmul_packed")
     return out

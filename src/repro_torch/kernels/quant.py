@@ -64,8 +64,8 @@ def _check_packed(kernel: str, packed: torch.Tensor, K: int) -> None:
 
 
 def _launch(name: str, fn, *args, device: torch.device) -> None:
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with _native.on_device(device):
+        rc = fn(*args, _native.current_stream(device))
     _native.check(rc, name)
     _count(name)
 

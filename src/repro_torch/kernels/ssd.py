@@ -125,12 +125,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if B and S and H:
         fn = (lib.repro_ssd_scan_bf16 if x.dtype == torch.bfloat16
               else lib.repro_ssd_scan_f32)
-        with torch.cuda.device(x.device):
+        with _native.on_device(x.device):
             rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                     Cm.data_ptr(), D.data_ptr(),
                     None if init_state is None else init_state.data_ptr(),
                     y.data_ptr(), final.data_ptr(), B, S, H, P, N, chunk,
-                    torch.cuda.current_stream(x.device).cuda_stream)
+                    _native.current_stream(x.device))
         _native.check(rc, "ssd_scan")
         with _lock:
             launches["ssd_scan"] += 1

@@ -79,7 +79,11 @@ def _t(a):
 # the kernel's plain version against the Pallas kernel (prefix form)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("S,H,KV,D", [(512, 8, 4, 64), (300, 4, 4, 32),
-                                      (256, 8, 2, 128)])
+                                      (256, 8, 2, 128),
+                                      # zamba2's head dim, and head dims
+                                      # that are not a multiple of 8
+                                      (200, 8, 8, 80), (150, 6, 3, 100),
+                                      (130, 4, 2, 67)])
 def test_decode_attention_plain_matches_pallas(S, H, KV, D):
     B = 3
     rng = _rng(S, H, KV, D)
@@ -124,6 +128,53 @@ def test_ring_cache_equals_linear_history(window):
                                rtol=1e-6)
 
 
+# (B, W, H, KV, D): every decode_attention row of chip_smoke.py
+DECODE_PLANNER_ROWS = [
+    (3, 512, 8, 4, 64), (3, 300, 4, 4, 32), (3, 256, 8, 2, 128),
+    (1, 82, 15, 5, 64), (1, 512, 15, 5, 64), (1, 4096, 15, 5, 64),
+    (4, 82, 15, 5, 64), (4, 512, 15, 5, 64), (4, 4096, 15, 5, 64),
+    (2, 32, 15, 5, 64), (2, 1024, 32, 16, 128), (1, 512, 24, 8, 64),
+    (4, 4096, 24, 8, 64), (1, 4096, 32, 32, 80), (4, 512, 32, 32, 80),
+    (2, 512, 32, 32, 80), (2, 600, 8, 2, 100), (2, 600, 6, 3, 67),
+    (1, 1024, 8, 1, 256)]
+
+
+@pytest.mark.parametrize("shape", DECODE_PLANNER_ROWS,
+                         ids=["x".join(map(str, s)) for s in
+                              DECODE_PLANNER_ROWS])
+def test_plan_decode(shape):
+    import inspect
+
+    from repro_torch.kernels.attention import plan_decode
+    from repro_torch.kernels.matmul import SMS
+
+    B, W, H, KV, D = shape
+    p = plan_decode(B, W, H, KV, D)
+    # shapes only: no pos, so a decode step can be captured in a graph
+    assert list(inspect.signature(plan_decode).parameters) == [
+        "B", "W", "H", "KV", "D"]
+    g = H // KV
+    assert 1 <= p.hg <= 4 and p.hg * p.hgroups >= g
+    assert p.hg * (p.hgroups - 1) < g      # no empty head group
+    assert p.lpr in (4, 8, 16, 32) and 8 * p.lpr >= D
+    assert p.lpr == 4 or 4 * p.lpr < D     # the fewest lanes that hold D
+    assert p.tile == 4 * (32 // p.lpr) * 4 and p.tiles == -(-W // p.tile)
+    # whole tiles a split; the splits cover W, none empty
+    assert p.chunk % p.tile == 0 and p.chunk <= max(p.tile, 256)
+    assert (p.split - 1) * p.chunk < W <= p.split * p.chunk
+    assert p.blocks == B * KV * p.hgroups * p.split
+    # the blocks fill the card, or W gives each split one tile
+    assert p.blocks >= SMS or p.split == p.tiles
+
+
+def test_plan_decode_refuses_head_dims_above_256():
+    from repro_torch.kernels.attention import plan_decode
+
+    assert plan_decode(1, 8, 2, 1, 256).lpr == 32
+    with pytest.raises(ValueError, match="256"):
+        plan_decode(1, 8, 2, 1, 257)
+
+
 def test_decode_attention_wrapper_checks():
     q, k = torch.zeros(2, 4, 64), torch.zeros(2, 8, 2, 64)
     pos = torch.zeros(2, dtype=torch.int32)
@@ -154,12 +205,23 @@ ARMS = {  # name: (W, pos, window, softcap, int8)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arm", sorted(ARMS))
 def test_attn_decode_step_matches_reference(arm, dtype):
+    _attn_decode_step_case(arm, dtype, 64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arm", sorted(ARMS))
+def test_attn_decode_step_d80_matches_reference(arm, dtype):
+    """zamba2-2.7b's head dim 80 (the CUDA kernel takes any D up to 256)."""
+    _attn_decode_step_case(arm, dtype, 80)
+
+
+def _attn_decode_step_case(arm, dtype, hd):
     W, pos, window, softcap, quant = ARMS[arm]
     kw = dict(num_heads=4, num_kv_heads=2, d_model=128, dtype=dtype,
-              attn_softcap=softcap)
+              attn_softcap=softcap, head_dim=hd)
     rcfg = ref_get_config("smollm-360m").reduced(**kw)
     cfg = get_config("smollm-360m").reduced(**kw)
-    B, d, H, KV, hd = 2, 128, 4, 2, 64
+    B, d, H, KV = 2, 128, 4, 2
     rng = _rng(len(arm), W, pos)
     p = {"wq": rng.standard_normal((d, H * hd)) / np.sqrt(d),
          "wk": rng.standard_normal((d, KV * hd)) / np.sqrt(d),

@@ -155,7 +155,8 @@ def test_native_build_is_named_by_source_digest(tmp_path, monkeypatch):
 # the bf16 template: a K-major w read in place, and the host planner
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M,K,N", [(4, 96, 200), (64, 128, 37)])
+@pytest.mark.parametrize("M,K,N", [(4, 96, 200), (64, 128, 37),
+                                   (4, 1536, 40)])
 def test_matmul_kmajor_w_matches_pallas(M, K, N, dtype):
     """A w whose .T is contiguous (the tied head's embed.T) against the
     Pallas matmul on the contiguous copy, at each dtype's tolerance."""
@@ -298,3 +299,144 @@ def test_plan_bf16_gemm_decisions():
     p = plan_bf16_gemm(8, 512, 1536, 40)
     assert (p.path, p.split, p.blocks) == ("skinny", 1, 320)
     assert plan_bf16_gemm(2, 5, 0).split == 1          # K = 0: no K steps
+
+
+# ---------------------------------------------------------------------------
+# the f32 template's host planner, and what the f32 and decode wrappers pass
+# their kernels
+# ---------------------------------------------------------------------------
+# (M, K, N, K-major w): every f32 matmul row of chip_smoke.py
+F32_PLANNER_ROWS = [
+    ((12544, 576, 128, False), "tile"), ((3136, 1152, 256, False), "tile"),
+    ((1, 256, 100, False), "skinny"), ((1, 1536, 40, False), "skinny"),
+    ((4, 1536, 40, False), "skinny"), ((512, 1536, 40, False), "tile"),
+    ((1, 2560, 5120, False), "skinny"), ((1, 2560, 128, False), "skinny"),
+    ((1, 2560, 80, False), "skinny"), ((1, 5120, 2560, False), "skinny"),
+    ((1, 2560, 50280, True), "skinny"), ((1024, 2560, 50280, True), "tile"),
+    ((1024, 2560, 5120, False), "tile"), ((3, 129, 7, False), "skinny"),
+    ((100, 200, 4099, False), "tile"), ((20, 37, 50, True), "tile"),
+    ((5, 37, 50, True), "skinny"), ((4, 1536, 40, False), "skinny"),
+    ((64, 576, 128, False), "tile"), ((16, 2560, 50280, True), "skinny")]
+
+
+@pytest.mark.parametrize("shape,path", F32_PLANNER_ROWS,
+                         ids=["x".join(map(str, s)) for s, _ in
+                              F32_PLANNER_ROWS])
+def test_plan_f32_gemm(shape, path):
+    from repro_torch.kernels.matmul import (F32_SKINNY_COLS,
+                                            F32_SKINNY_MIN_STEPS, F32_TILE_BM,
+                                            F32_TILE_BN, F32_X_FLOATS, SMS,
+                                            plan_f32_gemm)
+
+    M, K, N, kmajor = shape
+    p = plan_f32_gemm(M, N, K, kmajor)
+    assert p.path == path
+    assert p.ksteps == -(-K // 16) and p.ksteps % p.split == 0
+    if path == "skinny":
+        assert p.bn == F32_SKINNY_COLS[kmajor]
+        # the x slice of a split fits the block's shared memory
+        assert p.ksteps // p.split * 16 * M <= F32_X_FLOATS
+        tiles = -(-N // p.bn)
+    else:
+        assert p.bm in F32_TILE_BM and p.bn in F32_TILE_BN
+        assert p.bn == 64 or N > 64
+        tiles = -(-M // p.bm) * -(-N // p.bn)
+        # K is split only where the output tiles alone leave SMs idle
+        assert p.split == 1 or tiles < SMS
+    assert p.blocks == tiles * p.split
+    if path == "skinny":
+        # a split takes at least F32_SKINNY_MIN_STEPS K steps where K has
+        # them; the blocks fill the card, or no longer split keeps that many
+        least = min(F32_SKINNY_MIN_STEPS, p.ksteps)
+        assert p.ksteps // p.split >= least
+        more = [d for d in range(p.split + 1, p.ksteps + 1)
+                if p.ksteps % d == 0 and p.ksteps // d >= least]
+        assert p.blocks >= SMS or not more
+    else:
+        # blocks fill the card, or K is split one step a split
+        assert p.blocks >= SMS or p.split == p.ksteps
+
+
+def test_plan_f32_gemm_decisions():
+    """The decisions the design rests on: resnet50's im2col GEMMs in two
+    blocks an SM; granite's router at decode split to four K steps a
+    block; mamba2's tied head read K-major on the skinny path."""
+    from repro_torch.kernels.matmul import plan_f32_gemm
+
+    # 262 tiles of 96 x 64 unsplit, two blocks an SM
+    p = plan_f32_gemm(12544, 128, 576)
+    assert (p.path, p.bm, p.bn, p.split, p.blocks) == ("tile", 96, 64, 1,
+                                                       262)
+    p = plan_f32_gemm(3136, 256, 1152)
+    assert (p.path, p.bm, p.bn, p.split, p.blocks) == ("tile", 96, 128, 4,
+                                                       264)
+    assert plan_f32_gemm(1, 40, 1536).split == 24
+    p = plan_f32_gemm(1, 50280, 2560, True)
+    assert (p.path, p.bn, p.split) == ("skinny", 32, 1)
+    assert plan_f32_gemm(2, 5, 0).split == 1          # K = 0: no K steps
+
+
+@pytest.fixture
+def fake_kernels(monkeypatch):
+    """Run a wrapper's CUDA branch on CPU tensors against a stand-in
+    library that records each C call's arguments (no CUDA here)."""
+    import contextlib
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def fn(*args):
+                calls.append((name, args))
+                return 0
+            return fn
+
+    monkeypatch.setattr(_native, "on_cpu", lambda *a, **k: False)
+    monkeypatch.setattr(_native, "library", lambda name: Lib())
+    monkeypatch.setattr(_native, "on_device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(_native, "current_stream", lambda d: 0)
+    yield calls
+    ops.reset_launch_counts()
+
+
+def test_mm_passes_f32_kmajor_w_to_the_kernel_uncopied(fake_kernels):
+    """``layers._mm`` with an f32 ``embed.T`` (mamba2's tied head) reaches
+    ``repro_matmul_f32`` as the embedding's own storage, K-major, with the
+    planner's path and split: one launch counted, no copy."""
+    from repro_torch.kernels.matmul import plan_f32_gemm
+    from repro_torch.models import layers as L
+
+    emb = torch.randn(300, 64)                 # (V, d)
+    x = torch.randn(1, 1, 64)
+    L._mm(x, emb.T)
+    (name, args), = fake_kernels
+    assert name == "repro_matmul_f32"
+    _, w_ptr, _, M, N, K, ldb, kmajor, path, bm, bn, split, scratch, _ = args
+    assert w_ptr == emb.data_ptr()
+    assert (M, N, K, ldb, kmajor) == (1, 300, 64, 64, 1)
+    p = plan_f32_gemm(1, 300, 64, True)
+    assert (path, bm, bn, split) == (0, p.bm, p.bn, p.split)
+    assert (scratch is None) == (split == 1)
+    assert ops.launch_counts()["matmul"] == 1
+
+
+def test_decode_wrapper_passes_its_plan(fake_kernels):
+    """``decode_attention`` hands its kernel ``plan_decode``'s cut and a
+    scratch for the splits, at a head dim (80) that is not 32, 64 or
+    128."""
+    from repro_torch.kernels.attention import plan_decode
+
+    B, W, H, KV, D = 1, 4096, 32, 32, 80
+    q = torch.randn(B, H, D, dtype=torch.bfloat16)
+    k = torch.randn(B, W, KV, D, dtype=torch.bfloat16)
+    pos = torch.tensor([W - 1], dtype=torch.int32)
+    out = ops.decode_attention(q, k, k, pos)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    (name, args), = fake_kernels
+    assert name == "repro_decode_attention_bf16"
+    p = plan_decode(B, W, H, KV, D)
+    assert p.split > 1 and args[7] is not None
+    assert args[8:14] == (B, W, H, KV, D, 0)
+    assert args[15:20] == (p.hg, p.hgroups, p.lpr, p.chunk, p.split)
+    assert ops.launch_counts()["decode_attention"] == 1

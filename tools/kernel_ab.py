@@ -1,0 +1,219 @@
+"""Time ``decode_attention`` and the f32 ``matmul`` of one source tree of the
+PyTorch port on a CUDA card, so that two commits can be compared on one card.
+
+Each row calls the tree's own wrapper (``repro_torch.kernels.ops``) at a
+decode or GEMM shape of ``chip_smoke.py`` and prints one JSON object:
+``ms``, the mean of 20 calls after 3 warm-ups by CUDA events (the ruler of
+``chip_smoke.py``'s kernel rows, host cost included), and ``device_ms``,
+the same 20 calls captured in a CUDA graph and replayed (device time),
+beside the PyTorch library call (SDPA, ``torch.matmul``) timed both ways,
+and the output's error against the tree's plain version.
+
+To compare a parent commit with a change, unpack the parent into a
+gitignored directory and run both trees in one call, in the order parent,
+change, change, parent:
+
+    git archive HEAD | tar -x -C .archive/parent
+    python3 tools/kernel_ab.py --src .archive/parent/src --label parent
+    python3 tools/kernel_ab.py --src src --label change --variants
+
+``--variants`` also times plans that the tree's planners (``plan_decode``,
+``plan_f32_gemm``) did not pick: ``decode_attention`` in one launch (no
+split) where the cache is a few tiles, and the f32 skinny path with K
+slices of at least 4 and 8 steps. Without a CUDA card it exits 2.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ITERS = 20
+
+# (row, B, W, H, KV, D): smollm-360m (15/5 heads), granite-moe-3b-a800m
+# (24/8); W 82 is the cold start, W 64 granite's profiled decode
+DECODE_ROWS = [("smollm_B1_W82", 1, 82, 15, 5, 64),
+               ("smollm_B1_W128", 1, 128, 15, 5, 64),
+               ("smollm_B1_W256", 1, 256, 15, 5, 64),
+               ("smollm_B1_W512", 1, 512, 15, 5, 64),
+               ("smollm_B4_W82", 4, 82, 15, 5, 64),
+               ("smollm_B4_W4096", 4, 4096, 15, 5, 64),
+               ("granite_B1_W64", 1, 64, 24, 8, 64),
+               ("granite_B4_W4096", 4, 4096, 24, 8, 64)]
+
+# (row, M, K, N, K-major w): resnet50's im2col GEMMs, granite-moe-3b-a800m's
+# router, mamba2-2.7b's f32 decode projections and tied head
+MATMUL_ROWS = [("im2col_s1b0", 12544, 576, 128, False),
+               ("im2col_s2b0", 3136, 1152, 256, False),
+               ("granite_router_M1", 1, 1536, 40, False),
+               ("granite_router_M4", 4, 1536, 40, False),
+               ("granite_router_prefill", 512, 1536, 40, False),
+               ("mamba2_in_M1", 1, 2560, 5120, False),
+               ("mamba2_bc_M1", 1, 2560, 128, False),
+               ("mamba2_dt_M1", 1, 2560, 80, False),
+               ("mamba2_out_M1", 1, 5120, 2560, False),
+               ("mamba2_head_tied_M1", 1, 2560, 50280, True)]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default="src",
+                    help="the tree's src directory (holds repro_torch)")
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--variants", action="store_true")
+    args = ap.parse_args()
+
+    src = os.path.abspath(args.src)
+    sys.path.insert(0, src)
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA card", file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import matmul as MM
+    from repro_torch.kernels import ops
+
+    if not os.path.abspath(repro_torch.__file__).startswith(src):
+        raise SystemExit(f"kernel_ab: imported {repro_torch.__file__}, "
+                         f"not the tree under {src}")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(json.dumps({"label": args.label, "src": args.src, "card": smi,
+                      "torch": torch.__version__}), flush=True)
+    stream = torch.cuda.Stream(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def time_ms(fn):
+        with torch.cuda.stream(stream):
+            for _ in range(3):
+                fn()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for _ in range(ITERS):
+                fn()
+            end.record(stream)
+        end.synchronize()
+        return start.elapsed_time(end) / ITERS
+
+    def device_ms(fn):
+        try:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=stream):
+                for _ in range(ITERS):
+                    fn()
+            with torch.cuda.stream(stream):
+                g.replay()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                for _ in range(3):
+                    g.replay()
+                end.record(stream)
+            end.synchronize()
+            return start.elapsed_time(end) / (3 * ITERS)
+        except Exception as e:  # reported as not measured
+            torch.cuda.synchronize()
+            print(json.dumps({"label": args.label, "no_graph":
+                              f"{type(e).__name__}: {e}"}), flush=True)
+            return None
+
+    def row(kernel, name, fn, plain, library, plan=None):
+        torch.cuda.synchronize()
+        with torch.cuda.stream(stream):
+            got, ref = fn(), plain()
+        stream.synchronize()
+        ref = ref.float()
+        err = ((got.float() - ref).abs().max()
+               / ref.abs().max().clamp_min(1e-30)).item()
+        rec = {"label": args.label, "kernel": kernel, "row": name,
+               "plan": plan, "rel_err": err, "ms": time_ms(fn),
+               "device_ms": device_ms(fn), "library_ms": time_ms(library),
+               "library_device_ms": device_ms(library)}
+        print(json.dumps(rec), flush=True)
+
+    has_plans = hasattr(A, "plan_decode") and hasattr(MM, "plan_f32_gemm")
+    if args.variants and not has_plans:
+        raise SystemExit("kernel_ab: --variants needs plan_decode and "
+                         "plan_f32_gemm")
+
+    for name, B, W, H, KV, D in DECODE_ROWS:
+        q = rand(B, H, D, dtype=torch.bfloat16)
+        k = rand(B, W, KV, D, dtype=torch.bfloat16)
+        v = rand(B, W, KV, D, dtype=torch.bfloat16)
+        pos = torch.full((B,), W - 1, dtype=torch.int32, device=dev)
+        qs, kt, vt = (q[:, :, None], k.transpose(1, 2).contiguous(),
+                      v.transpose(1, 2).contiguous())
+
+        def lib():
+            return F.scaled_dot_product_attention(qs, kt, vt,
+                                                  enable_gqa=True)
+
+        def call():
+            return ops.decode_attention(q, k, v, pos)
+
+        def plain():
+            return A.decode_attention_plain(q, k, v, pos)
+
+        plan = A.plan_decode(B, W, H, KV, D) if has_plans else None
+        row("decode_attention", name, call, plain, lib,
+            plan and {"split": plan.split, "chunk": plan.chunk})
+        if args.variants and plan.split > 1 and plan.tiles <= 8:
+            orig = A.plan_decode
+            one = plan._replace(chunk=plan.tiles * plan.tile, split=1,
+                                blocks=plan.blocks // plan.split)
+            A.plan_decode = lambda *a: one
+            try:
+                row("decode_attention", name + "_one_launch", call, plain,
+                    lib, {"split": 1, "chunk": one.chunk})
+            finally:
+                A.plan_decode = orig
+
+    for name, M, K, N, kmajor in MATMUL_ROWS:
+        x = rand(M, K)
+        w = rand(N, K).T if kmajor else rand(K, N)
+
+        def call():
+            return ops.matmul(x, w)
+
+        def plain():
+            return MM.matmul_plain(x, w)
+
+        def lib():
+            return torch.matmul(x, w)
+
+        plan = MM.plan_f32_gemm(M, N, K, kmajor) if has_plans else None
+        row("matmul", name, call, plain, lib,
+            plan and {"path": plan.path, "tile": [plan.bm, plan.bn],
+                      "split": plan.split})
+        if args.variants and plan.path == "skinny" and plan.split > 1:
+            orig = MM.plan_f32_gemm
+            tiles = plan.blocks // plan.split
+            for least in (4, 8):
+                split = max(d for d in range(1, plan.ksteps + 1)
+                            if plan.ksteps % d == 0
+                            and plan.ksteps // d >= least)
+                if split >= plan.split:
+                    continue
+                var = plan._replace(split=split, blocks=tiles * split)
+                MM.plan_f32_gemm = lambda *a: var
+                try:
+                    row("matmul", f"{name}_ksteps{least}", call, plain, lib,
+                        {"path": "skinny", "split": split})
+                finally:
+                    MM.plan_f32_gemm = orig
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
