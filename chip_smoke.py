@@ -19,7 +19,14 @@ Run from the root of a checkout, on a machine with a CUDA card and
      window, the int8 cache, a softcap, granite-moe-3b-a800m's heads,
      zamba2-2.7b's head dim 80 and head dims 100, 67 and 256, each row
      printing its
-     split plan; the f32 ``matmul`` also at granite-moe-3b-a800m's router
+     split plan; ``flash_attention`` at smollm-360m's 64- and 2048-token
+     prefills, granite-moe-3b-a800m's 512-token prefill (24/8 heads),
+     zamba2-2.7b's head dim 80 in bf16 and f32, ragged S, head dims 32,
+     67, 100, 128 and 256 with windows and softcaps, and a batch whose
+     plan puts two query heads in a block, each row printing its
+     ``plan_flash`` cut; ``winograd_tile_matmul`` at resnet50's four
+     stages and two ragged shapes, each row printing its path, tile and
+     blocks; the f32 ``matmul`` also at granite-moe-3b-a800m's router
      (decode at 1 and 4 tokens, a 512-token prefill), mamba2-2.7b's f32
      decode projections and its tied head reading ``embed`` K-major in
      place (decode and a 1024-token prefill), ragged and unaligned edges,
@@ -33,7 +40,8 @@ Run from the root of a checkout, on a machine with a CUDA card and
      208 at a 512-token prefill), with ``group_sizes`` from a top-8-of-40
      routing of 1 and of 4 tokens and a clipped prefill, and over the
      Pallas sweep; for the bf16 ``matmul``, ``gmm_blocks``,
-     ``decode_attention`` and the f32 ``matmul`` two launches on the same
+     ``decode_attention``, the f32 ``matmul``, ``flash_attention`` and
+     ``winograd_tile_matmul`` two launches on the same
      inputs must give the same bits, and their device time (the calls
      replayed from a CUDA graph) is printed beside the host-timed one;
      ``ssd_scan`` at mamba2-2.7b's S 1024 from a zero and a random state (y
@@ -1072,7 +1080,8 @@ def moe_path(dev, depth: int) -> dict:
     gates.launched("forward", "matmul", counts["matmul"], depth)
     del logits, ref
     profile_steps(f"forward (1, {S})", lambda i: T.forward(
-        params, {"tokens": toks}, cfg), 1, extra=("gemm", "flash"))
+        params, {"tokens": toks}, cfg), 1,
+        extra=("gemm", "flash", "fa_bf16"))
 
     # one MoE layer on identical inputs (routing identical by construction)
     bp = T._layer(params["blocks"], 0)["moe"]
@@ -1365,7 +1374,7 @@ def main() -> None:
     from repro_torch.kernels import quant as Q
     from repro_torch.kernels.attention import (decode_attention_plain,
                                                flash_attention_plain,
-                                               plan_decode)
+                                               plan_decode, plan_flash)
     from repro_torch.kernels.attention import visible as attn_visible
     from repro_torch.kernels.conv_winograd import winograd_tile_matmul_plain
     from repro_torch.kernels.gmm import gmm_blocks_plain
@@ -1529,16 +1538,28 @@ def main() -> None:
 
     print("kernels vs plain versions (resnet50@224 shapes):")
     results = {}
+    # resnet50's four Winograd stages along plan_f32_gemm(..., batch=16)'s
+    # paths (stream: stem, stage0; tile: stage1, stage2), then ragged edges:
+    # two column tiles of the stream path (its U slab swapped between
+    # items), a ragged tile path
     wino_shapes = [("stem", 12544, 3, 64), ("stage0", 12544, 64, 64),
-                   ("stage1", 3136, 128, 128), ("stage2", 784, 256, 256)]
+                   ("stage1", 3136, 128, 128), ("stage2", 784, 256, 256),
+                   ("ragged_stream", 300, 5, 70),
+                   ("ragged_tile", 257, 100, 33)]
     for tag, T, C, O in wino_shapes:
         V, U = rand(16, T, C), rand(16, C, O)
-        r = check(f"winograd_tile_matmul {tag} (16,{T},{C})x(16,{C},{O})",
+        plan = plan_f32_gemm(T, O, C, False, 16)
+        r = check(f"winograd_tile_matmul {tag} (16,{T},{C})x(16,{C},{O}), "
+                  f"{plan.path} path {plan.bm}x{plan.bn} split {plan.split} "
+                  f"({plan.blocks} blocks)",
                   lambda: ops.winograd_tile_matmul(V, U),
                   lambda: winograd_tile_matmul_plain(V, U),
                   lambda: torch.bmm(V, U),
-                  2 * 16 * T * C * O, 4 * 16 * (T * C + C * O + T * O))
-        results.setdefault("winograd_tile_matmul", {})[tag] = r
+                  2 * 16 * T * C * O, 4 * 16 * (T * C + C * O + T * O),
+                  repeat_equal=True)
+        results.setdefault("winograd_tile_matmul", {})[tag] = {
+            **r, "path": plan.path, "tile": [plan.bm, plan.bn],
+            "split": plan.split}
     # the f32 matmul along plan_f32_gemm's paths: resnet50's im2col GEMMs
     # and head, granite-moe-3b-a800m's f32 router (decode at 1 and 4
     # tokens, a 512-token prefill), mamba2-2.7b's f32 decode projections
@@ -1660,16 +1681,30 @@ def main() -> None:
         rows = np.arange(S)
         return int(np.minimum(rows + 1, window or S).sum())
 
-    # (tag, B, S, H, KV, D, window, softcap, dtype); causal throughout
+    # (tag, B, S, H, KV, D, window, softcap, dtype); causal throughout.
+    # smollm-360m's cold prefill and a long one, granite-moe-3b-a800m's
+    # 512-token prefill, zamba2-2.7b's head dim 80 in both dtypes, ragged
+    # S, the head dims off the 16-byte grid (67: element loads), 100 and
+    # 256, and a plan with two query heads a block
     for tag, B, S, H, KV, D, win, cap, dt in [
             ("prefill64", 1, 64, 15, 5, 64, None, None, torch.bfloat16),
             ("prefill2048", 1, 2048, 15, 5, 64, None, None, torch.bfloat16),
+            ("granite512", 1, 512, 24, 8, 64, None, None, torch.bfloat16),
+            ("zamba2_d80", 1, 1024, 32, 32, 80, None, None, torch.bfloat16),
+            ("zamba2_d80_f32", 1, 1024, 32, 32, 80, None, None,
+             torch.float32),
             ("ragged100", 1, 100, 15, 5, 64, None, None, torch.bfloat16),
             ("f32_window_softcap", 1, 1024, 15, 5, 64, 256, 50.0,
              torch.float32),
-            # the other head dims the kernel is built for
             ("d32_window", 2, 200, 8, 2, 32, 64, None, torch.bfloat16),
-            ("d128_softcap", 2, 130, 4, 4, 128, None, 30.0, torch.bfloat16)]:
+            ("d128_softcap", 2, 130, 4, 4, 128, None, 30.0, torch.bfloat16),
+            ("d100_window_softcap", 1, 300, 8, 2, 100, 128, 30.0,
+             torch.bfloat16),
+            ("d67_window", 1, 200, 4, 2, 67, 64, None, torch.bfloat16),
+            ("d256", 1, 256, 4, 4, 256, None, None, torch.bfloat16),
+            # a batch with 8 query heads a kv head: two heads a block
+            ("batched_gqa", 8, 256, 32, 4, 128, None, None,
+             torch.bfloat16)]:
         q = rand(B, S, H, D, dtype=dt, scale=0.5)
         k = rand(B, S, KV, D, dtype=dt, scale=0.5)
         v = rand(B, S, KV, D, dtype=dt, scale=0.5)
@@ -1680,13 +1715,19 @@ def main() -> None:
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, enable_gqa=True))
         dname = str(dt).replace("torch.", "")
+        plan = plan_flash(B, S, H, KV, D, dt, True, win)
         r = check(f"flash_attention {tag} B={B} S={S} H={H} KV={KV} D={D} "
-                  f"window={win} softcap={cap} {dname}",
+                  f"window={win} softcap={cap} {dname}, bq {plan.bq} heads "
+                  f"{plan.heads} ksplit {plan.ksplit} bk {plan.bk} dp "
+                  f"{plan.dp} ({plan.blocks} blocks of {plan.threads} "
+                  f"threads)",
                   lambda: ops.flash_attention(q, k, v, **kw),
                   lambda: flash_attention_plain(q, k, v, **kw), lib,
                   4 * B * H * D * visible_pairs(S, win),
-                  q.element_size() * 2 * B * S * (H + KV) * D, dname)
-        results.setdefault("flash_attention", {})[tag] = r
+                  q.element_size() * 2 * B * S * (H + KV) * D, dname,
+                  repeat_equal=True)
+        results.setdefault("flash_attention", {})[tag] = {
+            **r, "plan": plan._asdict()}
 
     print("kernels vs plain versions (decode_attention: the Pallas sweep in "
           "its prefix form, smollm-360m decode shapes, a wrapped ring with a "
@@ -2038,6 +2079,16 @@ def main() -> None:
                  pinned("im2col_sgemm", "im2col_sgemm", "direct"))]
         decided = eng.plan
         per_run = []
+        # the Winograd GEMM shapes of each run, for their time a forward
+        wino_calls = {}
+        wino_kernel = ops.winograd_tile_matmul
+
+        def wino_recording(V, U):
+            wino_calls.setdefault(label, []).append(
+                (tuple(V.shape), tuple(U.shape)))
+            return wino_kernel(V, U)
+
+        ops.winograd_tile_matmul = wino_recording
         ops.reset_launch_counts()
         for label, pin in runs:
             before = ops.launch_counts()
@@ -2053,9 +2104,28 @@ def main() -> None:
                   f"stage_seconds={json.dumps(r.stage_seconds())} "
                   f"launches={json.dumps(delta)}")
             check_output(label, r.output)
+        ops.winograd_tile_matmul = wino_kernel
         cnn_counts = ops.launch_counts()
         for k in ("matmul", "matmul_packed", "winograd_tile_matmul"):
             launches[k] = cnn_counts[k]
+        # the Winograd GEMMs of one pinned-Winograd forward: device time of
+        # the kernel and of torch.bmm at each shape (CUDA-graph replay),
+        # summed over the forward's calls (after the counted runs)
+        calls = wino_calls.get("pinned winograd+packed", [])
+        t_k = t_b = 0.0
+        for shape in sorted(set(calls)):
+            n = calls.count(shape)
+            V, U = rand(*shape[0]), rand(*shape[1])
+            dk = device_ms(lambda: ops.winograd_tile_matmul(V, U))
+            db = device_ms(lambda: torch.bmm(V, U), library=True)
+            t_k += n * dk
+            t_b += n * (db or 0.0)
+            print(f"  Winograd GEMM {shape[0]}x{shape[1]} x{n}: device "
+                  f"{dk:.4f} ms, torch.bmm {db if db is None else round(db, 4)}"
+                  f" ms")
+        print(f"  resnet50 pinned winograd+packed forward: {len(calls)} "
+              f"Winograd GEMMs, {t_k:.4f} ms of kernel device time "
+              f"(torch.bmm {t_b:.4f} ms)")
         repairs = eng.repairs.counts()
         open_breakers = eng.breaker.open_keys()
         print(f"  repairs={json.dumps(repairs)} open_breakers={open_breakers}")

@@ -1,18 +1,21 @@
 // f32 GEMM for Hopper (sm_90a) along the path the host planner chooses
 // (kernels/matmul.py plan_f32_gemm): C(M,N) = A(M,K) · B(K,N), all f32,
 // IEEE f32 FMA on the CUDA cores (no TF32, no 3xTF32 split: the lossless
-// cold path must match the f32 reference). A is row-major with lda = K.
+// cold path must match the f32 reference), batched over `batch` GEMMs
+// with per-batch strides. A is row-major with lda = K.
 // B is read in place in one of two layouts:
 //   row-major  (K,N) with leading dimension ldb (a weight as stored);
 //   K-major    (N,K) with leading dimension ldb: a w whose w.T is
 //              contiguous, such as the tied head's embed (V,d) read as
 //              embed.T, with no copy.
-// It carries matmul's f32 entry only; matmul_packed, winograd_tile_matmul,
-// the fused dequant GEMMs and gmm_blocks' f32 entry stay on gemm_f32.cuh.
+// It carries matmul's f32 entry (batch 1) and winograd_tile_matmul (the
+// 16 GEMMs of Winograd F(2x2,3x3)); matmul_packed, the fused dequant GEMMs
+// and gmm_blocks' f32 entry stay on gemm_f32.cuh.
 //
 // Bound on an H100 SXM (67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s): the
-// im2col GEMMs of resnet50@224 by operations, the decode GEMMs (M <= 16)
-// by reading B. Two paths:
+// im2col GEMMs of resnet50@224 and its Winograd stages 1-2 by operations,
+// the decode GEMMs (M <= 16) by reading B, Winograd's stem and stage 0
+// (K = 3, 64) by reading A and writing C. Three paths:
 //
 //   * tile (M > 16): BM x BN output tile, BM in {64, 96, 128}, BN in
 //     {64, 128}, picked per shape with the K split so that the grid fills
@@ -25,23 +28,37 @@
 //     every operand is read back as float4, so a 4-deep slice of k costs
 //     TM + TN shared loads for TM x TN x 4 FMA. One barrier a K step; two
 //     stages of copies in flight behind it. Each output's FMAs run in k
-//     order, as a plain dot product.
+//     order, as a plain dot product. blockIdx.z walks batch x split.
+//   * stream (batch > 1, K <= 64: Winograd's stem and stage 0): a tile
+//     has one or two K steps, so its own ring never fills and nothing
+//     hides the copies. Persistent blocks, two an SM, each walk a
+//     contiguous run of (batch, column tile, 128-row tile) items, K step
+//     by K step (32 deep; 4, 8 or 16 where K is shallower); the
+//     cp.async ring of steps (4 deep) runs across items, so the next
+//     item's rows of A are copied while the current item's FMAs run. The
+//     item's B slab (K x 64) stays in shared memory while consecutive
+//     items share it (two slots, swapped when the slab changes). Thread
+//     (ty, tx) owns rows ty + 16i (i < 8) and the 4 columns 4tx..4tx+3,
+//     stored as one float4 each. With N <= 64 every element of A is read
+//     from device memory once.
 //   * skinny (M <= 16: decode at batch 1-4, the MoE router): bound by the
 //     bytes of B, so B is streamed once in 16-byte loads (eight in flight
 //     a thread) with x's rows in shared memory. Row-major B: a block owns
 //     128 columns, a thread one float4 of them and every KP-th k row, the
 //     KP phases summed in phase order at the end. K-major B: a block owns
 //     32 columns (rows of B^T), a warp 4 of them, its lanes stride along
-//     k, and the row sums reduce by shuffles.
+//     k, and the row sums reduce by shuffles. Batch 1 only.
 //
-// Both paths split K when the output tiles alone leave SMs idle: split s
-// takes K steps [s·kps, (s+1)·kps) and writes f32 partials to the caller's
-// scratch (split, M, N); a second kernel sums them in split order. No
-// atomics: the same inputs give the same bits on every launch.
+// The tile and skinny paths split K when the output tiles alone leave SMs
+// idle: split s takes K steps [s·kps, (s+1)·kps) and writes f32 partials
+// to the caller's scratch (split, batch, M, N); a second kernel sums them
+// in split order. No atomics: the same inputs give the same bits on every
+// launch.
 //
 // Ragged M, N and K are zero-filled in the copies and masked in the store;
 // an operand that is not on a 16-byte boundary, or whose rows are not a
-// multiple of 4 floats, is copied element by element into the same layout.
+// multiple of 4 floats, is copied element by element into the same layout
+// (4-byte cp.async copies on the stream path).
 // No function-local statics: several libraries may include this header.
 #pragma once
 
@@ -65,13 +82,20 @@ constexpr int kSkinnyKCols = 32;   // skinny, K-major B: columns a block
 constexpr int kXFloats = 12288;    // skinny: most floats of x a block holds
 constexpr int kUnroll = 8;         // skinny, row-major: loads in flight
 
-enum Path { kSkinny = 0, kTile = 1 };
+constexpr int kStreamBM = 128;     // stream path: rows of an item
+constexpr int kStreamBN = 64;      // stream path: columns of an item
+constexpr int kStreamMaxK = 64;    // stream path: deepest K
+constexpr int kStreamStepK = 32;   // stream path: k of a ring step
+
+enum Path { kSkinny = 0, kTile = 1, kStream = 2 };
 
 struct Problem {
-  const float* A;          // (M, K), lda = K
+  const float* A;          // (batch, M, K), lda = K
   const float* B;          // row-major (K,N) or K-major (N,K), ldb
-  float* C;                // (M, N) out, or partials (split, M, N)
+  float* C;                // (batch, M, N) out, or partials (split, ...)
   int M, N, K, ldb;
+  int batch, split;
+  long long bsa, bsb, bsc; // floats between two batch entries' A, B, C
   long long split_stride;  // floats between two splits' partials
   int kps;                 // K steps a split
   int a_vec, b_vec, c_vec; // 16-byte copies / stores allowed
@@ -155,25 +179,26 @@ __device__ __forceinline__ int col_of(int tx, int j) {
 
 // one K step: k in [k0, k0 + kTileBK), zero past kend (the split's end)
 template <int BM, int BN, bool KMAJOR>
-__device__ __forceinline__ void tile_load(const Problem& p, uint32_t sa,
+__device__ __forceinline__ void tile_load(const Problem& p, const float* A,
+                                          const float* B, uint32_t sa,
                                           int m0, int n0, int k0, int kend) {
   constexpr int BK = kTileBK;
   const uint32_t sb = sa + Tile<BM, BN, KMAJOR>::A_FLOATS * 4;
   for (int q = threadIdx.x; q < BM * (BK / 4); q += kThreads) {
     const int r = q / (BK / 4), c = (q % (BK / 4)) * 4;
-    load4(sa + (r * kLDA + c) * 4, p.A, p.K, m0 + r, p.M, k0 + c, kend,
+    load4(sa + (r * kLDA + c) * 4, A, p.K, m0 + r, p.M, k0 + c, kend,
           p.a_vec);
   }
   if constexpr (KMAJOR) {  // BN rows of B^T, BK k each
     for (int q = threadIdx.x; q < BN * (BK / 4); q += kThreads) {
       const int n = q / (BK / 4), c = (q % (BK / 4)) * 4;
-      load4(sb + (n * kLDA + c) * 4, p.B, p.ldb, n0 + n, p.N, k0 + c, kend,
+      load4(sb + (n * kLDA + c) * 4, B, p.ldb, n0 + n, p.N, k0 + c, kend,
             p.b_vec);
     }
   } else {  // BK rows of k, BN n each
     for (int q = threadIdx.x; q < BK * (BN / 4); q += kThreads) {
       const int k = q / (BN / 4), c = (q % (BN / 4)) * 4;
-      load4(sb + (k * BN + c) * 4, p.B, p.ldb, k0 + k, kend, n0 + c, p.N,
+      load4(sb + (k * BN + c) * 4, B, p.ldb, k0 + k, kend, n0 + c, p.N,
             p.b_vec);
     }
   }
@@ -189,7 +214,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   extern __shared__ __align__(16) float smem[];
   const uint32_t ring = smem_addr(smem);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, sp = blockIdx.z;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int bz = blockIdx.z / p.split, sp = blockIdx.z % p.split;
+  const float* A = p.A + bz * p.bsa;
+  const float* B = p.B + bz * p.bsb;
   // this split's k range, in steps of BK
   const int kbeg = sp * p.kps * kBK;
   const int kend = min(p.K, kbeg + p.kps * kBK);
@@ -204,7 +232,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nks)
-      tile_load<BM, BN, KMAJOR>(p, ring + s * TL::STAGE * 4, m0, n0,
+      tile_load<BM, BN, KMAJOR>(p, A, B, ring + s * TL::STAGE * 4, m0, n0,
                                 kbeg + s * BK, kend);
     cp_async_commit();
   }
@@ -213,8 +241,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // stage t landed; the slot of step t - 1 is free
     const int nt = t + kStages - 1;
     if (nt < nks)
-      tile_load<BM, BN, KMAJOR>(p, ring + (nt % kStages) * TL::STAGE * 4,
-                                m0, n0, kbeg + nt * BK, kend);
+      tile_load<BM, BN, KMAJOR>(p, A, B,
+                                ring + (nt % kStages) * TL::STAGE * 4, m0,
+                                n0, kbeg + nt * BK, kend);
     cp_async_commit();
     const float* As = smem + (t % kStages) * TL::STAGE;
     const float* Bs = As + TL::A_FLOATS;
@@ -269,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   cp_async_wait<0>();
 
-  float* C = p.C + (size_t)sp * p.split_stride;
+  float* C = p.C + (size_t)sp * p.split_stride + bz * p.bsc;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = m0 + ty + 16 * i;
@@ -292,6 +321,217 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// stream path (batch > 1, K <= kStreamMaxK)
+// ---------------------------------------------------------------------------
+// rows [0, 128) x k [0, kp) of A's item tile at row m0, as [row][k] with
+// row stride kp + 4 floats; k >= K and rows >= M zero-filled
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Copy the 4 floats at (row, col..col+3) into the 16-byte shared slot
+// dst, as load4, but always with cp.async: 4-byte copies where the row is
+// not on a 16-byte boundary.
+__device__ __forceinline__ void load4_async(uint32_t dst, const float* src,
+                                            long long ld, int row, int nrows,
+                                            int col, int ncols, int vec) {
+  if (vec) {
+    const bool ok = row < nrows && col < ncols;
+    cp_async16(dst,
+               ok ? (const void*)(src + (size_t)row * ld + col)
+                  : (const void*)src,
+               ok ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool ok = row < nrows && col + j < ncols;
+      cp_async4(dst + 4 * j,
+                ok ? (const void*)(src + (size_t)row * ld + col + j)
+                   : (const void*)src,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// Item `it` of the walk: (batch entry, column tile, row tile), rows
+// fastest, so that consecutive items share B's slab.
+struct StreamItem {
+  int b, n0, m0;
+  __device__ __forceinline__ StreamItem(int it, int tiles_m, int tiles_n) {
+    m0 = (it % tiles_m) * kStreamBM;
+    const int r = it / tiles_m;
+    n0 = (r % tiles_n) * kStreamBN;
+    b = r / tiles_n;
+  }
+  __device__ __forceinline__ int slab(int tiles_n) const {
+    return b * tiles_n + n0 / kStreamBN;
+  }
+};
+
+// The walk's unit is a K step: k [sk·s, sk·s + sk) of one item, sk the
+// power of two from 4 to 32 that holds K where K is shallower than 32
+// (zero-filled past K, so the step's FMA loop unrolls at a fixed depth).
+// `kp` is K rounded up to whole steps.
+struct StreamShape {
+  int kp, spi, sk;  // K padded; steps an item; k a step
+  __device__ __host__ StreamShape(int K) {
+    sk = 4;
+    while (sk < kStreamStepK && sk < K) sk *= 2;
+    spi = K > 0 ? (K + sk - 1) / sk : 1;
+    kp = spi * sk;
+  }
+};
+
+// Start the copies of step `s` of item `t` (rows of A, k from 32·s) into
+// ring slot `sa`, and of the item's whole B slab into `sb` when `with_b`
+// (the first step of an item whose slab changed).
+template <int SK>
+__device__ __forceinline__ void stream_load(const Problem& p,
+                                            const StreamShape& sh,
+                                            const StreamItem& t, int s,
+                                            uint32_t sa, uint32_t sb,
+                                            bool with_b) {
+  constexpr int cq = SK / 4, lds = SK + 4;
+  const int k0 = s * SK;
+  const float* A = p.A + t.b * p.bsa;
+  for (int q = threadIdx.x; q < kStreamBM * cq; q += kThreads) {
+    const int r = q / cq, c = (q - r * cq) * 4;
+    load4_async(sa + (r * lds + c) * 4, A, p.K, t.m0 + r, p.M, k0 + c, p.K,
+                p.a_vec);
+  }
+  if (with_b) {
+    const float* B = p.B + t.b * p.bsb;
+    for (int q = threadIdx.x; q < sh.kp * (kStreamBN / 4); q += kThreads) {
+      const int k = q / (kStreamBN / 4), c = (q % (kStreamBN / 4)) * 4;
+      load4_async(sb + (k * kStreamBN + c) * 4, B, p.ldb, k, p.K, t.n0 + c,
+                  p.N, p.b_vec);
+    }
+  }
+}
+
+// Shared memory: NST step slots of A rows ([row][k], rows of SK + 4
+// floats: float4 reads of rows ty and ty + 1 fall in other banks), then
+// two B slabs.
+inline size_t stream_smem_bytes(int K, int nst) {
+  const StreamShape sh(K);
+  return ((size_t)nst * kStreamBM * (sh.sk + 4) +
+          2 * (size_t)sh.kp * kStreamBN) * sizeof(float);
+}
+
+// Persistent: block x walks items [x·items/grid, (x+1)·items/grid), step
+// by step, through an NST-deep ring of steps that runs across items: the
+// copies of the step NST - 1 ahead (the next item's, near an item's end)
+// are started before the current step's FMAs, behind one barrier a step.
+// NST is 4 where every slab but a run's first and last spans at least 3
+// steps, else 2.
+template <int NST, int SK>
+__global__ void __launch_bounds__(kThreads, 2)
+    gemm_f32_stream_kernel(Problem p, int tiles_m, int tiles_n, int items) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int lds = SK + 4;
+  const StreamShape sh(p.K);
+  const int first = (int)((long long)blockIdx.x * items / gridDim.x);
+  const int last = (int)((long long)(blockIdx.x + 1) * items / gridDim.x);
+  const int nsteps = (last - first) * sh.spi;
+  if (nsteps <= 0) return;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  constexpr int slot_floats = kStreamBM * lds;
+  float* ring = smem;
+  float* slabs = smem + NST * slot_floats;
+  const uint32_t ring_s = smem_addr(ring), slabs_s = smem_addr(slabs);
+  constexpr int TM = kStreamBM / 16;
+
+  // the B slab each item reads: the copying and the computing side each
+  // swap slots when the slab changes, in the same order. A slot is
+  // rewritten only after the barrier that ends the last step of the slab
+  // before the one it holds, so no step still reads it.
+  int next_slab = -1, next_slot = 1, comp_slab = -1, comp_slot = 1;
+  auto enqueue = [&](int j) {
+    const int s = j % sh.spi;
+    const StreamItem t(first + j / sh.spi, tiles_m, tiles_n);
+    bool with_b = false;
+    if (s == 0 && t.slab(tiles_n) != next_slab) {
+      next_slab = t.slab(tiles_n);
+      next_slot ^= 1;
+      with_b = true;
+    }
+    stream_load<SK>(p, sh, t, s, ring_s + (j % NST) * slot_floats * 4,
+                slabs_s + next_slot * sh.kp * kStreamBN * 4, with_b);
+  };
+#pragma unroll
+  for (int j = 0; j < NST - 1; ++j) {
+    if (j < nsteps) enqueue(j);
+    cp_async_commit();
+  }
+  float acc[TM][4];
+  for (int i = 0; i < nsteps; ++i) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // step i landed; the slot of step i - 1 is free
+    if (i + NST - 1 < nsteps) enqueue(i + NST - 1);
+    cp_async_commit();
+
+    const int s = i % sh.spi;
+    const StreamItem t(first + i / sh.spi, tiles_m, tiles_n);
+    if (s == 0) {
+      if (t.slab(tiles_n) != comp_slab) {
+        comp_slab = t.slab(tiles_n);
+        comp_slot ^= 1;
+      }
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+    }
+    const float* As = ring + (i % NST) * slot_floats;
+    const float* Bs =
+        slabs + comp_slot * sh.kp * kStreamBN + s * SK * kStreamBN;
+#pragma unroll
+    for (int kk = 0; kk < SK; kk += 4) {
+      float4 a4[TM];
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+        a4[r] = *reinterpret_cast<const float4*>(
+            &As[(ty + 16 * r) * lds + kk]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 b4 = *reinterpret_cast<const float4*>(
+            &Bs[(kk + q) * kStreamBN + tx * 4]);
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          const float av = comp(a4[r], q);
+          acc[r][0] = fmaf(av, b4.x, acc[r][0]);
+          acc[r][1] = fmaf(av, b4.y, acc[r][1]);
+          acc[r][2] = fmaf(av, b4.z, acc[r][2]);
+          acc[r][3] = fmaf(av, b4.w, acc[r][3]);
+        }
+      }
+    }
+    if (s != sh.spi - 1) continue;
+    float* C = p.C + t.b * p.bsc;
+    const int c0 = t.n0 + tx * 4;
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int row = t.m0 + ty + 16 * r;
+      if (row >= p.M) continue;
+      float* dst = C + (size_t)row * p.N + c0;
+      if (p.c_vec) {
+        if (c0 < p.N)
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (c0 + c < p.N) dst[c] = acc[r][c];
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -506,9 +746,46 @@ inline cudaError_t launch_tile(const Problem& p, int split,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, split);
+  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.batch * split);
   kernel<<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int NST, int SK>
+inline cudaError_t launch_stream_k(const Problem& p, int blocks, int tiles_m,
+                                   int tiles_n, cudaStream_t stream) {
+  const int bytes = (int)stream_smem_bytes(p.K, NST);
+  cudaError_t err =
+      cudaFuncSetAttribute(gemm_f32_stream_kernel<NST, SK>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  gemm_f32_stream_kernel<NST, SK><<<blocks, kThreads, bytes, stream>>>(
+      p, tiles_m, tiles_n, p.batch * tiles_m * tiles_n);
+  return cudaGetLastError();
+}
+
+template <int NST>
+inline cudaError_t launch_stream_nst(const Problem& p, int blocks, int tiles_m,
+                                     int tiles_n, cudaStream_t stream) {
+  switch (StreamShape(p.K).sk) {
+    case 4: return launch_stream_k<NST, 4>(p, blocks, tiles_m, tiles_n, stream);
+    case 8: return launch_stream_k<NST, 8>(p, blocks, tiles_m, tiles_n, stream);
+    case 16:
+      return launch_stream_k<NST, 16>(p, blocks, tiles_m, tiles_n, stream);
+    default:
+      return launch_stream_k<NST, 32>(p, blocks, tiles_m, tiles_n, stream);
+  }
+}
+
+// `blocks` persistent blocks, two an SM at most; a 4-deep ring of steps
+// where every slab spans at least 3 steps, else 2-deep.
+inline cudaError_t launch_stream(const Problem& p, int blocks,
+                                 cudaStream_t stream) {
+  const int tiles_m = (p.M + kStreamBM - 1) / kStreamBM;
+  const int tiles_n = (p.N + kStreamBN - 1) / kStreamBN;
+  if (tiles_m * StreamShape(p.K).spi >= 3)
+    return launch_stream_nst<4>(p, blocks, tiles_m, tiles_n, stream);
+  return launch_stream_nst<2>(p, blocks, tiles_m, tiles_n, stream);
 }
 
 template <bool KMAJOR>
@@ -564,25 +841,34 @@ inline bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
 
-// Enqueue C = A · B on `stream` as the host planner decided: `path`
-// (kSkinny needs M <= 16 and kps·16·M <= kXFloats; kTile a (bm, bn) that
-// tile_shape_ok takes), `split` (a divisor of the K steps; > 1 needs
-// `scratch` of split·M·N floats). Returns the first launch error, checked
+// Enqueue C[z] = A[z] · B[z] for z < batch on `stream` as the host
+// planner decided: `path` (kSkinny needs batch 1, M <= 16 and
+// kps·16·M <= kXFloats; kTile a (bm, bn) that tile_shape_ok takes;
+// kStream K <= kStreamMaxK, no split, and `blocks` persistent blocks),
+// `split` (a divisor of the K steps; > 1 needs `scratch` of
+// split·batch·M·N floats). Batch entry z of A, B and C starts bsa, bsb and
+// bsc floats after entry z - 1. Returns the first launch error, checked
 // after each launch; cudaErrorInvalidValue for a plan the kernels do not
 // take.
-inline int launch_gemm_f32_planned(const float* A, const float* B, float* C,
-                                   int M, int N, int K, int ldb, bool kmajor,
-                                   int path, int bm, int bn, int split,
+inline int launch_gemm_f32_batched(const float* A, const float* B, float* C,
+                                   int batch, long long bsa, long long bsb,
+                                   long long bsc, int M, int N, int K,
+                                   int ldb, bool kmajor, int path, int bm,
+                                   int bn, int split, int blocks,
                                    float* scratch, cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (batch <= 0 || M <= 0 || N <= 0) return (int)cudaGetLastError();
   const int ksteps = (K + kBK - 1) / kBK;
   const int kps = split > 0 && ksteps > 0 ? ksteps / split : 0;
   const bool ok_path =
-      (path == kSkinny && M <= kSkinnyMaxM &&
+      (path == kSkinny && batch == 1 && M <= kSkinnyMaxM &&
        (long long)kps * kBK * M <= kXFloats) ||
-      (path == kTile && tile_shape_ok(bm, bn));
+      (path == kTile && tile_shape_ok(bm, bn)) ||
+      (path == kStream && !kmajor && K <= kStreamMaxK && split == 1 &&
+       bm == kStreamBM && bn == kStreamBN && blocks > 0);
   if (!ok_path || K < 0 || split < 1 || (ksteps > 0 && ksteps % split) ||
       (ksteps == 0 && split != 1) || (split > 1 && scratch == nullptr) ||
+      // the split's sum writes C packed
+      (split > 1 && batch > 1 && bsc != (long long)M * N) ||
       ldb < (kmajor ? K : N))
     return (int)cudaErrorInvalidValue;
   Problem p;
@@ -592,25 +878,45 @@ inline int launch_gemm_f32_planned(const float* A, const float* B, float* C,
   p.N = N;
   p.K = K;
   p.ldb = ldb;
+  p.batch = batch;
+  p.split = split;
+  p.bsa = bsa;
+  p.bsb = bsb;
   p.kps = kps;
-  p.a_vec = aligned16(A) && K % 4 == 0;
-  p.b_vec = aligned16(B) && ldb % 4 == 0 && (kmajor ? K : N) % 4 == 0;
+  p.a_vec = aligned16(A) && K % 4 == 0 && bsa % 4 == 0;
+  p.b_vec = aligned16(B) && ldb % 4 == 0 && (kmajor ? K : N) % 4 == 0 &&
+            bsb % 4 == 0;
   float* out = split > 1 ? scratch : C;
-  p.c_vec = aligned16(out) && N % 4 == 0;
+  // the partials of a split are (split, batch, M, N), packed
+  p.bsc = split > 1 ? (long long)M * N : bsc;
+  p.c_vec = aligned16(out) && N % 4 == 0 && p.bsc % 4 == 0;
   p.C = out;
-  p.split_stride = split > 1 ? (long long)M * N : 0;
+  p.split_stride = split > 1 ? (long long)batch * M * N : 0;
   cudaError_t err =
       path == kSkinny
           ? launch_skinny(p, kmajor, split, stream)
-          : (kmajor ? launch_tile_shape<true>(p, bm, bn, split, stream)
-                    : launch_tile_shape<false>(p, bm, bn, split, stream));
+          : path == kStream
+                ? launch_stream(p, blocks, stream)
+                : (kmajor ? launch_tile_shape<true>(p, bm, bn, split, stream)
+                          : launch_tile_shape<false>(p, bm, bn, split,
+                                                     stream));
   if (err != cudaSuccess || split == 1) return (int)err;
-  const long long total = (long long)M * N;
-  long long blocks = (total + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  gemm_f32_splitk_sum_kernel<8><<<(unsigned)blocks, 256, 0, stream>>>(
+  const long long total = (long long)batch * M * N;
+  long long nb = (total + 255) / 256;
+  if (nb > 4096) nb = 4096;
+  gemm_f32_splitk_sum_kernel<8><<<(unsigned)nb, 256, 0, stream>>>(
       scratch, C, total, split);
   return (int)cudaGetLastError();
+}
+
+// One GEMM (matmul's f32 entry): the batched launch at batch 1.
+inline int launch_gemm_f32_planned(const float* A, const float* B, float* C,
+                                   int M, int N, int K, int ldb, bool kmajor,
+                                   int path, int bm, int bn, int split,
+                                   float* scratch, cudaStream_t stream) {
+  if (path == kStream) return (int)cudaErrorInvalidValue;
+  return launch_gemm_f32_batched(A, B, C, 1, 0, 0, 0, M, N, K, ldb, kmajor,
+                                 path, bm, bn, split, 1, scratch, stream);
 }
 
 }  // namespace f32

@@ -45,9 +45,14 @@ ARGTYPES = {
     "repro_matmul_bf16": [_P, _P, _P] + [_I] * 8 + [_P, _P],
     "repro_matmul_bf16_f32out": [_P, _P, _P] + [_I] * 8 + [_P, _P],
     "repro_matmul_packed_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_winograd_tile_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_flash_attention_f32": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
-    "repro_flash_attention_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_F, _P],
+    # V, U, out, P, T, C, O, path, bm, bn, split, blocks, scratch, stream
+    "repro_winograd_tile_matmul_f32": [_P, _P, _P] + [_I] * 9 + [_P, _P],
+    # q, k, v, o, B, S, H, KV, D, causal, window, softcap, bq, heads,
+    # ksplit, dp, stream
+    "repro_flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F] + [_I] * 4
+    + [_P],
+    "repro_flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F] + [_I] * 4
+    + [_P],
     # q, k, v, k_scale, v_scale, pos, o, scratch, B, W, H, KV, D, window,
     # softcap, hg, hgroups, lpr, chunk, split, stream
     "repro_decode_attention_f32": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 5

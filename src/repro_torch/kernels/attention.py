@@ -9,20 +9,29 @@ dtype. Scale 1/sqrt(D); causal mask, sliding window (``cols > rows -
 window``), tanh softcap and GQA (kv head ``h // (H/KV)``). Query and key
 positions are 0..S-1, as in a prefill.
 
-Kernel: ``csrc/flash_attention.cu``. One block per (b, h, 64-row query
-tile) walks the 64-key tiles in a loop with an online softmax whose m, l
-and acc are f32 (the Pallas kernel carries them in VMEM across a
-sequential grid axis, which Hopper's blocks do not have); the ragged end of
-S is masked in the kernel instead of padded in device memory, and key tiles
-that the causal and window masks cover fully are skipped. D is 32, 64 or
-128. For bf16 inputs p is rounded to bf16 before P·V, as the Pallas kernel
-casts p to v's dtype.
+Kernel: ``csrc/flash_attention.cu``, any D up to 256, zero-padded to a
+compiled width ``dp`` in shared memory only (output columns >= D are not
+stored). A block walks the key tiles of its query tile in a loop with an
+online softmax whose m, l and acc are f32 (the Pallas kernel carries them
+in VMEM across a sequential grid axis, which Hopper's blocks do not have);
+the ragged end of S is masked in the kernel instead of padded in device
+memory, and key tiles that the causal and window masks cover fully are
+skipped. bf16 runs on the tensor cores: each warp owns 16 query rows,
+q·kᵀ and P·V are ``mma.sync`` m16n8k16 with f32 accumulators fed by
+``ldmatrix`` from a ring of ``cp.async`` copies, and the score fragments
+become P·V's operand in registers after p is rounded to bf16 (as the
+Pallas kernel casts p to v's dtype; l sums the unrounded p). f32 stays on
+the CUDA cores in IEEE f32 (no TF32). ``plan_flash`` picks the query rows
+a block takes per head (64 or 128), the query heads of one kv head it
+holds (they share each K/V tile), whether two warp groups split each key
+stage (their (m, l, acc) merged in group order: no atomics), the key
+tile and ``dp`` from the shapes and masks alone, so a prefill can be
+captured in a CUDA graph.
 
 Bound on an H100 SXM: the cold-LLM prefill (S = 64) is bound by launch
-latency; a long prefill (S = 2048, 15 heads, D = 64) by its ≈ 8 GFLOP of
-the causal half at the 989 TFLOP/s bf16 peak (8 µs). This first kernel
-runs its products on the CUDA cores in f32, so it stays far from that
-bound; tensor-core tiles are later work.
+latency; granite-moe-3b-a800m's (1, 512, 24/8, 64) by its 4.19 MB of q,
+k, v and o (1.25 µs); a long prefill (S = 2048, 15 heads, D = 64) by its
+≈ 8 GFLOP of the causal half at the 989 TFLOP/s bf16 peak (8 µs).
 
 ``flash_attention_plain`` is the plain version (``flash_attention_ref``):
 scores and softmax in f32 over the whole (S, S) matrix, cast to q's dtype
@@ -57,7 +66,7 @@ from __future__ import annotations
 import functools
 import math
 import threading
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -65,7 +74,6 @@ from repro_torch.kernels import _native
 from repro_torch.kernels.matmul import SMS
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (32, 64, 128)
 
 launches = {"flash_attention": 0, "decode_attention": 0}
 _lock = threading.Lock()
@@ -107,6 +115,128 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
+FLASH_MAX_D = 256
+# the widths the kernels are compiled for (csrc/flash_attention.cu); D is
+# zero-padded to the first that holds it
+FLASH_DP = {torch.bfloat16: (32, 64, 80, 96, 112, 128, 192, 256),
+            torch.float32: (32, 64, 96, 128, 192, 256)}
+FLASH_MAX_WARPS = 8      # warps a bf16 block
+_SM_SMEM = 233472        # shared memory an SM holds (228 KB), 1 KB a block
+_SM_THREADS = 2048
+_SM_REGS = 65536
+_SM_WARPS_BUSY = 16      # warps that keep an SM's pipes busy (4 a quarter)
+_F32_BQ, _F32_BK, _F32_THREADS = 64, 64, 256
+
+
+class FlashPlan(NamedTuple):
+    bq: int        # query rows a head in a block: 64 or 128 (bf16), 64 (f32)
+    heads: int     # query heads of one kv head a block holds (share K/V)
+    ksplit: int    # warp groups that split each key stage (bf16 1 or 2)
+    bk: int        # keys a group takes per stage
+    dp: int        # D padded in shared memory
+    stages: int    # cp.async ring depth (bf16; f32 loads synchronously: 1)
+    threads: int   # threads a block
+    smem: int      # dynamic shared memory a block, bytes
+    blocks: int    # blocks of the launch
+
+
+def _bf16_cfg(dp: int) -> Tuple[int, int, int]:
+    """(keys a group takes per stage, ring depth of an unsplit block,
+    registers a thread) of the bf16 kernel at width ``dp``, as ``Bf16Cfg``
+    in the kernel has them; the registers are what ``ptxas -v`` reported
+    on an H100 build (at most 128 where the kernel asks for two blocks an
+    SM)."""
+    regs = {32: 122, 64: 128, 80: 126, 96: 128, 112: 203, 128: 215,
+            192: 216, 256: 255}[dp]
+    return (32, 2, regs) if dp > 128 else (64, 3, regs)
+
+
+def _visible_tiles(S: int, q0: int, bq: int, keys: int, causal: bool,
+                   window: Optional[int]) -> int:
+    """Stages of ``keys`` keys that query tile q0 .. q0 + bq - 1 reads."""
+    last = min(q0 + bq, S) - 1
+    end = last + 1 if causal else S
+    begin = max(0, q0 - window + 1) if window else 0
+    return -(-end // keys) - begin // keys
+
+
+def flash_plans(B: int, S: int, H: int, KV: int, D: int,
+                dtype: torch.dtype) -> List[FlashPlan]:
+    """Every cut of (B, S, H, KV, D) that the kernel of ``dtype`` takes."""
+    if D > FLASH_MAX_D:
+        raise ValueError(f"flash_attention: the CUDA kernel takes head_dim "
+                         f"up to {FLASH_MAX_D}, got {D}")
+    if dtype not in FLASH_DP:
+        raise TypeError(f"flash_attention: no CUDA kernel for {dtype}")
+    dp = next(w for w in FLASH_DP[dtype] if w >= D)
+    if dtype == torch.float32:
+        smem = 4 * (dp * (_F32_BQ + 4) * 2 + _F32_BK * dp
+                    + _F32_BK * (_F32_BQ + 4))
+        return [FlashPlan(_F32_BQ, 1, 1, _F32_BK, dp, 1, _F32_THREADS, smem,
+                          B * H * -(-S // _F32_BQ))]
+    bk, nst, _ = _bf16_cfg(dp)
+    rep = H // KV
+    plans = []
+    for bq in (128, 64):
+        for heads in range(rep, 0, -1):
+            for ks in (1, 2):
+                warps = heads * bq // 16 * ks
+                if rep % heads or warps > FLASH_MAX_WARPS:
+                    continue
+                stages = 2 if ks > 1 else nst
+                ring = 2 * (dp + 8) * stages * 2 * ks * bk
+                merge = (ks - 1) * warps // ks * 32 * (dp // 2 + 4) * 4
+                smem = 2 * (dp + 8) * heads * bq + max(ring, merge)
+                plans.append(FlashPlan(bq, heads, ks, bk, dp, stages,
+                                       warps * 32, smem,
+                                       B * (H // heads) * -(-S // bq)))
+    return plans
+
+
+def _resident(plan: FlashPlan) -> int:
+    """Blocks of ``plan`` an SM holds at once: shared memory, threads and
+    registers (``_bf16_cfg``'s count)."""
+    regs = _bf16_cfg(plan.dp)[2]
+    return max(1, min(_SM_SMEM // (plan.smem + 1024),
+                      _SM_THREADS // plan.threads,
+                      _SM_REGS // (plan.threads * regs)))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_flash(B: int, S: int, H: int, KV: int, D: int,
+               dtype: torch.dtype, causal: bool = True,
+               window: Optional[int] = None) -> FlashPlan:
+    """How ``flash_attention``'s kernel cuts (B, S, H, KV, D), from the
+    shapes and masks alone, so a prefill can be captured in a CUDA graph.
+    f32 has one cut (64 query rows of one head). A bf16 block runs its key
+    stages one after another, each a chain of dependent products and
+    softmax steps that a few warps cannot hide, so the time of a cut is
+    taken as the larger of its longest block (stages, each split across
+    ``ksplit`` warp groups) and its work spread over the card (warp-stages
+    over ``SMS`` x ``_SM_WARPS_BUSY`` resident warps). Of the cuts that fit
+    ``FLASH_MAX_WARPS``, the least such time, then the fewest threads, then
+    more heads a block (each K/V tile read once for them), then the taller
+    tile. So granite-moe-3b-a800m's (1, 512, 24/8) and a long prefill (1,
+    2048, 15/5) take 64-row tiles with each key stage split over two warp
+    groups, and smollm-360m's cold 64-token prefill one 4-warp block a
+    head. Raises ``ValueError`` for D > ``FLASH_MAX_D``."""
+    plans = flash_plans(B, S, H, KV, D, dtype)
+    if len(plans) == 1:
+        return plans[0]
+
+    def key(p: FlashPlan):
+        warps = p.threads // 32
+        stages = [_visible_tiles(S, q0, p.bq, p.ksplit * p.bk, causal,
+                                 window) for q0 in range(0, S, p.bq)]
+        longest = max(stages, default=0)
+        work = B * (H // p.heads) * sum(stages) * warps
+        busy = min(_SM_WARPS_BUSY, _resident(p) * warps)
+        return (max(longest, work / (SMS * busy)), p.threads, -p.heads,
+                -p.bq)
+
+    return min(plans, key=key)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
@@ -116,14 +246,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap)
     B, S, H, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the CUDA kernel takes head_dim "
-                         f"in {HEAD_DIMS}, got {D}")
+    plan = plan_flash(B, S, H, k.shape[2], D, q.dtype, causal, window)
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, "
                          f"got {window}")
     out = torch.empty_like(q)
-    if B and S and H:
+    if B and S and H and D:
         lib = _native.library("flash_attention")
         fn = (lib.repro_flash_attention_bf16 if q.dtype == torch.bfloat16
               else lib.repro_flash_attention_f32)
@@ -132,6 +260,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     B, S, H, k.shape[2], D, int(causal),
                     int(window) if window is not None else 0,
                     float(softcap) if softcap else 0.0,
+                    plan.bq, plan.heads, plan.ksplit, plan.dp,
                     _native.current_stream(q.device))
         _native.check(rc, "flash_attention")
         with _lock:

@@ -111,7 +111,7 @@ def test_matmul_packed_matches_pallas(K, N):
 
 
 @pytest.mark.parametrize("T,C,O", [(200, 48, 72), (128, 128, 64),
-                                   (60, 17, 9)])
+                                   (60, 17, 9), (300, 3, 64), (257, 64, 64)])
 def test_winograd_tile_matmul_matches_pallas(T, C, O):
     rng = _rng(3, T, C, O)
     V = rng.standard_normal((16, T, C)).astype(np.float32)
@@ -376,6 +376,84 @@ def test_plan_f32_gemm_decisions():
     assert plan_f32_gemm(2, 5, 0).split == 1          # K = 0: no K steps
 
 
+# every batch-1 plan of the f32 template as it was before the batched paths
+# came in: (M, K, N, K-major w) -> (path, bm, bn, split, ksteps, blocks)
+F32_BATCH1_PLANS = [
+    ((12544, 576, 128, False), ("tile", 96, 64, 1, 36, 262)),
+    ((3136, 1152, 256, False), ("tile", 96, 128, 4, 72, 264)),
+    ((1, 256, 100, False), ("skinny", 16, 128, 4, 16, 4)),
+    ((1, 1536, 40, False), ("skinny", 16, 128, 24, 96, 24)),
+    ((4, 1536, 40, False), ("skinny", 16, 128, 24, 96, 24)),
+    ((512, 1536, 40, False), ("tile", 64, 64, 32, 96, 256)),
+    ((1, 2560, 5120, False), ("skinny", 16, 128, 4, 160, 160)),
+    ((1, 2560, 128, False), ("skinny", 16, 128, 40, 160, 40)),
+    ((1, 2560, 80, False), ("skinny", 16, 128, 40, 160, 40)),
+    ((1, 5120, 2560, False), ("skinny", 16, 128, 8, 320, 160)),
+    ((1, 2560, 50280, True), ("skinny", 16, 32, 1, 160, 1572)),
+    ((1024, 2560, 50280, True), ("tile", 128, 128, 1, 160, 3144)),
+    ((1024, 2560, 5120, False), ("tile", 128, 64, 1, 160, 640)),
+    ((3, 129, 7, False), ("skinny", 16, 128, 1, 9, 1)),
+    ((100, 200, 4099, False), ("tile", 64, 64, 13, 13, 1690)),
+    ((20, 37, 50, True), ("tile", 64, 64, 3, 3, 3)),
+    ((5, 37, 50, True), ("skinny", 16, 32, 1, 3, 2)),
+    ((64, 576, 128, False), ("tile", 64, 64, 36, 36, 72)),
+    ((16, 2560, 50280, True), ("skinny", 16, 32, 4, 160, 6288)),
+    ((2, 0, 5, False), ("skinny", 16, 128, 1, 0, 1)),
+    # the Winograd stage shapes as single GEMMs
+    ((12544, 64, 64, False), ("tile", 96, 64, 2, 4, 262)),
+    ((300, 100, 33, False), ("tile", 64, 64, 7, 7, 35)),
+    ((257, 64, 64, False), ("tile", 64, 64, 4, 4, 20))]
+
+
+@pytest.mark.parametrize("shape,plan", F32_BATCH1_PLANS,
+                         ids=["x".join(map(str, s)) for s, _ in
+                              F32_BATCH1_PLANS])
+def test_plan_f32_gemm_batch1_unchanged(shape, plan):
+    """``batch=1`` (the default, and given) plans every f32 GEMM as before
+    the batched paths: matmul's f32 entry keeps its behaviour."""
+    from repro_torch.kernels.matmul import plan_f32_gemm
+
+    M, K, N, kmajor = shape
+    assert tuple(plan_f32_gemm(M, N, K, kmajor)) == plan
+    assert tuple(plan_f32_gemm(M, N, K, kmajor, 1)) == plan
+
+
+# resnet50@224's 3x3/s1 stages as Winograd's 16 GEMMs (T, C, O), with the
+# path and tile plan_f32_gemm(T, O, C, batch=16) gives them
+WINO_PLANS = [((12544, 3, 64), ("stream", 128, 64)),
+              ((12544, 64, 64), ("stream", 128, 64)),
+              ((3136, 128, 128), ("tile", 96, 128)),
+              ((784, 256, 256), ("tile", 128, 128)),
+              ((300, 5, 70), ("stream", 128, 64)),
+              ((257, 100, 33), ("tile", 96, 64))]
+
+
+@pytest.mark.parametrize("shape,want", WINO_PLANS,
+                         ids=["x".join(map(str, s)) for s, _ in WINO_PLANS])
+def test_plan_f32_gemm_batched(shape, want):
+    """Short K (<= F32_STREAM_MAX_K) streams: persistent blocks, two an SM
+    at most, over (16 x row tiles x column tiles) items; longer K runs the
+    batched tile path over 16 x tiles, K split only where those leave SMs
+    idle."""
+    from repro_torch.kernels.matmul import (F32_STREAM_MAX_K,
+                                            F32_STREAM_PER_SM, SMS,
+                                            plan_f32_gemm)
+
+    T, C, O = shape
+    p = plan_f32_gemm(T, O, C, False, 16)
+    assert (p.path, p.bm, p.bn) == want
+    assert p.ksteps == -(-C // 16)
+    tiles = 16 * -(-T // p.bm) * -(-O // p.bn)
+    if p.path == "stream":
+        assert C <= F32_STREAM_MAX_K and p.split == 1
+        assert p.blocks == min(tiles, F32_STREAM_PER_SM * SMS)
+    else:
+        assert C > F32_STREAM_MAX_K
+        assert p.blocks == tiles * p.split
+        assert p.split == 1 or tiles < SMS
+    assert plan_f32_gemm(T, O, C, False, 16) is p   # cached, shapes only
+
+
 @pytest.fixture
 def fake_kernels(monkeypatch):
     """Run a wrapper's CUDA branch on CPU tensors against a stand-in
@@ -440,3 +518,46 @@ def test_decode_wrapper_passes_its_plan(fake_kernels):
     assert args[8:14] == (B, W, H, KV, D, 0)
     assert args[15:20] == (p.hg, p.hgroups, p.lpr, p.chunk, p.split)
     assert ops.launch_counts()["decode_attention"] == 1
+
+
+def test_winograd_wrapper_passes_its_plan(fake_kernels):
+    """``winograd_tile_matmul`` hands ``repro_winograd_tile_matmul_f32``
+    the plan of ``plan_f32_gemm(T, O, C, batch=16)``: one launch counted."""
+    from repro_torch.kernels.matmul import _PATH_CODE, plan_f32_gemm
+
+    for T, C, O in [(12544, 64, 64), (784, 256, 256)]:
+        fake_kernels.clear()
+        ops.reset_launch_counts()
+        V, U = torch.zeros(16, T, C), torch.zeros(16, C, O)
+        out = ops.winograd_tile_matmul(V, U)
+        assert out.shape == (16, T, O)
+        (name, args), = fake_kernels
+        assert name == "repro_winograd_tile_matmul_f32"
+        p = plan_f32_gemm(T, O, C, False, 16)
+        assert args[:3] == (V.data_ptr(), U.data_ptr(), out.data_ptr())
+        assert args[3:7] == (16, T, C, O)
+        assert args[7:12] == (_PATH_CODE[p.path], p.bm, p.bn, p.split,
+                              p.blocks)
+        assert (args[12] is None) == (p.split == 1)
+        assert ops.launch_counts()["winograd_tile_matmul"] == 1
+
+
+def test_flash_wrapper_passes_its_plan(fake_kernels):
+    """``flash_attention`` at zamba2-2.7b's head dim 80 (outside the old
+    {32, 64, 128}) reaches ``repro_flash_attention_bf16`` with
+    ``plan_flash``'s cut: one launch counted."""
+    from repro_torch.kernels.attention import plan_flash
+
+    B, S, H, KV, D = 1, 1024, 32, 32, 80
+    q = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    k = torch.zeros(B, S, KV, D, dtype=torch.bfloat16)
+    out = ops.flash_attention(q, k, k, causal=True, window=None,
+                              softcap=None)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    (name, args), = fake_kernels
+    assert name == "repro_flash_attention_bf16"
+    p = plan_flash(B, S, H, KV, D, torch.bfloat16, True, None)
+    assert args[4:12] == (B, S, H, KV, D, 1, 0, 0.0)
+    assert args[12:16] == (p.bq, p.heads, p.ksplit, p.dp)
+    assert p.dp == 80 and p.dp >= D
+    assert ops.launch_counts()["flash_attention"] == 1

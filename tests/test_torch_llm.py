@@ -181,7 +181,12 @@ def _qkv(B, S, H, KV, D, dtype, key):
 
 
 @pytest.mark.parametrize("S,H,KV,D", [(128, 4, 4, 64), (256, 4, 2, 64),
-                                      (192, 8, 1, 32)])
+                                      (192, 8, 1, 32),
+                                      # head dims off {32, 64, 128}: zamba2's
+                                      # 80, and 96, 100, 67 and 256
+                                      (96, 4, 2, 80), (64, 2, 1, 96),
+                                      (80, 4, 2, 100), (72, 2, 2, 67),
+                                      (64, 2, 1, 256)])
 @pytest.mark.parametrize("window,softcap", [(None, None), (64, None),
                                             (None, 30.0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -204,6 +209,14 @@ def test_flash_attention_plain_matches_ref(S, H, KV, D, window, softcap,
 @pytest.mark.parametrize("S,H,KV,D,window,softcap,dtype", [
     (128, 4, 4, 64, None, None, "float32"),
     (256, 4, 2, 64, 64, None, "bfloat16"),
+    (96, 4, 2, 80, None, None, "bfloat16"),
+    (96, 4, 2, 80, 32, 30.0, "float32"),
+    (80, 2, 1, 96, 48, None, "bfloat16"),
+    (100, 4, 2, 100, 40, 30.0, "bfloat16"),
+    (72, 2, 2, 67, None, 30.0, "float32"),
+    (72, 2, 2, 67, 32, None, "bfloat16"),
+    (64, 2, 1, 256, 24, 30.0, "bfloat16"),
+    (64, 2, 1, 256, None, None, "float32"),
 ])
 def test_flash_attention_plain_matches_pallas(S, H, KV, D, window, softcap,
                                               dtype):
@@ -217,7 +230,7 @@ def test_flash_attention_plain_matches_pallas(S, H, KV, D, window, softcap,
                                atol=_tol(dtype), rtol=_tol(dtype))
 
 
-def test_flash_attention_rejects_bad_inputs():
+def test_flash_attention_rejects_bad_inputs(monkeypatch):
     q = torch.zeros(1, 8, 4, 32)
     with pytest.raises(ValueError):
         ops.flash_attention(q, torch.zeros(1, 8, 3, 32),
@@ -230,6 +243,76 @@ def test_flash_attention_rejects_bad_inputs():
         ops.flash_attention(q.to("meta"), torch.zeros(1, 8, 2, 32,
                                                       device="meta"),
                             torch.zeros(1, 8, 2, 32, device="meta"))
+    # the CUDA kernel takes any head dim up to 256: a larger one is refused
+    # before any launch, naming the limit (the CUDA branch, taken here on
+    # CPU tensors, stops there)
+    from repro_torch.kernels import _native
+    monkeypatch.setattr(_native, "on_cpu", lambda *a, **k: False)
+    qd = torch.zeros(1, 8, 2, 264, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 256"):
+        ops.flash_attention(qd, qd, qd)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+# (B, S, H, KV, D, window, dtype): every flash_attention row of chip_smoke.py
+FLASH_PLAN_ROWS = [
+    (1, 64, 15, 5, 64, None, "bfloat16"), (1, 2048, 15, 5, 64, None,
+                                           "bfloat16"),
+    (1, 512, 24, 8, 64, None, "bfloat16"),
+    (1, 1024, 32, 32, 80, None, "bfloat16"),
+    (1, 1024, 32, 32, 80, None, "float32"),
+    (1, 100, 15, 5, 64, None, "bfloat16"),
+    (1, 1024, 15, 5, 64, 256, "float32"),
+    (2, 200, 8, 2, 32, 64, "bfloat16"), (2, 130, 4, 4, 128, None, "bfloat16"),
+    (1, 300, 8, 2, 100, 128, "bfloat16"), (1, 200, 4, 2, 67, 64, "bfloat16"),
+    (1, 256, 4, 4, 256, None, "bfloat16"),
+    (8, 256, 32, 4, 128, None, "bfloat16")]
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,window,dtype", FLASH_PLAN_ROWS)
+def test_plan_flash(B, S, H, KV, D, window, dtype):
+    """``plan_flash`` reads shapes (and masks) only and caches its answer,
+    so a prefill can be captured in a CUDA graph; every cut fits the
+    kernel: a compiled width holding D, at most 8 warps (16 query rows
+    each, over ``heads`` x ``ksplit`` groups), shared memory within a
+    block's 227 KB, the whole grid."""
+    from repro_torch.kernels.attention import (FLASH_DP, FLASH_MAX_WARPS,
+                                               flash_plans, plan_flash)
+
+    dt = getattr(torch, dtype)
+    p = plan_flash(B, S, H, KV, D, dt, True, window)
+    assert plan_flash(B, S, H, KV, D, dt, True, window) is p
+    assert p in flash_plans(B, S, H, KV, D, dt)
+    assert p.dp == min(w for w in FLASH_DP[dt] if w >= D)
+    assert p.smem <= 232448
+    assert p.blocks == B * (H // p.heads) * -(-S // p.bq)
+    if dtype == "float32":
+        assert (p.bq, p.heads, p.ksplit, p.threads) == (64, 1, 1, 256)
+    else:
+        assert p.bq in (64, 128) and (H // KV) % p.heads == 0
+        assert p.threads == 32 * p.heads * p.bq // 16 * p.ksplit
+        assert p.threads <= 32 * FLASH_MAX_WARPS
+        assert p.bk == (32 if p.dp > 128 else 64)
+
+
+def test_plan_flash_decisions():
+    """The cuts the design rests on: the long and granite prefills split
+    each key stage over two warp groups; the cold 64-token prefill takes
+    one 4-warp block a head; a batch with 8 query heads a kv head shares
+    each K/V tile between two heads; D > 256 is refused."""
+    from repro_torch.kernels.attention import plan_flash
+
+    bf = torch.bfloat16
+    for shape in [(1, 2048, 15, 5, 64), (1, 512, 24, 8, 64)]:
+        p = plan_flash(*shape, bf)
+        assert (p.bq, p.heads, p.ksplit) == (64, 1, 2)
+    p = plan_flash(1, 64, 15, 5, 64, bf)
+    assert (p.bq, p.heads, p.ksplit, p.threads) == (64, 1, 1, 128)
+    assert plan_flash(8, 256, 32, 4, 128, bf).heads == 2
+    with pytest.raises(ValueError, match="up to 256"):
+        plan_flash(1, 64, 2, 1, 257, bf)
+    with pytest.raises(ValueError, match="up to 256"):
+        plan_flash(1, 64, 2, 1, 320, torch.float32)
 
 
 # ---------------------------------------------------------------------------

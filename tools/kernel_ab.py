@@ -1,13 +1,15 @@
-"""Time ``decode_attention`` and the f32 ``matmul`` of one source tree of the
-PyTorch port on a CUDA card, so that two commits can be compared on one card.
+"""Time ``decode_attention``, the f32 ``matmul``, ``flash_attention`` and
+``winograd_tile_matmul`` of one source tree of the PyTorch port on a CUDA
+card, so that two commits can be compared on one card.
 
 Each row calls the tree's own wrapper (``repro_torch.kernels.ops``) at a
-decode or GEMM shape of ``chip_smoke.py`` and prints one JSON object:
+decode, GEMM, prefill or Winograd shape of ``chip_smoke.py`` and prints one
+JSON object:
 ``ms``, the mean of 20 calls after 3 warm-ups by CUDA events (the ruler of
 ``chip_smoke.py``'s kernel rows, host cost included), and ``device_ms``,
 the same 20 calls captured in a CUDA graph and replayed (device time),
-beside the PyTorch library call (SDPA, ``torch.matmul``) timed both ways,
-and the output's error against the tree's plain version.
+beside the PyTorch library call (SDPA, ``torch.matmul``, ``torch.bmm``)
+timed both ways, and the output's error against the tree's plain version.
 
 To compare a parent commit with a change, unpack the parent into a
 gitignored directory and run both trees in one call, in the order parent,
@@ -18,15 +20,21 @@ change, change, parent:
     python3 tools/kernel_ab.py --src src --label change --variants
 
 ``--variants`` also times plans that the tree's planners (``plan_decode``,
-``plan_f32_gemm``) did not pick: ``decode_attention`` in one launch (no
-split) where the cache is a few tiles, and the f32 skinny path with K
-slices of at least 4 and 8 steps. Without a CUDA card it exits 2.
+``plan_f32_gemm``, ``plan_flash``) did not pick: ``decode_attention`` in
+one launch (no split) where the cache is a few tiles, the f32 skinny path
+with K slices of at least 4 and 8 steps, every other cut of
+``flash_plans``, and for Winograd the stream path at one block an SM and
+the batched tile path's other tiles. ``--ptxas`` prints what ``ptxas -v``
+said of each kernel of the libraries the rows built (registers, stack
+frame, spills). Rows run for the kernels named by ``--only`` (default:
+all four). Without a CUDA card it exits 2.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -45,6 +53,18 @@ DECODE_ROWS = [("smollm_B1_W82", 1, 82, 15, 5, 64),
 
 # (row, M, K, N, K-major w): resnet50's im2col GEMMs, granite-moe-3b-a800m's
 # router, mamba2-2.7b's f32 decode projections and tied head
+# (row, B, S, H, KV, D, dtype): smollm-360m's cold and long prefill,
+# granite-moe-3b-a800m's 512-token prefill, zamba2-2.7b's head dim 80
+FLASH_ROWS = [("smollm_S64", 1, 64, 15, 5, 64, "bfloat16"),
+              ("smollm_S2048", 1, 2048, 15, 5, 64, "bfloat16"),
+              ("granite_S512", 1, 512, 24, 8, 64, "bfloat16"),
+              ("zamba2_S1024_d80", 1, 1024, 32, 32, 80, "bfloat16"),
+              ("zamba2_S1024_d80_f32", 1, 1024, 32, 32, 80, "float32")]
+
+# (row, T, C, O): resnet50@224's 3x3/s1 stages as 16 batched GEMMs
+WINO_ROWS = [("stem", 12544, 3, 64), ("stage0", 12544, 64, 64),
+             ("stage1", 3136, 128, 128), ("stage2", 784, 256, 256)]
+
 MATMUL_ROWS = [("im2col_s1b0", 12544, 576, 128, False),
                ("im2col_s2b0", 3136, 1152, 256, False),
                ("granite_router_M1", 1, 1536, 40, False),
@@ -63,7 +83,11 @@ def main() -> int:
                     help="the tree's src directory (holds repro_torch)")
     ap.add_argument("--label", default="tree")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--only", default="decode,matmul,flash,winograd",
+                    help="comma-separated: decode, matmul, flash, winograd")
     args = ap.parse_args()
+    only = set(args.only.split(","))
 
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
@@ -130,9 +154,14 @@ def main() -> int:
 
     def row(kernel, name, fn, plain, library, plan=None):
         torch.cuda.synchronize()
-        with torch.cuda.stream(stream):
-            got, ref = fn(), plain()
-        stream.synchronize()
+        try:
+            with torch.cuda.stream(stream):
+                got, ref = fn(), plain()
+            stream.synchronize()
+        except ValueError as e:  # a shape the tree's kernel refuses
+            print(json.dumps({"label": args.label, "kernel": kernel,
+                              "row": name, "refused": str(e)}), flush=True)
+            return
         ref = ref.float()
         err = ((got.float() - ref).abs().max()
                / ref.abs().max().clamp_min(1e-30)).item()
@@ -147,7 +176,7 @@ def main() -> int:
         raise SystemExit("kernel_ab: --variants needs plan_decode and "
                          "plan_f32_gemm")
 
-    for name, B, W, H, KV, D in DECODE_ROWS:
+    for name, B, W, H, KV, D in DECODE_ROWS if "decode" in only else []:
         q = rand(B, H, D, dtype=torch.bfloat16)
         k = rand(B, W, KV, D, dtype=torch.bfloat16)
         v = rand(B, W, KV, D, dtype=torch.bfloat16)
@@ -179,7 +208,7 @@ def main() -> int:
             finally:
                 A.plan_decode = orig
 
-    for name, M, K, N, kmajor in MATMUL_ROWS:
+    for name, M, K, N, kmajor in MATMUL_ROWS if "matmul" in only else []:
         x = rand(M, K)
         w = rand(N, K).T if kmajor else rand(K, N)
 
@@ -212,6 +241,93 @@ def main() -> int:
                         {"path": "skinny", "split": split})
                 finally:
                     MM.plan_f32_gemm = orig
+
+    for name, B, S, H, KV, D, dname in FLASH_ROWS if "flash" in only else []:
+        dt = getattr(torch, dname)
+        q = rand(B, S, H, D, dtype=dt)
+        k = rand(B, S, KV, D, dtype=dt)
+        v = rand(B, S, KV, D, dtype=dt)
+
+        def call():
+            return ops.flash_attention(q, k, v, causal=True)
+
+        def plain():
+            return A.flash_attention_plain(q, k, v, causal=True)
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+
+        has_flash = hasattr(A, "plan_flash")
+        plan = (A.plan_flash(B, S, H, KV, D, dt, True, None) if has_flash
+                else None)
+        row("flash_attention", name, call, plain, lib,
+            plan and plan._asdict())
+        if args.variants and has_flash:
+            orig = A.plan_flash
+            for var in A.flash_plans(B, S, H, KV, D, dt):
+                if var == plan:
+                    continue
+                A.plan_flash = lambda *a, var=var: var
+                try:
+                    row("flash_attention",
+                        f"{name}_bq{var.bq}_h{var.heads}_ks{var.ksplit}",
+                        call, plain, lib, var._asdict())
+                finally:
+                    A.plan_flash = orig
+
+    from repro_torch.kernels import conv_winograd as CW
+    for name, T, C, O in WINO_ROWS if "winograd" in only else []:
+        V, U = rand(16, T, C), rand(16, C, O)
+
+        def call():
+            return ops.winograd_tile_matmul(V, U)
+
+        def plain():
+            return CW.winograd_tile_matmul_plain(V, U)
+
+        def lib():
+            return torch.bmm(V, U)
+
+        batched = "batch" in MM.plan_f32_gemm.__wrapped__.__code__.co_varnames
+        plan = MM.plan_f32_gemm(T, O, C, False, 16) if batched else None
+        row("winograd_tile_matmul", name, call, plain, lib,
+            plan and plan._asdict())
+        if args.variants and batched:
+            ksteps = plan.ksteps
+            vars_ = []
+            if plan.path == "stream":
+                vars_.append(plan._replace(blocks=min(plan.blocks, MM.SMS)))
+            for bm in MM.F32_TILE_BM:
+                for bn in MM.F32_TILE_BN:
+                    tiles = 16 * -(-T // bm) * -(-O // bn)
+                    vars_.append(MM.GemmPlan("tile", bm, bn, 1, ksteps,
+                                             tiles))
+            orig = CW.plan_f32_gemm
+            for var in vars_:
+                if var == plan:
+                    continue
+                CW.plan_f32_gemm = lambda *a, var=var: var
+                try:
+                    row("winograd_tile_matmul",
+                        f"{name}_{var.path}_{var.bm}x{var.bn}_{var.blocks}",
+                        call, plain, lib, var._asdict())
+                finally:
+                    CW.plan_f32_gemm = orig
+
+    if args.ptxas:
+        from repro_torch.kernels import _native
+        for lib_name, log in _native.build_logs.items():
+            fn = None
+            for line in log.splitlines():
+                m = re.search(r"Compiling entry function '([^']+)'", line)
+                if m:
+                    fn = m.group(1)
+                elif "Used" in line or "stack frame" in line:
+                    print(json.dumps({"label": args.label, "lib": lib_name,
+                                      "fn": fn, "ptxas": line.strip()}),
+                          flush=True)
     return 0
 
 
