@@ -43,9 +43,13 @@ Run from the root of a checkout, on a machine with a CUDA card and
      ``decode_attention``, the f32 ``matmul``, ``flash_attention`` and
      ``winograd_tile_matmul`` two launches on the same
      inputs must give the same bits, and their device time (the calls
-     replayed from a CUDA graph) is printed beside the host-timed one;
-     ``ssd_scan`` at mamba2-2.7b's S 1024 from a zero and a random state (y
-     and the final state) and over the Pallas sweep; with
+     replayed from a CUDA graph) is printed beside the host-timed one
+     (``ssd_scan`` too, below);
+     ``ssd_scan`` at mamba2-2.7b's S 1024 in bf16 from a zero and a
+     random state, in f32, at B 4 and at S 512,
+     zamba2-2.7b's N 64, a ragged shape in f32 and bf16 and the Pallas
+     sweep (y and the final state, each row printing the blocks of its
+     four phases, two launches bitwise equal, a device time); with
      ``--kernels-only`` the script stops here (a first check of a new
      kernel, without the paths or a result line);
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
@@ -321,14 +325,21 @@ def profile_steps(label, step, n, extra=()) -> None:
                 and e.self_device_time_total > 0]
         busy = sum(e.self_device_time_total for e in kern) / 1e3  # ms
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
-        top += [e for e in kern if any(x in e.key for x in extra)
-                and e not in top]
+        named = [e for e in kern if any(x in e.key for x in extra)]
+        top += [e for e in named if e not in top]
+        # the summed device time of the kernels ``extra`` names (a kernel
+        # of several phases, each a kernel of its own)
+        sums = "".join(
+            f"; '{x}' kernels together "
+            f"{sum(e.self_device_time_total for e in named if x in e.key) / 1e3 / n:.4f}"
+            f" ms/step in {sum(e.count for e in named if x in e.key) / n:g}"
+            f" launches" for x in extra)
         print(f"  profiler, {label}: wall {wall * 1e3 / n:.3f} ms/step, "
               f"device busy {busy / n:.3f} ms/step (idle share "
               f"{1 - busy / (wall * 1e3):.3f}); kernels by device time: "
               + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.4f}"
                           f" ms/step in {e.count / n:g} launches"
-                          for e in top))
+                          for e in top) + sums)
     except Exception as e:  # a breakdown only: report it, never fail on it
         print(f"  profiler: unavailable ({type(e).__name__}: {e})")
 
@@ -1380,7 +1391,7 @@ def main() -> None:
     from repro_torch.kernels.gmm import gmm_blocks_plain
     from repro_torch.kernels.matmul import (matmul_packed_plain, matmul_plain,
                                             plan_bf16_gemm, plan_f32_gemm)
-    from repro_torch.kernels.ssd import ssd_scan_plain
+    from repro_torch.kernels.ssd import plan_ssd, ssd_scan_plain
     from repro_torch.models.cnn import build_cnn
 
     # -- 1. the card --------------------------------------------------------
@@ -1497,7 +1508,10 @@ def main() -> None:
             got, ref = kernel(), plain()
             again = kernel() if repeat_equal else None
         stream.synchronize()
-        if repeat_equal and not torch.equal(got, again):
+        if repeat_equal and not all(
+                torch.equal(a, b) for a, b in
+                (zip(got, again) if isinstance(got, tuple)
+                 else [(got, again)])):
             fail(f"{label}: two launches on the same inputs differ")
         outs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
         err, scale, finite = 0.0, 1e-30, True
@@ -1957,17 +1971,27 @@ def main() -> None:
                   dname, repeat_equal=True)
         results["gmm_blocks"][f"sweep_group_sizes_{dname}"] = r
 
-    print("kernels vs plain versions (ssd_scan: mamba2-2.7b at S 1024 from a "
-          "zero and a random state, y and the final state; the Pallas "
-          "sweep):")
+    print("kernels vs plain versions (ssd_scan: mamba2-2.7b at S 1024 in "
+          "bf16 from a zero and a random state, in f32, at B 4, and at S 512 "
+          "from a random state; zamba2-2.7b's N 64; y and the final state; "
+          "a ragged shape; the Pallas sweep):")
     # (tag, B, S, H, P, N, Q, dtype, init state)
-    for tag, B, S, H, P, N, Q, dt, init in [
-            ("mamba2_S1024", 1, 1024, 80, 64, 128, 256, torch.bfloat16, False),
-            ("mamba2_S1024_init", 1, 1024, 80, 64, 128, 256, torch.bfloat16,
-             True),
-            ("sweep_S256_N32", 2, 256, 4, 64, 32, 64, torch.float32, False),
-            ("sweep_S128_N16", 2, 128, 2, 32, 16, 32, torch.float32, False),
-            ("sweep_S192_N64", 2, 192, 4, 64, 64, 64, torch.float32, True)]:
+    ssd_rows = [
+        ("mamba2_S1024", 1, 1024, 80, 64, 128, 256, torch.bfloat16, False),
+        ("mamba2_S1024_init", 1, 1024, 80, 64, 128, 256, torch.bfloat16,
+         True),
+        ("mamba2_S1024_f32", 1, 1024, 80, 64, 128, 256, torch.float32,
+         False),
+        ("zamba2_S1024_N64", 1, 1024, 80, 64, 64, 256, torch.bfloat16, False),
+        ("mamba2_B4_S1024", 4, 1024, 80, 64, 128, 256, torch.bfloat16, False),
+        ("mamba2_S512_init", 1, 512, 80, 64, 128, 256, torch.bfloat16, True),
+        ("ragged_P60_N100_Q96", 2, 192, 3, 60, 100, 96, torch.float32, True),
+        ("ragged_P60_N100_Q96_bf16", 2, 192, 3, 60, 100, 96, torch.bfloat16,
+         True),
+        ("sweep_S256_N32", 2, 256, 4, 64, 32, 64, torch.float32, False),
+        ("sweep_S128_N16", 2, 128, 2, 32, 16, 32, torch.float32, False),
+        ("sweep_S192_N64", 2, 192, 4, 64, 64, 64, torch.float32, True)]
+    for tag, B, S, H, P, N, Q, dt, init in ssd_rows:
         x = rand(B, S, H, P, dtype=dt, scale=0.3)
         sdt = (torch.from_numpy(np.abs(rng.standard_normal(
             (B, S, H))).astype(np.float32)) * 0.3).to(dev)
@@ -1980,20 +2004,24 @@ def main() -> None:
         # operations the function needs over each chunk's lower triangle:
         # C·B^T on Q(Q+1)/2 pairs once per (b, chunk), since every head
         # shares B and C (G = 1); per head its product with x on those
-        # pairs, C·state and the state update on Q x N x P
+        # pairs, C·state and the state update on Q x N x P; bounded at the
+        # peak of x's type (bf16: the tensor cores)
         nc, pairs = S // Q, Q * (Q + 1) // 2
         flops = (2 * B * nc * pairs * N
                  + 2 * B * H * nc * (pairs * P + 2 * Q * N * P))
         nbytes = (es * (2 * B * S * H * P + 2 * B * S * N)
                   + 4 * (B * S * H + 2 * H) + 4 * B * H * P * N * (1 + init))
+        plan = plan_ssd(B, S, H, P, N, Q, dt)
         r = check(f"ssd_scan {tag} B={B} S={S} H={H} P={P} N={N} Q={Q} "
-                  f"{dname} init_state={init}",
+                  f"{dname} init_state={init}, blocks of the four phases "
+                  f"{plan.blocks}",
                   lambda: ops.ssd_scan(x, sdt, A, Bm, Cm, D, chunk=Q,
                                        init_state=st),
                   lambda: ssd_scan_plain(x, sdt, A, Bm, Cm, D, chunk=Q,
                                          init_state=st),
-                  None, flops, nbytes, dname, peak="float32")
-        results.setdefault("ssd_scan", {})[tag] = r
+                  None, flops, nbytes, dname, repeat_equal=True)
+        results.setdefault("ssd_scan", {})[tag] = {**r,
+                                                   "blocks": plan.blocks}
     torch.cuda.synchronize()
     print(f"  [kernel phases done at {time.perf_counter() - t_start:.1f} s]")
     if "--kernels-only" in sys.argv[1:]:

@@ -68,8 +68,10 @@ ARGTYPES = {
     # x, w, out, group_sizes, E, C, d, n, [path, bm, split, scratch,] stream
     "repro_gmm_blocks_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_gmm_blocks_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_P, _P],
-    "repro_ssd_scan_f32": [_P] * 9 + [_I] * 6 + [_P],
-    "repro_ssd_scan_bf16": [_P] * 9 + [_I] * 6 + [_P],
+    # x, dt, A, Bm, Cm, D, init, y, final, cum, cb, states, B, S, H, P, N,
+    # Q, stream
+    "repro_ssd_scan_f32": [_P] * 12 + [_I] * 6 + [_P],
+    "repro_ssd_scan_bf16": [_P] * 12 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

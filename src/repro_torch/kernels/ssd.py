@@ -9,31 +9,59 @@ chunk Q. Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N)
 float32), the layout ``ssd_chunked`` returns (the Pallas kernel keeps its
 state as (N, P) and returns y only, from a zero state).
 
-Kernel: ``csrc/ssd.cu``. One block per (b, h) walks the chunks in a loop
-and keeps the f32 state in shared memory across them (the Pallas kernel's
-sequential grid axis); within a chunk it works on 64-row sub-tiles and
-computes the intra-chunk term only for column tiles on or below the
-diagonal, taking exp(cum_i - cum_j) only where i >= j. f32 FMA on the CUDA
-cores, no TF32. P <= 64, N <= 128: the kernel refuses anything larger, and
-a chunk whose tiles do not fit in shared memory, with a CUDA error that
-``_native.check`` raises.
+Kernel: ``csrc/ssd.cu``, the chunked SSD algorithm as Mamba2's GPU code
+splits it (arXiv:2405.21060, "SSD algorithm"), in four phases that are
+parallel over chunks wherever the algebra allows; ``ssd_scan_plain`` runs
+the same four phases as tensor code:
 
-Bound on an H100 SXM: the f32 operations. mamba2-2.7b (H 80, P 64, N 128,
-Q 256) at S 1024: 4.07 GFLOP over the chunks' lower triangles with C·B^T
-counted once per (b, chunk), as G = 1 allows, 0.061 ms at 67 TFLOP/s,
-against about 24 MB moved (0.007 ms). The kernel recomputes C·B^T for every
-head (6.7 GFLOP). 80 blocks at B 1 on 132 SMs; sharing C·B^T across heads
-and tensor-core tiles are later work.
+1. ``ssd_cum_cb``, per (b, chunk): ``cum`` (B, nc, H, Q), the
+   within-chunk cumulative sum of dt·A of every head, and ``CB`` (B, nc,
+   Q, Q) = C·Bᵀ in f32, computed once for all heads (G = 1); the kernel
+   computes its 64-row tiles on and below the diagonal only.
+2. ``ssd_chunk_states``, per (b, chunk, h): s_c = Σ_j exp(cum_last −
+   cum_j)·dt_j·B_jᵀ x_j, (N, P) in f32.
+3. ``ssd_state_passing``, per (b, h): in_0 = init (or zero), in_{c+1} =
+   exp(cum_last,c)·in_c + s_c, one fused multiply-add an element and
+   chunk in chunk order; the final state is in_nc.
+4. ``ssd_chunk_output``, per (b, chunk, h, 64-row tile, heaviest first):
+   y_i = Σ_{j≤i} (CB_ij·exp(cum_i − cum_j)·dt_j)·x_j + exp(cum_i)·C_i·in_c
+   + D·x_i, exp taken only where j ≤ i.
 
-``ssd_scan_plain`` is the plain version: ``ssd_chunked``'s chunk loop as f32
-einsums. On a CPU tensor the wrapper runs it; on a CUDA tensor it launches
-the kernel or raises — there is no fallback. ``launches`` counts kernel
-launches only.
+The wrapper allocates ``cum``, ``CB`` and the chunk states with
+``torch.empty`` (0.3, 1 and 10.5 MB at mamba2-2.7b's B 1, S 1024: they
+stay in the 50 MB L2); the kernels allocate nothing and never sync with
+the host. ``plan_ssd`` gives, from the shapes alone, the blocks of each
+phase (one cut for every shape, so a forward can be captured in a CUDA
+graph). The f32 path runs every product as an IEEE f32 FMA on the CUDA
+cores (no TF32). The bf16 path runs every product on the tensor cores
+(``mma.sync``, f32 accumulators): C·Bᵀ directly, the products with an
+f32 operand v (w·x, the carried state, G) as v = hi + lo, two bf16 values
+and two products, exact but for about 2^-17 of v. The carried state is
+stored in f32 only, never rounded to bf16. No atomics and a fixed order
+for every sum: two launches on the same inputs give the same bits. P <=
+64, N <= 128; ragged P, N and Q are masked in the kernels; a larger P or
+N raises ``ValueError``.
+
+Bound on an H100 SXM: mamba2-2.7b (H 80, P 64, N 128, Q 256) at S 1024
+needs 4.07 GFLOP over the chunks' lower triangles, C·Bᵀ counted once per
+(b, chunk), and moves about 24 MB. In f32 on the CUDA cores that is 0.061
+ms of operations (67 TFLOP/s); in bf16 the bytes bound it (0.0072 ms at
+3.35 TB/s, the operations 0.0041 ms at the 989 TFLOP/s tensor-core peak).
+What keeps the bf16 path above that is traffic through L2 (every head's
+blocks reread the chunk's f32 C·Bᵀ and the carried state) and the
+latency of the fills; left for later: TMA rings that overlap a stage's
+fill with the last stage's products, and C·Bᵀ read once for several
+heads.
+
+On a CPU tensor the wrapper runs ``ssd_scan_plain``; on a CUDA tensor it
+launches the kernels or raises — there is no fallback. ``launches`` counts
+one per wrapper call that launches the phases.
 """
 from __future__ import annotations
 
+import functools
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,6 +69,12 @@ from repro_torch.kernels import _native
 
 launches = {"ssd_scan": 0}
 _lock = threading.Lock()
+
+SSD_MAX_P = 64           # largest head dim the kernels take
+SSD_MAX_N = 128          # largest state dim
+SSD_TILE = 64            # rows of a C·Bᵀ or output tile; depth of a stage
+_HEADS_A_CUM_BLOCK = 4   # phase 1: one warp a head
+_PASS_COLS = 32          # phase 3: state rows (n) a block
 
 
 def _check(x, dt, A, Bm, Cm, D, chunk, init_state) -> None:
@@ -62,47 +96,132 @@ def _check(x, dt, A, Bm, Cm, D, chunk, init_state) -> None:
         raise ValueError(f"ssd_scan: S={S} is not a multiple of chunk={chunk}")
 
 
+# ---------------------------------------------------------------------------
+# the plain version, in the kernels' four phases
+# ---------------------------------------------------------------------------
+def ssd_cum_cb(dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+               Cm: torch.Tensor, chunk: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1: ``cum`` (B, nc, H, Q), the within-chunk cumulative sum of
+    dt·A, and ``CB`` (B, nc, Q, Q) = C·Bᵀ of each chunk in f32, once for
+    every head (G = 1)."""
+    f32 = torch.float32
+    B, S, H = dt.shape
+    N, Q = Bm.shape[-1], chunk
+    nc = S // Q
+    a = dt.reshape(B, nc, Q, H).to(f32) * A.to(f32)
+    cum = torch.cumsum(a, dim=2).transpose(2, 3)
+    Cc = Cm.reshape(B, nc, Q, N).to(f32)
+    Bc = Bm.reshape(B, nc, Q, N).to(f32)
+    return cum, Cc @ Bc.transpose(-1, -2)
+
+
+def ssd_chunk_states(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                     cum: torch.Tensor) -> torch.Tensor:
+    """Phase 2: each chunk's own state (B, nc, H, N, P), s_c = Σ_j
+    exp(cum_last − cum_j)·dt_j·B_jᵀ x_j."""
+    f32 = torch.float32
+    B, nc, H, Q = cum.shape
+    P, N = x.shape[-1], Bm.shape[-1]
+    dtc = dt.reshape(B, nc, Q, H).to(f32).transpose(2, 3)        # (B,nc,H,Q)
+    w = torch.exp(cum[..., -1:] - cum) * dtc
+    return torch.einsum("bcjn,bchj,bcjhp->bchnp",
+                        Bm.reshape(B, nc, Q, N).to(f32), w,
+                        x.reshape(B, nc, Q, H, P).to(f32))
+
+
+def ssd_state_passing(states: torch.Tensor, cum: torch.Tensor,
+                      init_state: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 3: the state entering each chunk (B, nc, H, N, P), in_0 =
+    init (or zero) and in_{c+1} = exp(cum_last,c)·in_c + s_c, and the final
+    state in_nc as (B, H, P, N)."""
+    B, nc, H, N, P = states.shape
+    cur = (torch.zeros((B, H, N, P), dtype=torch.float32,
+                       device=states.device) if init_state is None
+           else init_state.to(torch.float32).transpose(-1, -2))
+    decay = torch.exp(cum[..., -1])                              # (B,nc,H)
+    ins = []
+    for c in range(nc):
+        ins.append(cur)
+        cur = cur * decay[:, c, :, None, None] + states[:, c]
+    return torch.stack(ins, dim=1), cur.transpose(-1, -2)
+
+
+def ssd_chunk_output(x: torch.Tensor, dt: torch.Tensor, Cm: torch.Tensor,
+                     D: torch.Tensor, cum: torch.Tensor, CB: torch.Tensor,
+                     ins: torch.Tensor) -> torch.Tensor:
+    """Phase 4: y (B, S, H, P) in x's dtype, y_i = Σ_{j≤i} (CB_ij·exp(cum_i
+    − cum_j)·dt_j)·x_j + exp(cum_i)·C_i·in_c + D·x_i."""
+    f32 = torch.float32
+    B, nc, H, Q = cum.shape
+    S, P, N = x.shape[1], x.shape[-1], Cm.shape[-1]
+    xc = x.reshape(B, nc, Q, H, P).to(f32)
+    dtc = dt.reshape(B, nc, Q, H).to(f32).transpose(2, 3)        # (B,nc,H,Q)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    # exp(cum_i - cum_j) for j <= i only: above the diagonal it may be inf,
+    # and where() drops it before any product
+    L = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                    torch.zeros((), dtype=f32, device=x.device))
+    G = CB[:, :, None] * L * dtc[..., None, :]                   # (B,nc,H,i,j)
+    y = torch.einsum("bchij,bcjhp->bcihp", G, xc)
+    y_off = torch.einsum("bcin,bchnp->bcihp",
+                         Cm.reshape(B, nc, Q, N).to(f32), ins)
+    y = y + y_off * torch.exp(cum).transpose(2, 3)[..., None]
+    y = y.reshape(B, S, H, P) + x.to(f32) * D.to(f32)[None, None, :, None]
+    return y.to(x.dtype)
+
+
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
                    chunk: int, init_state: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``ssd_chunked``'s arithmetic with G = 1, chunk by chunk in f32."""
+    """``ssd_chunked``'s arithmetic with G = 1 in f32, as the kernels'
+    four phases."""
     _check(x, dt, A, Bm, Cm, D, chunk, init_state)
-    f32 = torch.float32
-    B, S, H, P = x.shape
-    N, Q = Bm.shape[-1], chunk
-    nc = S // Q
-    xc = x.reshape(B, nc, Q, H, P)
-    dtc = dt.reshape(B, nc, Q, H).to(f32)
-    Bc = Bm.reshape(B, nc, Q, N).to(f32)
-    Cc = Cm.reshape(B, nc, Q, N).to(f32)
-    cum = torch.cumsum(dtc * A.to(f32), dim=2)   # within-chunk log-decay
-    state = (torch.zeros((B, H, P, N), dtype=f32, device=x.device)
-             if init_state is None else init_state.to(f32))
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    ys = []
-    for c in range(nc):
-        B_, C_, cum_ = Bc[:, c], Cc[:, c], cum[:, c]
-        xdt = xc[:, c].to(f32) * dtc[:, c][..., None]            # (B,Q,H,P)
-        # L[i,j] = exp(cum_i - cum_j) for i >= j (the exp of the masked
-        # upper half may be inf; where() drops it before any product)
-        diff = cum_[:, :, None, :] - cum_[:, None, :, :]          # (B,i,j,H)
-        Lmat = torch.where(tri[None, :, :, None], torch.exp(diff),
-                           torch.zeros((), dtype=f32, device=x.device))
-        CB = torch.einsum("bin,bjn->bij", C_, B_)
-        y_diag = torch.einsum("bij,bijh,bjhp->bihp", CB, Lmat, xdt)
-        last = cum_[:, -1:, :]                                    # (B,1,H)
-        new_contrib = torch.einsum("bjn,bjh,bjhp->bhpn", B_,
-                                   torch.exp(last - cum_), xdt)
-        y_off = torch.einsum("bin,bhpn,bih->bihp", C_, state,
-                             torch.exp(cum_))
-        state = state * torch.exp(last[:, 0])[..., None, None] + new_contrib
-        ys.append(y_diag + y_off)
-    y = torch.stack(ys, dim=1).reshape(B, S, H, P)
-    y = y + x.to(f32) * D.to(f32)[None, None, :, None]
-    return y.to(x.dtype), state
+    cum, CB = ssd_cum_cb(dt, A, Bm, Cm, chunk)
+    states = ssd_chunk_states(x, dt, Bm, cum)
+    ins, final = ssd_state_passing(states, cum, init_state)
+    return ssd_chunk_output(x, dt, Cm, D, cum, CB, ins), final
 
 
+# ---------------------------------------------------------------------------
+# the planner
+# ---------------------------------------------------------------------------
+class SsdPlan(NamedTuple):
+    blocks: Tuple[int, int, int, int]  # blocks of phases 1-4
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_ssd(B: int, S: int, H: int, P: int, N: int, Q: int,
+             dtype: torch.dtype = torch.float32) -> SsdPlan:
+    """How ``ssd_scan``'s kernels cut (B, S, H, P, N, Q), from the shapes
+    alone (so a forward can be captured in a CUDA graph): the blocks each
+    phase launches, in either dtype. The cut is one for every shape, the
+    fastest of those timed on the card (``PERF.md`` §6): phase 2
+    takes 64 state rows a block (128 lost at B 1 and tied at B 4, in
+    f32); phase 4 takes 64-row tiles launched heaviest first (32-row
+    tiles lost at 80 heads and at 8, the natural order was no faster); P
+    is never split (a block's C and x tiles serve every column of y);
+    phase 3 stays a kernel of its own (folded into phase 4's fill of the
+    state it lost at 2 and 4 chunks). Raises ``ValueError`` for P > 64,
+    N > 128 or S not a multiple of Q, which the kernels refuse."""
+    if not (1 <= P <= SSD_MAX_P and 1 <= N <= SSD_MAX_N):
+        raise ValueError(f"ssd_scan: the kernels take P <= {SSD_MAX_P} and "
+                         f"N <= {SSD_MAX_N}, got P={P}, N={N}")
+    if Q < 1 or S % Q:
+        raise ValueError(f"ssd_scan: S={S} is not a multiple of chunk={Q}")
+    nc, t = S // Q, -(-Q // SSD_TILE)
+    heads = B * nc * H
+    return SsdPlan((B * nc * (t * (t + 1) // 2 + -(-H // _HEADS_A_CUM_BLOCK)),
+                    heads * -(-N // SSD_TILE),
+                    B * H * -(-N // _PASS_COLS),
+                    heads * t))
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
              chunk: int, init_state: Optional[torch.Tensor] = None
@@ -118,18 +237,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=chunk,
                               init_state=init_state)
     B, S, H, P = x.shape
-    N = Bm.shape[-1]
-    lib = _native.library("ssd")
+    N, Q = Bm.shape[-1], chunk
+    plan_ssd(B, S, H, P, N, Q, x.dtype)  # refuses what the kernels do not take
     y = torch.empty_like(x)
     final = torch.empty((B, H, P, N), dtype=f32, device=x.device)
     if B and S and H:
+        nc = S // Q
+        cum = torch.empty((B, nc, H, Q), dtype=f32, device=x.device)
+        cb = torch.empty((B, nc, Q, Q), dtype=f32, device=x.device)
+        states = torch.empty((B, nc, H, N, P), dtype=f32, device=x.device)
+        lib = _native.library("ssd")
         fn = (lib.repro_ssd_scan_bf16 if x.dtype == torch.bfloat16
               else lib.repro_ssd_scan_f32)
         with _native.on_device(x.device):
             rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                     Cm.data_ptr(), D.data_ptr(),
                     None if init_state is None else init_state.data_ptr(),
-                    y.data_ptr(), final.data_ptr(), B, S, H, P, N, chunk,
+                    y.data_ptr(), final.data_ptr(), cum.data_ptr(),
+                    cb.data_ptr(), states.data_ptr(), B, S, H, P, N, Q,
                     _native.current_stream(x.device))
         _native.check(rc, "ssd_scan")
         with _lock:
@@ -139,4 +264,3 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     else:
         final.zero_()
     return y, final
-

@@ -8,7 +8,9 @@ Tolerances:
   and ``ref.ssd_naive_ref``: atol 2e-4, rtol 2e-3, the reference sweep's
   own (``test_kernels.py``); against ``ssm.ssd_chunked``, y and the final
   state, with and without an initial state: 1e-5 (the same f32 chunk
-  arithmetic, another summation order);
+  arithmetic, another summation order); the sweep of the plain version's
+  four phases (1, 2, 4 and 8 chunks, Q 96, N 16 to 128, P 32 and 64)
+  against both: atol 2e-4, rtol 2e-3, the existing sweep's;
 * ``causal_conv``, ``ssd_decode_step``, ``mamba_apply_seq`` and
   ``mamba_decode_step``: 1e-5 in f32; in bf16 5e-2, the reference sweep's
   bf16 tolerance (``test_kernels.py``): a bf16 ulp is 2^-8 of a value, the
@@ -37,7 +39,9 @@ from repro.models import transformer as RT  # noqa: E402
 from repro_torch import bf16  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.ssd import ssd_scan_plain  # noqa: E402
+from repro_torch.kernels import _native  # noqa: E402
+from repro_torch.kernels import ssd as SSD  # noqa: E402
+from repro_torch.kernels.ssd import plan_ssd, ssd_scan_plain  # noqa: E402
 from repro_torch.models import ssm as SM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
@@ -148,6 +152,167 @@ def test_ssd_scan_wrapper_checks():
     with pytest.raises(NotImplementedError):
         SM.ssd_chunked(x, dt, A, torch.stack([Bm, Bm], 2),
                        torch.stack([Cm, Cm], 2), D, chunk=16)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' four phases (ssd_scan_plain) and plan_ssd
+# ---------------------------------------------------------------------------
+# (nc, Q, N, P, init): 1, 2, 4 and 8 chunks; a Q that is not a multiple of
+# 64 (96) with and without an initial state; N 16, 64 and 128; P 32 and 64
+PHASE_SWEEP = [(1, 64, 16, 32, False), (2, 96, 64, 64, False),
+               (2, 96, 128, 32, True), (4, 32, 128, 32, False),
+               (4, 96, 16, 64, True), (8, 16, 64, 64, False),
+               (1, 96, 128, 64, True)]
+
+
+@pytest.mark.parametrize("nc,Q,N,P,init", PHASE_SWEEP)
+def test_ssd_phases_match_pallas_and_ssd_chunked(nc, Q, N, P, init):
+    """The plain version's four phases (cum and C·Bᵀ, chunk states, state
+    passing, output) against the Pallas kernel (zero state, y only) and
+    the reference model's ``ssd_chunked`` (y and the final state)."""
+    H = 3
+    x, dt, A, Bm, Cm, D, st = _ssd_inputs(2, nc * Q, H, P, N, seed=nc + Q)
+    st = st if init else None
+    y, s = ssd_scan_plain(*_torch(x, dt, A, Bm, Cm, D), chunk=Q,
+                          init_state=None if st is None
+                          else torch.from_numpy(st))
+    assert y.shape == (2, nc * Q, H, P) and s.shape == (2, H, P, N)
+    y_r, s_r = RS.ssd_chunked(
+        *map(jnp.asarray, (x, dt, A, Bm[:, :, None], Cm[:, :, None], D)),
+        chunk=Q, init_state=None if st is None else jnp.asarray(st))
+    np.testing.assert_allclose(y.numpy(), _np(y_r), atol=2e-4, rtol=2e-3)
+    np.testing.assert_allclose(s.numpy(), _np(s_r), atol=2e-4, rtol=2e-3)
+    if not init:
+        want = pallas_ssd(*map(jnp.asarray, (x, dt, A, Bm, Cm, D)), chunk=Q,
+                          interpret=True)
+        np.testing.assert_allclose(y.numpy(), _np(want), atol=2e-4,
+                                   rtol=2e-3)
+
+
+def test_ssd_phases_shapes_and_state_passing():
+    """Each phase's output in the layout the kernels use, and phase 3's
+    walk: in_0 is the initial state (as (N, P)), in_{c+1} = exp(cum_last)
+    in_c + s_c, the final state the walk past the last chunk."""
+    B, nc, Q, H, P, N = 2, 3, 32, 2, 8, 16
+    x, dt, A, Bm, Cm, D, st = _torch(*_ssd_inputs(B, nc * Q, H, P, N,
+                                                  seed=4))
+    cum, CB = SSD.ssd_cum_cb(dt, A, Bm, Cm, Q)
+    assert cum.shape == (B, nc, H, Q) and CB.shape == (B, nc, Q, Q)
+    torch.testing.assert_close(cum[:, 1, :, -1],
+                               (dt[:, Q:2 * Q] * A).sum(1), atol=1e-5,
+                               rtol=1e-5)
+    s = SSD.ssd_chunk_states(x, dt, Bm, cum)
+    assert s.shape == (B, nc, H, N, P)
+    ins, final = SSD.ssd_state_passing(s, cum, st)
+    assert ins.shape == (B, nc, H, N, P) and final.shape == (B, H, P, N)
+    torch.testing.assert_close(ins[:, 0], st.transpose(-1, -2))
+    dec = torch.exp(cum[..., -1])
+    for c in range(nc - 1):
+        torch.testing.assert_close(
+            ins[:, c + 1], ins[:, c] * dec[:, c, :, None, None] + s[:, c])
+    torch.testing.assert_close(
+        final.transpose(-1, -2),
+        ins[:, -1] * dec[:, -1, :, None, None] + s[:, -1])
+    y = SSD.ssd_chunk_output(x, dt, Cm, D, cum, CB, ins)
+    y2, f2 = ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=Q, init_state=st)
+    assert torch.equal(y, y2) and torch.equal(final, f2)
+
+
+# (B, S, H, P, N, Q, dtype) -> the blocks of phases 1-4 plan_ssd gives:
+# mamba2-2.7b at B 1 and 4, S 1024 and 512, in bf16 and f32; its 80 heads
+# cut ten ways; zamba2-2.7b's N 64; the chip_smoke sweep and ragged shapes
+BF16, F32 = torch.bfloat16, torch.float32
+FROZEN_PLANS = {
+    (1, 1024, 80, 64, 128, 256, BF16): (120, 640, 320, 1280),
+    (1, 1024, 80, 64, 128, 256, F32): (120, 640, 320, 1280),
+    (4, 1024, 80, 64, 128, 256, BF16): (480, 2560, 1280, 5120),
+    (4, 1024, 80, 64, 128, 256, F32): (480, 2560, 1280, 5120),
+    (1, 512, 80, 64, 128, 256, BF16): (60, 320, 320, 640),
+    (1, 1024, 8, 64, 128, 256, BF16): (48, 64, 32, 128),
+    (1, 1024, 80, 64, 64, 256, BF16): (120, 320, 160, 1280),
+    (2, 192, 3, 60, 100, 96, F32): (16, 24, 24, 24),
+    (2, 256, 4, 64, 32, 64, F32): (16, 32, 8, 32),
+    (2, 128, 2, 32, 16, 32, F32): (16, 16, 4, 16),
+    (2, 192, 4, 64, 64, 64, F32): (12, 24, 16, 24),
+}
+
+
+@pytest.mark.parametrize("shape", list(FROZEN_PLANS),
+                         ids=lambda k: "x".join(map(str, k[:6]))
+                         + "_" + str(k[6]).replace("torch.", ""))
+def test_plan_ssd_frozen(shape):
+    assert plan_ssd(*shape).blocks == FROZEN_PLANS[shape]
+
+
+def test_plan_ssd_fills_the_card_and_reads_shapes_only():
+    """At mamba2-2.7b's B 1 the two phases with the multiply-adds (2 and
+    4) launch at least one block an SM (132), the old kernel's 80 blocks
+    did not; the planner is cached on shapes and refuses what the kernels
+    do not take."""
+    from repro_torch.kernels.matmul import SMS
+
+    for dt in (BF16, F32):
+        p = plan_ssd(1, 1024, 80, 64, 128, 256, dt)
+        assert p.blocks[1] >= SMS and p.blocks[3] >= SMS
+        assert p.blocks[1] + p.blocks[3] > 10 * 80  # the old kernel: 80
+    assert plan_ssd(1, 1024, 80, 64, 128, 256, BF16) is \
+        plan_ssd(1, 1024, 80, 64, 128, 256, BF16)
+    for bad in [(1, 256, 4, 65, 16, 64), (1, 256, 4, 64, 129, 64),
+                (1, 250, 4, 64, 16, 64)]:
+        with pytest.raises(ValueError):
+            plan_ssd(*bad)
+
+
+@pytest.fixture
+def fake_ssd_kernels(monkeypatch):
+    """Run ``ssd_scan``'s CUDA branch on CPU tensors against a stand-in
+    library that records each C call's arguments (no CUDA here)."""
+    import contextlib
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def fn(*args):
+                calls.append((name, args))
+                return 0
+            return fn
+
+    monkeypatch.setattr(_native, "on_cpu", lambda *a, **k: False)
+    monkeypatch.setattr(_native, "library", lambda name: Lib())
+    monkeypatch.setattr(_native, "on_device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(_native, "current_stream", lambda d: 0)
+    yield calls
+    ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_wrapper_passes_its_scratch(fake_ssd_kernels, dtype, init):
+    """``ssd_scan`` hands its kernels f32 scratch for cum (B,nc,H,Q), C·Bᵀ
+    (B,nc,Q,Q) and the chunk states (B,nc,H,N,P), the initial state or
+    null: one launch counted a call."""
+    B, S, H, P, N, Q = 1, 1024, 80, 64, 128, 256
+    dt_ = getattr(torch, dtype)
+    x = torch.zeros(B, S, H, P, dtype=dt_)
+    Bm = torch.zeros(B, S, N, dtype=dt_)
+    dt, A, D = torch.zeros(B, S, H), torch.zeros(H), torch.zeros(H)
+    st = torch.zeros(B, H, P, N) if init else None
+    ops.reset_launch_counts()
+    y, final = ops.ssd_scan(x, dt, A, Bm, Bm, D, chunk=Q, init_state=st)
+    assert y.shape == x.shape and y.dtype == dt_
+    assert final.shape == (B, H, P, N) and final.dtype == torch.float32
+    (name, args), = fake_ssd_kernels
+    assert name == ("repro_ssd_scan_bf16" if dtype == "bfloat16"
+                    else "repro_ssd_scan_f32")
+    assert args[:6] == (x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                        Bm.data_ptr(), Bm.data_ptr(), D.data_ptr())
+    assert args[6] == (st.data_ptr() if init else None)
+    assert args[7:9] == (y.data_ptr(), final.data_ptr())
+    assert all(isinstance(a, int) for a in args[9:12])
+    assert args[12:] == (B, S, H, P, N, Q, 0)
+    assert ops.launch_counts()["ssd_scan"] == 1
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,18 @@
-"""Time ``decode_attention``, the f32 ``matmul``, ``flash_attention`` and
-``winograd_tile_matmul`` of one source tree of the PyTorch port on a CUDA
-card, so that two commits can be compared on one card.
+"""Time ``decode_attention``, the f32 ``matmul``, ``flash_attention``,
+``winograd_tile_matmul`` and ``ssd_scan`` of one source tree of the
+PyTorch port on a CUDA card, so that two commits can be compared on one
+card.
 
 Each row calls the tree's own wrapper (``repro_torch.kernels.ops``) at a
-decode, GEMM, prefill or Winograd shape of ``chip_smoke.py`` and prints one
-JSON object:
+decode, GEMM, prefill, Winograd or SSD-scan shape of ``chip_smoke.py`` and
+prints one JSON object:
 ``ms``, the mean of 20 calls after 3 warm-ups by CUDA events (the ruler of
 ``chip_smoke.py``'s kernel rows, host cost included), and ``device_ms``,
 the same 20 calls captured in a CUDA graph and replayed (device time),
-beside the PyTorch library call (SDPA, ``torch.matmul``, ``torch.bmm``)
-timed both ways, and the output's error against the tree's plain version.
+beside the PyTorch library call (SDPA, ``torch.matmul``, ``torch.bmm``;
+none for ``ssd_scan``) timed both ways, and the output's error against the
+tree's plain version (the worst of y and the final state for
+``ssd_scan``).
 
 To compare a parent commit with a change, unpack the parent into a
 gitignored directory and run both trees in one call, in the order parent,
@@ -27,7 +30,9 @@ with K slices of at least 4 and 8 steps, every other cut of
 the batched tile path's other tiles. ``--ptxas`` prints what ``ptxas -v``
 said of each kernel of the libraries the rows built (registers, stack
 frame, spills). Rows run for the kernels named by ``--only`` (default:
-all four). Without a CUDA card it exits 2.
+all five). Without a CUDA card it exits 2.
+
+    python3 tools/kernel_ab.py --only ssd_scan --phases
 """
 from __future__ import annotations
 
@@ -65,6 +70,15 @@ FLASH_ROWS = [("smollm_S64", 1, 64, 15, 5, 64, "bfloat16"),
 WINO_ROWS = [("stem", 12544, 3, 64), ("stage0", 12544, 64, 64),
              ("stage1", 3136, 128, 128), ("stage2", 784, 256, 256)]
 
+# (row, B, S, H, P, N, Q, dtype): mamba2-2.7b's scan at S 1024 in bf16
+# (its served precision) and f32 (its whole-model gates), zamba2-2.7b's N
+# 64, and mamba2's 80 heads cut ten ways (8 heads a card, where 64-row
+# tiles alone leave SMs idle)
+SSD_ROWS = [("mamba2_S1024", 1, 1024, 80, 64, 128, 256, "bfloat16"),
+            ("mamba2_S1024_f32", 1, 1024, 80, 64, 128, 256, "float32"),
+            ("zamba2_S1024_N64", 1, 1024, 80, 64, 64, 256, "bfloat16"),
+            ("mamba2_S1024_H8", 1, 1024, 8, 64, 128, 256, "bfloat16")]
+
 MATMUL_ROWS = [("im2col_s1b0", 12544, 576, 128, False),
                ("im2col_s2b0", 3136, 1152, 256, False),
                ("granite_router_M1", 1, 1536, 40, False),
@@ -84,8 +98,12 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--only", default="decode,matmul,flash,winograd",
-                    help="comma-separated: decode, matmul, flash, winograd")
+    ap.add_argument("--phases", action="store_true",
+                    help="also print each row's kernels by device time "
+                         "(torch.profiler over 10 calls)")
+    ap.add_argument("--only", default="decode,matmul,flash,winograd,ssd_scan",
+                    help="comma-separated: decode, matmul, flash, winograd, "
+                         "ssd_scan")
     args = ap.parse_args()
     only = set(args.only.split(","))
 
@@ -162,14 +180,35 @@ def main() -> int:
             print(json.dumps({"label": args.label, "kernel": kernel,
                               "row": name, "refused": str(e)}), flush=True)
             return
-        ref = ref.float()
-        err = ((got.float() - ref).abs().max()
-               / ref.abs().max().clamp_min(1e-30)).item()
+        pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        err = max(((g.float() - r.float()).abs().max()
+                   / r.float().abs().max().clamp_min(1e-30)).item()
+                  for g, r in pairs)
         rec = {"label": args.label, "kernel": kernel, "row": name,
                "plan": plan, "rel_err": err, "ms": time_ms(fn),
-               "device_ms": device_ms(fn), "library_ms": time_ms(library),
-               "library_device_ms": device_ms(library)}
+               "device_ms": device_ms(fn),
+               "library_ms": library and time_ms(library),
+               "library_device_ms": library and device_ms(library)}
+        if args.phases:
+            rec["phases_ms"] = phases(fn)
         print(json.dumps(rec), flush=True)
+
+    def phases(fn, n=10):
+        """Device ms a call of each kernel that ``fn`` launches, by name."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.self_device_time_total <= 0:
+                continue
+            m = re.search(r"(\w+_kernel)(<[^()]*>)?", e.key)
+            key = (m.group(0) if m else e.key)[:80]
+            out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3 / n
+        return out
 
     has_plans = hasattr(A, "plan_decode") and hasattr(MM, "plan_f32_gemm")
     if args.variants and not has_plans:
@@ -315,6 +354,27 @@ def main() -> int:
                         call, plain, lib, var._asdict())
                 finally:
                     CW.plan_f32_gemm = orig
+
+    from repro_torch.kernels import ssd as SSD
+    for name, B, S, H, P, N, Q, dname in SSD_ROWS if "ssd_scan" in only \
+            else []:
+        dt = getattr(torch, dname)
+        x = rand(B, S, H, P, dtype=dt) * 0.3
+        sdt = rand(B, S, H).abs() * 0.3
+        a_neg = -torch.linspace(0.5, 2.0, H, device=dev)
+        Bm, Cm = rand(B, S, N, dtype=dt) * 0.3, rand(B, S, N, dtype=dt) * 0.3
+        D = torch.ones(H, device=dev)
+
+        def call():
+            return ops.ssd_scan(x, sdt, a_neg, Bm, Cm, D, chunk=Q)
+
+        def plain():
+            return SSD.ssd_scan_plain(x, sdt, a_neg, Bm, Cm, D, chunk=Q)
+
+        plan = (SSD.plan_ssd(B, S, H, P, N, Q, dt)
+                if hasattr(SSD, "plan_ssd") else None)
+        row("ssd_scan", name, call, plain, None,
+            plan and {"blocks": plan.blocks})
 
     if args.ptxas:
         from repro_torch.kernels import _native
