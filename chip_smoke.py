@@ -49,7 +49,14 @@ Run from the root of a checkout, on a machine with a CUDA card and
      random state, in f32, at B 4 and at S 512,
      zamba2-2.7b's N 64, a ragged shape in f32 and bf16 and the Pallas
      sweep (y and the final state, each row printing the blocks of its
-     four phases, two launches bitwise equal, a device time); with
+     four phases, two launches bitwise equal, a device time);
+     ``matmul_packed`` at resnet50's packed head, a tblock up projection
+     (64,960)x(960,2560) in f32 and bf16 x (beside the f32 ``matmul``'s
+     row of that shape) and ragged panels, and ``matmul_dequant_int4`` at
+     the resnet50 head, that projection, decode at M 1 and 8 and ragged
+     tiles with an odd K, each row printing its ``plan_f32_gemm`` plan
+     (and int4 loader), two launches bitwise equal, a device time, each
+     launch's output first handed a NaN-filled block; with
      ``--kernels-only`` the script stops here (a first check of a new
      kernel, without the paths or a result line);
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
@@ -1497,17 +1504,41 @@ def main() -> None:
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
 
+    def nan_block(like):
+        """Hand the caching allocator back a NaN-filled block of ``like``'s
+        (shape, dtype) on the check stream, which the kernel's next output
+        of that size takes: an output element the kernel skips stays NaN
+        rather than the last call's value. Returns its address."""
+        if like is None:
+            return None
+        t = torch.full(like[0], float("nan"), dtype=like[1], device=dev)
+        ptr = t.data_ptr()
+        del t
+        return ptr
+
     def check(label, kernel, plain, library, flops, nbytes,
-              dtype="float32", peak=None, exact=False, repeat_equal=False):
+              dtype="float32", peak=None, exact=False, repeat_equal=False,
+              nan_out=None):
         """A kernel returning a tuple is held to its plain version output
         by output, each to its own max|plain|: the worst is reported. With
         ``repeat_equal`` a second launch on the same inputs must give the
-        same bits."""
+        same bits. ``nan_out`` (shape, dtype): each launch's output is
+        first filled with NaN where the allocator hands it that block."""
         torch.cuda.synchronize()  # inputs were copied on the default stream
         with torch.cuda.stream(stream):
-            got, ref = kernel(), plain()
-            again = kernel() if repeat_equal else None
+            nan_ptr = nan_block(nan_out)
+            got = kernel()
+            hits = int(nan_ptr is not None and got.data_ptr() == nan_ptr)
+            ref = plain()
+            if repeat_equal:
+                nan_ptr = nan_block(nan_out)
+                again = kernel()
+                hits += int(nan_ptr is not None and
+                            again.data_ptr() == nan_ptr)
         stream.synchronize()
+        if nan_out is not None:
+            print(f"  ({hits} of {1 + int(repeat_equal)} launches wrote "
+                  f"into a NaN-filled block)")
         if repeat_equal and not all(
                 torch.equal(a, b) for a, b in
                 (zip(got, again) if isinstance(got, tuple)
@@ -1598,7 +1629,10 @@ def main() -> None:
                ("ragged_kmajor_tile", 20, 37, 50, True, 0),
                ("ragged_kmajor_skinny", 5, 37, 50, True, 0),
                ("unaligned_x_skinny", 4, 1536, 40, False, 1),
-               ("unaligned_x_tile", 64, 576, 128, False, 1)]
+               ("unaligned_x_tile", 64, 576, 128, False, 1),
+               # the yardstick of matmul_packed's and matmul_dequant_int4's
+               # rows of this shape
+               ("up_f32", 64, 960, 2560, False, 0)]
     for tag, M, K, N, kmajor, shift in mm_rows:
         x = rand(M * K + shift)[shift:].view(M, K)
         w = rand(N, K).T if kmajor else rand(K, N)
@@ -1615,19 +1649,43 @@ def main() -> None:
         results.setdefault("matmul", {})[tag] = {
             **r, "path": plan.path, "tile": [plan.bm, plan.bn],
             "split": plan.split}
-    M, K, N = 1, 256, 100
-    x = rand(M, K)
-    wp = torch.zeros(1, 2, 128, 128, device=dev)
-    wfull = rand(K, N)
-    wp.view(2, 128, 128)[:, :, :N] = wfull.view(2, 128, N)
-    r = check(f"matmul_packed head ({M},{K})x(1,2,128,128)",
-              lambda: ops.matmul_packed(x, wp, K, N),
-              lambda: matmul_packed_plain(x, wp, K, N),
-              lambda: torch.einsum("mkc,nkcd->mnd", x.view(M, 2, 128), wp),
-              # the kernel masks the zero columns of each packed tile, so it
-              # reads the K*N real weights and no padding
-              2 * M * N * K, 4 * (M * K + K * N + M * N))
-    results["matmul_packed"] = {"head": r}
+    # matmul_packed on the f32 path template along plan_f32_gemm(M, N, K):
+    # resnet50's packed head (the main path's shape), a tblock up
+    # projection in f32 and bf16 x beside the f32 matmul's row of the same
+    # shape above, and ragged K and N (two panels, the second cut at 22
+    # columns) on both paths; operations at the f32 peak (the weights are
+    # f32, whatever x is). (tag, M, K, N, x dtype)
+    for tag, M, K, N, dt in [("head", 1, 256, 100, torch.float32),
+                             ("up_f32", 64, 960, 2560, torch.float32),
+                             ("up_bf16", 64, 960, 2560, torch.bfloat16),
+                             ("ragged_tile", 64, 300, 150, torch.float32),
+                             ("ragged_skinny", 3, 300, 150, torch.bfloat16)]:
+        nK, nN = -(-K // 128), -(-N // 128)
+        x = rand(M, K, dtype=dt)
+        wfull = rand(K, N, scale=K ** -0.5)
+        wpad = torch.zeros(nK * 128, nN * 128, device=dev)
+        wpad[:K, :N] = wfull
+        wp = wpad.view(nK, 128, nN, 128).permute(2, 0, 1, 3).contiguous()
+        plan = plan_f32_gemm(M, N, K)
+        dname, es = str(dt).replace("torch.", ""), x.element_size()
+        # library: one call of the same function, on the unpacked weight
+        # where x is f32 (the packed head's K fills its panels: an einsum)
+        lib = (None if dt != torch.float32
+               else (lambda: torch.einsum("mkc,nkcd->mnd",
+                                          x.view(M, nK, 128), wp)[:, 0])
+               if K == nK * 128 and nN == 1 else (lambda: x @ wfull))
+        r = check(f"matmul_packed {tag} ({M},{K})x({nN},{nK},128,128) "
+                  f"{dname}, {plan.path} path {plan.bm}x{plan.bn} split "
+                  f"{plan.split} ({plan.blocks} blocks)",
+                  lambda: ops.matmul_packed(x, wp, K, N),
+                  lambda: matmul_packed_plain(x, wp, K, N), lib,
+                  # the kernel masks the zero rows and columns of each
+                  # panel, so it reads the K*N real weights and no padding
+                  2 * M * N * K, es * (M * K + M * N) + 4 * K * N, dname,
+                  peak="float32", repeat_equal=True, nan_out=((M, N), dt))
+        results.setdefault("matmul_packed", {})[tag] = {
+            **r, "path": plan.path, "tile": [plan.bm, plan.bn],
+            "split": plan.split}
 
     print("kernels vs plain versions (smollm-360m prefill shapes, bf16):")
     # the seven projections of a block (M = 64 prompt tokens) and the head
@@ -1858,14 +1916,20 @@ def main() -> None:
                   K * N, (K + 1) // 2 * N + 4 * N + 4 * K * N, exact=True)
         results.setdefault("dequant_int4", {})[tag] = r
     # the fused kernels: resnet50's head (the main path's shape), a tblock
-    # up projection in f32 and bf16, a ragged case; operations at the peak
-    # of x's type (int8 and int4 weights are exact in bf16, so bf16 x could
-    # run at the bf16 tensor-core rate)
+    # up projection in f32 and bf16, a ragged case; for int4's loaders, a
+    # decode projection at M 1 (16-byte loads) and M 8 (4-byte), and
+    # ragged tiles with an odd K (4-byte and 1-byte copies); operations at
+    # the peak of x's type (int8 and int4 weights are exact in bf16, so
+    # bf16 x could run at the bf16 tensor-core rate)
     for tag, M, K, N, dt in [
             ("resnet_head", 1, 256, 100, torch.float32),
             ("up_f32", 64, 960, 2560, torch.float32),
             ("up_bf16", 64, 960, 2560, torch.bfloat16),
-            ("ragged", 3, 129, 7, torch.float32)]:
+            ("ragged", 3, 129, 7, torch.float32),
+            ("up_M1", 1, 960, 2560, torch.float32),
+            ("up_M8", 8, 960, 2560, torch.bfloat16),
+            ("ragged_tile", 64, 129, 100, torch.bfloat16),
+            ("ragged_tile_bytes", 20, 37, 7, torch.float32)]:
         x = rand(M, K, dtype=dt)
         a = rng.standard_normal((K, N)).astype(np.float32) * K ** -0.5
         q8, s8, _ = quant.quantize_int8(a)
@@ -1879,11 +1943,18 @@ def main() -> None:
                   lambda: Q.matmul_dequant_int8_plain(x, tq8, ts8), None,
                   2 * M * N * K, io + K * N, dname)
         results.setdefault("matmul_dequant_int8", {})[tag] = r
-        r = check(f"matmul_dequant_int4 {tag} ({M},{K})x({K},{N}) {dname}",
+        plan = plan_f32_gemm(M, N, K)
+        loader = Q.int4_loader(tp4, M, plan.path)
+        r = check(f"matmul_dequant_int4 {tag} ({M},{K})x({K},{N}) {dname}, "
+                  f"{plan.path} path {plan.bm}x{plan.bn} split {plan.split} "
+                  f"({plan.blocks} blocks), {loader}-byte loader",
                   lambda: ops.matmul_dequant_int4(x, tp4, ts4, K),
                   lambda: Q.matmul_dequant_int4_plain(x, tp4, ts4, K), None,
-                  2 * M * N * K, io + (K + 1) // 2 * N, dname)
-        results.setdefault("matmul_dequant_int4", {})[tag] = r
+                  2 * M * N * K, io + (K + 1) // 2 * N, dname,
+                  repeat_equal=True, nan_out=((M, N), dt))
+        results.setdefault("matmul_dequant_int4", {})[tag] = {
+            **r, "path": plan.path, "tile": [plan.bm, plan.bn],
+            "split": plan.split, "loader_bytes": loader}
     # the bf16 matmul's f32-out entry at LinearLowPrecision's resnet50 head;
     # the products of bf16 values are exact in f32, so the f32 tolerance
     M, K, N = 1, 256, 100

@@ -5,29 +5,22 @@
 // match the f32 reference, and the tensor cores have no plain-f32 mode).
 // How B is read is the BMode parameter, also converted to f32 on load:
 //   kRowMajor  B(K,N) row-major, float or bf16;
-//   kPacked    LinearPacked's (N/128, K/128, 128, 128) layout, in place;
-//   kInt8      B(K,N) int8 (exact in f32);
-//   kInt4      B packed ((K+1)/2, N) uint8, row 2i in the low nibble and
-//              2i+1 in the high one, sign-extended on load: device memory
-//              is read at the packed byte count.
+//   kInt8      B(K,N) int8 (exact in f32).
 // With SCALE, the finished accumulator of column n is multiplied once by
 // col_scale[n] before the store — the per-output-channel scale of the
 // fused dequant-matmul, factored out of the K loop.
 //
-// One template serves the ported Pallas kernels:
-//   * matmul                 C(M,N) = A(M,K) · B(K,N), f32, bf16, or bf16
-//                            in with f32 out;
-//   * matmul_packed          kPacked;
-//   * winograd_tile_matmul   the same GEMM batched over the 16 Winograd
-//                            positions on blockIdx.z, with batch strides;
-//   * matmul_dequant_int8/4  kInt8 / kInt4 with SCALE.
+// It carries the two GEMMs that have not moved to the f32 path template
+// (gemm_f32_paths.cuh):
+//   * gmm_blocks' f32 entry  kRowMajor, batched over the experts on
+//                            blockIdx.z with batch strides and row_limit;
+//   * matmul_dequant_int8    kInt8 with SCALE.
 //
 // Block tile 64x64, K step 16, 256 threads, 4x4 outputs per thread. A is
 // staged transposed in shared memory (As[k][m]) so that each thread reads
 // its 4 rows and 4 columns of a K step as two float4 loads. The ragged M,
 // N and K edges are masked in the loads and the store: nothing is padded
-// in device memory (an odd K never reads the high nibble of kInt4's last
-// byte, nor A past column K).
+// in device memory (A is never read past column K).
 //
 // With row_limit (one int per batch entry, read on the device), rows
 // r >= row_limit[z] of batch entry z are written as zeros and never read
@@ -56,29 +49,17 @@ constexpr int kBM = 64;
 constexpr int kBN = 64;
 constexpr int kBK = 16;
 constexpr int kThreads = 256;
-constexpr int kPackTile = 128;  // LinearPacked's bk = bn = 128
 
-enum class BMode { kRowMajor, kPacked, kInt8, kInt4 };
+enum class BMode { kRowMajor, kInt8 };
 
 // element (k, n) of the logical (K, N) matrix B, as f32
 template <BMode MODE, typename TB>
 __device__ __forceinline__ float load_b(const TB* __restrict__ B, int k,
-                                        int n, int N, int nK) {
-  if constexpr (MODE == BMode::kRowMajor) {
+                                        int n, int N) {
+  if constexpr (MODE == BMode::kRowMajor)
     return to_f32(B[(size_t)k * N + n]);
-  } else if constexpr (MODE == BMode::kPacked) {
-    // one contiguous 64 KB tile per (n/128, k/128) of the padded matrix
-    return to_f32(B[((size_t)(n / kPackTile) * nK + (size_t)(k / kPackTile)) *
-                        (kPackTile * kPackTile) +
-                    (size_t)(k % kPackTile) * kPackTile +
-                    (size_t)(n % kPackTile)]);
-  } else if constexpr (MODE == BMode::kInt8) {
+  else
     return (float)B[(size_t)k * N + n];
-  } else {
-    const unsigned byte = B[(size_t)(k >> 1) * N + n];
-    const int nib = (k & 1) ? (int)(byte >> 4) : (int)(byte & 0xF);
-    return (float)((nib ^ 8) - 8);  // sign-extend 4 bits
-  }
 }
 
 template <BMode MODE, bool SCALE, typename TA, typename TB, typename TC>
@@ -86,7 +67,7 @@ __global__ void __launch_bounds__(kThreads)
     gemm_f32_kernel(const TA* __restrict__ A, const TB* __restrict__ B,
                     TC* __restrict__ C, const float* __restrict__ col_scale,
                     int M, int N, int K, long long batch_a,
-                    long long batch_b, long long batch_c, int nK,
+                    long long batch_b, long long batch_c,
                     const int* __restrict__ row_limit) {
   __shared__ __align__(16) float As[kBK][kBM + 4];
   __shared__ __align__(16) float Bs[kBK][kBN];
@@ -131,7 +112,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + b_col + j;
       Bs[b_k][b_col + j] =
-          (bk < K && n < N) ? load_b<MODE>(B, bk, n, N, nK) : 0.0f;
+          (bk < K && n < N) ? load_b<MODE>(B, bk, n, N) : 0.0f;
     }
     __syncthreads();
 
@@ -171,12 +152,12 @@ template <BMode MODE, bool SCALE = false, typename TA, typename TB,
 inline int launch_gemm_f32(const TA* A, const TB* B, TC* C,
                            const float* col_scale, int M, int N, int K,
                            int batch, long long batch_a, long long batch_b,
-                           long long batch_c, int nK, cudaStream_t stream,
+                           long long batch_c, cudaStream_t stream,
                            const int* row_limit = nullptr) {
   if (M <= 0 || N <= 0 || batch <= 0) return (int)cudaGetLastError();
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, batch);
   gemm_f32_kernel<MODE, SCALE, TA, TB, TC><<<grid, kThreads, 0, stream>>>(
-      A, B, C, col_scale, M, N, K, batch_a, batch_b, batch_c, nK, row_limit);
+      A, B, C, col_scale, M, N, K, batch_a, batch_b, batch_c, row_limit);
   return (int)cudaGetLastError();
 }
 

@@ -1,16 +1,32 @@
 // f32 GEMM for Hopper (sm_90a) along the path the host planner chooses
-// (kernels/matmul.py plan_f32_gemm): C(M,N) = A(M,K) · B(K,N), all f32,
-// IEEE f32 FMA on the CUDA cores (no TF32, no 3xTF32 split: the lossless
-// cold path must match the f32 reference), batched over `batch` GEMMs
-// with per-batch strides. A is row-major with lda = K.
-// B is read in place in one of two layouts:
-//   row-major  (K,N) with leading dimension ldb (a weight as stored);
-//   K-major    (N,K) with leading dimension ldb: a w whose w.T is
+// (kernels/matmul.py plan_f32_gemm): C(M,N) = A(M,K) · B(K,N) with an f32
+// accumulator, IEEE f32 FMA on the CUDA cores (no TF32, no 3xTF32 split:
+// the lossless cold path must match the f32 reference), batched over
+// `batch` GEMMs with per-batch strides. A is row-major with lda = K, f32
+// or bf16 (TX; bf16 is widened to f32 where it is read back from shared
+// memory); C is in A's type, each output rounded once at the store.
+// B is read in place in one of four layouts:
+//   row-major  (K,N) f32 with leading dimension ldb (a weight as stored);
+//   K-major    (N,K) f32 with leading dimension ldb: a w whose w.T is
 //              contiguous, such as the tied head's embed (V,d) read as
-//              embed.T, with no copy.
-// It carries matmul's f32 entry (batch 1) and winograd_tile_matmul (the
-// 16 GEMMs of Winograd F(2x2,3x3)); matmul_packed, the fused dequant GEMMs
-// and gmm_blocks' f32 entry stay on gemm_f32.cuh.
+//              embed.T, with no copy;
+//   panels     LinearPacked's (N/128, nK, 128, 128) f32 tiles: for each
+//              128-column panel j a row-major (nK·128, 128) matrix,
+//              panels `pstride` floats apart. A tile (BN 64 or 128) or a
+//              skinny block (128 columns) never straddles two panels, so
+//              only the address of a copy's column base changes;
+//   int4       ((K+1)/2, N) uint8, row 2i in the low nibble of byte
+//              (i, n) and 2i+1 in the high one, sign-extended: device
+//              memory is read at the packed byte count, and an int4
+//              weight is exact in f32.
+// With a column scale (the fused dequant GEMM), the finished sum of column
+// n is multiplied once by scale[n]: in the store when K is not split,
+// otherwise in the kernel that sums the partials. It is never applied to
+// a partial.
+// It carries matmul's f32 entry (batch 1), winograd_tile_matmul (the 16
+// GEMMs of Winograd F(2x2,3x3)), matmul_packed (panels, f32 or bf16 x) and
+// matmul_dequant_int4 (int4, f32 or bf16 x); matmul_dequant_int8 and
+// gmm_blocks' f32 entry stay on gemm_f32.cuh.
 //
 // Bound on an H100 SXM (67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s): the
 // im2col GEMMs of resnet50@224 and its Winograd stages 1-2 by operations,
@@ -24,11 +40,20 @@
 //     threads, thread (ty, tx) = (tid/16, tid%16) owns rows ty + 16i and
 //     BN/16 columns: a register tile of up to 8 x 8. K steps of 32 go
 //     through a 3-deep ring of 16-byte cp.async copies: A and a K-major B
-//     as [row][k] (rows padded to 36 floats), a row-major B as [k][n];
-//     every operand is read back as float4, so a 4-deep slice of k costs
-//     TM + TN shared loads for TM x TN x 4 FMA. One barrier a K step; two
-//     stages of copies in flight behind it. Each output's FMAs run in k
-//     order, as a plain dot product. blockIdx.z walks batch x split.
+//     as [row][k] (rows padded to 36 floats, 40 bf16), a row-major B as
+//     [k][n]; every operand is read back as float4 (A in bf16 as 8 bytes
+//     widened), so a 4-deep slice of k costs TM + TN shared loads for TM x
+//     TN x 4 FMA. One barrier a K step; two stages of copies in flight
+//     behind it. Each output's FMAs run in k order, as a plain dot
+//     product. blockIdx.z walks batch x split.
+//     int4 B: a stage holds 16 packed rows (BN bytes each: an eighth of
+//     the f32 stage), copied in 16-, 4- or 1-byte pieces as N's alignment
+//     allows, through a 4-deep ring; each K step, the block unpacks the
+//     next stage's bytes once into a [k][n] f32 buffer (two, alternating)
+//     while the current one feeds the same FMA loop as a row-major B. The
+//     unpacking costs each thread 16 values a step against its 1024 FMA
+//     (64 x 128 tile), where unpacking on every read-back would cost one
+//     value for every TM FMA.
 //   * stream (batch > 1, K <= 64: Winograd's stem and stage 0): a tile
 //     has one or two K steps, so its own ring never fills and nothing
 //     hides the copies. Persistent blocks, two an SM, each walk a
@@ -40,28 +65,34 @@
 //     items share it (two slots, swapped when the slab changes). Thread
 //     (ty, tx) owns rows ty + 16i (i < 8) and the 4 columns 4tx..4tx+3,
 //     stored as one float4 each. With N <= 64 every element of A is read
-//     from device memory once.
-//   * skinny (M <= 16: decode at batch 1-4, the MoE router): bound by the
-//     bytes of B, so B is streamed once in 16-byte loads (eight in flight
-//     a thread) with x's rows in shared memory. Row-major B: a block owns
-//     128 columns, a thread one float4 of them and every KP-th k row, the
-//     KP phases summed in phase order at the end. K-major B: a block owns
-//     32 columns (rows of B^T), a warp 4 of them, its lanes stride along
-//     k, and the row sums reduce by shuffles. Batch 1 only.
+//     from device memory once. f32 only.
+//   * skinny (M <= 16: decode at batch 1-4, the MoE router, the resnet50
+//     head): bound by the bytes of B, so B is streamed once with eight
+//     loads in flight a thread and x's rows in shared memory (as f32).
+//     Row-major B and panels: a block owns 128 columns, a thread one
+//     float4 of them and every KP-th k row, the KP phases summed in phase
+//     order at the end. int4: the same with V columns a thread, V = 16
+//     (one 16-byte load: 16 columns of 2 rows; M <= 4), 4 (a 4-byte load;
+//     N a multiple of 4, as the resnet50 head's 100) or 1 (a byte), every
+//     KP-th packed row, the nibbles sign-extended in registers. K-major B:
+//     a block owns 32 columns (rows of B^T), a warp 4 of them, its lanes
+//     stride along k, and the row sums reduce by shuffles. Batch 1 only.
 //
 // The tile and skinny paths split K when the output tiles alone leave SMs
 // idle: split s takes K steps [s·kps, (s+1)·kps) and writes f32 partials
 // to the caller's scratch (split, batch, M, N); a second kernel sums them
-// in split order. No atomics: the same inputs give the same bits on every
-// launch.
+// in split order, applies the scale and rounds to C's type. No atomics:
+// the same inputs give the same bits on every launch.
 //
-// Ragged M, N and K are zero-filled in the copies and masked in the store;
-// an operand that is not on a 16-byte boundary, or whose rows are not a
-// multiple of 4 floats, is copied element by element into the same layout
-// (4-byte cp.async copies on the stream path).
+// Ragged M, N and K are zero-filled in the copies and masked in the store
+// (an odd K never reads x's column K, and the high nibble of int4's last
+// byte adds nothing); an operand that is not on a 16-byte boundary, or
+// whose rows are not a multiple of 16 bytes, is copied in smaller pieces
+// into the same layout (4-byte cp.async copies on the stream path).
 // No function-local statics: several libraries may include this header.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -72,15 +103,17 @@ namespace f32 {
 constexpr int kBK = 16;            // K unit of the split (and skinny step)
 constexpr int kThreads = 256;
 constexpr int kStages = 3;         // tile path cp.async ring
+constexpr int kQ4Stages = 4;       // tile path ring of int4 stages
 constexpr int kTileBK = 32;        // tile path K step
-constexpr int kLDA = kTileBK + 4;  // [row][k] tiles: row stride in floats;
-                                   // float4 reads of 8 rows, 36 floats
-                                   // apart, hit 8 bank groups
+constexpr int kLDA = kTileBK + 4;  // [row][k] f32 tiles: row stride in
+                                   // floats; float4 reads of 8 rows, 36
+                                   // floats apart, hit 8 bank groups
 constexpr int kSkinnyMaxM = 16;
 constexpr int kSkinnyCols = 128;   // skinny, row-major B: columns a block
 constexpr int kSkinnyKCols = 32;   // skinny, K-major B: columns a block
 constexpr int kXFloats = 12288;    // skinny: most floats of x a block holds
 constexpr int kUnroll = 8;         // skinny, row-major: loads in flight
+constexpr int kPanel = 128;        // LinearPacked's panel width (bn = bk)
 
 constexpr int kStreamBM = 128;     // stream path: rows of an item
 constexpr int kStreamBN = 64;      // stream path: columns of an item
@@ -88,18 +121,56 @@ constexpr int kStreamMaxK = 64;    // stream path: deepest K
 constexpr int kStreamStepK = 32;   // stream path: k of a ring step
 
 enum Path { kSkinny = 0, kTile = 1, kStream = 2 };
+// f32 B on the tile path (a template parameter: a row-major B keeps the
+// panel arithmetic out of its kernels' registers)
+enum BLayout { kRowMajorB = 0, kKMajorB = 1, kPanelsB = 2 };
 
 struct Problem {
-  const float* A;          // (batch, M, K), lda = K
-  const float* B;          // row-major (K,N) or K-major (N,K), ldb
-  float* C;                // (batch, M, N) out, or partials (split, ...)
+  const void* A;           // (batch, M, K), lda = K: f32 or bf16
+  const void* B;           // f32 row-major (K,N) / K-major (N,K) / panels,
+                           // or int4 bytes ((K+1)/2, N)
+  void* C;                 // (batch, M, N) out in A's type, or f32
+                           // partials (split, ...)
+  const float* scale;      // per-column scale of the finished sum, or null
   int M, N, K, ldb;
   int batch, split;
-  long long bsa, bsb, bsc; // floats between two batch entries' A, B, C
+  long long bsa, bsb, bsc; // elements between two batch entries' A, B, C
   long long split_stride;  // floats between two splits' partials
+  long long pstride;       // panels: floats between two 128-column panels
+                           // (0: B is one matrix)
   int kps;                 // K steps a split
-  int a_vec, b_vec, c_vec; // 16-byte copies / stores allowed
+  int a_vec, b_vec, c_vec; // 16-byte copies / stores allowed; int4 B:
+                           // b_vec is the copy width, 16, 4 or 1 bytes
 };
+
+// ---------------------------------------------------------------------------
+// element types
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+// four consecutive outputs in one store (16 bytes of f32, 8 of bf16)
+__device__ __forceinline__ void put4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void put4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// nibble b (0..7) of w, sign-extended: rows 2j and 2j+1 of byte j
+__device__ __forceinline__ float nib(uint32_t w, int b) {
+  return (float)(((int)(w << (28 - 4 * b))) >> 28);
+}
 
 // ---------------------------------------------------------------------------
 // PTX helpers
@@ -110,6 +181,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes)
                : "memory");
 }
@@ -147,8 +224,64 @@ __device__ __forceinline__ void load4(uint32_t dst, const float* src,
   }
 }
 
+// The same for the 8 bf16 at (row, col..col+7); vec: multiples of 8.
+__device__ __forceinline__ void load4(uint32_t dst, const __nv_bfloat16* src,
+                                      long long ld, int row, int nrows,
+                                      int col, int ncols, int vec) {
+  if (vec) {
+    const bool ok = row < nrows && col < ncols;
+    cp_async16(dst,
+               ok ? (const void*)(src + (size_t)row * ld + col)
+                  : (const void*)src,
+               ok ? 16 : 0);
+  } else {
+    const unsigned short* s =
+        reinterpret_cast<const unsigned short*>(src) + (size_t)row * ld;
+    uint32_t v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t lo =
+          row < nrows && col + 2 * j < ncols ? s[col + 2 * j] : 0u;
+      const uint32_t hi =
+          row < nrows && col + 2 * j + 1 < ncols ? s[col + 2 * j + 1] : 0u;
+      v[j] = lo | (hi << 16);
+    }
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                 "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+                 : "memory");
+  }
+}
+
 __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// A's [row][k] tile in shared memory by element type: row stride (padded
+// so that float4 reads of neighbouring rows fall in other banks) and the
+// elements of one 16-byte copy
+template <typename TX>
+struct ATile;
+template <>
+struct ATile<float> {
+  static constexpr int LD = kLDA, PER = 4;
+};
+template <>
+struct ATile<__nv_bfloat16> {
+  static constexpr int LD = kTileBK + 8, PER = 8;
+};
+
+// k .. k+3 of row `row` of A's tile, as f32
+__device__ __forceinline__ float4 a_read4(const float* As, int row, int k) {
+  return *reinterpret_cast<const float4*>(&As[row * kLDA + k]);
+}
+__device__ __forceinline__ float4 a_read4(const __nv_bfloat16* As, int row,
+                                          int k) {
+  const uint2 u = *reinterpret_cast<const uint2*>(
+      &As[row * ATile<__nv_bfloat16>::LD + k]);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
 }
 
 // ---------------------------------------------------------------------------
@@ -156,14 +289,25 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
 // ---------------------------------------------------------------------------
 // thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16i and BN/16
 // columns
-template <int BM, int BN, bool KMAJOR>
+template <int BM, int BN, bool KMAJOR, typename TX>
 struct Tile {
   static constexpr int TM = BM / 16, TN = BN / 16;
-  static constexpr int A_FLOATS = BM * kLDA;  // [m][k]
-  static constexpr int B_FLOATS =
-      KMAJOR ? BN * kLDA : kTileBK * BN;      // [n][k] / [k][n]
-  static constexpr int STAGE = A_FLOATS + B_FLOATS;
-  static constexpr int BYTES = kStages * STAGE * 4;
+  static constexpr int A_BYTES = BM * ATile<TX>::LD * (int)sizeof(TX);
+  static constexpr int B_BYTES =
+      (KMAJOR ? BN * kLDA : kTileBK * BN) * 4;  // [n][k] / [k][n]
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int BYTES = kStages * STAGE;
+};
+
+// the int4 ring: A and 16 packed rows a stage, then two unpacked [k][n]
+// f32 buffers
+template <int BM, int BN, typename TX>
+struct TileQ4 {
+  static constexpr int A_BYTES = Tile<BM, BN, false, TX>::A_BYTES;
+  static constexpr int Q_BYTES = (kTileBK / 2) * BN;
+  static constexpr int STAGE = A_BYTES + Q_BYTES;
+  static constexpr int F_FLOATS = kTileBK * BN;
+  static constexpr int BYTES = kQ4Stages * STAGE + 2 * F_FLOATS * 4;
 };
 
 // column of register j of thread tx: float4 groups 64 apart for a
@@ -177,18 +321,42 @@ __device__ __forceinline__ int col_of(int tx, int j) {
     return tx * 4 + (j & 3) + 64 * (j >> 2);
 }
 
-// one K step: k in [k0, k0 + kTileBK), zero past kend (the split's end)
-template <int BM, int BN, bool KMAJOR>
-__device__ __forceinline__ void tile_load(const Problem& p, const float* A,
+// The base from which a row-major B's column n, row k lies at
+// k·ldb + n for the columns of the 128-wide panel that holds column n0:
+// B itself, or for panels B shifted by the panels before (n0 is a
+// multiple of BN, which divides 128, so a tile lies in one panel; so
+// does a skinny block's 128 columns). A copy's masks stay those of a
+// row-major (K, N) matrix.
+__device__ __forceinline__ const float* b_panel(const Problem& p,
+                                                const float* B, int n0) {
+  return p.pstride
+             ? B + (long long)(n0 / kPanel) * (p.pstride - kPanel)
+             : B;
+}
+
+// A's rows [m0, m0 + BM) x k [k0, k0 + kTileBK), zero past kend (the
+// split's end) and past M
+template <int BM, typename TX>
+__device__ __forceinline__ void a_tile_load(const Problem& p, const TX* A,
+                                            uint32_t sa, int m0, int k0,
+                                            int kend) {
+  constexpr int PER = ATile<TX>::PER, CQ = kTileBK / PER;
+  for (int q = threadIdx.x; q < BM * CQ; q += kThreads) {
+    const int r = q / CQ, c = (q % CQ) * PER;
+    load4(sa + (r * ATile<TX>::LD + c) * (int)sizeof(TX), A, p.K, m0 + r,
+          p.M, k0 + c, kend, p.a_vec);
+  }
+}
+
+// one K step: k in [k0, k0 + kTileBK), zero past kend (the split's end).
+// B: as b_panel gives it for a row-major B
+template <int BM, int BN, bool KMAJOR, typename TX>
+__device__ __forceinline__ void tile_load(const Problem& p, const TX* A,
                                           const float* B, uint32_t sa,
                                           int m0, int n0, int k0, int kend) {
   constexpr int BK = kTileBK;
-  const uint32_t sb = sa + Tile<BM, BN, KMAJOR>::A_FLOATS * 4;
-  for (int q = threadIdx.x; q < BM * (BK / 4); q += kThreads) {
-    const int r = q / (BK / 4), c = (q % (BK / 4)) * 4;
-    load4(sa + (r * kLDA + c) * 4, A, p.K, m0 + r, p.M, k0 + c, kend,
-          p.a_vec);
-  }
+  const uint32_t sb = sa + Tile<BM, BN, KMAJOR, TX>::A_BYTES;
+  a_tile_load<BM, TX>(p, A, sa, m0, k0, kend);
   if constexpr (KMAJOR) {  // BN rows of B^T, BK k each
     for (int q = threadIdx.x; q < BN * (BK / 4); q += kThreads) {
       const int n = q / (BK / 4), c = (q % (BK / 4)) * 4;
@@ -204,20 +372,114 @@ __device__ __forceinline__ void tile_load(const Problem& p, const float* A,
   }
 }
 
+// the FMAs of one K step from A's tile As and a row-major B's tile Bs
+// ([k][n]) for the int4 kernel. (The f32 tile kernel runs the same loop
+// written in its own body: called as this function there, its 96 x 128
+// tiles took 0.0511 ms of device time at resnet50's (3136,1152)x(1152,256)
+// against 0.0503 written inline, on an H100 SXM.)
+template <int BM, int BN, typename TX>
+__device__ __forceinline__ void tile_fma(float (&acc)[BM / 16][BN / 16],
+                                         const TX* As, const float* Bs,
+                                         int ty, int tx) {
+  constexpr int TM = BM / 16, TN = BN / 16;
+#pragma unroll
+  for (int kk = 0; kk < kTileBK; kk += 4) {
+    float4 a4[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) a4[i] = a_read4(As, ty + 16 * i, kk);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float bv[TN];
+#pragma unroll
+      for (int jj = 0; jj < TN / 4; ++jj) {
+        const float4 b4 = *reinterpret_cast<const float4*>(
+            &Bs[(kk + q) * BN + tx * 4 + 64 * jj]);
+        bv[4 * jj] = b4.x;
+        bv[4 * jj + 1] = b4.y;
+        bv[4 * jj + 2] = b4.z;
+        bv[4 * jj + 3] = b4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float av = comp(a4[i], q);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// the register tile's outputs into C (type TC), each column scaled by
+// `scale` where given
+template <int BM, int BN, bool KMAJOR, typename TC>
+__device__ __forceinline__ void tile_put(
+    const Problem& p, TC* C, const float* scale,
+    const float (&acc)[BM / 16][BN / 16], int m0, int n0, int ty, int tx) {
+  constexpr int TM = BM / 16, TN = BN / 16;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + ty + 16 * i;
+    if (r >= p.M) continue;
+    TC* row = C + (size_t)r * p.N;
+    if (!KMAJOR && p.c_vec) {
+#pragma unroll
+      for (int jj = 0; jj < TN / 4; ++jj) {
+        const int c = n0 + tx * 4 + 64 * jj;
+        if (c < p.N) {
+          float4 v = make_float4(acc[i][4 * jj], acc[i][4 * jj + 1],
+                                 acc[i][4 * jj + 2], acc[i][4 * jj + 3]);
+          if (scale) {
+            v.x *= scale[c];
+            v.y *= scale[c + 1];
+            v.z *= scale[c + 2];
+            v.w *= scale[c + 3];
+          }
+          put4(row + c, v);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = n0 + col_of<BN, KMAJOR>(tx, j);
+        if (c < p.N) put(row + c, scale ? acc[i][j] * scale[c] : acc[i][j]);
+      }
+    }
+  }
+}
+
+// C when K is not split (scaled where SCALED, in TX), else this split's
+// f32 partials
+template <int BM, int BN, bool KMAJOR, typename TX, bool SCALED>
+__device__ __forceinline__ void tile_store(
+    const Problem& p, const float (&acc)[BM / 16][BN / 16], int m0, int n0,
+    int bz, int sp, int ty, int tx) {
+  // an unscaled f32 C and the partials share one layout (split_stride is
+  // 0 when K is not split): one store path, as the condition is constant
+  if (p.split > 1 || (sizeof(TX) == 4 && !SCALED))
+    tile_put<BM, BN, KMAJOR>(
+        p, static_cast<float*>(p.C) + (size_t)sp * p.split_stride + bz * p.bsc,
+        nullptr, acc, m0, n0, ty, tx);
+  else
+    tile_put<BM, BN, KMAJOR>(p, static_cast<TX*>(p.C) + bz * p.bsc, p.scale,
+                             acc, m0, n0, ty, tx);
+}
+
 // two blocks an SM (at most 128 registers a thread): a split tile grid
 // runs two waves side by side
-template <int BM, int BN, bool KMAJOR>
+template <int BM, int BN, int LAYOUT, typename TX>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_f32_tile_kernel(Problem p) {
-  using TL = Tile<BM, BN, KMAJOR>;
-  constexpr int TM = TL::TM, TN = TL::TN, BK = kTileBK, LDA = kLDA;
-  extern __shared__ __align__(16) float smem[];
-  const uint32_t ring = smem_addr(smem);
+  constexpr bool KMAJOR = LAYOUT == kKMajorB;
+  using TL = Tile<BM, BN, KMAJOR, TX>;
+  constexpr int TM = TL::TM, TN = TL::TN, BK = kTileBK;
+  extern __shared__ __align__(16) float smem_t[];
+  const uint32_t ring = smem_addr(smem_t);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int bz = blockIdx.z / p.split, sp = blockIdx.z % p.split;
-  const float* A = p.A + bz * p.bsa;
-  const float* B = p.B + bz * p.bsb;
+  const TX* A = static_cast<const TX*>(p.A) + bz * p.bsa;
+  const float* B = static_cast<const float*>(p.B) + bz * p.bsb;
+  if constexpr (LAYOUT == kPanelsB) B = b_panel(p, B, n0);
   // this split's k range, in steps of BK
   const int kbeg = sp * p.kps * kBK;
   const int kend = min(p.K, kbeg + p.kps * kBK);
@@ -232,8 +494,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nks)
-      tile_load<BM, BN, KMAJOR>(p, A, B, ring + s * TL::STAGE * 4, m0, n0,
-                                kbeg + s * BK, kend);
+      tile_load<BM, BN, KMAJOR, TX>(p, A, B, ring + s * TL::STAGE, m0, n0,
+                                    kbeg + s * BK, kend);
     cp_async_commit();
   }
   for (int t = 0; t < nks; ++t) {
@@ -241,12 +503,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // stage t landed; the slot of step t - 1 is free
     const int nt = t + kStages - 1;
     if (nt < nks)
-      tile_load<BM, BN, KMAJOR>(p, A, B,
-                                ring + (nt % kStages) * TL::STAGE * 4, m0,
-                                n0, kbeg + nt * BK, kend);
+      tile_load<BM, BN, KMAJOR, TX>(p, A, B,
+                                    ring + (nt % kStages) * TL::STAGE, m0, n0,
+                                    kbeg + nt * BK, kend);
     cp_async_commit();
-    const float* As = smem + (t % kStages) * TL::STAGE;
-    const float* Bs = As + TL::A_FLOATS;
+    const float* St = smem_t + (t % kStages) * (TL::STAGE / 4);
+    const TX* As = reinterpret_cast<const TX*>(St);
+    const float* Bs = St + TL::A_BYTES / 4;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 4) {
       if constexpr (KMAJOR) {
@@ -254,11 +517,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int j = 0; j < TN; ++j)
           bt[j] = *reinterpret_cast<const float4*>(
-              &Bs[(tx + 16 * j) * LDA + kk]);
+              &Bs[(tx + 16 * j) * kLDA + kk]);
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
-          const float4 a4 = *reinterpret_cast<const float4*>(
-              &As[(ty + 16 * i) * LDA + kk]);
+          const float4 a4 = a_read4(As, ty + 16 * i, kk);
 #pragma unroll
           for (int j = 0; j < TN; ++j) {
             acc[i][j] = fmaf(a4.x, bt[j].x, acc[i][j]);
@@ -270,9 +532,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       } else {
         float4 a4[TM];
 #pragma unroll
-        for (int i = 0; i < TM; ++i)
-          a4[i] = *reinterpret_cast<const float4*>(
-              &As[(ty + 16 * i) * LDA + kk]);
+        for (int i = 0; i < TM; ++i) a4[i] = a_read4(As, ty + 16 * i, kk);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           float bv[TN];
@@ -289,52 +549,134 @@ __global__ void __launch_bounds__(kThreads, 2)
           for (int i = 0; i < TM; ++i) {
             const float av = comp(a4[i], q);
 #pragma unroll
-            for (int j = 0; j < TN; ++j)
-              acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
           }
         }
       }
     }
   }
   cp_async_wait<0>();
+  tile_store<BM, BN, KMAJOR, TX, false>(p, acc, m0, n0, bz, sp, ty, tx);
+}
 
-  float* C = p.C + (size_t)sp * p.split_stride + bz * p.bsc;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + ty + 16 * i;
-    if (r >= p.M) continue;
-    float* row = C + (size_t)r * p.N;
-    if (!KMAJOR && p.c_vec) {
-#pragma unroll
-      for (int jj = 0; jj < TN / 4; ++jj) {
-        const int c = n0 + tx * 4 + 64 * jj;
-        if (c < p.N)
-          *reinterpret_cast<float4*>(row + c) =
-              make_float4(acc[i][4 * jj], acc[i][4 * jj + 1],
-                          acc[i][4 * jj + 2], acc[i][4 * jj + 3]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = n0 + col_of<BN, KMAJOR>(tx, j);
-        if (c < p.N) row[c] = acc[i][j];
-      }
+// int4 B: one K step's 16 packed rows (from k0 / 2) of the tile's BN
+// columns (Bq: the column base), zero past kend's packed row and past N,
+// in p.b_vec-byte pieces
+template <int BN>
+__device__ __forceinline__ void q4_load(const Problem& p, const uint8_t* Bq,
+                                        uint32_t sq, int nb, int k0,
+                                        int kend) {
+  constexpr int R = kTileBK / 2;
+  const int r0 = k0 / 2, rend = (kend + 1) / 2;
+  if (p.b_vec == 16) {
+    for (int q = threadIdx.x; q < R * (BN / 16); q += kThreads) {
+      const int r = q / (BN / 16), c = (q % (BN / 16)) * 16;
+      const bool ok = r0 + r < rend && c < nb;
+      cp_async16(sq + r * BN + c,
+                 ok ? (const void*)(Bq + (size_t)(r0 + r) * p.N + c)
+                    : (const void*)Bq,
+                 ok ? 16 : 0);
+    }
+  } else if (p.b_vec == 4) {
+    for (int q = threadIdx.x; q < R * (BN / 4); q += kThreads) {
+      const int r = q / (BN / 4), c = (q % (BN / 4)) * 4;
+      const bool ok = r0 + r < rend && c < nb;
+      cp_async4(sq + r * BN + c,
+                ok ? (const void*)(Bq + (size_t)(r0 + r) * p.N + c)
+                   : (const void*)Bq,
+                ok ? 4 : 0);
+    }
+  } else {
+    for (int q = threadIdx.x; q < R * BN; q += kThreads) {
+      const int r = q / BN, c = q % BN;
+      const uint32_t v = r0 + r < rend && c < nb
+                             ? __ldg(Bq + (size_t)(r0 + r) * p.N + c)
+                             : 0u;
+      asm volatile("st.shared.u8 [%0], %1;\n" ::"r"(sq + r * BN + c), "r"(v)
+                   : "memory");
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// stream path (batch > 1, K <= kStreamMaxK)
-// ---------------------------------------------------------------------------
-// rows [0, 128) x k [0, kp) of A's item tile at row m0, as [row][k] with
-// row stride kp + 4 floats; k >= K and rows >= M zero-filled
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
+// a stage's 16 packed rows -> 32 rows of the [k][n] f32 buffer Fs; rows
+// at or past kend are zero (an odd K's last high nibble)
+template <int BN>
+__device__ __forceinline__ void q4_unpack(const uint8_t* Qs, float* Fs,
+                                          int k0, int kend) {
+  for (int q = threadIdx.x; q < (kTileBK / 2) * (BN / 4); q += kThreads) {
+    const int r = q / (BN / 4), c = (q % (BN / 4)) * 4;
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(Qs + r * BN + c);
+    const bool lo = k0 + 2 * r < kend, hi = k0 + 2 * r + 1 < kend;
+    *reinterpret_cast<float4*>(&Fs[(2 * r) * BN + c]) =
+        lo ? make_float4(nib(w, 0), nib(w, 2), nib(w, 4), nib(w, 6))
+           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    *reinterpret_cast<float4*>(&Fs[(2 * r + 1) * BN + c]) =
+        hi ? make_float4(nib(w, 1), nib(w, 3), nib(w, 5), nib(w, 7))
+           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
 }
 
+// int4 B on the tile path (batch 1). Iteration t: wait for stage t + 1,
+// one barrier, start the copies of stage t + 3 (into the slot of stage
+// t - 1, whose A was read at t - 1 and bytes at t - 2), unpack stage t + 1
+// into the buffer that step t - 1 read, run step t's FMAs.
+template <int BM, int BN, typename TX>
+__global__ void __launch_bounds__(kThreads, 2)
+    gemm_q4_tile_kernel(Problem p) {
+  using TL = TileQ4<BM, BN, TX>;
+  constexpr int TM = BM / 16, TN = BN / 16, BK = kTileBK, S = kQ4Stages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t ring = smem_addr(smem);
+  float* fbuf = reinterpret_cast<float*>(smem + S * TL::STAGE);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, sp = blockIdx.z;
+  const TX* A = static_cast<const TX*>(p.A);
+  const uint8_t* Bq = static_cast<const uint8_t*>(p.B) + n0;
+  const int nb = p.N - n0;
+  const int kbeg = sp * p.kps * kBK;
+  const int kend = min(p.K, kbeg + p.kps * kBK);
+  const int nks = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  auto load = [&](int s) {
+    const uint32_t sa = ring + (s % S) * TL::STAGE;
+    a_tile_load<BM, TX>(p, A, sa, m0, kbeg + s * BK, kend);
+    q4_load<BN>(p, Bq, sa + TL::A_BYTES, nb, kbeg + s * BK, kend);
+  };
+  auto unpack = [&](int s) {
+    q4_unpack<BN>(smem + (s % S) * TL::STAGE + TL::A_BYTES,
+                  fbuf + (s & 1) * TL::F_FLOATS, kbeg + s * BK, kend);
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nks) load(s);
+    cp_async_commit();
+  }
+  cp_async_wait<S - 2>();
+  __syncthreads();  // stage 0 landed
+  if (nks > 0) unpack(0);
+  for (int t = 0; t < nks; ++t) {
+    cp_async_wait<S - 3>();
+    __syncthreads();  // stage t + 1 landed, step t's buffer unpacked
+    if (t + S - 1 < nks) load(t + S - 1);
+    cp_async_commit();
+    if (t + 1 < nks) unpack(t + 1);
+    tile_fma<BM, BN, TX>(
+        acc, reinterpret_cast<const TX*>(smem + (t % S) * TL::STAGE),
+        fbuf + (t & 1) * TL::F_FLOATS, ty, tx);
+  }
+  cp_async_wait<0>();
+  tile_store<BM, BN, false, TX, true>(p, acc, m0, n0, 0, sp, ty, tx);
+}
+
+// ---------------------------------------------------------------------------
+// stream path (batch > 1, K <= kStreamMaxK; f32)
+// ---------------------------------------------------------------------------
 // Copy the 4 floats at (row, col..col+3) into the 16-byte shared slot
 // dst, as load4, but always with cp.async: 4-byte copies where the row is
 // not on a 16-byte boundary.
@@ -399,14 +741,14 @@ __device__ __forceinline__ void stream_load(const Problem& p,
                                             bool with_b) {
   constexpr int cq = SK / 4, lds = SK + 4;
   const int k0 = s * SK;
-  const float* A = p.A + t.b * p.bsa;
+  const float* A = static_cast<const float*>(p.A) + t.b * p.bsa;
   for (int q = threadIdx.x; q < kStreamBM * cq; q += kThreads) {
     const int r = q / cq, c = (q - r * cq) * 4;
     load4_async(sa + (r * lds + c) * 4, A, p.K, t.m0 + r, p.M, k0 + c, p.K,
                 p.a_vec);
   }
   if (with_b) {
-    const float* B = p.B + t.b * p.bsb;
+    const float* B = static_cast<const float*>(p.B) + t.b * p.bsb;
     for (int q = threadIdx.x; q < sh.kp * (kStreamBN / 4); q += kThreads) {
       const int k = q / (kStreamBN / 4), c = (q % (kStreamBN / 4)) * 4;
       load4_async(sb + (k * kStreamBN + c) * 4, B, p.ldb, k, p.K, t.n0 + c,
@@ -433,7 +775,7 @@ inline size_t stream_smem_bytes(int K, int nst) {
 template <int NST, int SK>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_f32_stream_kernel(Problem p, int tiles_m, int tiles_n, int items) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) float smem_f[];
   constexpr int lds = SK + 4;
   const StreamShape sh(p.K);
   const int first = (int)((long long)blockIdx.x * items / gridDim.x);
@@ -442,8 +784,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (nsteps <= 0) return;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   constexpr int slot_floats = kStreamBM * lds;
-  float* ring = smem;
-  float* slabs = smem + NST * slot_floats;
+  float* ring = smem_f;
+  float* slabs = smem_f + NST * slot_floats;
   const uint32_t ring_s = smem_addr(ring), slabs_s = smem_addr(slabs);
   constexpr int TM = kStreamBM / 16;
 
@@ -513,7 +855,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     if (s != sh.spi - 1) continue;
-    float* C = p.C + t.b * p.bsc;
+    float* C = static_cast<float*>(p.C) + t.b * p.bsc;
     const int c0 = t.n0 + tx * 4;
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
@@ -537,18 +879,21 @@ __global__ void __launch_bounds__(kThreads, 2)
 // ---------------------------------------------------------------------------
 // skinny path
 // ---------------------------------------------------------------------------
-// x's rows [0, M) over this split's k range into shared memory
+// x's rows [0, M) over this split's k range into shared memory, as f32
+template <typename TX>
 __device__ __forceinline__ void load_x(const Problem& p, float* xs, int kb0,
                                        int kn) {
+  const TX* A = static_cast<const TX*>(p.A);
   for (int i = threadIdx.x; i < p.M * kn; i += kThreads) {
     const int m = i / kn, kk = i - m * kn;
-    xs[i] = p.A[(size_t)m * p.K + kb0 + kk];
+    xs[i] = widen(A[(size_t)m * p.K + kb0 + kk]);
   }
 }
 
-__device__ __forceinline__ float4 load_b4(const Problem& p, int k, int n,
-                                          bool vec) {
-  const float* src = p.B + (size_t)k * p.ldb + n;
+// columns n .. n+3 of row k (B: as b_panel gives it)
+__device__ __forceinline__ float4 load_b4(const Problem& p, const float* B,
+                                          int k, int n, bool vec) {
+  const float* src = B + (size_t)k * p.ldb + n;
   if (vec) return __ldg(reinterpret_cast<const float4*>(src));
   float v[4];
 #pragma unroll
@@ -572,8 +917,37 @@ __device__ __forceinline__ void skinny_fma(float (&acc)[MT][4],
   }
 }
 
-// row-major B: columns [n0, n0 + 128) of split blockIdx.y
-template <int MT>
+// The KP phases of each of the block's columns summed in phase order and
+// stored, row by row: `red` holds, for each thread tid = kp·CG + cg, its
+// V columns' sums of one row. C is out (scaled, in TX) when K is not
+// split, else this split's f32 partials.
+template <int MT, int V, typename TX>
+__device__ __forceinline__ void skinny_store(const Problem& p,
+                                             float (&acc)[MT][V], float* red,
+                                             int n0, int CG, int KP, int sp) {
+  const int tid = threadIdx.x;
+  const int n = n0 + tid;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    if (m >= p.M) break;
+#pragma unroll
+    for (int e = 0; e < V; ++e) red[tid * V + e] = acc[m][e];
+    __syncthreads();
+    if (tid < CG * V && n < p.N) {
+      float s = 0.0f;
+      for (int ph = 0; ph < KP; ++ph) s += red[ph * CG * V + tid];
+      const size_t i = (size_t)m * p.N + n;
+      if (p.split > 1)
+        static_cast<float*>(p.C)[(size_t)sp * p.split_stride + i] = s;
+      else
+        put(static_cast<TX*>(p.C) + i, p.scale ? s * p.scale[n] : s);
+    }
+    __syncthreads();
+  }
+}
+
+// row-major B or its panel: columns [n0, n0 + 128) of split blockIdx.y
+template <int MT, typename TX>
 __global__ void __launch_bounds__(kThreads)
     gemm_f32_skinny_kernel(Problem p) {
   extern __shared__ __align__(16) float xs[];
@@ -582,15 +956,16 @@ __global__ void __launch_bounds__(kThreads)
   const int kb0 = sp * p.kps * kBK;
   const int kn = max(0, min(p.kps * kBK, p.K - kb0));
   const int M = p.M;
-  load_x(p, xs, kb0, kn);
-  __syncthreads();
-
   const int ncols = min(kSkinnyCols, p.N - n0);
   const int CG = (ncols + 3) / 4;  // float4 columns
   const int KP = kThreads / CG;    // k phases
   const int cg = tid % CG, kp = tid / CG;
   const int n = n0 + cg * 4;
   const bool vec = p.b_vec && n + 3 < p.N;
+  const float* B = b_panel(p, static_cast<const float*>(p.B), n0);
+  load_x<TX>(p, xs, kb0, kn);
+  __syncthreads();
+
   float acc[MT][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
@@ -603,35 +978,135 @@ __global__ void __launch_bounds__(kThreads)
       float4 w[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        w[u] = load_b4(p, kb0 + kk + u * KP, n, vec);
+        w[u] = load_b4(p, B, kb0 + kk + u * KP, n, vec);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
         skinny_fma<MT>(acc, xs, kn, kk + u * KP, M, w[u]);
     }
-    for (; kk < kn; kk += KP)
-      skinny_fma<MT>(acc, xs, kn, kk, M, load_b4(p, kb0 + kk, n, vec));
+    // the last rows (fewer than kUnroll), loaded together: a split of a
+    // few rows a phase, as at the resnet50 head, waits on one round trip,
+    // not one a row (one at a time at MT 16, within the registers)
+    constexpr int TB = MT >= 16 ? 1 : kUnroll - 1;
+    for (; kk < kn; kk += TB * KP) {
+      float4 w[TB];
+#pragma unroll
+      for (int u = 0; u < TB; ++u)
+        if (kk + u * KP < kn)
+          w[u] = load_b4(p, B, kb0 + kk + u * KP, n, vec);
+#pragma unroll
+      for (int u = 0; u < TB; ++u)
+        if (kk + u * KP < kn)
+          skinny_fma<MT>(acc, xs, kn, kk + u * KP, M, w[u]);
+    }
   }
   __syncthreads();  // x is no longer read: the buffer takes the sums
+  skinny_store<MT, 4, TX>(p, acc, xs, n0, CG, KP, sp);
+}
 
-  // each row: the KP phases of a column summed in phase order
-  float* red = xs;  // [KP][CG][4]
-  float* C = p.C + (size_t)sp * p.split_stride;
+// int4 skinny: V bytes of a packed row, as loaded (V = 16, 4 or 1)
+template <int V>
+struct QWord;
+template <>
+struct QWord<16> {
+  uint4 v;
+  __device__ __forceinline__ void load(const uint8_t* src) {
+    v = __ldg(reinterpret_cast<const uint4*>(src));
+  }
+  __device__ __forceinline__ uint32_t word(int i) const {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+};
+template <>
+struct QWord<4> {
+  uint32_t v;
+  __device__ __forceinline__ void load(const uint8_t* src) {
+    v = __ldg(reinterpret_cast<const unsigned int*>(src));
+  }
+  __device__ __forceinline__ uint32_t word(int) const { return v; }
+};
+template <>
+struct QWord<1> {
+  uint32_t v;
+  __device__ __forceinline__ void load(const uint8_t* src) { v = __ldg(src); }
+  __device__ __forceinline__ uint32_t word(int) const { return v; }
+};
+
+// the FMAs of one packed row (k rows kk and kk + 1 of the split, the
+// second only where kk + 1 < kn) over the thread's V columns
+template <int MT, int V>
+__device__ __forceinline__ void q4_fma(float (&acc)[MT][V], const float* xs,
+                                       int kn, int kk, int M,
+                                       const QWord<V>& w) {
+  const bool two = kk + 1 < kn;
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m >= M) break;
+  for (int e = 0; e < V; ++e) {
+    const uint32_t byte = w.word(e / 4) >> (8 * (e % 4));
+    const float lo = nib(byte, 0), hi = nib(byte, 1);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) red[tid * 4 + e] = acc[m][e];
-    __syncthreads();
-    if (tid < CG * 4 && n0 + tid < p.N) {
-      float s = 0.0f;
-      for (int ph = 0; ph < KP; ++ph) s += red[ph * CG * 4 + tid];
-      C[(size_t)m * p.N + n0 + tid] = s;
+    for (int m = 0; m < MT; ++m) {
+      if (m < M) {
+        acc[m][e] = fmaf(xs[m * kn + kk], lo, acc[m][e]);
+        if (two) acc[m][e] = fmaf(xs[m * kn + kk + 1], hi, acc[m][e]);
+      }
     }
-    __syncthreads();
   }
 }
 
-// K-major B: columns [n0, n0 + 32) (rows of B^T) of split blockIdx.y
+// int4 B: columns [n0, n0 + 128) of split blockIdx.y; a thread owns V of
+// them and every KP-th packed row of the split
+template <int MT, int V, typename TX>
+__global__ void __launch_bounds__(kThreads)
+    gemm_q4_skinny_kernel(Problem p) {
+  extern __shared__ __align__(16) float xs[];
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kSkinnyCols, sp = blockIdx.y;
+  const int kb0 = sp * p.kps * kBK;  // even: a packed row's first k
+  const int kn = max(0, min(p.kps * kBK, p.K - kb0));
+  const int M = p.M;
+  const int ncols = min(kSkinnyCols, p.N - n0);
+  const int CG = (ncols + V - 1) / V;  // column groups of V
+  const int KP = kThreads / CG;        // packed-row phases
+  const int cg = tid % CG, kp = tid / CG;
+  const int nrows = (kn + 1) / 2;      // packed rows of the split
+  const uint8_t* Bq = static_cast<const uint8_t*>(p.B) +
+                      (size_t)(kb0 / 2) * p.N + n0 + cg * V;
+  load_x<TX>(p, xs, kb0, kn);
+  __syncthreads();
+
+  float acc[MT][V];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[m][e] = 0.0f;
+
+  if (kp < KP) {  // kUnroll packed rows in flight, as the f32 kernel
+    int r = kp;
+    for (; r + (kUnroll - 1) * KP < nrows; r += kUnroll * KP) {
+      QWord<V> w[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        w[u].load(Bq + (size_t)(r + u * KP) * p.N);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        q4_fma<MT, V>(acc, xs, kn, 2 * (r + u * KP), M, w[u]);
+    }
+    constexpr int TB = MT >= 16 ? 3 : kUnroll - 1;  // the last rows
+    for (; r < nrows; r += TB * KP) {
+      QWord<V> w[TB];
+#pragma unroll
+      for (int u = 0; u < TB; ++u)
+        if (r + u * KP < nrows) w[u].load(Bq + (size_t)(r + u * KP) * p.N);
+#pragma unroll
+      for (int u = 0; u < TB; ++u)
+        if (r + u * KP < nrows)
+          q4_fma<MT, V>(acc, xs, kn, 2 * (r + u * KP), M, w[u]);
+    }
+  }
+  __syncthreads();  // x is no longer read: the buffer takes the sums
+  skinny_store<MT, V, TX>(p, acc, xs, n0, CG, KP, sp);
+}
+
+// K-major B: columns [n0, n0 + 32) (rows of B^T) of split blockIdx.y; f32
 template <int MT>
 __global__ void __launch_bounds__(kThreads)
     gemm_f32_skinny_kmajor_kernel(Problem p) {
@@ -641,7 +1116,7 @@ __global__ void __launch_bounds__(kThreads)
   const int kb0 = sp * p.kps * kBK;
   const int kn = max(0, min(p.kps * kBK, p.K - kb0));
   const int M = p.M;
-  load_x(p, xs, kb0, kn);
+  load_x<float>(p, xs, kb0, kn);
   __syncthreads();
 
   float acc[4][MT];
@@ -649,10 +1124,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < 4; ++c)
 #pragma unroll
     for (int m = 0; m < MT; ++m) acc[c][m] = 0.0f;
+  const float* B = static_cast<const float*>(p.B);
   const float* rows[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c)
-    rows[c] = p.B + (size_t)min(n0 + c, p.N - 1) * p.ldb + kb0;
+    rows[c] = B + (size_t)min(n0 + c, p.N - 1) * p.ldb + kb0;
 
   if (p.b_vec) {  // kn, kb0 and ldb are multiples of 4: float4 along k
     for (int q = lane; q < kn / 4; q += 32) {
@@ -694,7 +1170,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  float* C = p.C + (size_t)sp * p.split_stride;
+  float* C = static_cast<float*>(p.C) + (size_t)sp * p.split_stride;
 #pragma unroll
   for (int c = 0; c < 4; ++c)
 #pragma unroll
@@ -709,14 +1185,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// split-K: sum the partials in split order
+// split-K: sum the partials in split order, then scale and round
 // ---------------------------------------------------------------------------
 // U loads in flight a thread, summed in order
-template <int U>
+template <int U, typename TC>
 __global__ void __launch_bounds__(256)
     gemm_f32_splitk_sum_kernel(const float* __restrict__ part,
-                               float* __restrict__ C, long long total,
-                               int split) {
+                               TC* __restrict__ C, long long total,
+                               int split, const float* __restrict__ scale,
+                               int N) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
     float s = 0.0f;
@@ -729,27 +1206,76 @@ __global__ void __launch_bounds__(256)
       for (int u = 0; u < U; ++u) s += v[u];
     }
     for (; k < split; ++k) s += part[(size_t)k * total + i];
-    C[i] = s;
+    put(C + i, scale ? s * scale[i % N] : s);
   }
 }
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
+inline bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
+
+// Call l.template go<BM, BN>() for a tile shape the kernels take.
+template <typename L>
+inline cudaError_t by_tile_shape(int bm, int bn, const L& l) {
+  if (bn == 128) {
+    switch (bm) {
+      case 64: return l.template go<64, 128>();
+      case 96: return l.template go<96, 128>();
+      case 128: return l.template go<128, 128>();
+    }
+  } else if (bn == 64) {
+    switch (bm) {
+      case 64: return l.template go<64, 64>();
+      case 96: return l.template go<96, 64>();
+      case 128: return l.template go<128, 64>();
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+inline bool tile_shape_ok(int bm, int bn) {
+  return (bn == 128 || bn == 64) && (bm == 64 || bm == 96 || bm == 128);
+}
+
 // The shared-memory attribute is set before every tile launch (about a
 // microsecond of host time) rather than remembered in a static.
-template <int BM, int BN, bool KMAJOR>
-inline cudaError_t launch_tile(const Problem& p, int split,
-                               cudaStream_t stream) {
-  auto kernel = gemm_f32_tile_kernel<BM, BN, KMAJOR>;
-  constexpr int bytes = Tile<BM, BN, KMAJOR>::BYTES;
+template <typename K>
+inline cudaError_t launch_smem(K kernel, dim3 grid, int bytes,
+                               const Problem& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.batch * split);
   kernel<<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
+
+template <int LAYOUT, typename TX>
+struct TileLaunch {
+  const Problem& p;
+  cudaStream_t stream;
+  template <int BM, int BN>
+  cudaError_t go() const {
+    dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.batch * p.split);
+    return launch_smem(gemm_f32_tile_kernel<BM, BN, LAYOUT, TX>, grid,
+                       Tile<BM, BN, LAYOUT == kKMajorB, TX>::BYTES, p,
+                       stream);
+  }
+};
+
+template <typename TX>
+struct Q4TileLaunch {
+  const Problem& p;
+  cudaStream_t stream;
+  template <int BM, int BN>
+  cudaError_t go() const {
+    dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.split);
+    return launch_smem(gemm_q4_tile_kernel<BM, BN, TX>, grid,
+                       TileQ4<BM, BN, TX>::BYTES, p, stream);
+  }
+};
 
 template <int NST, int SK>
 inline cudaError_t launch_stream_k(const Problem& p, int blocks, int tiles_m,
@@ -778,9 +1304,12 @@ inline cudaError_t launch_stream_nst(const Problem& p, int blocks, int tiles_m,
 }
 
 // `blocks` persistent blocks, two an SM at most; a 4-deep ring of steps
-// where every slab spans at least 3 steps, else 2-deep.
+// where every slab spans at least 3 steps, else 2-deep. (A template, so
+// that a library that never takes the path compiles none of its kernels.)
+template <typename TX>
 inline cudaError_t launch_stream(const Problem& p, int blocks,
                                  cudaStream_t stream) {
+  static_assert(sizeof(TX) == 4, "the stream path is f32");
   const int tiles_m = (p.M + kStreamBM - 1) / kStreamBM;
   const int tiles_n = (p.N + kStreamBN - 1) / kStreamBN;
   if (tiles_m * StreamShape(p.K).spi >= 3)
@@ -788,135 +1317,259 @@ inline cudaError_t launch_stream(const Problem& p, int blocks,
   return launch_stream_nst<2>(p, blocks, tiles_m, tiles_n, stream);
 }
 
-template <bool KMAJOR>
-inline cudaError_t launch_tile_shape(const Problem& p, int bm, int bn,
-                                     int split, cudaStream_t stream) {
-  if (bn == 128) {
-    switch (bm) {
-      case 64: return launch_tile<64, 128, KMAJOR>(p, split, stream);
-      case 96: return launch_tile<96, 128, KMAJOR>(p, split, stream);
-      case 128: return launch_tile<128, 128, KMAJOR>(p, split, stream);
-    }
-  } else if (bn == 64) {
-    switch (bm) {
-      case 64: return launch_tile<64, 64, KMAJOR>(p, split, stream);
-      case 96: return launch_tile<96, 64, KMAJOR>(p, split, stream);
-      case 128: return launch_tile<128, 64, KMAJOR>(p, split, stream);
-    }
-  }
-  return cudaErrorInvalidValue;
-}
-
-inline bool tile_shape_ok(int bm, int bn) {
-  return (bn == 128 || bn == 64) && (bm == 64 || bm == 96 || bm == 128);
-}
-
-template <int MT>
-inline cudaError_t launch_skinny_mt(const Problem& p, bool kmajor, int split,
-                                    cudaStream_t stream) {
+// the skinny kernels' shared memory: x's split slice, and the phase sums
+// (V floats a thread) once x is read
+inline size_t skinny_smem_bytes(const Problem& p, int v) {
   const int kn = p.kps * kBK;
   int floats = p.M * kn;
-  if (!kmajor && floats < kThreads * 4) floats = kThreads * 4;  // the sums
-  const size_t bytes = (size_t)(floats > 0 ? floats : 1) * sizeof(float);
-  if (kmajor) {
-    dim3 grid((p.N + kSkinnyKCols - 1) / kSkinnyKCols, split);
-    gemm_f32_skinny_kmajor_kernel<MT><<<grid, kThreads, bytes, stream>>>(p);
+  if (floats < kThreads * v) floats = kThreads * v;
+  return (size_t)(floats > 0 ? floats : 1) * sizeof(float);
+}
+
+// MT: the rows a thread's register tile holds (M rounded up)
+template <typename F>
+inline cudaError_t by_rows(int M, const F& f) {
+  if (M <= 1) return f.template go<1>();
+  if (M <= 2) return f.template go<2>();
+  if (M <= 4) return f.template go<4>();
+  if (M <= 8) return f.template go<8>();
+  return f.template go<16>();
+}
+
+template <typename TX>
+struct SkinnyLaunch {
+  const Problem& p;
+  bool kmajor;
+  cudaStream_t stream;
+  template <int MT>
+  cudaError_t go() const {
+    if constexpr (sizeof(TX) == 4) {
+      if (kmajor) {
+        dim3 grid((p.N + kSkinnyKCols - 1) / kSkinnyKCols, p.split);
+        gemm_f32_skinny_kmajor_kernel<MT>
+            <<<grid, kThreads, skinny_smem_bytes(p, 0), stream>>>(p);
+        return cudaGetLastError();
+      }
+    }
+    dim3 grid((p.N + kSkinnyCols - 1) / kSkinnyCols, p.split);
+    gemm_f32_skinny_kernel<MT, TX>
+        <<<grid, kThreads, skinny_smem_bytes(p, 4), stream>>>(p);
+    return cudaGetLastError();
+  }
+};
+
+// int4 skinny: MT 1, 4 or 16; V = p.b_vec (16 only where MT <= 4)
+template <typename TX>
+inline cudaError_t launch_q4_skinny(const Problem& p, cudaStream_t stream) {
+  dim3 grid((p.N + kSkinnyCols - 1) / kSkinnyCols, p.split);
+  const size_t bytes = skinny_smem_bytes(p, p.b_vec);
+  if (p.M <= 1) {
+    if (p.b_vec == 16)
+      gemm_q4_skinny_kernel<1, 16, TX><<<grid, kThreads, bytes, stream>>>(p);
+    else if (p.b_vec == 4)
+      gemm_q4_skinny_kernel<1, 4, TX><<<grid, kThreads, bytes, stream>>>(p);
+    else
+      gemm_q4_skinny_kernel<1, 1, TX><<<grid, kThreads, bytes, stream>>>(p);
+  } else if (p.M <= 4) {
+    if (p.b_vec == 16)
+      gemm_q4_skinny_kernel<4, 16, TX><<<grid, kThreads, bytes, stream>>>(p);
+    else if (p.b_vec == 4)
+      gemm_q4_skinny_kernel<4, 4, TX><<<grid, kThreads, bytes, stream>>>(p);
+    else
+      gemm_q4_skinny_kernel<4, 1, TX><<<grid, kThreads, bytes, stream>>>(p);
   } else {
-    dim3 grid((p.N + kSkinnyCols - 1) / kSkinnyCols, split);
-    gemm_f32_skinny_kernel<MT><<<grid, kThreads, bytes, stream>>>(p);
+    if (p.b_vec == 4)
+      gemm_q4_skinny_kernel<16, 4, TX><<<grid, kThreads, bytes, stream>>>(p);
+    else if (p.b_vec == 1)
+      gemm_q4_skinny_kernel<16, 1, TX><<<grid, kThreads, bytes, stream>>>(p);
+    else
+      return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_skinny(const Problem& p, bool kmajor, int split,
-                                 cudaStream_t stream) {
-  if (p.M <= 1) return launch_skinny_mt<1>(p, kmajor, split, stream);
-  if (p.M <= 2) return launch_skinny_mt<2>(p, kmajor, split, stream);
-  if (p.M <= 4) return launch_skinny_mt<4>(p, kmajor, split, stream);
-  if (p.M <= 8) return launch_skinny_mt<8>(p, kmajor, split, stream);
-  return launch_skinny_mt<16>(p, kmajor, split, stream);
+// the split's plan checks shared by every entry; fills p's split fields
+// and points p.C at the scratch when K is split
+inline bool plan_split(Problem& p, int path, int split, float* scratch,
+                       void* C) {
+  const int ksteps = (p.K + kBK - 1) / kBK;
+  const int kps = split > 0 && ksteps > 0 ? ksteps / split : 0;
+  if (p.K < 0 || split < 1 || (ksteps > 0 && ksteps % split) ||
+      (ksteps == 0 && split != 1) || (split > 1 && scratch == nullptr) ||
+      // the split's sum writes C packed
+      (split > 1 && p.batch > 1 && p.bsc != (long long)p.M * p.N) ||
+      (path == kSkinny &&
+       (p.batch != 1 || p.M > kSkinnyMaxM ||
+        (long long)kps * kBK * p.M > kXFloats)))
+    return false;
+  p.split = split;
+  p.kps = kps;
+  // the partials of a split are (split, batch, M, N), packed
+  p.bsc = split > 1 ? (long long)p.M * p.N : p.bsc;
+  p.C = split > 1 ? (void*)scratch : C;
+  p.split_stride = split > 1 ? (long long)p.batch * p.M * p.N : 0;
+  return true;
 }
 
-inline bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+// after a split launch: the partials summed in split order into C,
+// scaled, in C's type
+template <typename TC>
+inline int finish_split(const Problem& p, cudaError_t err, TC* C,
+                        cudaStream_t stream) {
+  if (err != cudaSuccess || p.split == 1) return (int)err;
+  const long long total = (long long)p.batch * p.M * p.N;
+  long long nb = (total + 255) / 256;
+  if (nb > 4096) nb = 4096;
+  gemm_f32_splitk_sum_kernel<8, TC><<<(unsigned)nb, 256, 0, stream>>>(
+      static_cast<const float*>(p.C), C, total, p.split, p.scale, p.N);
+  return (int)cudaGetLastError();
 }
 
-// Enqueue C[z] = A[z] · B[z] for z < batch on `stream` as the host
-// planner decided: `path` (kSkinny needs batch 1, M <= 16 and
-// kps·16·M <= kXFloats; kTile a (bm, bn) that tile_shape_ok takes;
-// kStream K <= kStreamMaxK, no split, and `blocks` persistent blocks),
-// `split` (a divisor of the K steps; > 1 needs `scratch` of
-// split·batch·M·N floats). Batch entry z of A, B and C starts bsa, bsb and
-// bsc floats after entry z - 1. Returns the first launch error, checked
+// f32 B: C[z] = A[z] · B[z] on `stream` as the host planner decided. p
+// holds the operands, shapes, strides and layout; `path` (kSkinny needs
+// batch 1, M <= 16 and kps·16·M <= kXFloats; kTile a (bm, bn) that
+// tile_shape_ok takes; kStream, where the entry has it, K <= kStreamMaxK,
+// no split, and `blocks` persistent blocks), `split` (a divisor of the K
+// steps; > 1 needs `scratch` of split·batch·M·N floats). PANELS: B is
+// LinearPacked's panels (x f32 or bf16), else row-major or K-major with
+// an f32 x. Template flags, so that each library compiles only the
+// kernels its entries launch. Returns the first launch error, checked
 // after each launch; cudaErrorInvalidValue for a plan the kernels do not
 // take.
-inline int launch_gemm_f32_batched(const float* A, const float* B, float* C,
+template <typename TX, bool PANELS, bool STREAM>
+inline int launch_planned(Problem p, bool kmajor, int path, int bm, int bn,
+                          int split, int blocks, float* scratch,
+                          cudaStream_t stream) {
+  TX* C = static_cast<TX*>(p.C);
+  if (p.batch <= 0 || p.M <= 0 || p.N <= 0) return (int)cudaGetLastError();
+  const bool kmajor_ok = !kmajor || (sizeof(TX) == 4 && !PANELS);
+  const bool ok_path =
+      (path == kSkinny && kmajor_ok) ||
+      (path == kTile && tile_shape_ok(bm, bn) && kmajor_ok) ||
+      (STREAM && path == kStream && !kmajor && p.K <= kStreamMaxK &&
+       split == 1 && bm == kStreamBM && bn == kStreamBN && blocks > 0);
+  if (!ok_path || !plan_split(p, path, split, scratch, C))
+    return (int)cudaErrorInvalidValue;
+  p.c_vec = aligned16(p.C) && p.N % 4 == 0 && p.bsc % 4 == 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (path == kSkinny) {
+    err = by_rows(p.M, SkinnyLaunch<TX>{p, kmajor, stream});
+  } else if constexpr (PANELS) {
+    err = by_tile_shape(bm, bn, TileLaunch<kPanelsB, TX>{p, stream});
+  } else {
+    static_assert(sizeof(TX) == 4, "a bf16 x comes only with panels");
+    if (path == kTile && kmajor)
+      err = by_tile_shape(bm, bn, TileLaunch<kKMajorB, TX>{p, stream});
+    else if (path == kTile)
+      err = by_tile_shape(bm, bn, TileLaunch<kRowMajorB, TX>{p, stream});
+    else if constexpr (STREAM)
+      err = launch_stream<TX>(p, blocks, stream);
+  }
+  return finish_split(p, err, C, stream);
+}
+
+inline Problem make_problem(const void* A, const void* B, void* C,
+                            const float* scale, int M, int N, int K,
+                            int ldb) {
+  Problem p{};
+  p.A = A;
+  p.B = B;
+  p.C = C;
+  p.scale = scale;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.ldb = ldb;
+  p.batch = 1;
+  p.split = 1;
+  return p;
+}
+
+// Enqueue C[z] = A[z] · B[z] for z < batch, all f32 (T, a template only so
+// that a library that never calls it compiles none of its kernels), B
+// row-major (K,N) or K-major (N,K) with leading dimension ldb; batch entry
+// z of A, B and C starts bsa, bsb and bsc floats after entry z - 1. The
+// plan as in launch_planned; STREAM: the entry takes the stream path.
+template <bool STREAM, typename T>
+inline int launch_gemm_f32_batched(const T* A, const float* B, T* C,
                                    int batch, long long bsa, long long bsb,
                                    long long bsc, int M, int N, int K,
                                    int ldb, bool kmajor, int path, int bm,
                                    int bn, int split, int blocks,
                                    float* scratch, cudaStream_t stream) {
-  if (batch <= 0 || M <= 0 || N <= 0) return (int)cudaGetLastError();
-  const int ksteps = (K + kBK - 1) / kBK;
-  const int kps = split > 0 && ksteps > 0 ? ksteps / split : 0;
-  const bool ok_path =
-      (path == kSkinny && batch == 1 && M <= kSkinnyMaxM &&
-       (long long)kps * kBK * M <= kXFloats) ||
-      (path == kTile && tile_shape_ok(bm, bn)) ||
-      (path == kStream && !kmajor && K <= kStreamMaxK && split == 1 &&
-       bm == kStreamBM && bn == kStreamBN && blocks > 0);
-  if (!ok_path || K < 0 || split < 1 || (ksteps > 0 && ksteps % split) ||
-      (ksteps == 0 && split != 1) || (split > 1 && scratch == nullptr) ||
-      // the split's sum writes C packed
-      (split > 1 && batch > 1 && bsc != (long long)M * N) ||
-      ldb < (kmajor ? K : N))
+  if (batch > 0 && M > 0 && N > 0 && ldb < (kmajor ? K : N))
     return (int)cudaErrorInvalidValue;
-  Problem p;
-  p.A = A;
-  p.B = B;
-  p.M = M;
-  p.N = N;
-  p.K = K;
-  p.ldb = ldb;
+  Problem p = make_problem(A, B, C, nullptr, M, N, K, ldb);
   p.batch = batch;
-  p.split = split;
   p.bsa = bsa;
   p.bsb = bsb;
-  p.kps = kps;
+  p.bsc = bsc;
   p.a_vec = aligned16(A) && K % 4 == 0 && bsa % 4 == 0;
   p.b_vec = aligned16(B) && ldb % 4 == 0 && (kmajor ? K : N) % 4 == 0 &&
             bsb % 4 == 0;
-  float* out = split > 1 ? scratch : C;
-  // the partials of a split are (split, batch, M, N), packed
-  p.bsc = split > 1 ? (long long)M * N : bsc;
-  p.c_vec = aligned16(out) && N % 4 == 0 && p.bsc % 4 == 0;
-  p.C = out;
-  p.split_stride = split > 1 ? (long long)batch * M * N : 0;
-  cudaError_t err =
-      path == kSkinny
-          ? launch_skinny(p, kmajor, split, stream)
-          : path == kStream
-                ? launch_stream(p, blocks, stream)
-                : (kmajor ? launch_tile_shape<true>(p, bm, bn, split, stream)
-                          : launch_tile_shape<false>(p, bm, bn, split,
-                                                     stream));
-  if (err != cudaSuccess || split == 1) return (int)err;
-  const long long total = (long long)batch * M * N;
-  long long nb = (total + 255) / 256;
-  if (nb > 4096) nb = 4096;
-  gemm_f32_splitk_sum_kernel<8><<<(unsigned)nb, 256, 0, stream>>>(
-      scratch, C, total, split);
-  return (int)cudaGetLastError();
+  return launch_planned<T, false, STREAM>(p, kmajor, path, bm, bn, split,
+                                         blocks, scratch, stream);
 }
 
 // One GEMM (matmul's f32 entry): the batched launch at batch 1.
-inline int launch_gemm_f32_planned(const float* A, const float* B, float* C,
+template <typename T>
+inline int launch_gemm_f32_planned(const T* A, const float* B, T* C,
                                    int M, int N, int K, int ldb, bool kmajor,
                                    int path, int bm, int bn, int split,
                                    float* scratch, cudaStream_t stream) {
-  if (path == kStream) return (int)cudaErrorInvalidValue;
-  return launch_gemm_f32_batched(A, B, C, 1, 0, 0, 0, M, N, K, ldb, kmajor,
-                                 path, bm, bn, split, 1, scratch, stream);
+  return launch_gemm_f32_batched<false>(A, B, C, 1, 0, 0, 0, M, N, K, ldb,
+                                        kmajor, path, bm, bn, split, 1,
+                                        scratch, stream);
+}
+
+// x's 16-byte copies: TX's elements of 16 bytes divide K
+template <typename TX>
+inline bool a_vec_ok(const TX* A, int K) {
+  return aligned16(A) && K % (16 / (int)sizeof(TX)) == 0;
+}
+
+// matmul_packed: C(M,N) = x(M,K) · W[:K, :N], W stored as LinearPacked's
+// (ceil(N/128), nK, 128, 128) f32 panels, K <= nK·128; x and C in TX.
+template <typename TX>
+inline int launch_gemm_packed(const TX* x, const float* w_packed, TX* C,
+                              int M, int N, int K, int nK, int path, int bm,
+                              int bn, int split, float* scratch,
+                              cudaStream_t stream) {
+  if (K > nK * kPanel) return (int)cudaErrorInvalidValue;
+  Problem p = make_problem(x, w_packed, C, nullptr, M, N, K, kPanel);
+  p.pstride = (long long)nK * kPanel * kPanel;
+  p.a_vec = a_vec_ok(x, K);
+  // a panel's rows are 128 floats: 4 columns from a multiple of 4 never
+  // leave the row, whatever N is
+  p.b_vec = aligned16(w_packed);
+  return launch_planned<TX, true, false>(p, false, path, bm, bn, split, 1,
+                                         scratch, stream);
+}
+
+// matmul_dequant_int4: C(M,N) = (x(M,K) · unpack(packed)) · scale, packed
+// ((K+1)/2, N) uint8, scale (N) f32; x and C in TX.
+template <typename TX>
+inline int launch_gemm_q4(const TX* x, const uint8_t* packed,
+                          const float* scale, TX* C, int M, int N, int K,
+                          int path, int bm, int bn, int split,
+                          float* scratch, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  Problem p = make_problem(x, packed, C, scale, M, N, K, N);
+  if (path == kStream || (path == kTile && !tile_shape_ok(bm, bn)) ||
+      !plan_split(p, path, split, scratch, C))
+    return (int)cudaErrorInvalidValue;
+  p.a_vec = a_vec_ok(x, K);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(packed);
+  // the copy width: every packed row starts on its boundary; the skinny
+  // path's 16-byte loads hold 16 columns of accumulators a row (M <= 4)
+  p.b_vec = (b & 15) == 0 && N % 16 == 0 && (path == kTile || M <= 4) ? 16
+            : (b & 3) == 0 && N % 4 == 0                              ? 4
+                                                                       : 1;
+  p.c_vec = aligned16(p.C) && N % 4 == 0;
+  const cudaError_t err =
+      path == kSkinny ? launch_q4_skinny<TX>(p, stream)
+                      : by_tile_shape(bm, bn, Q4TileLaunch<TX>{p, stream});
+  return finish_split(p, err, C, stream);
 }
 
 }  // namespace f32

@@ -22,7 +22,7 @@ int repro_gmm_blocks_f32(const float* x, const float* w, float* out,
                          void* stream) {
   return repro_torch::launch_gemm_f32<BMode::kRowMajor>(
       x, w, out, nullptr, C, n, d, E, (long long)C * d, (long long)d * n,
-      (long long)C * n, 0, static_cast<cudaStream_t>(stream), group_sizes);
+      (long long)C * n, static_cast<cudaStream_t>(stream), group_sizes);
 }
 
 // The same in bf16: f32 accumulator, each output rounded to bf16 once;

@@ -4,14 +4,12 @@
 // in bf16 (bf16 out, or f32 out) on the tensor-core template
 // (gemm_bf16_tc.cuh), each along the path, block tile, K split and B
 // layout that its host planner (kernels/matmul.py plan_f32_gemm,
-// plan_bf16_gemm) passes in; matmul_packed on the f32 template
-// (gemm_f32.cuh). Plain C entry points, loaded with ctypes by
-// repro_torch/kernels/_native.py.
+// plan_bf16_gemm) passes in; matmul_packed (f32 or bf16 x) on the f32
+// path template too, reading LinearPacked's panels in place, along
+// plan_f32_gemm's path for the logical (M,K)x(K,N). Plain C entry points,
+// loaded with ctypes by repro_torch/kernels/_native.py.
 #include "gemm_bf16_tc.cuh"
-#include "gemm_f32.cuh"
 #include "gemm_f32_paths.cuh"
-
-using repro_torch::BMode;
 
 extern "C" {
 
@@ -54,12 +52,26 @@ int repro_matmul_bf16_f32out(const __nv_bfloat16* x, const __nv_bfloat16* w,
 }
 
 // out(M,N) = x(M,K) · W[:K, :N], where W is stored packed as
-// (N/128, nK, 128, 128) by LinearPacked. x is NOT padded to nK*128: the
-// K edge is masked in the kernel.
+// (ceil(N/128), nK, 128, 128) by LinearPacked and read in place. x is NOT
+// padded to nK*128: the K edge is masked in the kernel. path, bm, bn and
+// split as plan_f32_gemm(M, N, K) decided; split > 1 needs split·M·N
+// floats of scratch.
 int repro_matmul_packed_f32(const float* x, const float* w_packed, float* out,
-                            int M, int N, int K, int nK, void* stream) {
-  return repro_torch::launch_gemm_f32<BMode::kPacked>(
-      x, w_packed, out, nullptr, M, N, K, 1, 0, 0, 0, nK,
+                            int M, int N, int K, int nK, int path, int bm,
+                            int bn, int split, float* scratch, void* stream) {
+  return repro_torch::f32::launch_gemm_packed(
+      x, w_packed, out, M, N, K, nK, path, bm, bn, split, scratch,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The same with x and out bf16: x widened to f32 where it is read back,
+// f32 FMA, each output rounded to bf16 once.
+int repro_matmul_packed_bf16(const __nv_bfloat16* x, const float* w_packed,
+                             __nv_bfloat16* out, int M, int N, int K, int nK,
+                             int path, int bm, int bn, int split,
+                             float* scratch, void* stream) {
+  return repro_torch::f32::launch_gemm_packed(
+      x, w_packed, out, M, N, K, nK, path, bm, bn, split, scratch,
       static_cast<cudaStream_t>(stream));
 }
 

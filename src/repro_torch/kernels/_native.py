@@ -44,7 +44,9 @@ ARGTYPES = {
     # x, w, out, M, N, K, ldb, b_kmajor, path, bm, split, scratch, stream
     "repro_matmul_bf16": [_P, _P, _P] + [_I] * 8 + [_P, _P],
     "repro_matmul_bf16_f32out": [_P, _P, _P] + [_I] * 8 + [_P, _P],
-    "repro_matmul_packed_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w_packed, out, M, N, K, nK, path, bm, bn, split, scratch, stream
+    "repro_matmul_packed_f32": [_P, _P, _P] + [_I] * 8 + [_P, _P],
+    "repro_matmul_packed_bf16": [_P, _P, _P] + [_I] * 8 + [_P, _P],
     # V, U, out, P, T, C, O, path, bm, bn, split, blocks, scratch, stream
     "repro_winograd_tile_matmul_f32": [_P, _P, _P] + [_I] * 9 + [_P, _P],
     # q, k, v, o, B, S, H, KV, D, causal, window, softcap, bq, heads,
@@ -63,8 +65,9 @@ ARGTYPES = {
     "repro_dequant_int4": [_P, _P, _P, _I, _I, _P],
     "repro_matmul_dequant_int8_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_matmul_dequant_int8_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "repro_matmul_dequant_int4_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "repro_matmul_dequant_int4_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, packed, scale, out, M, N, K, path, bm, bn, split, scratch, stream
+    "repro_matmul_dequant_int4_f32": [_P] * 4 + [_I] * 7 + [_P, _P],
+    "repro_matmul_dequant_int4_bf16": [_P] * 4 + [_I] * 7 + [_P, _P],
     # x, w, out, group_sizes, E, C, d, n, [path, bm, split, scratch,] stream
     "repro_gmm_blocks_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_gmm_blocks_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_P, _P],

@@ -14,7 +14,9 @@ Two wrappers, each with its plain PyTorch version beside it:
   * ``matmul_packed`` replaces the Pallas ``matmul_packed``
     (``_mm_packed_kernel``): it reads ``LinearPacked``'s (N/128, K/128,
     128, 128) layout in place, so each K step of a block loads rows of one
-    contiguous 64 KB weight tile — the point of the packing transform.
+    contiguous 64 KB weight tile — the point of the packing transform. x
+    is f32 or bf16 and the result is in x's dtype, as in the Pallas
+    kernel.
 
 Kernels (``csrc/matmul.cu``). f32: the f32 path template
 ``csrc/gemm_f32_paths.cuh`` (IEEE f32 FMA on the CUDA cores, no TF32),
@@ -32,11 +34,16 @@ The same template, batched, carries ``winograd_tile_matmul``
 (``kernels/conv_winograd.py``), whose short-K stages take a third path,
 ``stream`` (persistent blocks streaming 128 x 64 items); ``plan_f32_gemm``
 plans it with ``batch=16``, and at ``batch=1`` plans as before.
-``matmul_packed`` stays on the older f32 template ``csrc/gemm_f32.cuh``
-(64x64 block tile, 4x4 outputs a thread), as do the fused dequant and f32
-``gmm_blocks`` GEMMs. bf16 (bf16 out, or f32 out): the
-tensor-core template ``csrc/gemm_bf16_tc.cuh``, along the path and K
-split that ``plan_bf16_gemm`` picks on the host:
+``matmul_packed`` runs on the same template along the plan of the logical
+(M,K)x(K,N): each 128-column panel of the packed layout is a row-major
+(nK·128, 128) matrix, and no tile or skinny block straddles two panels,
+so only the copies' column base changes; a bf16 x is widened to f32 where
+it is read back, and the output rounded once. So does
+``matmul_dequant_int4`` (``kernels/quant.py``). ``matmul_dequant_int8`` and
+the f32 ``gmm_blocks`` stay on the older f32 template
+``csrc/gemm_f32.cuh`` (64x64 block tile, 4x4 outputs a thread). bf16 (bf16
+out, or f32 out): the tensor-core template ``csrc/gemm_bf16_tc.cuh``,
+along the path and K split that ``plan_bf16_gemm`` picks on the host:
   * ``tile`` (M > 16): a 64- or 128-row by 128-column block tile of
     ``wgmma.mma_async`` m64n128k16 (one or two warpgroups), fed by a
     3-deep ring of 16-byte ``cp.async`` copies into the 128-byte
@@ -56,7 +63,8 @@ Bound on an H100 SXM (67 TFLOP/s f32 without tensor cores, 989 TFLOP/s
 bf16 on them, 3.35 TB/s): max(2·M·N·K / peak, bytes / 3.35e12). The f32
 im2col GEMMs of resnet50@224 — (12544,576)x(576,128) and
 (3136,1152)x(1152,256), 1.85 GFLOP each — are bound by operations
-(≈27.6 µs); the packed head (1,256)x(256,100) by launch latency. The bf16
+(≈27.6 µs); the packed head (1,256)x(256,100) by launch latency (its
+0.10 MB of f32 panels take 0.03 µs at 3.35 TB/s). The bf16
 GEMMs: mamba2-2.7b's (1024,2560)x(2560,5120) prefill projections by
 operations (27 µs at the tensor-core rate); every decode projection
 (M = 1-4) and the smollm-360m LM head (64,960)x(960,49152) (101 MB, 30 µs)
@@ -258,6 +266,20 @@ def plan_f32_gemm(M: int, N: int, K: int, kmajor: bool = False,
     return best[1]
 
 
+def launch_f32(kernel: str, fn, plan: GemmPlan, device, out_elems: int,
+               *args) -> None:
+    """Call ``kernel``'s C entry on the f32 path template, ``fn(*args,
+    path, bm, bn, split, scratch, stream)``, with the f32 scratch for the
+    partials (``split`` times ``out_elems``) that a split plan needs."""
+    scratch = (torch.empty(plan.split * out_elems, dtype=torch.float32,
+                           device=device) if plan.split > 1 else None)
+    with _native.on_device(device):
+        rc = fn(*args, _PATH_CODE[plan.path], plan.bm, plan.bn, plan.split,
+                None if scratch is None else scratch.data_ptr(),
+                _native.current_stream(device))
+    _native.check(rc, kernel)
+
+
 # ---------------------------------------------------------------------------
 # matmul
 # ---------------------------------------------------------------------------
@@ -299,18 +321,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
                         ldb, int(kmajor))
             _count("matmul_bf16")
         else:
-            plan = plan_f32_gemm(M, N, K, kmajor)
-            scratch = (torch.empty(plan.split * M * N, dtype=torch.float32,
-                                   device=x.device)
-                       if plan.split > 1 else None)
-            with _native.on_device(x.device):
-                rc = lib.repro_matmul_f32(
-                    x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, ldb,
-                    int(kmajor), _PATH_CODE[plan.path], plan.bm, plan.bn,
-                    plan.split,
-                    None if scratch is None else scratch.data_ptr(),
-                    _native.current_stream(x.device))
-            _native.check(rc, "matmul")
+            launch_f32("matmul", lib.repro_matmul_f32,
+                       plan_f32_gemm(M, N, K, kmajor), x.device, M * N,
+                       x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+                       ldb, int(kmajor))
             _count("matmul")
     return out
 
@@ -335,25 +349,29 @@ def matmul_packed_plain(x: torch.Tensor, w_packed: torch.Tensor,
 
 def matmul_packed(x: torch.Tensor, w_packed: torch.Tensor,
                   K: int, N: int) -> torch.Tensor:
-    """x: (M, K); w_packed: (N/bn, K/bk, bk, bn) from LinearPacked."""
+    """x: (M, K) float32 or bfloat16; w_packed: (N/bn, K/bk, bk, bn)
+    float32 from LinearPacked -> (M, N) in x's dtype. On the card the
+    kernel runs along ``plan_f32_gemm(M, N, K)``."""
     if x.dim() != 2 or w_packed.dim() != 4:
         raise ValueError("matmul_packed: x must be (M, K) and w_packed 4-d")
     nN, nK, bk, bn = w_packed.shape
     if x.shape[1] != K or K > nK * bk or N > nN * bn:
         raise ValueError(f"matmul_packed: x {tuple(x.shape)} does not fit "
                          f"K={K}, N={N}, packed {tuple(w_packed.shape)}")
-    if _native.on_cpu("matmul_packed", x, w_packed):
+    if _native.on_cpu("matmul_packed", x, w_packed,
+                      each=((torch.float32, torch.bfloat16),
+                            (torch.float32,))):
         return matmul_packed_plain(x, w_packed, K, N)
     if bk != 128 or bn != 128:
         raise ValueError("matmul_packed: the CUDA kernel takes 128x128 tiles")
     M = x.shape[0]
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M and N:
         lib = _native.library("matmul")
-        with _native.on_device(x.device):
-            rc = lib.repro_matmul_packed_f32(
-                x.data_ptr(), w_packed.data_ptr(), out.data_ptr(), M, N, K,
-                nK, _native.current_stream(x.device))
-        _native.check(rc, "matmul_packed")
+        fn = (lib.repro_matmul_packed_bf16 if x.dtype == torch.bfloat16
+              else lib.repro_matmul_packed_f32)
+        launch_f32("matmul_packed", fn, plan_f32_gemm(M, N, K), x.device,
+                   M * N, x.data_ptr(), w_packed.data_ptr(), out.data_ptr(),
+                   M, N, K, nK)
         _count("matmul_packed")
     return out

@@ -22,11 +22,18 @@ Kernels: ``csrc/quant.cu``. The dequant kernels are bound by bytes (read
 1 B or 0.5 B, write 4 B a weight; at the LM head (960, 49152) of
 smollm-360m that is 70 µs at 3.35 TB/s): 4 columns a thread, one 4-byte
 load and one float4 store a row, the thread's scales loaded once for the
-rows it walks. The fused kernels are the f32 GEMM template
-(``csrc/gemm_f32.cuh``) with the weight tile read as int8 or as packed
-bytes and converted to f32 on load, so device memory is read at the
-quantized byte count; x is not padded (the Pallas wrapper pads x to
-2·rows for int4; here its columns >= K are masked).
+rows it walks. The fused kernels read device memory at the quantized
+byte count and convert the weights to f32 on chip (exact); x is not
+padded (the Pallas wrapper pads x to 2·rows for int4; here its columns
+>= K are masked). ``matmul_dequant_int4`` runs on the f32 path template
+(``csrc/gemm_f32_paths.cuh``) along ``plan_f32_gemm(M, N, K)``: on the
+skinny path (M <= 16, the resnet50 head) each thread streams 16, 4 or 1
+packed bytes a row (``int4_loader``) and sign-extends the nibbles in
+registers; on the tile path the packed rows are copied into shared memory
+and unpacked once a K step for the whole block; the scale multiplies the
+finished sum once, in the store or in the kernel that sums a split's
+partials. ``matmul_dequant_int8`` stays on the older f32 template
+(``csrc/gemm_f32.cuh``) with the int8 tile converted on load.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — there is no fallback. The wrappers mix
@@ -40,6 +47,7 @@ import threading
 import torch
 
 from repro_torch.kernels import _native
+from repro_torch.kernels.matmul import launch_f32, plan_f32_gemm
 
 launches = {"dequant_int8": 0, "dequant_int4": 0,
             "matmul_dequant_int8": 0, "matmul_dequant_int4": 0}
@@ -168,10 +176,23 @@ def matmul_dequant_int8(x: torch.Tensor, q: torch.Tensor,
     return out
 
 
+def int4_loader(packed: torch.Tensor, M: int, path: str) -> int:
+    """Bytes of a packed row that one load (skinny path) or copy (tile
+    path) of the ``matmul_dequant_int4`` kernel takes, as its launch picks
+    them: 16 where every row starts on a 16-byte boundary (on the skinny
+    path only for M <= 4, whose 16 columns of accumulators a row fit the
+    registers), else 4 where rows start on a 4-byte boundary, else 1."""
+    N, ptr = packed.shape[1], packed.data_ptr()
+    if ptr % 16 == 0 and N % 16 == 0 and (path == "tile" or M <= 4):
+        return 16
+    return 4 if ptr % 4 == 0 and N % 4 == 0 else 1
+
+
 def matmul_dequant_int4(x: torch.Tensor, packed: torch.Tensor,
                         scale: torch.Tensor, K: int) -> torch.Tensor:
     """x (M, K) f32 or bf16; packed ((K+1)//2, N) uint8; scale (1, N) f32
-    -> (M, N) in x's dtype. x is not padded."""
+    -> (M, N) in x's dtype. x is not padded. On the card the kernel runs
+    along ``plan_f32_gemm(M, N, K)``."""
     if x.dim() != 2 or x.shape[1] != K:
         raise ValueError(f"matmul_dequant_int4: x {tuple(x.shape)} is not "
                          f"(M, {K})")
@@ -186,6 +207,8 @@ def matmul_dequant_int4(x: torch.Tensor, packed: torch.Tensor,
         lib = _native.library("quant")
         fn = (lib.repro_matmul_dequant_int4_bf16 if x.dtype == torch.bfloat16
               else lib.repro_matmul_dequant_int4_f32)
-        _launch("matmul_dequant_int4", fn, x.data_ptr(), packed.data_ptr(),
-                scale.data_ptr(), out.data_ptr(), M, N, K, device=x.device)
+        launch_f32("matmul_dequant_int4", fn, plan_f32_gemm(M, N, K),
+                   x.device, M * N, x.data_ptr(), packed.data_ptr(),
+                   scale.data_ptr(), out.data_ptr(), M, N, K)
+        _count("matmul_dequant_int4")
     return out

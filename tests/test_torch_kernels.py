@@ -110,6 +110,31 @@ def test_matmul_packed_matches_pallas(K, N):
                                K, N).numpy(), want, K)
 
 
+@pytest.mark.parametrize("M,K,N", [(64, 300, 150), (1, 256, 100),
+                                   (3, 129, 7)])
+def test_matmul_packed_bf16_x_matches_pallas(M, K, N):
+    """A bf16 x against the Pallas kernel on the same ``LinearPacked``
+    bytes: the output is bf16, as ``_mm_packed_kernel`` writes x's dtype,
+    within the bf16 arm's tolerance (5e-2, atol scaled by sqrt(K))."""
+    from repro_torch import bf16
+
+    rng = _rng(5, M, K, N)
+    x = jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    spec = LayerSpec("l", "linear", {"in_features": K, "out_features": N},
+                     {"w": (K, N)})
+    packed = LinearPacked().transform({"w": w}, spec)["w_packed"]
+    want = pallas_matmul_packed(x, jnp.asarray(packed), K, N, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    tx = bf16.to_tensor(np.array(np.asarray(x)))
+    for got in (ops.matmul_packed(tx, torch.from_numpy(packed), K, N),
+                matmul_packed_plain(tx, torch.from_numpy(packed), K, N)):
+        assert got.shape == (M, N) and got.dtype == torch.bfloat16
+        np.testing.assert_allclose(
+            got.to(torch.float32).numpy(), np.asarray(want, np.float32),
+            atol=5e-2 * np.sqrt(K), rtol=5e-2)
+
+
 @pytest.mark.parametrize("T,C,O", [(200, 48, 72), (128, 128, 64),
                                    (60, 17, 9), (300, 3, 64), (257, 64, 64)])
 def test_winograd_tile_matmul_matches_pallas(T, C, O):
@@ -137,6 +162,36 @@ def test_wrappers_reject_bad_shapes_and_devices():
     # neither a CPU nor a CUDA tensor: no plain fallback, no launch
     with pytest.raises(ValueError):
         ops.matmul(x.to("meta"), torch.zeros(8, 3, device="meta"))
+
+
+def test_packed_and_int4_wrappers_reject_bad_shapes_and_devices():
+    """``matmul_packed`` and ``matmul_dequant_int4`` check their shapes
+    before any dispatch, and refuse tensors split across devices (no
+    plain fallback, no launch)."""
+    xb = torch.zeros(4, 300, dtype=torch.bfloat16)
+    wp = torch.zeros(2, 3, 128, 128)
+    with pytest.raises(ValueError):          # K beyond the panels' rows
+        ops.matmul_packed(torch.zeros(4, 400), wp, K=400, N=150)
+    with pytest.raises(ValueError):          # N beyond the panels' columns
+        ops.matmul_packed(xb, wp, K=300, N=257)
+    with pytest.raises(ValueError):          # x's K is not K
+        ops.matmul_packed(xb, wp, K=299, N=150)
+    with pytest.raises(ValueError):          # w_packed not 4-d
+        ops.matmul_packed(xb, wp[0], K=300, N=150)
+    with pytest.raises(ValueError):          # mixed devices
+        ops.matmul_packed(xb, wp.to("meta"), K=300, N=150)
+    p4 = torch.zeros(65, 7, dtype=torch.uint8)
+    s = torch.ones(1, 7)
+    with pytest.raises(ValueError):          # packed rows hold K = 129, 130
+        ops.matmul_dequant_int4(torch.zeros(3, 128), p4, s, K=128)
+    with pytest.raises(ValueError):          # x's K is not K
+        ops.matmul_dequant_int4(torch.zeros(3, 130), p4, s, K=129)
+    with pytest.raises(ValueError):          # scale is not (1, N)
+        ops.matmul_dequant_int4(torch.zeros(3, 129), p4, torch.ones(1, 8),
+                                K=129)
+    with pytest.raises(ValueError):          # mixed devices
+        ops.matmul_dequant_int4(torch.zeros(3, 129, dtype=torch.bfloat16),
+                                p4.to("meta"), s, K=129)
 
 
 def test_native_build_is_named_by_source_digest(tmp_path, monkeypatch):
@@ -316,7 +371,13 @@ F32_PLANNER_ROWS = [
     ((1024, 2560, 5120, False), "tile"), ((3, 129, 7, False), "skinny"),
     ((100, 200, 4099, False), "tile"), ((20, 37, 50, True), "tile"),
     ((5, 37, 50, True), "skinny"), ((4, 1536, 40, False), "skinny"),
-    ((64, 576, 128, False), "tile"), ((16, 2560, 50280, True), "skinny")]
+    ((64, 576, 128, False), "tile"), ((16, 2560, 50280, True), "skinny"),
+    # matmul_packed's and matmul_dequant_int4's rows (the f32 matmul's
+    # yardstick of the first)
+    ((64, 960, 2560, False), "tile"), ((64, 300, 150, False), "tile"),
+    ((3, 300, 150, False), "skinny"), ((1, 960, 2560, False), "skinny"),
+    ((8, 960, 2560, False), "skinny"), ((64, 129, 100, False), "tile"),
+    ((20, 37, 7, False), "tile")]
 
 
 @pytest.mark.parametrize("shape,path", F32_PLANNER_ROWS,
@@ -402,7 +463,16 @@ F32_BATCH1_PLANS = [
     # the Winograd stage shapes as single GEMMs
     ((12544, 64, 64, False), ("tile", 96, 64, 2, 4, 262)),
     ((300, 100, 33, False), ("tile", 64, 64, 7, 7, 35)),
-    ((257, 64, 64, False), ("tile", 64, 64, 4, 4, 20))]
+    ((257, 64, 64, False), ("tile", 64, 64, 4, 4, 20)),
+    # matmul_packed's and matmul_dequant_int4's rows: the tblock up
+    # projection (the yardstick's shape), ragged tiles, decode at M 1 and 8
+    ((64, 960, 2560, False), ("tile", 64, 64, 60, 60, 2400)),
+    ((64, 300, 150, False), ("tile", 64, 64, 19, 19, 57)),
+    ((3, 300, 150, False), ("skinny", 16, 128, 1, 19, 2)),
+    ((1, 960, 2560, False), ("skinny", 16, 128, 10, 60, 200)),
+    ((8, 960, 2560, False), ("skinny", 16, 128, 10, 60, 200)),
+    ((64, 129, 100, False), ("tile", 64, 64, 9, 9, 18)),
+    ((20, 37, 7, False), ("tile", 64, 64, 3, 3, 3))]
 
 
 @pytest.mark.parametrize("shape,plan", F32_BATCH1_PLANS,
@@ -561,3 +631,76 @@ def test_flash_wrapper_passes_its_plan(fake_kernels):
     assert args[12:16] == (p.bq, p.heads, p.ksplit, p.dp)
     assert p.dp == 80 and p.dp >= D
     assert ops.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(1, 256, 100), (64, 960, 2560),
+                                   (3, 300, 150)])
+def test_packed_wrapper_passes_its_plan(fake_kernels, M, K, N, dtype):
+    """``matmul_packed`` hands ``repro_matmul_packed_f32`` (or ``_bf16``
+    for a bf16 x) the panels in place and ``plan_f32_gemm(M, N, K)``'s
+    path, tile and split, with a scratch only for a split; the output is
+    in x's dtype: one launch counted."""
+    from repro_torch.kernels.matmul import _PATH_CODE, plan_f32_gemm
+
+    dt = getattr(torch, dtype)
+    nK, nN = -(-K // 128), -(-N // 128)
+    x, wp = torch.zeros(M, K, dtype=dt), torch.zeros(nN, nK, 128, 128)
+    out = ops.matmul_packed(x, wp, K, N)
+    assert out.shape == (M, N) and out.dtype == dt
+    (name, args), = fake_kernels
+    suffix = "bf16" if dt == torch.bfloat16 else "f32"
+    assert name == f"repro_matmul_packed_{suffix}"
+    assert args[:7] == (x.data_ptr(), wp.data_ptr(), out.data_ptr(), M, N,
+                        K, nK)
+    p = plan_f32_gemm(M, N, K)
+    assert args[7:11] == (_PATH_CODE[p.path], p.bm, p.bn, p.split)
+    assert (args[11] is None) == (p.split == 1)
+    assert ops.launch_counts()["matmul_packed"] == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(1, 256, 100), (64, 960, 2560),
+                                   (3, 129, 7)])
+def test_dequant_int4_wrapper_passes_its_plan(fake_kernels, M, K, N, dtype):
+    """``matmul_dequant_int4`` hands its kernel the packed bytes, the
+    scale and ``plan_f32_gemm(M, N, K)``'s plan (the logical GEMM, not the
+    packed rows), with a scratch only for a split: one launch counted."""
+    from repro_torch.kernels.matmul import _PATH_CODE, plan_f32_gemm
+
+    dt = getattr(torch, dtype)
+    x = torch.zeros(M, K, dtype=dt)
+    p4 = torch.zeros((K + 1) // 2, N, dtype=torch.uint8)
+    s = torch.ones(1, N)
+    out = ops.matmul_dequant_int4(x, p4, s, K)
+    assert out.shape == (M, N) and out.dtype == dt
+    (name, args), = fake_kernels
+    suffix = "bf16" if dt == torch.bfloat16 else "f32"
+    assert name == f"repro_matmul_dequant_int4_{suffix}"
+    assert args[:7] == (x.data_ptr(), p4.data_ptr(), s.data_ptr(),
+                        out.data_ptr(), M, N, K)
+    p = plan_f32_gemm(M, N, K)
+    assert args[7:11] == (_PATH_CODE[p.path], p.bm, p.bn, p.split)
+    assert (args[11] is None) == (p.split == 1)
+    assert ops.launch_counts()["matmul_dequant_int4"] == 1
+
+
+def test_int4_loader_widths():
+    """The bytes of a packed row that the int4 kernel loads at once: 16
+    where rows start on 16-byte boundaries (skinny only at M <= 4), 4 where
+    N is a multiple of 4 (the resnet50 head's 100), 1 otherwise."""
+    from repro_torch.kernels.quant import int4_loader
+
+    def packed(rows, N, offset=0):
+        buf = torch.zeros(rows * N + 64, dtype=torch.uint8)
+        base = (-buf.data_ptr()) % 16 + offset
+        return buf[base:base + rows * N].view(rows, N)
+
+    assert int4_loader(packed(480, 2560), 1, "skinny") == 16
+    assert int4_loader(packed(480, 2560), 4, "skinny") == 16
+    assert int4_loader(packed(480, 2560), 8, "skinny") == 4
+    assert int4_loader(packed(480, 2560), 64, "tile") == 16
+    assert int4_loader(packed(128, 100), 1, "skinny") == 4
+    assert int4_loader(packed(65, 7), 3, "skinny") == 1
+    assert int4_loader(packed(480, 2560, offset=4), 1, "skinny") == 4
+    assert int4_loader(packed(480, 2560, offset=1), 64, "tile") == 1

@@ -170,6 +170,29 @@ def test_matmul_dequant_bf16_input_keeps_its_dtype():
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("M,K,N", [(1, 256, 100), (3, 129, 7),
+                                   (64, 129, 100)])
+def test_matmul_dequant_int4_bf16_x_matches_pallas(M, K, N):
+    """A bf16 x against the Pallas kernel (``interpret=True``) on the same
+    packed bytes: bf16 out, the scale applied once to the f32 sum before
+    the one rounding; within one bf16 step of the Pallas output (both sum
+    exact products in f32, in other orders)."""
+    rng = _rng(5, M, K, N)
+    x = jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+    p4, s4 = quant.quantize_int4(
+        rng.standard_normal((K, N)).astype(np.float32))
+    want = KQ.matmul_dequant_int4(x, jnp.asarray(p4), jnp.asarray(s4), K,
+                                  interpret=True)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want, np.float32)
+    tx = _t(x)
+    for fn in (ops.matmul_dequant_int4, Q.matmul_dequant_int4_plain):
+        got = fn(tx, torch.from_numpy(p4), torch.from_numpy(s4), K)
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (M, N)
+        np.testing.assert_allclose(got.to(torch.float32).numpy(), want,
+                                   rtol=2 ** -7, atol=1e-6)
+
+
 @pytest.mark.parametrize("M,K,N", [(1, 256, 100), (64, 960, 130),
                                    (3, 129, 7)])
 def test_matmul_bf16_f32_out_matches_jnp_dot(M, K, N):

@@ -1,18 +1,21 @@
 """Time ``decode_attention``, the f32 ``matmul``, ``flash_attention``,
-``winograd_tile_matmul`` and ``ssd_scan`` of one source tree of the
-PyTorch port on a CUDA card, so that two commits can be compared on one
-card.
+``winograd_tile_matmul``, ``ssd_scan``, ``matmul_packed`` and
+``matmul_dequant_int4`` of one source tree of the PyTorch port on a CUDA
+card, so that two commits can be compared on one card.
 
 Each row calls the tree's own wrapper (``repro_torch.kernels.ops``) at a
-decode, GEMM, prefill, Winograd or SSD-scan shape of ``chip_smoke.py`` and
-prints one JSON object:
+decode, GEMM, prefill, Winograd, SSD-scan, packed-GEMM or int4-GEMM shape
+of ``chip_smoke.py`` and prints one JSON object:
 ``ms``, the mean of 20 calls after 3 warm-ups by CUDA events (the ruler of
 ``chip_smoke.py``'s kernel rows, host cost included), and ``device_ms``,
 the same 20 calls captured in a CUDA graph and replayed (device time),
 beside the PyTorch library call (SDPA, ``torch.matmul``, ``torch.bmm``;
-none for ``ssd_scan``) timed both ways, and the output's error against the
-tree's plain version (the worst of y and the final state for
-``ssd_scan``).
+``torch.matmul`` on the unpacked weight for ``matmul_packed`` with f32 x;
+none for ``ssd_scan``, ``matmul_dequant_int4`` and bf16 x) timed both ways,
+and the output's error against the tree's plain version (the worst of y
+and the final state for ``ssd_scan``). A row whose input the tree's
+wrapper refuses (the parent's ``matmul_packed`` with a bf16 x) prints
+``refused``.
 
 To compare a parent commit with a change, unpack the parent into a
 gitignored directory and run both trees in one call, in the order parent,
@@ -30,9 +33,10 @@ with K slices of at least 4 and 8 steps, every other cut of
 the batched tile path's other tiles. ``--ptxas`` prints what ``ptxas -v``
 said of each kernel of the libraries the rows built (registers, stack
 frame, spills). Rows run for the kernels named by ``--only`` (default:
-all five). Without a CUDA card it exits 2.
+all seven). Without a CUDA card it exits 2.
 
     python3 tools/kernel_ab.py --only ssd_scan --phases
+    python3 tools/kernel_ab.py --only packed,dequant_int4,matmul
 """
 from __future__ import annotations
 
@@ -88,7 +92,23 @@ MATMUL_ROWS = [("im2col_s1b0", 12544, 576, 128, False),
                ("mamba2_bc_M1", 1, 2560, 128, False),
                ("mamba2_dt_M1", 1, 2560, 80, False),
                ("mamba2_out_M1", 1, 5120, 2560, False),
-               ("mamba2_head_tied_M1", 1, 2560, 50280, True)]
+               ("mamba2_head_tied_M1", 1, 2560, 50280, True),
+               # the yardsticks of the packed and int4 rows
+               ("head", 1, 256, 100, False),
+               ("up_f32", 64, 960, 2560, False)]
+
+# (row, M, K, N, x dtype): resnet50's packed and int4 heads, a tblock up
+# projection of smollm-360m in f32 and bf16 x, ragged edges, and for int4
+# a decode projection at M 1 (16-byte loads)
+PACKED_ROWS = [("head", 1, 256, 100, "float32"),
+               ("up_f32", 64, 960, 2560, "float32"),
+               ("up_bf16", 64, 960, 2560, "bfloat16"),
+               ("ragged_tile", 64, 300, 150, "float32")]
+DQ4_ROWS = [("resnet_head", 1, 256, 100, "float32"),
+            ("up_f32", 64, 960, 2560, "float32"),
+            ("up_bf16", 64, 960, 2560, "bfloat16"),
+            ("ragged", 3, 129, 7, "float32"),
+            ("up_M1", 1, 960, 2560, "float32")]
 
 
 def main() -> int:
@@ -101,9 +121,10 @@ def main() -> int:
     ap.add_argument("--phases", action="store_true",
                     help="also print each row's kernels by device time "
                          "(torch.profiler over 10 calls)")
-    ap.add_argument("--only", default="decode,matmul,flash,winograd,ssd_scan",
+    ap.add_argument("--only", default="decode,matmul,flash,winograd,ssd_scan,"
+                    "packed,dequant_int4",
                     help="comma-separated: decode, matmul, flash, winograd, "
-                         "ssd_scan")
+                         "ssd_scan, packed, dequant_int4")
     args = ap.parse_args()
     only = set(args.only.split(","))
 
@@ -176,7 +197,7 @@ def main() -> int:
             with torch.cuda.stream(stream):
                 got, ref = fn(), plain()
             stream.synchronize()
-        except ValueError as e:  # a shape the tree's kernel refuses
+        except (ValueError, TypeError) as e:  # an input the tree refuses
             print(json.dumps({"label": args.label, "kernel": kernel,
                               "row": name, "refused": str(e)}), flush=True)
             return
@@ -375,6 +396,51 @@ def main() -> int:
                 if hasattr(SSD, "plan_ssd") else None)
         row("ssd_scan", name, call, plain, None,
             plan and {"blocks": plan.blocks})
+
+    for name, M, K, N, dname in PACKED_ROWS if "packed" in only else []:
+        dt = getattr(torch, dname)
+        nK, nN = -(-K // 128), -(-N // 128)
+        x = rand(M, K, dtype=dt)
+        wfull = rand(K, N) * K ** -0.5
+        wpad = torch.zeros(nK * 128, nN * 128, device=dev)
+        wpad[:K, :N] = wfull
+        wp = wpad.view(nK, 128, nN, 128).permute(2, 0, 1, 3).contiguous()
+
+        def call():
+            return ops.matmul_packed(x, wp, K, N)
+
+        def plain():
+            return MM.matmul_packed_plain(x, wp, K, N)
+
+        def lib():
+            return x @ wfull
+
+        plan = MM.plan_f32_gemm(M, N, K) if has_plans else None
+        row("matmul_packed", name, call, plain,
+            lib if dt == torch.float32 else None,
+            plan and {"path": plan.path, "tile": [plan.bm, plan.bn],
+                      "split": plan.split})
+
+    from repro_torch import quant as RQ
+    from repro_torch.kernels import quant as KQ
+    for name, M, K, N, dname in DQ4_ROWS if "dequant_int4" in only else []:
+        dt = getattr(torch, dname)
+        x = rand(M, K, dtype=dt)
+        a = (rand(K, N) * K ** -0.5).cpu().numpy()
+        p4, s4 = (torch.from_numpy(v).to(dev) for v in RQ.quantize_int4(a))
+
+        def call():
+            return ops.matmul_dequant_int4(x, p4, s4, K)
+
+        def plain():
+            return KQ.matmul_dequant_int4_plain(x, p4, s4, K)
+
+        plan = MM.plan_f32_gemm(M, N, K) if has_plans else None
+        loader = (KQ.int4_loader(p4, M, plan.path)
+                  if hasattr(KQ, "int4_loader") else None)
+        row("matmul_dequant_int4", name, call, plain, None,
+            plan and {"path": plan.path, "tile": [plan.bm, plan.bn],
+                      "split": plan.split, "loader_bytes": loader})
 
     if args.ptxas:
         from repro_torch.kernels import _native
