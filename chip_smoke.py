@@ -37,7 +37,9 @@ Run from the root of a checkout, on a machine with a CUDA card and
      prefill reading
      ``embed`` K-major in place, and ragged, unaligned edges;
      ``gmm_blocks`` at granite-moe-3b-a800m's expert GEMMs (C 8 at decode,
-     208 at a 512-token prefill), with ``group_sizes`` from a top-8-of-40
+     208 at a 512-token prefill) in bf16 and in f32 (each f32 row printing
+     its ``plan_f32_gemm`` plan, each launch's output first handed a
+     NaN-filled block), with ``group_sizes`` from a top-8-of-40
      routing of 1 and of 4 tokens and a clipped prefill, and over the
      Pallas sweep; for the bf16 ``matmul``, ``gmm_blocks``,
      ``decode_attention``, the f32 ``matmul``, ``flash_attention`` and
@@ -52,11 +54,12 @@ Run from the root of a checkout, on a machine with a CUDA card and
      four phases, two launches bitwise equal, a device time);
      ``matmul_packed`` at resnet50's packed head, a tblock up projection
      (64,960)x(960,2560) in f32 and bf16 x (beside the f32 ``matmul``'s
-     row of that shape) and ragged panels, and ``matmul_dequant_int4`` at
-     the resnet50 head, that projection, decode at M 1 and 8 and ragged
-     tiles with an odd K, each row printing its ``plan_f32_gemm`` plan
-     (and int4 loader), two launches bitwise equal, a device time, each
-     launch's output first handed a NaN-filled block; with
+     row of that shape) and ragged panels, and ``matmul_dequant_int8`` and
+     ``matmul_dequant_int4`` at the resnet50 head, that projection, decode
+     at M 1 and 8 and ragged tiles with an odd K, each row printing its
+     ``plan_f32_gemm`` plan (and byte loader), two launches bitwise equal,
+     a device time, each launch's output first handed a NaN-filled block
+     (int8 beside ``torch._weight_int8pack_mm``); with
      ``--kernels-only`` the script stops here (a first check of a new
      kernel, without the paths or a result line);
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
@@ -109,7 +112,10 @@ Run from the root of a checkout, on a machine with a CUDA card and
      other's experts) and the free-running kernel and plain forwards must
      share 90 % of their (token, expert) assignments; the kernels'
      batched run is repeated replaying the plain run's routing
-     (reported); then
+     (reported); then the model in f32 at ``MOE_F32_DEPTH`` layers (a
+     cut): ``forward`` on the 512-token prompt against the all-plain f32
+     forward under the same routing (``PATH_TOL`` relative to max|ref|);
+     then
      the ssm family: mamba2-2.7b at full width, all 64 layers
      (``SSM_DEPTH``): in bf16 ``forward`` on 1024 tokens, each layer held
      to its plain version on the same input and the whole model's
@@ -127,11 +133,18 @@ Every run of a decided plan in the CNN and LLM phases (nnv12,
 sequential, nnv12_nosteal) starts from the first arm's state: the store
 reopened with its lazy CRC-32C audit pending and its files fsynced and
 evicted from the page cache (``posix_fadvise(DONTNEED)``); each
-``run_cold`` line prints its starting state.
+``run_cold`` line prints its starting state. The sequential arm's run
+lands the audit of the raw entries it reads before its timer starts, so
+its line prints the audit's own seconds ("audit s"). One more nnv12 arm
+follows it with that audit still landed (the store not reopened) and the
+audit of the cache entries the decided plan reads landed (and timed)
+first, its files evicted again: it pays no audit.
 
-``LLM_DEPTH``, ``LOSSY_DEPTH`` and ``SERVE_DEPTH`` (all 32 blocks of
-smollm-360m) are the first to cut should the run near its time limit; the
-kernels run at full width either way.
+``LLM_DEPTH``, ``LOSSY_DEPTH`` and ``SERVE_DEPTH`` (16 of smollm-360m's
+32 blocks, a cut for the run's time limit: the smollm-360m phases are host
+work, ``decide()``'s profiling, cache writes and the software CRC-32C,
+and grow with depth) are the first to cut should the run near its limit
+again; the kernels run at full width either way.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -163,10 +176,14 @@ PEAKS = {"sxm": {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12},
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PATH_TOL = 1e-4
 LLM_ATOL, LLM_RTOL = 0.1, 0.05
-LLM_DEPTH = 32
-LOSSY_DEPTH = 32
-SERVE_DEPTH = 32
+# the smollm-360m phases at 16 of its 32 blocks (a cut: at 32 blocks one
+# H100 machine, whose host ran these host-bound phases 1.4-1.5x slower
+# than others, took 1352.5 s, past the script's 1200 s budget)
+LLM_DEPTH = 16
+LOSSY_DEPTH = 16
+SERVE_DEPTH = 16
 MOE_DEPTH = 32
+MOE_F32_DEPTH = 4   # the f32 granite forward: a cut of its 32 layers
 SSM_DEPTH = 64
 # whole-model MoE runs, kernels against plain: the share of (token, expert)
 # assignments that must agree (a wrong hidden state routes near k/E = 0.2)
@@ -351,14 +368,16 @@ def profile_steps(label, step, n, extra=()) -> None:
         print(f"  profiler: unavailable ({type(e).__name__}: {e})")
 
 
-def first_read_state(store) -> str:
-    """Put ``store`` back where the first decided-plan arm found it: the
-    reader closed, so the next read reopens the container with every lazy
-    CRC-32C audit pending, and every file of the store flushed (fsync) and
-    dropped from the page cache (``posix_fadvise(DONTNEED)``). Returns the
-    starting state for the arm's log line."""
-    t0 = time.perf_counter()
-    store.close()
+def evict(store) -> tuple:
+    """Flush (fsync) every file of ``store`` and drop it from the page
+    cache (``posix_fadvise(DONTNEED)``), after unmapping the pages an open
+    reader's mmap holds (mapped pages are not dropped). Returns (files,
+    bytes)."""
+    import mmap
+
+    mm = getattr(getattr(store, "_reader", None), "_mm", None)
+    if mm is not None and not mm.closed:
+        mm.madvise(mmap.MADV_DONTNEED)
     files = nbytes = 0
     for p in sorted(store.root.rglob("*")):
         if not p.is_file():
@@ -370,9 +389,69 @@ def first_read_state(store) -> str:
         finally:
             os.close(fd)
         files, nbytes = files + 1, nbytes + p.stat().st_size
+    return files, nbytes
+
+
+def first_read_state(store) -> str:
+    """Put ``store`` back where the first decided-plan arm found it: the
+    reader closed, so the next read reopens the container with every lazy
+    CRC-32C audit pending, and every file of the store flushed and evicted
+    (``evict``). Returns the starting state for the arm's log line."""
+    t0 = time.perf_counter()
+    store.close()
+    files, nbytes = evict(store)
     return (f"first read (store reopened, audit pending; {files} files, "
             f"{nbytes} B fsynced and evicted in "
             f"{time.perf_counter() - t0:.3f} s)")
+
+
+# the decided-plan arms of the CNN and LLM phases: (label, run_cold mode,
+# audit: "" for an arm that starts from a first read; "landed" for the
+# nnv12 arm that follows the sequential arm and starts with the audit
+# landed, files evicted)
+DECIDED_ARMS = [("decided plan", "nnv12", ""),
+                ("decided plan", "sequential", ""),
+                ("decided plan, audit landed first", "nnv12", "landed")]
+
+
+def decided_arm_state(eng, mode: str, audit: str) -> str:
+    """The starting state of a decided-plan arm of ``eng``, for its log
+    line. An nnv12 arm with no ``audit`` starts from a first read
+    (``first_read_state``) and pays the lazy CRC-32C audit inside
+    total_s. So does the sequential arm, but its run lands the audit of
+    the raw entries (``warm_verify`` over the weighted layers, which reads
+    them from disk) before its timer starts; here that audit is landed
+    first and timed on its own ("audit s"), so the line shows what the arm
+    did not pay. ``audit="landed"`` (the nnv12 arm right after the
+    sequential one): the store is not reopened, so the raw entries'
+    audit stays landed; the audit of every cache entry the decided plan
+    reads (``audit_cached``: ``warm_verify`` never touches them) is landed
+    and timed here, then the files are evicted again."""
+    store, layers = eng.store, eng.layers
+    if audit == "landed":
+        if getattr(store, "_reader", None) is None:
+            fail("the audit-landed arm must follow the sequential arm, "
+                 "with the store still open")
+        cached = [(l.spec.name, c.kernel)
+                  for l, c in zip(layers, eng.plan.choices) if c.use_cache]
+        t0 = time.perf_counter()
+        bad = [e for e in cached if not store.audit_cached(*e)]
+        cache_s = time.perf_counter() - t0
+        if bad:
+            fail(f"cache entries failed their CRC-32C audit: {bad}")
+        files, nbytes = evict(store)
+        return (f"audit landed (raw entries by the sequential arm, the "
+                f"store kept open; audit s={cache_s:.3f} for the plan's "
+                f"{len(cached)} cache entries; then {files} files, "
+                f"{nbytes} B fsynced and evicted); pays no audit")
+    start = first_read_state(store)
+    if mode != "sequential":
+        return start + "; pays the audit"
+    t0 = time.perf_counter()
+    store.warm_verify(l.spec.name for l in layers if l.spec.weight_shapes)
+    return (f"{start}; audit s={time.perf_counter() - t0:.3f} (raw "
+            f"entries), landed before the timer, the files left in the "
+            f"page cache")
 
 
 AS_LEFT = "as the previous arm left it"
@@ -528,17 +607,17 @@ def llm_path(dev, depth: int) -> dict:
 
         ops.reset_launch_counts()
         outs = {}
-        for label, plan, mode in [
-                ("decided plan", None, "nnv12"),
-                ("decided plan", None, "sequential"),
-                ("pinned f32_direct", pinned("f32_direct", False), "nnv12"),
+        for label, plan, mode, audit in [
+                *((lb, None, m, a) for lb, m, a in DECIDED_ARMS),
+                ("pinned f32_direct", pinned("f32_direct", False), "nnv12",
+                 ""),
                 ("pinned bf16_cast cached", pinned("bf16_cast", True),
-                 "nnv12")]:
+                 "nnv12", "")]:
             before = ops.launch_counts()
             if plan is not None:
                 eng.set_plan(plan)
-            start = (first_read_state(eng.store) if plan is None
-                     else AS_LEFT)
+            start = (decided_arm_state(eng, mode, audit)
+                     if plan is None else AS_LEFT)
             r = eng.run_cold(toks, mode=mode)
             after = ops.launch_counts()
             delta = {k: after[k] - before[k] for k in after
@@ -1003,6 +1082,18 @@ class PathGates:
         self.check(bool(torch.isfinite(got).all()) and bool(ok.all()),
                    f"{label}: logits leave the gate")
 
+    def relative(self, label, got, ref, tol=PATH_TOL) -> None:
+        """``got`` within ``tol`` of ``ref`` relative to max|ref|: the f32
+        gate (the bf16 LLM gate would pass a bf16 or TF32 product)."""
+        import torch
+
+        rmax = ref.abs().max().item()
+        rel = (got - ref).abs().max().item() / max(rmax, 1e-30)
+        print(f"  {label}: logits {tuple(got.shape)} max|d|/max|ref|="
+              f"{rel:.3e} (max|ref|={rmax:.4e}), gate {tol}")
+        self.check(bool(torch.isfinite(got).all()) and rel <= tol,
+                   f"{label}: logits leave the f32 gate ({rel:.3e} > {tol})")
+
     def finish(self) -> None:
         if self.failures:
             fail(f"{self.name}: " + "; ".join(self.failures))
@@ -1019,10 +1110,15 @@ def moe_path(dev, depth: int) -> dict:
     reaches the other tokens through attention; so each whole-model logits
     gate compares two runs under the same routing (the second replays the
     first's experts), and the free-running kernel and plain forwards must
-    share ``ROUTE_AGREE`` of their (token, expert) assignments. Returns the
-    launch counts of the main runs (the kernel forward, the decode steps
-    and the batched server), each zeroed just before it; launch gates are
-    checked last, so a CPU rehearsal runs every part."""
+    share ``ROUTE_AGREE`` of their (token, expert) assignments. Last, the
+    model in f32 at ``MOE_F32_DEPTH`` layers (a cut): ``forward`` on the
+    512-token prompt against the all-plain f32 forward under the same
+    routing (within ``PATH_TOL`` of max|ref|, the f32 gate), so that
+    ``gmm_blocks``' f32 entry runs on the path. Returns
+    the launch counts of the main runs (the kernel forward, the decode
+    steps, the batched server and the f32 forward), each zeroed just
+    before it; launch gates are checked last, so a CPU rehearsal runs
+    every part."""
     import dataclasses
 
     import numpy as np
@@ -1201,7 +1297,39 @@ def moe_path(dev, depth: int) -> dict:
     print("  the kernels' batched run again, replaying the plain run's "
           "routing:")
     report_batched(got_r, want, steps, dt, dt_p, picks, picks_p)
-    print(f"  moe path launches (forward + decode steps + batched): "
+    del params, state
+    torch.cuda.empty_cache()
+
+    # the f32 entry of gmm_blocks on the path: the model in f32 at full
+    # width, its depth cut to MOE_F32_DEPTH layers (to spare the run's
+    # time: the bf16 runs above cover the whole depth), forward on the
+    # 512-token prompt against the all-plain f32 forward under the
+    # kernels' routing
+    c32 = dataclasses.replace(cfg, dtype="float32", num_layers=MOE_F32_DEPTH)
+    p32 = T.init_params(c32, torch.Generator(device=dev).manual_seed(0))
+    with routing_log() as klog:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _, _ = T.forward(p32, {"tokens": toks}, c32)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    gates.add(counts)
+    with routing_log(replay=klog), plain_kernels():
+        ref, _, _ = T.forward(p32, {"tokens": toks}, c32)
+    print(f"  f32 forward (1, {S}), layers={MOE_F32_DEPTH} (of 32, a cut): "
+          f"{t_k * 1e3:.1f} ms with the kernels (first call); launches "
+          f"{json.dumps({k: n for k, n in counts.items() if n})}")
+    gates.relative(f"f32 forward (1, {S}) vs all-plain under the kernels' "
+                   f"routing", logits, ref)
+    gates.launched("f32 forward", "gmm_blocks", counts["gmm_blocks"],
+                   3 * MOE_F32_DEPTH)
+    gates.launched("f32 forward", "flash_attention",
+                   counts["flash_attention"], MOE_F32_DEPTH)
+    gates.launched("f32 forward", "matmul", counts["matmul"])
+    del p32, logits, ref
+    print(f"  moe path launches (forward + decode steps + batched + f32 "
+          f"forward): "
           f"{json.dumps({k: n for k, n in gates.main.items() if n})}")
     gates.finish()
     return {"gmm_blocks": gates.main["gmm_blocks"],
@@ -1516,21 +1644,39 @@ def main() -> None:
         del t
         return ptr
 
+    def library_or_error(name, fn):
+        """``fn`` where one call of it runs on the card; otherwise None,
+        the refusal printed in place of the library's time."""
+        try:
+            fn()
+            torch.cuda.synchronize()
+            return fn
+        except Exception as e:
+            torch.cuda.synchronize()
+            print(f"  ({name} refused: {type(e).__name__}: "
+                  f"{str(e).splitlines()[0][:160]})")
+            return None
+
     def check(label, kernel, plain, library, flops, nbytes,
               dtype="float32", peak=None, exact=False, repeat_equal=False,
-              nan_out=None):
+              nan_out=None, nan_scratch=None):
         """A kernel returning a tuple is held to its plain version output
         by output, each to its own max|plain|: the worst is reported. With
         ``repeat_equal`` a second launch on the same inputs must give the
         same bits. ``nan_out`` (shape, dtype): each launch's output is
-        first filled with NaN where the allocator hands it that block."""
+        first filled with NaN where the allocator hands it that block;
+        ``nan_scratch`` (floats): so is a K split's f32 scratch."""
         torch.cuda.synchronize()  # inputs were copied on the default stream
+        scratch = (((nan_scratch,), torch.float32) if nan_scratch
+                   else None)
         with torch.cuda.stream(stream):
+            nan_block(scratch)
             nan_ptr = nan_block(nan_out)
             got = kernel()
             hits = int(nan_ptr is not None and got.data_ptr() == nan_ptr)
             ref = plain()
             if repeat_equal:
+                nan_block(scratch)
                 nan_ptr = nan_block(nan_out)
                 again = kernel()
                 hits += int(nan_ptr is not None and
@@ -1538,7 +1684,9 @@ def main() -> None:
         stream.synchronize()
         if nan_out is not None:
             print(f"  ({hits} of {1 + int(repeat_equal)} launches wrote "
-                  f"into a NaN-filled block)")
+                  f"into a NaN-filled block"
+                  + (", each after a NaN-filled scratch block of "
+                     f"{nan_scratch} floats" if scratch else "") + ")")
         if repeat_equal and not all(
                 torch.equal(a, b) for a, b in
                 (zip(got, again) if isinstance(got, tuple)
@@ -1916,11 +2064,14 @@ def main() -> None:
                   K * N, (K + 1) // 2 * N + 4 * N + 4 * K * N, exact=True)
         results.setdefault("dequant_int4", {})[tag] = r
     # the fused kernels: resnet50's head (the main path's shape), a tblock
-    # up projection in f32 and bf16, a ragged case; for int4's loaders, a
+    # up projection in f32 and bf16, a ragged case; for the loaders, a
     # decode projection at M 1 (16-byte loads) and M 8 (4-byte), and
     # ragged tiles with an odd K (4-byte and 1-byte copies); operations at
     # the peak of x's type (int8 and int4 weights are exact in bf16, so
-    # bf16 x could run at the bf16 tensor-core rate)
+    # bf16 x could run at the bf16 tensor-core rate). The int8 rows' library
+    # call: torch._weight_int8pack_mm(x, q^T, s), (x · q) · s in one call,
+    # with q^T made outside the timed window; where the card refuses it,
+    # the row prints the error in place of a time
     for tag, M, K, N, dt in [
             ("resnet_head", 1, 256, 100, torch.float32),
             ("up_f32", 64, 960, 2560, torch.float32),
@@ -1938,13 +2089,23 @@ def main() -> None:
                               for v in (q8, s8, p4, s4))
         dname, es = str(dt).replace("torch.", ""), x.element_size()
         io = es * M * K + 4 * N + es * M * N
-        r = check(f"matmul_dequant_int8 {tag} ({M},{K})x({K},{N}) {dname}",
-                  lambda: ops.matmul_dequant_int8(x, tq8, ts8),
-                  lambda: Q.matmul_dequant_int8_plain(x, tq8, ts8), None,
-                  2 * M * N * K, io + K * N, dname)
-        results.setdefault("matmul_dequant_int8", {})[tag] = r
         plan = plan_f32_gemm(M, N, K)
-        loader = Q.int4_loader(tp4, M, plan.path)
+        qT, sv = tq8.T.contiguous(), ts8.view(-1)
+        lib8 = library_or_error(
+            "torch._weight_int8pack_mm",
+            lambda: torch._weight_int8pack_mm(x, qT, sv))
+        loader = Q.q_loader(tq8, M, plan.path)
+        r = check(f"matmul_dequant_int8 {tag} ({M},{K})x({K},{N}) {dname}, "
+                  f"{plan.path} path {plan.bm}x{plan.bn} split {plan.split} "
+                  f"({plan.blocks} blocks), {loader}-byte loader",
+                  lambda: ops.matmul_dequant_int8(x, tq8, ts8),
+                  lambda: Q.matmul_dequant_int8_plain(x, tq8, ts8), lib8,
+                  2 * M * N * K, io + K * N, dname,
+                  repeat_equal=True, nan_out=((M, N), dt))
+        results.setdefault("matmul_dequant_int8", {})[tag] = {
+            **r, "path": plan.path, "tile": [plan.bm, plan.bn],
+            "split": plan.split, "loader_bytes": loader}
+        loader = Q.q_loader(tp4, M, plan.path)
         r = check(f"matmul_dequant_int4 {tag} ({M},{K})x({K},{N}) {dname}, "
                   f"{plan.path} path {plan.bm}x{plan.bn} split {plan.split} "
                   f"({plan.blocks} blocks), {loader}-byte loader",
@@ -2034,13 +2195,58 @@ def main() -> None:
         x, w = rand(E3, C3, d3, dtype=dt), rand(E3, d3, n3, dtype=dt)
         gs = torch.tensor([0, 17, 40], dtype=torch.int32, device=dev)
         dname = str(dt).replace("torch.", "")
-        r = check(f"gmm_blocks sweep_3x40x20x9_group_sizes_0_17_40 {dname}",
+        split = (plan_f32_gemm(C3, n3, d3, False, E3, True).split
+                 if dt == torch.float32 else plan_bf16_gemm(C3, n3, d3,
+                                                            E3).split)
+        r = check(f"gmm_blocks sweep_3x40x20x9_group_sizes_0_17_40 {dname}, "
+                  f"split {split}",
                   lambda: ops.gmm_blocks(x, w, gs),
                   lambda: gmm_blocks_plain(x, w, gs), None,
                   2 * 57 * d3 * n3,
                   x.element_size() * (57 * d3 + 2 * d3 * n3 + E3 * C3 * n3),
-                  dname, repeat_equal=True)
+                  dname, repeat_equal=True, nan_out=((E3, C3, n3), dt),
+                  nan_scratch=split * E3 * C3 * n3 if split > 1 else None)
         results["gmm_blocks"][f"sweep_group_sizes_{dname}"] = r
+    # the f32 entry at granite-moe-3b-a800m's widths, along plan_f32_gemm(
+    # C, n, d, batch=E, row_limit=True): the batched skinny path at
+    # decode (C 8) and the batched tile path at a 512-token prefill (C 208),
+    # without group sizes (torch.bmm beside them) and routed as above (the
+    # bound counts what the sizes need; no library call computes it)
+    f32_cases = [("decode_gate_f32", 8, None),
+                 ("decode_gate_routed_T1_f32", 8, routed_cases[0][2]),
+                 ("decode_gate_routed_T4_f32", 8, routed_cases[1][2]),
+                 ("prefill_gate_f32", 208, None),
+                 ("prefill_gate_routed_f32", 208, routed_cases[2][2])]
+    for tag, C, gs_np in f32_cases:
+        x = rand(E, C, d)
+        w = rand(E, d, n, scale=d ** -0.5)
+        plan = plan_f32_gemm(C, n, d, False, E, True)
+        desc = (f"{plan.path} path {plan.bm}x{plan.bn} split {plan.split} "
+                f"({plan.blocks} blocks)")
+        scratch = plan.split * E * C * n if plan.split > 1 else None
+        if gs_np is None:
+            r = check(f"gmm_blocks {tag} ({E},{C},{d})x({E},{d},{n}) "
+                      f"float32, {desc}",
+                      lambda: ops.gmm_blocks(x, w),
+                      lambda: gmm_blocks_plain(x, w),
+                      lambda: torch.bmm(x, w), 2 * E * C * d * n,
+                      4 * (E * C * d + E * d * n + E * C * n),
+                      repeat_equal=True, nan_out=((E, C, n), torch.float32),
+                      nan_scratch=scratch)
+            results["gmm_blocks"][tag] = {**r, "path": plan.path}
+            continue
+        gs = torch.from_numpy(gs_np.astype(np.int32)).to(dev)
+        rows, active = int(gs_np.sum()), int((gs_np > 0).sum())
+        r = check(f"gmm_blocks {tag} ({E},{C},{d})x({E},{d},{n}) float32, "
+                  f"{rows} rows in {active} experts, {desc}",
+                  lambda: ops.gmm_blocks(x, w, gs),
+                  lambda: gmm_blocks_plain(x, w, gs), None,
+                  2 * rows * d * n,
+                  4 * (rows * d + active * d * n + E * C * n),
+                  repeat_equal=True, nan_out=((E, C, n), torch.float32),
+                  nan_scratch=scratch)
+        results["gmm_blocks"][tag] = {**r, "path": plan.path,
+                                      "experts_read": active}
 
     print("kernels vs plain versions (ssd_scan: mamba2-2.7b at S 1024 in "
           "bf16 from a zero and a random state, in f32, at B 4, and at S 512 "
@@ -2193,7 +2399,8 @@ def main() -> None:
             before = ops.launch_counts()
             if pin is not None:
                 eng.set_plan(replace(decided, choices=pin))
-            start = first_read_state(eng.store) if pin is None else AS_LEFT
+            start = (decided_arm_state(eng, "nnv12", "")
+                     if pin is None else AS_LEFT)
             r = eng.run_cold(x_np)
             after = ops.launch_counts()
             delta = {k: after[k] - before[k] for k in after}
@@ -2236,12 +2443,13 @@ def main() -> None:
                 fail(f"kernel {k} never launched on the CNN path")
         # the other entry points of the slice, outside the counted window
         eng.set_plan(decided)
-        for mode in ("sequential", "nnv12_nosteal"):
-            start = first_read_state(eng.store)
+        for label, mode, audit in [("decided plan", "nnv12_nosteal", ""),
+                                   *DECIDED_ARMS[1:]]:
+            start = decided_arm_state(eng, mode, audit)
             r = eng.run_cold(x_np, mode=mode)
-            print(f"  run_cold [decided plan, {mode}; start: {start}]: "
+            print(f"  run_cold [{label}, {mode}; start: {start}]: "
                   f"total_s={r.total_s:.4f}")
-            check_output(mode, r.output)
+            check_output(f"{label} {mode}", r.output)
         print(f"  run_warm: {eng.run_warm(x_np):.4f} s")
         # staging through the pinned-slab DMA thread against inline host
         # staging, on the pinned Winograd plan, alternated

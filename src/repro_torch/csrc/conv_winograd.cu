@@ -19,7 +19,7 @@ int repro_winograd_tile_matmul_f32(const float* V, const float* U, float* out,
                                    int P, int T, int C, int O, int path,
                                    int bm, int bn, int split, int blocks,
                                    float* scratch, void* stream) {
-  return repro_torch::f32::launch_gemm_f32_batched<true>(
+  return repro_torch::f32::launch_gemm_f32_batched<repro_torch::f32::kStreamPath>(
       V, U, out, P, (long long)T * C, (long long)C * O, (long long)T * O, T,
       O, C, O, false, path, bm, bn, split, blocks, scratch,
       static_cast<cudaStream_t>(stream));

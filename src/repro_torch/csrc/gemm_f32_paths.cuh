@@ -5,7 +5,7 @@
 // `batch` GEMMs with per-batch strides. A is row-major with lda = K, f32
 // or bf16 (TX; bf16 is widened to f32 where it is read back from shared
 // memory); C is in A's type, each output rounded once at the store.
-// B is read in place in one of four layouts:
+// B is read in place in one of five layouts:
 //   row-major  (K,N) f32 with leading dimension ldb (a weight as stored);
 //   K-major    (N,K) f32 with leading dimension ldb: a w whose w.T is
 //              contiguous, such as the tied head's embed (V,d) read as
@@ -15,18 +15,25 @@
 //              panels `pstride` floats apart. A tile (BN 64 or 128) or a
 //              skinny block (128 columns) never straddles two panels, so
 //              only the address of a copy's column base changes;
+//   int8       (K, N) int8, one k row a byte row: read at its byte count
+//              and sign-extended on chip (exact in f32);
 //   int4       ((K+1)/2, N) uint8, row 2i in the low nibble of byte
 //              (i, n) and 2i+1 in the high one, sign-extended: device
 //              memory is read at the packed byte count, and an int4
 //              weight is exact in f32.
-// With a column scale (the fused dequant GEMM), the finished sum of column
-// n is multiplied once by scale[n]: in the store when K is not split,
-// otherwise in the kernel that sums the partials. It is never applied to
-// a partial.
+// With a column scale (the fused dequant GEMMs), the finished sum of
+// column n is multiplied once by scale[n]: in the store when K is not
+// split, otherwise in the kernel that sums the partials. It is never
+// applied to a partial.
+// With a row limit (one int per batch entry, read on the device: no host
+// sync), rows r >= row_limit[z] of batch entry z are never read from A and
+// are written as zeros; a block whose rows all lie past the limit copies
+// no B, so a batch entry with no rows reads none of its B.
 // It carries matmul's f32 entry (batch 1), winograd_tile_matmul (the 16
-// GEMMs of Winograd F(2x2,3x3)), matmul_packed (panels, f32 or bf16 x) and
-// matmul_dequant_int4 (int4, f32 or bf16 x); matmul_dequant_int8 and
-// gmm_blocks' f32 entry stay on gemm_f32.cuh.
+// GEMMs of Winograd F(2x2,3x3)), matmul_packed (panels, f32 or bf16 x),
+// matmul_dequant_int8 and matmul_dequant_int4 (int8 and int4, f32 or bf16
+// x) and gmm_blocks' f32 entry (batched over the experts, group_sizes as
+// the row limit).
 //
 // Bound on an H100 SXM (67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s): the
 // im2col GEMMs of resnet50@224 and its Winograd stages 1-2 by operations,
@@ -45,15 +52,18 @@
 //     widened), so a 4-deep slice of k costs TM + TN shared loads for TM x
 //     TN x 4 FMA. One barrier a K step; two stages of copies in flight
 //     behind it. Each output's FMAs run in k order, as a plain dot
-//     product. blockIdx.z walks batch x split.
-//     int4 B: a stage holds 16 packed rows (BN bytes each: an eighth of
-//     the f32 stage), copied in 16-, 4- or 1-byte pieces as N's alignment
-//     allows, through a 4-deep ring; each K step, the block unpacks the
-//     next stage's bytes once into a [k][n] f32 buffer (two, alternating)
-//     while the current one feeds the same FMA loop as a row-major B. The
-//     unpacking costs each thread 16 values a step against its 1024 FMA
-//     (64 x 128 tile), where unpacking on every read-back would cost one
-//     value for every TM FMA.
+//     product. blockIdx.z walks batch x split. With a row limit, A's
+//     rows are copied up to the limit, a block past it copies nothing,
+//     and its rows past the limit are stored as zeros (a template flag:
+//     the other entries' tile kernels compile without it).
+//     int8 and int4 B: a stage holds 32 int8 rows or 16 packed int4 rows
+//     (BN bytes each: a quarter or an eighth of the f32 stage), copied in
+//     16-, 4- or 1-byte pieces as N's alignment allows, through a 4-deep
+//     ring; each K step, the block widens the next stage's bytes once into
+//     a [k][n] f32 buffer (two, alternating) while the current one feeds
+//     the same FMA loop as a row-major B. The widening costs each thread
+//     16 values a step against its 1024 FMA (64 x 128 tile), where
+//     widening on every read-back would cost one value for every TM FMA.
 //   * stream (batch > 1, K <= 64: Winograd's stem and stage 0): a tile
 //     has one or two K steps, so its own ring never fills and nothing
 //     hides the copies. Persistent blocks, two an SM, each walk a
@@ -71,12 +81,17 @@
 //     loads in flight a thread and x's rows in shared memory (as f32).
 //     Row-major B and panels: a block owns 128 columns, a thread one
 //     float4 of them and every KP-th k row, the KP phases summed in phase
-//     order at the end. int4: the same with V columns a thread, V = 16
-//     (one 16-byte load: 16 columns of 2 rows; M <= 4), 4 (a 4-byte load;
-//     N a multiple of 4, as the resnet50 head's 100) or 1 (a byte), every
-//     KP-th packed row, the nibbles sign-extended in registers. K-major B:
-//     a block owns 32 columns (rows of B^T), a warp 4 of them, its lanes
-//     stride along k, and the row sums reduce by shuffles. Batch 1 only.
+//     order at the end. int8 and int4: the same with V columns a thread,
+//     V = 16 (one 16-byte load: 16 columns of one int8 row or of two int4
+//     rows; M <= 4), 4 (a 4-byte load; N a multiple of 4, as the resnet50
+//     head's 100) or 1 (a byte), every KP-th byte row, the bytes or
+//     nibbles sign-extended in registers. Row-major B in a batch
+//     (gmm_blocks at decode: C 8 rows of 40 experts) takes the batch entry
+//     on blockIdx.z, each block still streaming its 128 columns once and
+//     reading x's rows only up to the entry's row limit (none, and no B,
+//     past it). K-major B: a block owns 32 columns (rows of B^T), a warp 4
+//     of them, its lanes stride along k, and the row sums reduce by
+//     shuffles; batch 1 only.
 //
 // The tile and skinny paths split K when the output tiles alone leave SMs
 // idle: split s takes K steps [s·kps, (s+1)·kps) and writes f32 partials
@@ -86,9 +101,10 @@
 //
 // Ragged M, N and K are zero-filled in the copies and masked in the store
 // (an odd K never reads x's column K, and the high nibble of int4's last
-// byte adds nothing); an operand that is not on a 16-byte boundary, or
-// whose rows are not a multiple of 16 bytes, is copied in smaller pieces
-// into the same layout (4-byte cp.async copies on the stream path).
+// byte adds nothing), and nothing is padded in device memory; an operand
+// that is not on a 16-byte boundary, or whose rows are not a multiple of
+// 16 bytes, is copied in smaller pieces into the same layout (4-byte
+// cp.async copies on the stream path).
 // No function-local statics: several libraries may include this header.
 #pragma once
 
@@ -103,7 +119,7 @@ namespace f32 {
 constexpr int kBK = 16;            // K unit of the split (and skinny step)
 constexpr int kThreads = 256;
 constexpr int kStages = 3;         // tile path cp.async ring
-constexpr int kQ4Stages = 4;       // tile path ring of int4 stages
+constexpr int kQStages = 4;        // tile path ring of int8/int4 stages
 constexpr int kTileBK = 32;        // tile path K step
 constexpr int kLDA = kTileBK + 4;  // [row][k] f32 tiles: row stride in
                                    // floats; float4 reads of 8 rows, 36
@@ -128,7 +144,7 @@ enum BLayout { kRowMajorB = 0, kKMajorB = 1, kPanelsB = 2 };
 struct Problem {
   const void* A;           // (batch, M, K), lda = K: f32 or bf16
   const void* B;           // f32 row-major (K,N) / K-major (N,K) / panels,
-                           // or int4 bytes ((K+1)/2, N)
+                           // int8 (K, N) or int4 bytes ((K+1)/2, N)
   void* C;                 // (batch, M, N) out in A's type, or f32
                            // partials (split, ...)
   const float* scale;      // per-column scale of the finished sum, or null
@@ -139,8 +155,11 @@ struct Problem {
   long long pstride;       // panels: floats between two 128-column panels
                            // (0: B is one matrix)
   int kps;                 // K steps a split
-  int a_vec, b_vec, c_vec; // 16-byte copies / stores allowed; int4 B:
-                           // b_vec is the copy width, 16, 4 or 1 bytes
+  int a_vec, b_vec, c_vec; // 16-byte copies / stores allowed; int8 and
+                           // int4 B: b_vec is the copy width, 16, 4 or 1
+                           // bytes
+  const int* row_limit;    // rows of each batch entry that hold data, or
+                           // null (all M)
 };
 
 // ---------------------------------------------------------------------------
@@ -170,6 +189,10 @@ __device__ __forceinline__ void put4(__nv_bfloat16* p, float4 v) {
 // nibble b (0..7) of w, sign-extended: rows 2j and 2j+1 of byte j
 __device__ __forceinline__ float nib(uint32_t w, int b) {
   return (float)(((int)(w << (28 - 4 * b))) >> 28);
+}
+// byte b (0..3) of w as a signed int8 value
+__device__ __forceinline__ float sx8(uint32_t w, int b) {
+  return (float)(((int)(w << (24 - 8 * b))) >> 24);
 }
 
 // ---------------------------------------------------------------------------
@@ -299,15 +322,29 @@ struct Tile {
   static constexpr int BYTES = kStages * STAGE;
 };
 
-// the int4 ring: A and 16 packed rows a stage, then two unpacked [k][n]
-// f32 buffers
-template <int BM, int BN, typename TX>
-struct TileQ4 {
+// The byte rows of an int8 (BITS 8: one k row a byte row) or int4 (BITS
+// 4: two k rows a packed byte row) B: the row that holds k, the rows that
+// hold [0, kend), and the rows of one K step.
+template <int BITS>
+struct QRows {
+  static constexpr int STEP = BITS == 4 ? kTileBK / 2 : kTileBK;
+  static __device__ __forceinline__ int of(int k) {
+    return BITS == 4 ? k / 2 : k;
+  }
+  static __device__ __forceinline__ int end(int kend) {
+    return BITS == 4 ? (kend + 1) / 2 : kend;
+  }
+};
+
+// the int8/int4 ring: A and a K step's byte rows a stage, then two
+// widened [k][n] f32 buffers
+template <int BM, int BN, int BITS, typename TX>
+struct TileQ {
   static constexpr int A_BYTES = Tile<BM, BN, false, TX>::A_BYTES;
-  static constexpr int Q_BYTES = (kTileBK / 2) * BN;
+  static constexpr int Q_BYTES = QRows<BITS>::STEP * BN;
   static constexpr int STAGE = A_BYTES + Q_BYTES;
   static constexpr int F_FLOATS = kTileBK * BN;
-  static constexpr int BYTES = kQ4Stages * STAGE + 2 * F_FLOATS * 4;
+  static constexpr int BYTES = kQStages * STAGE + 2 * F_FLOATS * 4;
 };
 
 // column of register j of thread tx: float4 groups 64 apart for a
@@ -335,28 +372,29 @@ __device__ __forceinline__ const float* b_panel(const Problem& p,
 }
 
 // A's rows [m0, m0 + BM) x k [k0, k0 + kTileBK), zero past kend (the
-// split's end) and past M
+// split's end) and past row mrows (M, or the batch entry's row limit)
 template <int BM, typename TX>
 __device__ __forceinline__ void a_tile_load(const Problem& p, const TX* A,
-                                            uint32_t sa, int m0, int k0,
-                                            int kend) {
+                                            uint32_t sa, int m0, int mrows,
+                                            int k0, int kend) {
   constexpr int PER = ATile<TX>::PER, CQ = kTileBK / PER;
   for (int q = threadIdx.x; q < BM * CQ; q += kThreads) {
     const int r = q / CQ, c = (q % CQ) * PER;
     load4(sa + (r * ATile<TX>::LD + c) * (int)sizeof(TX), A, p.K, m0 + r,
-          p.M, k0 + c, kend, p.a_vec);
+          mrows, k0 + c, kend, p.a_vec);
   }
 }
 
-// one K step: k in [k0, k0 + kTileBK), zero past kend (the split's end).
-// B: as b_panel gives it for a row-major B
+// one K step: k in [k0, k0 + kTileBK), zero past kend (the split's end),
+// A's rows zero past mrows. B: as b_panel gives it for a row-major B
 template <int BM, int BN, bool KMAJOR, typename TX>
 __device__ __forceinline__ void tile_load(const Problem& p, const TX* A,
                                           const float* B, uint32_t sa,
-                                          int m0, int n0, int k0, int kend) {
+                                          int m0, int mrows, int n0, int k0,
+                                          int kend) {
   constexpr int BK = kTileBK;
   const uint32_t sb = sa + Tile<BM, BN, KMAJOR, TX>::A_BYTES;
-  a_tile_load<BM, TX>(p, A, sa, m0, k0, kend);
+  a_tile_load<BM, TX>(p, A, sa, m0, mrows, k0, kend);
   if constexpr (KMAJOR) {  // BN rows of B^T, BK k each
     for (int q = threadIdx.x; q < BN * (BK / 4); q += kThreads) {
       const int n = q / (BK / 4), c = (q % (BK / 4)) * 4;
@@ -373,10 +411,10 @@ __device__ __forceinline__ void tile_load(const Problem& p, const TX* A,
 }
 
 // the FMAs of one K step from A's tile As and a row-major B's tile Bs
-// ([k][n]) for the int4 kernel. (The f32 tile kernel runs the same loop
-// written in its own body: called as this function there, its 96 x 128
-// tiles took 0.0511 ms of device time at resnet50's (3136,1152)x(1152,256)
-// against 0.0503 written inline, on an H100 SXM.)
+// ([k][n]) for the int8 and int4 kernels. (The f32 tile kernel runs the
+// same loop written in its own body: called as this function there, its
+// 96 x 128 tiles took 0.0511 ms of device time at resnet50's
+// (3136,1152)x(1152,256) against 0.0503 written inline, on an H100 SXM.)
 template <int BM, int BN, typename TX>
 __device__ __forceinline__ void tile_fma(float (&acc)[BM / 16][BN / 16],
                                          const TX* As, const float* Bs,
@@ -464,9 +502,14 @@ __device__ __forceinline__ void tile_store(
                              acc, m0, n0, ty, tx);
 }
 
+// the rows of batch entry bz that hold data: M, or its row limit
+__device__ __forceinline__ int rows_of(const Problem& p, int bz) {
+  return p.row_limit ? min(max(p.row_limit[bz], 0), p.M) : p.M;
+}
+
 // two blocks an SM (at most 128 registers a thread): a split tile grid
-// runs two waves side by side
-template <int BM, int BN, int LAYOUT, typename TX>
+// runs two waves side by side. LIMIT: p.row_limit may be given
+template <int BM, int BN, int LAYOUT, typename TX, bool LIMIT>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_f32_tile_kernel(Problem p) {
   constexpr bool KMAJOR = LAYOUT == kKMajorB;
@@ -480,10 +523,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   const TX* A = static_cast<const TX*>(p.A) + bz * p.bsa;
   const float* B = static_cast<const float*>(p.B) + bz * p.bsb;
   if constexpr (LAYOUT == kPanelsB) B = b_panel(p, B, n0);
-  // this split's k range, in steps of BK
+  const int mrows = LIMIT ? rows_of(p, bz) : p.M;
+  // this split's k range, in steps of BK; none for a block past the limit
   const int kbeg = sp * p.kps * kBK;
   const int kend = min(p.K, kbeg + p.kps * kBK);
-  const int nks = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  const int nks = kend > kbeg && (!LIMIT || m0 < mrows)
+                      ? (kend - kbeg + BK - 1) / BK
+                      : 0;
 
   float acc[TM][TN];
 #pragma unroll
@@ -494,8 +540,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nks)
-      tile_load<BM, BN, KMAJOR, TX>(p, A, B, ring + s * TL::STAGE, m0, n0,
-                                    kbeg + s * BK, kend);
+      tile_load<BM, BN, KMAJOR, TX>(p, A, B, ring + s * TL::STAGE, m0,
+                                    mrows, n0, kbeg + s * BK, kend);
     cp_async_commit();
   }
   for (int t = 0; t < nks; ++t) {
@@ -504,8 +550,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int nt = t + kStages - 1;
     if (nt < nks)
       tile_load<BM, BN, KMAJOR, TX>(p, A, B,
-                                    ring + (nt % kStages) * TL::STAGE, m0, n0,
-                                    kbeg + nt * BK, kend);
+                                    ring + (nt % kStages) * TL::STAGE, m0,
+                                    mrows, n0, kbeg + nt * BK, kend);
     cp_async_commit();
     const float* St = smem_t + (t % kStages) * (TL::STAGE / 4);
     const TX* As = reinterpret_cast<const TX*>(St);
@@ -556,18 +602,25 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
   cp_async_wait<0>();
+  if constexpr (LIMIT) {  // rows past the limit are zeros, whatever B holds
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      if (m0 + ty + 16 * i >= mrows)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  }
   tile_store<BM, BN, KMAJOR, TX, false>(p, acc, m0, n0, bz, sp, ty, tx);
 }
 
-// int4 B: one K step's 16 packed rows (from k0 / 2) of the tile's BN
-// columns (Bq: the column base), zero past kend's packed row and past N,
-// in p.b_vec-byte pieces
-template <int BN>
-__device__ __forceinline__ void q4_load(const Problem& p, const uint8_t* Bq,
-                                        uint32_t sq, int nb, int k0,
-                                        int kend) {
-  constexpr int R = kTileBK / 2;
-  const int r0 = k0 / 2, rend = (kend + 1) / 2;
+// int8/int4 B: one K step's byte rows (from the row that holds k0) of
+// the tile's BN columns (Bq: the column base), zero past the rows that
+// hold [0, kend) and past N, in p.b_vec-byte pieces
+template <int BN, int BITS>
+__device__ __forceinline__ void q_load(const Problem& p, const uint8_t* Bq,
+                                       uint32_t sq, int nb, int k0,
+                                       int kend) {
+  constexpr int R = QRows<BITS>::STEP;
+  const int r0 = QRows<BITS>::of(k0), rend = QRows<BITS>::end(kend);
   if (p.b_vec == 16) {
     for (int q = threadIdx.x; q < R * (BN / 16); q += kThreads) {
       const int r = q / (BN / 16), c = (q % (BN / 16)) * 16;
@@ -616,15 +669,27 @@ __device__ __forceinline__ void q4_unpack(const uint8_t* Qs, float* Fs,
   }
 }
 
-// int4 B on the tile path (batch 1). Iteration t: wait for stage t + 1,
-// one barrier, start the copies of stage t + 3 (into the slot of stage
-// t - 1, whose A was read at t - 1 and bytes at t - 2), unpack stage t + 1
-// into the buffer that step t - 1 read, run step t's FMAs.
-template <int BM, int BN, typename TX>
+// a stage's 32 int8 rows -> the [k][n] f32 buffer Fs (rows past kend were
+// copied as zeros)
+template <int BN>
+__device__ __forceinline__ void q8_widen(const uint8_t* Qs, float* Fs) {
+  for (int q = threadIdx.x; q < kTileBK * (BN / 4); q += kThreads) {
+    const int r = q / (BN / 4), c = (q % (BN / 4)) * 4;
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(Qs + r * BN + c);
+    *reinterpret_cast<float4*>(&Fs[r * BN + c]) =
+        make_float4(sx8(w, 0), sx8(w, 1), sx8(w, 2), sx8(w, 3));
+  }
+}
+
+// int8 or int4 B on the tile path (batch 1). Iteration t: wait for stage
+// t + 1, one barrier, start the copies of stage t + 3 (into the slot of
+// stage t - 1, whose A was read at t - 1 and bytes at t - 2), widen stage
+// t + 1 into the buffer that step t - 1 read, run step t's FMAs.
+template <int BM, int BN, int BITS, typename TX>
 __global__ void __launch_bounds__(kThreads, 2)
-    gemm_q4_tile_kernel(Problem p) {
-  using TL = TileQ4<BM, BN, TX>;
-  constexpr int TM = BM / 16, TN = BN / 16, BK = kTileBK, S = kQ4Stages;
+    gemm_q_tile_kernel(Problem p) {
+  using TL = TileQ<BM, BN, BITS, TX>;
+  constexpr int TM = BM / 16, TN = BN / 16, BK = kTileBK, S = kQStages;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t ring = smem_addr(smem);
   float* fbuf = reinterpret_cast<float*>(smem + S * TL::STAGE);
@@ -645,12 +710,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   auto load = [&](int s) {
     const uint32_t sa = ring + (s % S) * TL::STAGE;
-    a_tile_load<BM, TX>(p, A, sa, m0, kbeg + s * BK, kend);
-    q4_load<BN>(p, Bq, sa + TL::A_BYTES, nb, kbeg + s * BK, kend);
+    a_tile_load<BM, TX>(p, A, sa, m0, p.M, kbeg + s * BK, kend);
+    q_load<BN, BITS>(p, Bq, sa + TL::A_BYTES, nb, kbeg + s * BK, kend);
   };
-  auto unpack = [&](int s) {
-    q4_unpack<BN>(smem + (s % S) * TL::STAGE + TL::A_BYTES,
-                  fbuf + (s & 1) * TL::F_FLOATS, kbeg + s * BK, kend);
+  auto widen = [&](int s) {
+    const uint8_t* Qs = smem + (s % S) * TL::STAGE + TL::A_BYTES;
+    float* Fs = fbuf + (s & 1) * TL::F_FLOATS;
+    if constexpr (BITS == 4)
+      q4_unpack<BN>(Qs, Fs, kbeg + s * BK, kend);
+    else
+      q8_widen<BN>(Qs, Fs);
   };
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
@@ -659,13 +728,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   cp_async_wait<S - 2>();
   __syncthreads();  // stage 0 landed
-  if (nks > 0) unpack(0);
+  if (nks > 0) widen(0);
   for (int t = 0; t < nks; ++t) {
     cp_async_wait<S - 3>();
-    __syncthreads();  // stage t + 1 landed, step t's buffer unpacked
+    __syncthreads();  // stage t + 1 landed, step t's buffer widened
     if (t + S - 1 < nks) load(t + S - 1);
     cp_async_commit();
-    if (t + 1 < nks) unpack(t + 1);
+    if (t + 1 < nks) widen(t + 1);
     tile_fma<BM, BN, TX>(
         acc, reinterpret_cast<const TX*>(smem + (t % S) * TL::STAGE),
         fbuf + (t & 1) * TL::F_FLOATS, ty, tx);
@@ -879,12 +948,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 // ---------------------------------------------------------------------------
 // skinny path
 // ---------------------------------------------------------------------------
-// x's rows [0, M) over this split's k range into shared memory, as f32
+// x's rows [0, rows) of A over this split's k range into shared memory,
+// as f32
 template <typename TX>
-__device__ __forceinline__ void load_x(const Problem& p, float* xs, int kb0,
+__device__ __forceinline__ void load_x(const Problem& p, const TX* A,
+                                       int rows, float* xs, int kb0,
                                        int kn) {
-  const TX* A = static_cast<const TX*>(p.A);
-  for (int i = threadIdx.x; i < p.M * kn; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * kn; i += kThreads) {
     const int m = i / kn, kk = i - m * kn;
     xs[i] = widen(A[(size_t)m * p.K + kb0 + kk]);
   }
@@ -920,11 +990,13 @@ __device__ __forceinline__ void skinny_fma(float (&acc)[MT][4],
 // The KP phases of each of the block's columns summed in phase order and
 // stored, row by row: `red` holds, for each thread tid = kp·CG + cg, its
 // V columns' sums of one row. C is out (scaled, in TX) when K is not
-// split, else this split's f32 partials.
+// split, else this split's f32 partials; `off` is the batch entry's
+// offset in either.
 template <int MT, int V, typename TX>
 __device__ __forceinline__ void skinny_store(const Problem& p,
                                              float (&acc)[MT][V], float* red,
-                                             int n0, int CG, int KP, int sp) {
+                                             int n0, int CG, int KP, int sp,
+                                             size_t off) {
   const int tid = threadIdx.x;
   const int n = n0 + tid;
 #pragma unroll
@@ -936,7 +1008,7 @@ __device__ __forceinline__ void skinny_store(const Problem& p,
     if (tid < CG * V && n < p.N) {
       float s = 0.0f;
       for (int ph = 0; ph < KP; ++ph) s += red[ph * CG * V + tid];
-      const size_t i = (size_t)m * p.N + n;
+      const size_t i = off + (size_t)m * p.N + n;
       if (p.split > 1)
         static_cast<float*>(p.C)[(size_t)sp * p.split_stride + i] = s;
       else
@@ -946,24 +1018,28 @@ __device__ __forceinline__ void skinny_store(const Problem& p,
   }
 }
 
-// row-major B or its panel: columns [n0, n0 + 128) of split blockIdx.y
-template <int MT, typename TX>
+// row-major B or its panel: columns [n0, n0 + 128) of split blockIdx.y.
+// GROUPED: batch entry blockIdx.z, whose rows past its row limit read no
+// x and no B and are stored as zeros (their sums never take an FMA)
+template <int MT, typename TX, bool GROUPED>
 __global__ void __launch_bounds__(kThreads)
     gemm_f32_skinny_kernel(Problem p) {
   extern __shared__ __align__(16) float xs[];
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kSkinnyCols, sp = blockIdx.y;
+  const int bz = GROUPED ? blockIdx.z : 0;
   const int kb0 = sp * p.kps * kBK;
   const int kn = max(0, min(p.kps * kBK, p.K - kb0));
-  const int M = p.M;
+  const int M = GROUPED ? rows_of(p, bz) : p.M;
   const int ncols = min(kSkinnyCols, p.N - n0);
   const int CG = (ncols + 3) / 4;  // float4 columns
   const int KP = kThreads / CG;    // k phases
   const int cg = tid % CG, kp = tid / CG;
   const int n = n0 + cg * 4;
   const bool vec = p.b_vec && n + 3 < p.N;
-  const float* B = b_panel(p, static_cast<const float*>(p.B), n0);
-  load_x<TX>(p, xs, kb0, kn);
+  const float* B =
+      b_panel(p, static_cast<const float*>(p.B) + bz * p.bsb, n0);
+  load_x<TX>(p, static_cast<const TX*>(p.A) + bz * p.bsa, M, xs, kb0, kn);
   __syncthreads();
 
   float acc[MT][4];
@@ -972,7 +1048,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
 
-  if (kp < KP) {
+  if (kp < KP && (!GROUPED || M > 0)) {
     int kk = kp;
     for (; kk + (kUnroll - 1) * KP < kn; kk += kUnroll * KP) {
       float4 w[kUnroll];
@@ -1000,10 +1076,11 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();  // x is no longer read: the buffer takes the sums
-  skinny_store<MT, 4, TX>(p, acc, xs, n0, CG, KP, sp);
+  skinny_store<MT, 4, TX>(p, acc, xs, n0, CG, KP, sp,
+                          (size_t)bz * p.bsc);
 }
 
-// int4 skinny: V bytes of a packed row, as loaded (V = 16, 4 or 1)
+// int8/int4 skinny: V bytes of a byte row, as loaded (V = 16, 4 or 1)
 template <int V>
 struct QWord;
 template <>
@@ -1052,11 +1129,36 @@ __device__ __forceinline__ void q4_fma(float (&acc)[MT][V], const float* xs,
   }
 }
 
-// int4 B: columns [n0, n0 + 128) of split blockIdx.y; a thread owns V of
-// them and every KP-th packed row of the split
-template <int MT, int V, typename TX>
+// the FMAs of one int8 row (k row kk of the split) over the thread's V
+// columns
+template <int MT, int V>
+__device__ __forceinline__ void q8_fma(float (&acc)[MT][V], const float* xs,
+                                       int kn, int kk, int M,
+                                       const QWord<V>& w) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const float b = sx8(w.word(e / 4), e % 4);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+      if (m < M) acc[m][e] = fmaf(xs[m * kn + kk], b, acc[m][e]);
+  }
+}
+
+template <int MT, int V, int BITS>
+__device__ __forceinline__ void q_fma(float (&acc)[MT][V], const float* xs,
+                                      int kn, int r, int M,
+                                      const QWord<V>& w) {
+  if constexpr (BITS == 4)
+    q4_fma<MT, V>(acc, xs, kn, 2 * r, M, w);
+  else
+    q8_fma<MT, V>(acc, xs, kn, r, M, w);
+}
+
+// int8/int4 B: columns [n0, n0 + 128) of split blockIdx.y; a thread owns
+// V of them and every KP-th byte row of the split
+template <int MT, int V, int BITS, typename TX>
 __global__ void __launch_bounds__(kThreads)
-    gemm_q4_skinny_kernel(Problem p) {
+    gemm_q_skinny_kernel(Problem p) {
   extern __shared__ __align__(16) float xs[];
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kSkinnyCols, sp = blockIdx.y;
@@ -1065,12 +1167,12 @@ __global__ void __launch_bounds__(kThreads)
   const int M = p.M;
   const int ncols = min(kSkinnyCols, p.N - n0);
   const int CG = (ncols + V - 1) / V;  // column groups of V
-  const int KP = kThreads / CG;        // packed-row phases
+  const int KP = kThreads / CG;        // byte-row phases
   const int cg = tid % CG, kp = tid / CG;
-  const int nrows = (kn + 1) / 2;      // packed rows of the split
+  const int nrows = QRows<BITS>::end(kn);  // byte rows of the split
   const uint8_t* Bq = static_cast<const uint8_t*>(p.B) +
-                      (size_t)(kb0 / 2) * p.N + n0 + cg * V;
-  load_x<TX>(p, xs, kb0, kn);
+                      (size_t)QRows<BITS>::of(kb0) * p.N + n0 + cg * V;
+  load_x<TX>(p, static_cast<const TX*>(p.A), M, xs, kb0, kn);
   __syncthreads();
 
   float acc[MT][V];
@@ -1079,7 +1181,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < V; ++e) acc[m][e] = 0.0f;
 
-  if (kp < KP) {  // kUnroll packed rows in flight, as the f32 kernel
+  if (kp < KP) {  // kUnroll byte rows in flight, as the f32 kernel
     int r = kp;
     for (; r + (kUnroll - 1) * KP < nrows; r += kUnroll * KP) {
       QWord<V> w[kUnroll];
@@ -1088,7 +1190,7 @@ __global__ void __launch_bounds__(kThreads)
         w[u].load(Bq + (size_t)(r + u * KP) * p.N);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        q4_fma<MT, V>(acc, xs, kn, 2 * (r + u * KP), M, w[u]);
+        q_fma<MT, V, BITS>(acc, xs, kn, r + u * KP, M, w[u]);
     }
     constexpr int TB = MT >= 16 ? 3 : kUnroll - 1;  // the last rows
     for (; r < nrows; r += TB * KP) {
@@ -1099,11 +1201,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int u = 0; u < TB; ++u)
         if (r + u * KP < nrows)
-          q4_fma<MT, V>(acc, xs, kn, 2 * (r + u * KP), M, w[u]);
+          q_fma<MT, V, BITS>(acc, xs, kn, r + u * KP, M, w[u]);
     }
   }
   __syncthreads();  // x is no longer read: the buffer takes the sums
-  skinny_store<MT, V, TX>(p, acc, xs, n0, CG, KP, sp);
+  skinny_store<MT, V, TX>(p, acc, xs, n0, CG, KP, sp, 0);
 }
 
 // K-major B: columns [n0, n0 + 32) (rows of B^T) of split blockIdx.y; f32
@@ -1116,7 +1218,7 @@ __global__ void __launch_bounds__(kThreads)
   const int kb0 = sp * p.kps * kBK;
   const int kn = max(0, min(p.kps * kBK, p.K - kb0));
   const int M = p.M;
-  load_x<float>(p, xs, kb0, kn);
+  load_x<float>(p, static_cast<const float*>(p.A), M, xs, kb0, kn);
   __syncthreads();
 
   float acc[4][MT];
@@ -1252,28 +1354,28 @@ inline cudaError_t launch_smem(K kernel, dim3 grid, int bytes,
   return cudaGetLastError();
 }
 
-template <int LAYOUT, typename TX>
+template <int LAYOUT, typename TX, bool LIMIT>
 struct TileLaunch {
   const Problem& p;
   cudaStream_t stream;
   template <int BM, int BN>
   cudaError_t go() const {
     dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.batch * p.split);
-    return launch_smem(gemm_f32_tile_kernel<BM, BN, LAYOUT, TX>, grid,
+    return launch_smem(gemm_f32_tile_kernel<BM, BN, LAYOUT, TX, LIMIT>, grid,
                        Tile<BM, BN, LAYOUT == kKMajorB, TX>::BYTES, p,
                        stream);
   }
 };
 
-template <typename TX>
-struct Q4TileLaunch {
+template <int BITS, typename TX>
+struct QTileLaunch {
   const Problem& p;
   cudaStream_t stream;
   template <int BM, int BN>
   cudaError_t go() const {
     dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.split);
-    return launch_smem(gemm_q4_tile_kernel<BM, BN, TX>, grid,
-                       TileQ4<BM, BN, TX>::BYTES, p, stream);
+    return launch_smem(gemm_q_tile_kernel<BM, BN, BITS, TX>, grid,
+                       TileQ<BM, BN, BITS, TX>::BYTES, p, stream);
   }
 };
 
@@ -1336,14 +1438,15 @@ inline cudaError_t by_rows(int M, const F& f) {
   return f.template go<16>();
 }
 
-template <typename TX>
+// GROUPED: the batch entry on blockIdx.z, with its row limit
+template <typename TX, bool GROUPED>
 struct SkinnyLaunch {
   const Problem& p;
   bool kmajor;
   cudaStream_t stream;
   template <int MT>
   cudaError_t go() const {
-    if constexpr (sizeof(TX) == 4) {
+    if constexpr (sizeof(TX) == 4 && !GROUPED) {
       if (kmajor) {
         dim3 grid((p.N + kSkinnyKCols - 1) / kSkinnyKCols, p.split);
         gemm_f32_skinny_kmajor_kernel<MT>
@@ -1351,37 +1454,44 @@ struct SkinnyLaunch {
         return cudaGetLastError();
       }
     }
-    dim3 grid((p.N + kSkinnyCols - 1) / kSkinnyCols, p.split);
-    gemm_f32_skinny_kernel<MT, TX>
+    dim3 grid((p.N + kSkinnyCols - 1) / kSkinnyCols, p.split,
+              GROUPED ? p.batch : 1);
+    gemm_f32_skinny_kernel<MT, TX, GROUPED>
         <<<grid, kThreads, skinny_smem_bytes(p, 4), stream>>>(p);
     return cudaGetLastError();
   }
 };
 
-// int4 skinny: MT 1, 4 or 16; V = p.b_vec (16 only where MT <= 4)
-template <typename TX>
-inline cudaError_t launch_q4_skinny(const Problem& p, cudaStream_t stream) {
+template <int MT, int V, int BITS, typename TX>
+inline void q_skinny(const Problem& p, dim3 grid, size_t bytes,
+                     cudaStream_t stream) {
+  gemm_q_skinny_kernel<MT, V, BITS, TX><<<grid, kThreads, bytes, stream>>>(p);
+}
+
+// int8/int4 skinny: MT 1, 4 or 16; V = p.b_vec (16 only where MT <= 4)
+template <int BITS, typename TX>
+inline cudaError_t launch_q_skinny(const Problem& p, cudaStream_t stream) {
   dim3 grid((p.N + kSkinnyCols - 1) / kSkinnyCols, p.split);
   const size_t bytes = skinny_smem_bytes(p, p.b_vec);
   if (p.M <= 1) {
     if (p.b_vec == 16)
-      gemm_q4_skinny_kernel<1, 16, TX><<<grid, kThreads, bytes, stream>>>(p);
+      q_skinny<1, 16, BITS, TX>(p, grid, bytes, stream);
     else if (p.b_vec == 4)
-      gemm_q4_skinny_kernel<1, 4, TX><<<grid, kThreads, bytes, stream>>>(p);
+      q_skinny<1, 4, BITS, TX>(p, grid, bytes, stream);
     else
-      gemm_q4_skinny_kernel<1, 1, TX><<<grid, kThreads, bytes, stream>>>(p);
+      q_skinny<1, 1, BITS, TX>(p, grid, bytes, stream);
   } else if (p.M <= 4) {
     if (p.b_vec == 16)
-      gemm_q4_skinny_kernel<4, 16, TX><<<grid, kThreads, bytes, stream>>>(p);
+      q_skinny<4, 16, BITS, TX>(p, grid, bytes, stream);
     else if (p.b_vec == 4)
-      gemm_q4_skinny_kernel<4, 4, TX><<<grid, kThreads, bytes, stream>>>(p);
+      q_skinny<4, 4, BITS, TX>(p, grid, bytes, stream);
     else
-      gemm_q4_skinny_kernel<4, 1, TX><<<grid, kThreads, bytes, stream>>>(p);
+      q_skinny<4, 1, BITS, TX>(p, grid, bytes, stream);
   } else {
     if (p.b_vec == 4)
-      gemm_q4_skinny_kernel<16, 4, TX><<<grid, kThreads, bytes, stream>>>(p);
+      q_skinny<16, 4, BITS, TX>(p, grid, bytes, stream);
     else if (p.b_vec == 1)
-      gemm_q4_skinny_kernel<16, 1, TX><<<grid, kThreads, bytes, stream>>>(p);
+      q_skinny<16, 1, BITS, TX>(p, grid, bytes, stream);
     else
       return cudaErrorInvalidValue;
   }
@@ -1389,9 +1499,10 @@ inline cudaError_t launch_q4_skinny(const Problem& p, cudaStream_t stream) {
 }
 
 // the split's plan checks shared by every entry; fills p's split fields
-// and points p.C at the scratch when K is split
+// and points p.C at the scratch when K is split. `batched_skinny`: the
+// entry's skinny path takes a batch
 inline bool plan_split(Problem& p, int path, int split, float* scratch,
-                       void* C) {
+                       void* C, bool batched_skinny = false) {
   const int ksteps = (p.K + kBK - 1) / kBK;
   const int kps = split > 0 && ksteps > 0 ? ksteps / split : 0;
   if (p.K < 0 || split < 1 || (ksteps > 0 && ksteps % split) ||
@@ -1399,7 +1510,7 @@ inline bool plan_split(Problem& p, int path, int split, float* scratch,
       // the split's sum writes C packed
       (split > 1 && p.batch > 1 && p.bsc != (long long)p.M * p.N) ||
       (path == kSkinny &&
-       (p.batch != 1 || p.M > kSkinnyMaxM ||
+       ((p.batch != 1 && !batched_skinny) || p.M > kSkinnyMaxM ||
         (long long)kps * kBK * p.M > kXFloats)))
     return false;
   p.split = split;
@@ -1425,45 +1536,63 @@ inline int finish_split(const Problem& p, cudaError_t err, TC* C,
   return (int)cudaGetLastError();
 }
 
+// What an entry's launches take (template flags, so that each library
+// compiles only the kernels its entries launch): kPanels, B is
+// LinearPacked's panels (x f32 or bf16; else B is row-major or K-major
+// with an f32 x); kStreamPath, the stream path; kRowLimit, a batch with
+// per-entry row limits (p.row_limit, row-major B) on the tile path and on
+// the grouped skinny path, which takes the batch on blockIdx.z.
+enum EntryFlags : unsigned { kPanels = 1, kStreamPath = 2, kRowLimit = 4 };
+
 // f32 B: C[z] = A[z] · B[z] on `stream` as the host planner decided. p
-// holds the operands, shapes, strides and layout; `path` (kSkinny needs
-// batch 1, M <= 16 and kps·16·M <= kXFloats; kTile a (bm, bn) that
+// holds the operands, shapes, strides, layout and row limits; `path`
+// (kSkinny needs M <= 16, kps·16·M <= kXFloats and batch 1 unless the
+// entry is kRowLimit; kTile a (bm, bn) that
 // tile_shape_ok takes; kStream, where the entry has it, K <= kStreamMaxK,
 // no split, and `blocks` persistent blocks), `split` (a divisor of the K
-// steps; > 1 needs `scratch` of split·batch·M·N floats). PANELS: B is
-// LinearPacked's panels (x f32 or bf16), else row-major or K-major with
-// an f32 x. Template flags, so that each library compiles only the
-// kernels its entries launch. Returns the first launch error, checked
-// after each launch; cudaErrorInvalidValue for a plan the kernels do not
-// take.
-template <typename TX, bool PANELS, bool STREAM>
+// steps; > 1 needs `scratch` of split·batch·M·N floats). Returns the
+// first launch error, checked after each launch; cudaErrorInvalidValue
+// for a plan the kernels do not take.
+template <typename TX, unsigned FLAGS>
 inline int launch_planned(Problem p, bool kmajor, int path, int bm, int bn,
                           int split, int blocks, float* scratch,
                           cudaStream_t stream) {
+  constexpr bool PANELS = FLAGS & kPanels, STREAM = FLAGS & kStreamPath,
+                 LIMIT = FLAGS & kRowLimit;
   TX* C = static_cast<TX*>(p.C);
   if (p.batch <= 0 || p.M <= 0 || p.N <= 0) return (int)cudaGetLastError();
-  const bool kmajor_ok = !kmajor || (sizeof(TX) == 4 && !PANELS);
+  const bool kmajor_ok = !kmajor || (sizeof(TX) == 4 && !PANELS && !LIMIT);
   const bool ok_path =
       (path == kSkinny && kmajor_ok) ||
       (path == kTile && tile_shape_ok(bm, bn) && kmajor_ok) ||
-      (STREAM && path == kStream && !kmajor && p.K <= kStreamMaxK &&
-       split == 1 && bm == kStreamBM && bn == kStreamBN && blocks > 0);
-  if (!ok_path || !plan_split(p, path, split, scratch, C))
+      (STREAM && path == kStream && !kmajor && p.row_limit == nullptr &&
+       p.K <= kStreamMaxK && split == 1 && bm == kStreamBM &&
+       bn == kStreamBN && blocks > 0);
+  if ((p.row_limit != nullptr && !LIMIT) || !ok_path ||
+      !plan_split(p, path, split, scratch, C, LIMIT))
     return (int)cudaErrorInvalidValue;
   p.c_vec = aligned16(p.C) && p.N % 4 == 0 && p.bsc % 4 == 0;
   cudaError_t err = cudaErrorInvalidValue;
   if (path == kSkinny) {
-    err = by_rows(p.M, SkinnyLaunch<TX>{p, kmajor, stream});
+    if constexpr (LIMIT) {
+      err = by_rows(p.M, SkinnyLaunch<TX, true>{p, false, stream});
+    } else {
+      err = by_rows(p.M, SkinnyLaunch<TX, false>{p, kmajor, stream});
+    }
   } else if constexpr (PANELS) {
-    err = by_tile_shape(bm, bn, TileLaunch<kPanelsB, TX>{p, stream});
+    err = by_tile_shape(bm, bn, TileLaunch<kPanelsB, TX, false>{p, stream});
   } else {
     static_assert(sizeof(TX) == 4, "a bf16 x comes only with panels");
-    if (path == kTile && kmajor)
-      err = by_tile_shape(bm, bn, TileLaunch<kKMajorB, TX>{p, stream});
-    else if (path == kTile)
-      err = by_tile_shape(bm, bn, TileLaunch<kRowMajorB, TX>{p, stream});
-    else if constexpr (STREAM)
+    if (path == kTile && kmajor) {
+      if constexpr (!LIMIT)  // (refused above with row limits)
+        err = by_tile_shape(bm, bn,
+                            TileLaunch<kKMajorB, TX, false>{p, stream});
+    } else if (path == kTile) {
+      err = by_tile_shape(bm, bn,
+                          TileLaunch<kRowMajorB, TX, LIMIT>{p, stream});
+    } else if constexpr (STREAM) {
       err = launch_stream<TX>(p, blocks, stream);
+    }
   }
   return finish_split(p, err, C, stream);
 }
@@ -1488,15 +1617,17 @@ inline Problem make_problem(const void* A, const void* B, void* C,
 // Enqueue C[z] = A[z] · B[z] for z < batch, all f32 (T, a template only so
 // that a library that never calls it compiles none of its kernels), B
 // row-major (K,N) or K-major (N,K) with leading dimension ldb; batch entry
-// z of A, B and C starts bsa, bsb and bsc floats after entry z - 1. The
-// plan as in launch_planned; STREAM: the entry takes the stream path.
-template <bool STREAM, typename T>
+// z of A, B and C starts bsa, bsb and bsc floats after entry z - 1, and
+// holds data in its first row_limit[z] rows where row_limit is given
+// (kRowLimit). The plan and FLAGS as in launch_planned.
+template <unsigned FLAGS, typename T>
 inline int launch_gemm_f32_batched(const T* A, const float* B, T* C,
                                    int batch, long long bsa, long long bsb,
                                    long long bsc, int M, int N, int K,
                                    int ldb, bool kmajor, int path, int bm,
                                    int bn, int split, int blocks,
-                                   float* scratch, cudaStream_t stream) {
+                                   float* scratch, cudaStream_t stream,
+                                   const int* row_limit = nullptr) {
   if (batch > 0 && M > 0 && N > 0 && ldb < (kmajor ? K : N))
     return (int)cudaErrorInvalidValue;
   Problem p = make_problem(A, B, C, nullptr, M, N, K, ldb);
@@ -1504,11 +1635,12 @@ inline int launch_gemm_f32_batched(const T* A, const float* B, T* C,
   p.bsa = bsa;
   p.bsb = bsb;
   p.bsc = bsc;
+  p.row_limit = row_limit;
   p.a_vec = aligned16(A) && K % 4 == 0 && bsa % 4 == 0;
   p.b_vec = aligned16(B) && ldb % 4 == 0 && (kmajor ? K : N) % 4 == 0 &&
             bsb % 4 == 0;
-  return launch_planned<T, false, STREAM>(p, kmajor, path, bm, bn, split,
-                                         blocks, scratch, stream);
+  return launch_planned<T, FLAGS>(p, kmajor, path, bm, bn, split, blocks,
+                                  scratch, stream);
 }
 
 // One GEMM (matmul's f32 entry): the batched launch at batch 1.
@@ -1517,9 +1649,9 @@ inline int launch_gemm_f32_planned(const T* A, const float* B, T* C,
                                    int M, int N, int K, int ldb, bool kmajor,
                                    int path, int bm, int bn, int split,
                                    float* scratch, cudaStream_t stream) {
-  return launch_gemm_f32_batched<false>(A, B, C, 1, 0, 0, 0, M, N, K, ldb,
-                                        kmajor, path, bm, bn, split, 1,
-                                        scratch, stream);
+  return launch_gemm_f32_batched<0>(A, B, C, 1, 0, 0, 0, M, N, K, ldb,
+                                    kmajor, path, bm, bn, split, 1, scratch,
+                                    stream);
 }
 
 // x's 16-byte copies: TX's elements of 16 bytes divide K
@@ -1542,33 +1674,36 @@ inline int launch_gemm_packed(const TX* x, const float* w_packed, TX* C,
   // a panel's rows are 128 floats: 4 columns from a multiple of 4 never
   // leave the row, whatever N is
   p.b_vec = aligned16(w_packed);
-  return launch_planned<TX, true, false>(p, false, path, bm, bn, split, 1,
-                                         scratch, stream);
+  return launch_planned<TX, kPanels>(p, false, path, bm, bn, split, 1,
+                                     scratch, stream);
 }
 
-// matmul_dequant_int4: C(M,N) = (x(M,K) · unpack(packed)) · scale, packed
-// ((K+1)/2, N) uint8, scale (N) f32; x and C in TX.
-template <typename TX>
-inline int launch_gemm_q4(const TX* x, const uint8_t* packed,
-                          const float* scale, TX* C, int M, int N, int K,
-                          int path, int bm, int bn, int split,
-                          float* scratch, cudaStream_t stream) {
+// matmul_dequant_int8 (BITS 8: q (K, N) int8) and matmul_dequant_int4
+// (BITS 4: q ((K+1)/2, N) packed nibbles): C(M,N) = (x(M,K) · q) · scale,
+// scale (N) f32; x and C in TX.
+template <int BITS, typename TX>
+inline int launch_gemm_q(const TX* x, const void* q, const float* scale,
+                         TX* C, int M, int N, int K, int path, int bm,
+                         int bn, int split, float* scratch,
+                         cudaStream_t stream) {
+  static_assert(BITS == 4 || BITS == 8, "int8 or int4 B");
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  Problem p = make_problem(x, packed, C, scale, M, N, K, N);
+  Problem p = make_problem(x, q, C, scale, M, N, K, N);
   if (path == kStream || (path == kTile && !tile_shape_ok(bm, bn)) ||
       !plan_split(p, path, split, scratch, C))
     return (int)cudaErrorInvalidValue;
   p.a_vec = a_vec_ok(x, K);
-  const uintptr_t b = reinterpret_cast<uintptr_t>(packed);
-  // the copy width: every packed row starts on its boundary; the skinny
+  const uintptr_t b = reinterpret_cast<uintptr_t>(q);
+  // the copy width: every byte row starts on its boundary; the skinny
   // path's 16-byte loads hold 16 columns of accumulators a row (M <= 4)
   p.b_vec = (b & 15) == 0 && N % 16 == 0 && (path == kTile || M <= 4) ? 16
             : (b & 3) == 0 && N % 4 == 0                              ? 4
                                                                        : 1;
   p.c_vec = aligned16(p.C) && N % 4 == 0;
   const cudaError_t err =
-      path == kSkinny ? launch_q4_skinny<TX>(p, stream)
-                      : by_tile_shape(bm, bn, Q4TileLaunch<TX>{p, stream});
+      path == kSkinny
+          ? launch_q_skinny<BITS, TX>(p, stream)
+          : by_tile_shape(bm, bn, QTileLaunch<BITS, TX>{p, stream});
   return finish_split(p, err, C, stream);
 }
 

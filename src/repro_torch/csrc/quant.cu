@@ -20,16 +20,14 @@
 // padded in device memory: an odd K writes only the low-nibble row of the
 // last byte.
 //
-// matmul_dequant_int4 runs on the f32 path template (gemm_f32_paths.cuh)
-// along plan_f32_gemm's path and K split for the logical (M,K)x(K,N): the
-// packed bytes are streamed (skinny) or copied into shared memory (tile)
-// at the packed byte count and sign-extended on chip (exact in f32); the
-// column scale multiplies the finished sum once, in the store or in the
-// kernel that sums a split's partials. matmul_dequant_int8 stays on the
-// older f32 template (gemm_f32.cuh), with the int8 tile converted on load
-// and the scale as its epilogue. x is f32 or bf16; the output is in x's
-// type, as in the Pallas kernels, rounded once after the scale.
-#include "gemm_f32.cuh"
+// matmul_dequant_int8 and matmul_dequant_int4 run on the f32 path
+// template (gemm_f32_paths.cuh) along plan_f32_gemm's path and K split for
+// the logical (M,K)x(K,N): the int8 bytes or packed nibbles are streamed
+// (skinny) or copied into shared memory (tile) at their byte count and
+// sign-extended on chip (exact in f32); the column scale multiplies the
+// finished sum once, in the store or in the kernel that sums a split's
+// partials. x is f32 or bf16; the output is in x's type, as in the Pallas
+// kernels, rounded once after the scale.
 #include "gemm_f32_paths.cuh"
 
 namespace {
@@ -159,7 +157,7 @@ int launch_dequant(const TQ* q, const float* scale, float* out, int K, int N,
 
 }  // namespace
 
-using repro_torch::BMode;
+using repro_torch::f32::launch_gemm_q;
 
 extern "C" {
 
@@ -177,22 +175,25 @@ int repro_dequant_int4(const uint8_t* packed, const float* scale, float* out,
                               static_cast<cudaStream_t>(stream));
 }
 
-// out(M,N) = (x(M,K) · q(K,N)) · scale(N); x and out f32.
+// out(M,N) = (x(M,K) · q(K,N)) · scale(N); x and out f32. path, bm, bn
+// and split as plan_f32_gemm(M, N, K) decided; split > 1 needs split·M·N
+// floats of scratch.
 int repro_matmul_dequant_int8_f32(const float* x, const int8_t* q,
                                   const float* scale, float* out, int M,
-                                  int N, int K, void* stream) {
-  return repro_torch::launch_gemm_f32<BMode::kInt8, true>(
-      x, q, out, scale, M, N, K, 1, 0, 0, 0,
-      static_cast<cudaStream_t>(stream));
+                                  int N, int K, int path, int bm, int bn,
+                                  int split, float* scratch, void* stream) {
+  return launch_gemm_q<8>(x, q, scale, out, M, N, K, path, bm, bn, split,
+                          scratch, static_cast<cudaStream_t>(stream));
 }
 
-// the same with x and out bf16 (f32 accumulator, one rounding at store)
+// the same with x and out bf16 (f32 FMA, one rounding after the scale)
 int repro_matmul_dequant_int8_bf16(const __nv_bfloat16* x, const int8_t* q,
                                    const float* scale, __nv_bfloat16* out,
-                                   int M, int N, int K, void* stream) {
-  return repro_torch::launch_gemm_f32<BMode::kInt8, true>(
-      x, q, out, scale, M, N, K, 1, 0, 0, 0,
-      static_cast<cudaStream_t>(stream));
+                                   int M, int N, int K, int path, int bm,
+                                   int bn, int split, float* scratch,
+                                   void* stream) {
+  return launch_gemm_q<8>(x, q, scale, out, M, N, K, path, bm, bn, split,
+                          scratch, static_cast<cudaStream_t>(stream));
 }
 
 // out(M,N) = (x(M,K) · unpack(packed((K+1)/2, N))) · scale(N); x and out
@@ -203,9 +204,8 @@ int repro_matmul_dequant_int4_f32(const float* x, const uint8_t* packed,
                                   const float* scale, float* out, int M,
                                   int N, int K, int path, int bm, int bn,
                                   int split, float* scratch, void* stream) {
-  return repro_torch::f32::launch_gemm_q4(
-      x, packed, scale, out, M, N, K, path, bm, bn, split, scratch,
-      static_cast<cudaStream_t>(stream));
+  return launch_gemm_q<4>(x, packed, scale, out, M, N, K, path, bm, bn,
+                          split, scratch, static_cast<cudaStream_t>(stream));
 }
 
 // the same with x and out bf16 (f32 FMA, one rounding after the scale)
@@ -214,9 +214,8 @@ int repro_matmul_dequant_int4_bf16(const __nv_bfloat16* x,
                                    __nv_bfloat16* out, int M, int N, int K,
                                    int path, int bm, int bn, int split,
                                    float* scratch, void* stream) {
-  return repro_torch::f32::launch_gemm_q4(
-      x, packed, scale, out, M, N, K, path, bm, bn, split, scratch,
-      static_cast<cudaStream_t>(stream));
+  return launch_gemm_q<4>(x, packed, scale, out, M, N, K, path, bm, bn,
+                          split, scratch, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -33,7 +33,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("matmul", "conv_winograd", "flash_attention", "decode_attention",
            "quant", "gmm", "ssd")  # csrc/<name>.cu
-HEADERS = ("gemm_f32.cuh", "gemm_f32_paths.cuh", "gemm_bf16_tc.cuh")
+HEADERS = ("gemm_f32_paths.cuh", "gemm_bf16_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,14 +63,16 @@ ARGTYPES = {
     + [_P],
     "repro_dequant_int8": [_P, _P, _P, _I, _I, _P],
     "repro_dequant_int4": [_P, _P, _P, _I, _I, _P],
-    "repro_matmul_dequant_int8_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "repro_matmul_dequant_int8_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # x, packed, scale, out, M, N, K, path, bm, bn, split, scratch, stream
+    # x, q (int8 or packed int4), scale, out, M, N, K, path, bm, bn,
+    # split, scratch, stream
+    "repro_matmul_dequant_int8_f32": [_P] * 4 + [_I] * 7 + [_P, _P],
+    "repro_matmul_dequant_int8_bf16": [_P] * 4 + [_I] * 7 + [_P, _P],
     "repro_matmul_dequant_int4_f32": [_P] * 4 + [_I] * 7 + [_P, _P],
     "repro_matmul_dequant_int4_bf16": [_P] * 4 + [_I] * 7 + [_P, _P],
-    # x, w, out, group_sizes, E, C, d, n, [path, bm, split, scratch,] stream
-    "repro_gmm_blocks_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_gmm_blocks_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_P, _P],
+    # x, w, out, group_sizes, E, C, d, n, path, bm, [bn,] split, scratch,
+    # stream
+    "repro_gmm_blocks_f32": [_P] * 4 + [_I] * 8 + [_P, _P],
+    "repro_gmm_blocks_bf16": [_P] * 4 + [_I] * 7 + [_P, _P],
     # x, dt, A, Bm, Cm, D, init, y, final, cum, cb, states, B, S, H, P, N,
     # Q, stream
     "repro_ssd_scan_f32": [_P] * 12 + [_I] * 6 + [_P],

@@ -15,18 +15,28 @@ the tensor-core template ``csrc/gemm_bf16_tc.cuh`` along the path that
 ``matmul.plan_bf16_gemm`` picks for (C, n, d, E): the skinny path (one
 ``mma.sync`` tile of 16 rows streaming a 64-column slab of w once) at
 decode's C = 8, the ``wgmma`` tile path at a prefill's C = 208. f32: the
-f32 template ``csrc/gemm_f32.cuh`` (IEEE FMA, no TF32) with the same
-per-expert row limit. The kernels read ``group_sizes`` themselves (no
-host sync): a tile whose rows all lie past its expert's size loads
-nothing, so an expert with no rows reads none of its weights.
+f32 path template ``csrc/gemm_f32_paths.cuh`` (IEEE FMA, no TF32) along
+``plan_f32_gemm(C, n, d, batch=E, row_limit=True)``: the batched
+skinny path at decode's C = 8 (each block streams 128 columns of its
+expert's w once, x's rows in shared memory), the batched tile path at a
+prefill's C = 208 (128 x 128 tiles); the stream path, which takes no row
+limit, is never planned. The kernels read ``group_sizes`` themselves (no
+host sync, so a step stays capturable in a CUDA graph) as each expert's
+row limit: rows past it are never read from x and are stored as zeros,
+and a block whose rows all lie past it copies no weights, so an expert
+with no rows reads none of its weights. A K split's partials of those
+rows are zeros too.
 
-Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): granite-moe-3b-a800m
-(E 40, d 1536, n 512, bf16) at decode has C = 8; without group sizes each
-projection reads all 40 experts' weights, 62.9 MB, for 0.25 GFLOP: bound
-by bytes (0.019 ms). A decode step routes 8 experts a token, so with
-group sizes it reads at most 8 experts' weights at batch 1 (12.6 MB,
-0.004 ms). At a 512-token prefill C = 208: 97 MB against 13.1 GFLOP,
-bound by bytes at the tensor-core rate (0.029 ms).
+Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 on the tensor cores,
+67 TFLOP/s f32 on the CUDA cores): granite-moe-3b-a800m (E 40, d 1536, n
+512) at decode has C = 8; without group sizes each projection reads all
+40 experts' weights, 62.9 MB in bf16, 125.8 MB in f32, for 0.25 GFLOP:
+bound by bytes (0.019 ms, 0.038 ms). A decode step routes 8 experts a
+token, so with group sizes it reads at most 8 experts' weights at batch 1
+(12.6 MB, 0.004 ms in bf16; 25.2 MB, 0.0075 ms in f32). At a 512-token
+prefill C = 208: 97 MB against 13.1 GFLOP, bound by bytes at the
+tensor-core rate in bf16 (0.029 ms) and by operations in f32 (0.195
+ms).
 
 ``gmm_blocks_plain`` is the plain version (``ref.gmm_ref``): the f32
 einsum, cast to x's dtype, rows past the group sizes set to zero. On a CPU
@@ -42,7 +52,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _native
-from repro_torch.kernels.matmul import launch_bf16, plan_bf16_gemm
+from repro_torch.kernels.matmul import (launch_bf16, launch_f32,
+                                        plan_bf16_gemm, plan_f32_gemm)
 
 launches = {"gmm_blocks": 0}
 _lock = threading.Lock()
@@ -96,10 +107,9 @@ def gmm_blocks(x: torch.Tensor, w: torch.Tensor,
                         plan_bf16_gemm(C, n, d, E), x.device, E * C * n,
                         *args)
         else:
-            with _native.on_device(x.device):
-                rc = lib.repro_gmm_blocks_f32(
-                    *args, _native.current_stream(x.device))
-            _native.check(rc, "gmm_blocks")
+            launch_f32("gmm_blocks", lib.repro_gmm_blocks_f32,
+                       plan_f32_gemm(C, n, d, False, E, True), x.device,
+                       E * C * n, *args)
         with _lock:
             launches["gmm_blocks"] += 1
     return out

@@ -27,23 +27,27 @@ the host:
     waves, up to 8 x 8 outputs a thread, K steps of 32 through a 3-deep
     ring of 16-byte ``cp.async`` copies read back as float4;
   * ``skinny`` (M <= 16: decode, the MoE router): w streamed once in
-    16-byte loads, x's rows in shared memory;
+    16-byte loads, x's rows in shared memory (in gmm's batch, the expert
+    on ``blockIdx.z``);
   * K split in units of 16, the partials summed in split order by a
     second kernel, as for bf16 below.
 The same template, batched, carries ``winograd_tile_matmul``
 (``kernels/conv_winograd.py``), whose short-K stages take a third path,
 ``stream`` (persistent blocks streaming 128 x 64 items); ``plan_f32_gemm``
-plans it with ``batch=16``, and at ``batch=1`` plans as before.
+plans it with ``batch=16``, and at ``batch=1`` plans as before. So does
+the f32 ``gmm_blocks`` (``kernels/gmm.py``, ``batch=E, row_limit=True``:
+no stream path, the skinny path at C <= 16), with ``group_sizes`` as each
+expert's row limit.
 ``matmul_packed`` runs on the same template along the plan of the logical
 (M,K)x(K,N): each 128-column panel of the packed layout is a row-major
 (nK·128, 128) matrix, and no tile or skinny block straddles two panels,
 so only the copies' column base changes; a bf16 x is widened to f32 where
-it is read back, and the output rounded once. So does
-``matmul_dequant_int4`` (``kernels/quant.py``). ``matmul_dequant_int8`` and
-the f32 ``gmm_blocks`` stay on the older f32 template
-``csrc/gemm_f32.cuh`` (64x64 block tile, 4x4 outputs a thread). bf16 (bf16
-out, or f32 out): the tensor-core template ``csrc/gemm_bf16_tc.cuh``,
-along the path and K split that ``plan_bf16_gemm`` picks on the host:
+it is read back, and the output rounded once. So do
+``matmul_dequant_int8`` and ``matmul_dequant_int4`` (``kernels/quant.py``),
+with the int8 or packed int4 weight read at its byte count and widened on
+chip. bf16 (bf16 out, or f32 out): the tensor-core template
+``csrc/gemm_bf16_tc.cuh``, along the path and K split that
+``plan_bf16_gemm`` picks on the host:
   * ``tile`` (M > 16): a 64- or 128-row by 128-column block tile of
     ``wgmma.mma_async`` m64n128k16 (one or two warpgroups), fed by a
     3-deep ring of 16-byte ``cp.async`` copies into the 128-byte
@@ -212,7 +216,7 @@ def _f32_skinny_split(tiles: int, ksteps: int, max_steps: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def plan_f32_gemm(M: int, N: int, K: int, kmajor: bool = False,
-                  batch: int = 1) -> GemmPlan:
+                  batch: int = 1, row_limit: bool = False) -> GemmPlan:
     """Path, block tile and K split of the f32 template for ``batch``
     GEMMs of (M,K)x(K,N), from the shapes alone. A batch of GEMMs with K
     <= ``F32_STREAM_MAX_K`` (Winograd's stem and stage 0) takes the stream
@@ -220,7 +224,11 @@ def plan_f32_gemm(M: int, N: int, K: int, kmajor: bool = False,
     items are fewer) walk the 128 x 64 items, each block a contiguous
     run. At batch 1, M <= 16 takes the skinny path (128 columns a block,
     32 for a K-major w), split as ``_f32_skinny_split`` says within the x
-    slice a block holds. Otherwise the tile path over batch x tiles: each
+    slice a block holds. ``row_limit`` (the f32 ``gmm_blocks``: a batch
+    with a row limit per entry, row-major w) plans without the stream
+    path, which takes no row limit, and takes the skinny path at M <= 16
+    at any batch, split over batch x column blocks. Otherwise the tile
+    path over batch x tiles: each
     tile of ``F32_TILE_BM`` x ``F32_TILE_BN`` (BN 128 only where N > 64)
     with no split where its tiles reach ``SMS`` blocks, else with each
     divisor of the K steps that does; of these, the least work on the
@@ -233,14 +241,14 @@ def plan_f32_gemm(M: int, N: int, K: int, kmajor: bool = False,
     (0.0587 ms of device time against 0.0675 for 64 x 64 on an H100 SXM);
     the batch-1 key stays as it was."""
     ksteps = -(-K // F32_BK)
-    if batch > 1 and K <= F32_STREAM_MAX_K and not kmajor:
+    if not row_limit and batch > 1 and K <= F32_STREAM_MAX_K and not kmajor:
         bm, bn = F32_STREAM_TILE
         items = batch * -(-M // bm) * -(-N // bn)
         return GemmPlan("stream", bm, bn, 1, ksteps,
                         max(1, min(items, F32_STREAM_PER_SM * SMS)))
-    if M <= SKINNY_MAX_M and batch == 1:
+    if M <= SKINNY_MAX_M and (batch == 1 or row_limit):
         bn = F32_SKINNY_COLS[bool(kmajor)]
-        tiles = -(-N // bn)
+        tiles = batch * -(-N // bn)
         split = _f32_skinny_split(tiles, ksteps,
                                   F32_X_FLOATS // (F32_BK * max(M, 1)))
         return GemmPlan("skinny", SKINNY_MAX_M, bn, split, ksteps,

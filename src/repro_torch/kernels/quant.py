@@ -25,15 +25,16 @@ load and one float4 store a row, the thread's scales loaded once for the
 rows it walks. The fused kernels read device memory at the quantized
 byte count and convert the weights to f32 on chip (exact); x is not
 padded (the Pallas wrapper pads x to 2·rows for int4; here its columns
->= K are masked). ``matmul_dequant_int4`` runs on the f32 path template
+>= K are masked). Both run on the f32 path template
 (``csrc/gemm_f32_paths.cuh``) along ``plan_f32_gemm(M, N, K)``: on the
-skinny path (M <= 16, the resnet50 head) each thread streams 16, 4 or 1
-packed bytes a row (``int4_loader``) and sign-extends the nibbles in
-registers; on the tile path the packed rows are copied into shared memory
-and unpacked once a K step for the whole block; the scale multiplies the
+skinny path (M <= 16, the resnet50 head, decode) each thread streams 16,
+4 or 1 bytes of a row (``q_loader``: 16, 4 or 1 int8 columns, or packed
+columns of two int4 rows) and sign-extends them in registers; on the
+tile path a K step's byte rows (32 int8 or 16 packed int4 rows, a
+quarter or an eighth of an f32 stage) are copied into shared memory and
+widened once a K step for the whole block; the scale multiplies the
 finished sum once, in the store or in the kernel that sums a split's
-partials. ``matmul_dequant_int8`` stays on the older f32 template
-(``csrc/gemm_f32.cuh``) with the int8 tile converted on load.
+partials.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — there is no fallback. The wrappers mix
@@ -156,7 +157,8 @@ def dequant_int4(packed: torch.Tensor, scale: torch.Tensor,
 def matmul_dequant_int8(x: torch.Tensor, q: torch.Tensor,
                         scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) f32 or bf16; q (K, N) int8; scale (1, N) f32 -> (M, N) in
-    x's dtype."""
+    x's dtype. On the card the kernel runs along ``plan_f32_gemm(M, N,
+    K)``."""
     if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[0]:
         raise ValueError(f"matmul_dequant_int8: bad shapes {tuple(x.shape)} "
                          f"x {tuple(q.shape)}")
@@ -171,18 +173,22 @@ def matmul_dequant_int8(x: torch.Tensor, q: torch.Tensor,
         lib = _native.library("quant")
         fn = (lib.repro_matmul_dequant_int8_bf16 if x.dtype == torch.bfloat16
               else lib.repro_matmul_dequant_int8_f32)
-        _launch("matmul_dequant_int8", fn, x.data_ptr(), q.data_ptr(),
-                scale.data_ptr(), out.data_ptr(), M, N, K, device=x.device)
+        launch_f32("matmul_dequant_int8", fn, plan_f32_gemm(M, N, K),
+                   x.device, M * N, x.data_ptr(), q.data_ptr(),
+                   scale.data_ptr(), out.data_ptr(), M, N, K)
+        _count("matmul_dequant_int8")
     return out
 
 
-def int4_loader(packed: torch.Tensor, M: int, path: str) -> int:
-    """Bytes of a packed row that one load (skinny path) or copy (tile
-    path) of the ``matmul_dequant_int4`` kernel takes, as its launch picks
-    them: 16 where every row starts on a 16-byte boundary (on the skinny
-    path only for M <= 4, whose 16 columns of accumulators a row fit the
-    registers), else 4 where rows start on a 4-byte boundary, else 1."""
-    N, ptr = packed.shape[1], packed.data_ptr()
+def q_loader(q: torch.Tensor, M: int, path: str) -> int:
+    """Bytes of a row of ``q`` (int8 (K, N), or int4's packed ((K+1)//2,
+    N)) that one load (skinny path) or copy (tile path) of the
+    ``matmul_dequant_int8`` / ``matmul_dequant_int4`` kernels takes, as
+    their launch picks them: 16 where every row starts on a 16-byte
+    boundary (on the skinny path only for M <= 4, whose 16 columns of
+    accumulators a row fit the registers), else 4 where rows start on a
+    4-byte boundary, else 1."""
+    N, ptr = q.shape[1], q.data_ptr()
     if ptr % 16 == 0 and N % 16 == 0 and (path == "tile" or M <= 4):
         return 16
     return 4 if ptr % 4 == 0 and N % 4 == 0 else 1

@@ -524,6 +524,47 @@ def test_plan_f32_gemm_batched(shape, want):
     assert plan_f32_gemm(T, O, C, False, 16) is p   # cached, shapes only
 
 
+# (M, K, N, batch) -> (path, bn, split, blocks): the batched skinny path
+# at M <= 16 with row limits (gmm_blocks at decode, the expert on
+# blockIdx.z), one 128-column block per entry and column slab, split as at
+# batch 1 but over batch x column blocks
+BATCHED_SKINNY_PLANS = [
+    ((8, 1536, 512, 40), ("skinny", 128, 1, 160)),
+    ((8, 512, 1536, 40), ("skinny", 128, 1, 480)),
+    ((1, 1536, 512, 40), ("skinny", 128, 1, 160)),
+    ((16, 300, 100, 16), ("skinny", 128, 1, 16)),
+    ((4, 1536, 40, 3), ("skinny", 128, 24, 72)),
+    ((16, 2560, 512, 2), ("skinny", 128, 20, 160))]
+
+
+@pytest.mark.parametrize("shape,want", BATCHED_SKINNY_PLANS,
+                         ids=["x".join(map(str, s))
+                              for s, _ in BATCHED_SKINNY_PLANS])
+def test_plan_f32_gemm_batched_skinny(shape, want):
+    """M <= 16 in a batch with row limits (``row_limit=True``, gmm's plan)
+    takes the skinny path; the x slice of a split fits the block's shared
+    memory, the split keeps the skinny rule over batch x column blocks.
+    Without row limits such a batch plans as before: the stream path where
+    K <= 64, else the tile path."""
+    from repro_torch.kernels.matmul import (F32_SKINNY_MIN_STEPS,
+                                            F32_X_FLOATS, SMS,
+                                            plan_f32_gemm)
+
+    M, K, N, batch = shape
+    p = plan_f32_gemm(M, N, K, False, batch, True)
+    assert (p.path, p.bn, p.split, p.blocks) == want
+    assert plan_f32_gemm(M, N, K, False, batch).path == (
+        "stream" if K <= 64 else "tile")
+    assert p.ksteps // p.split * 16 * M <= F32_X_FLOATS
+    assert p.blocks == batch * -(-N // 128) * p.split
+    least = min(F32_SKINNY_MIN_STEPS, p.ksteps)
+    assert p.ksteps // p.split >= least
+    # the blocks fill the card, or no longer split keeps that many steps
+    more = [d for d in range(p.split + 1, p.ksteps + 1)
+            if p.ksteps % d == 0 and p.ksteps // d >= least]
+    assert p.blocks >= SMS or not more
+
+
 @pytest.fixture
 def fake_kernels(monkeypatch):
     """Run a wrapper's CUDA branch on CPU tensors against a stand-in
@@ -685,22 +726,85 @@ def test_dequant_int4_wrapper_passes_its_plan(fake_kernels, M, K, N, dtype):
     assert ops.launch_counts()["matmul_dequant_int4"] == 1
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(1, 256, 100), (64, 960, 2560),
+                                   (3, 129, 7)])
+def test_dequant_int8_wrapper_passes_its_plan(fake_kernels, M, K, N, dtype):
+    """``matmul_dequant_int8`` hands its kernel the int8 bytes, the scale
+    and ``plan_f32_gemm(M, N, K)``'s plan, with a scratch only for a
+    split: one launch counted."""
+    from repro_torch.kernels.matmul import _PATH_CODE, plan_f32_gemm
+
+    dt = getattr(torch, dtype)
+    x = torch.zeros(M, K, dtype=dt)
+    q8 = torch.zeros(K, N, dtype=torch.int8)
+    s = torch.ones(1, N)
+    out = ops.matmul_dequant_int8(x, q8, s)
+    assert out.shape == (M, N) and out.dtype == dt
+    (name, args), = fake_kernels
+    suffix = "bf16" if dt == torch.bfloat16 else "f32"
+    assert name == f"repro_matmul_dequant_int8_{suffix}"
+    assert args[:7] == (x.data_ptr(), q8.data_ptr(), s.data_ptr(),
+                        out.data_ptr(), M, N, K)
+    p = plan_f32_gemm(M, N, K)
+    assert args[7:11] == (_PATH_CODE[p.path], p.bm, p.bn, p.split)
+    assert (args[11] is None) == (p.split == 1)
+    assert ops.launch_counts()["matmul_dequant_int8"] == 1
+
+
+# (E, C, d, n): granite-moe-3b-a800m's gate projection at decode (C 8) and
+# at a 512-token prefill (C 208), and the Pallas sweep's d 32 and d 20
+GMM_F32_SHAPES = [(40, 8, 1536, 512), (40, 208, 1536, 512),
+                  (4, 64, 32, 48), (3, 40, 20, 9)]
+
+
+@pytest.mark.parametrize("routed", [False, True])
+@pytest.mark.parametrize("E,C,d,n", GMM_F32_SHAPES,
+                         ids=["x".join(map(str, s)) for s in GMM_F32_SHAPES])
+def test_gmm_f32_wrapper_passes_its_plan(fake_kernels, E, C, d, n, routed):
+    """The f32 ``gmm_blocks`` hands ``repro_gmm_blocks_f32`` the group
+    sizes as they lie (read on the device) and ``plan_f32_gemm(C, n, d,
+    batch=E, row_limit=True)``'s plan: no stream path, which takes no row
+    limit (without row limits the sweep's d 32 and d 20 would stream),
+    batched skinny at decode, batched tile above; a scratch only for a
+    split; one launch counted."""
+    from repro_torch.kernels.matmul import _PATH_CODE, plan_f32_gemm
+
+    x, w = torch.zeros(E, C, d), torch.zeros(E, d, n)
+    gs = (torch.tensor([min(C, i) for i in range(E)], dtype=torch.int32)
+          if routed else None)
+    out = ops.gmm_blocks(x, w, gs)
+    assert out.shape == (E, C, n) and out.dtype == torch.float32
+    (name, args), = fake_kernels
+    assert name == "repro_gmm_blocks_f32"
+    assert args[:8] == (x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                        gs.data_ptr() if routed else None, E, C, d, n)
+    p = plan_f32_gemm(C, n, d, False, E, True)
+    assert p.path == ("skinny" if C <= 16 else "tile")
+    assert plan_f32_gemm(C, n, d, False, E).path == (
+        "stream" if d <= 64 else "tile")
+    assert args[8:12] == (_PATH_CODE[p.path], p.bm, p.bn, p.split)
+    assert (args[12] is None) == (p.split == 1)
+    assert ops.launch_counts()["gmm_blocks"] == 1
+
+
 def test_int4_loader_widths():
     """The bytes of a packed row that the int4 kernel loads at once: 16
     where rows start on 16-byte boundaries (skinny only at M <= 4), 4 where
-    N is a multiple of 4 (the resnet50 head's 100), 1 otherwise."""
-    from repro_torch.kernels.quant import int4_loader
+    N is a multiple of 4 (the resnet50 head's 100), 1 otherwise
+    (``q_loader``, which the int8 kernel shares)."""
+    from repro_torch.kernels.quant import q_loader
 
     def packed(rows, N, offset=0):
         buf = torch.zeros(rows * N + 64, dtype=torch.uint8)
         base = (-buf.data_ptr()) % 16 + offset
         return buf[base:base + rows * N].view(rows, N)
 
-    assert int4_loader(packed(480, 2560), 1, "skinny") == 16
-    assert int4_loader(packed(480, 2560), 4, "skinny") == 16
-    assert int4_loader(packed(480, 2560), 8, "skinny") == 4
-    assert int4_loader(packed(480, 2560), 64, "tile") == 16
-    assert int4_loader(packed(128, 100), 1, "skinny") == 4
-    assert int4_loader(packed(65, 7), 3, "skinny") == 1
-    assert int4_loader(packed(480, 2560, offset=4), 1, "skinny") == 4
-    assert int4_loader(packed(480, 2560, offset=1), 64, "tile") == 1
+    assert q_loader(packed(480, 2560), 1, "skinny") == 16
+    assert q_loader(packed(480, 2560), 4, "skinny") == 16
+    assert q_loader(packed(480, 2560), 8, "skinny") == 4
+    assert q_loader(packed(480, 2560), 64, "tile") == 16
+    assert q_loader(packed(128, 100), 1, "skinny") == 4
+    assert q_loader(packed(65, 7), 3, "skinny") == 1
+    assert q_loader(packed(480, 2560, offset=4), 1, "skinny") == 4
+    assert q_loader(packed(480, 2560, offset=1), 64, "tile") == 1

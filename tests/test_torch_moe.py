@@ -132,6 +132,32 @@ def test_gmm_blocks_group_sizes_match_pallas(E, C, d, n, sizes, dtype):
                                rtol=_tol(dtype))
 
 
+@pytest.mark.parametrize("C,sizes", [(8, (0, 3, 8, 1, 8, 0)),
+                                     (26, (26, 0, 11, 26, 1, 5))])
+def test_gmm_blocks_plain_f32_group_sizes_match_ref(C, sizes):
+    """The f32 entry's function at a narrow granite-like shape (6 experts,
+    d 96 -> n 32, the 3:1 of d_model 1536 to d_ff 512; C 8 as at decode
+    and a prefill-like C 26): with group sizes 0, partial and full, the
+    rows r < size equal ``ref.gmm_ref`` at the sweep's f32 tolerance and
+    every other row is exactly zero."""
+    E, d, n = len(sizes), 96, 32
+    rng = _rng(11, C, d, n)
+    x = rng.standard_normal((E, C, d)).astype(np.float32)
+    w = (rng.standard_normal((E, d, n)) * d ** -0.5).astype(np.float32)
+    want = _np(R.gmm_ref(jnp.asarray(x), jnp.asarray(w)))
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    for got in (ops.gmm_blocks(torch.from_numpy(x), torch.from_numpy(w), gs),
+                gmm_blocks_plain(torch.from_numpy(x), torch.from_numpy(w),
+                                 gs)):
+        assert got.shape == (E, C, n) and got.dtype == torch.float32
+        got = got.numpy()
+        for e, size in enumerate(sizes):
+            np.testing.assert_allclose(got[e, :size], want[e, :size],
+                                       atol=_tol("float32") * np.sqrt(d),
+                                       rtol=_tol("float32"))
+            assert not got[e, size:].any()
+
+
 def test_gmm_blocks_group_sizes_checks():
     x, w = torch.zeros(2, 8, 4), torch.zeros(2, 4, 3)
     with pytest.raises(ValueError):

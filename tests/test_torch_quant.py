@@ -193,6 +193,29 @@ def test_matmul_dequant_int4_bf16_x_matches_pallas(M, K, N):
                                    rtol=2 ** -7, atol=1e-6)
 
 
+@pytest.mark.parametrize("M,K,N", [(1, 256, 100), (3, 129, 7),
+                                   (64, 960, 130)])
+def test_matmul_dequant_int8_bf16_x_matches_pallas(M, K, N):
+    """A bf16 x against the Pallas ``matmul_dequant_int8`` (``interpret=
+    True``) on the same int8 bytes: bf16 out, the scale applied once to
+    the f32 sum before the one rounding; within one bf16 step of the
+    Pallas output (both sum exact products in f32, in other orders)."""
+    rng = _rng(6, M, K, N)
+    x = jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+    q8, s8, _ = quant.quantize_int8(
+        rng.standard_normal((K, N)).astype(np.float32))
+    want = KQ.matmul_dequant_int8(x, jnp.asarray(q8), jnp.asarray(s8),
+                                  interpret=True)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want, np.float32)
+    tx = _t(x)
+    for fn in (ops.matmul_dequant_int8, Q.matmul_dequant_int8_plain):
+        got = fn(tx, torch.from_numpy(q8), torch.from_numpy(s8))
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (M, N)
+        np.testing.assert_allclose(got.to(torch.float32).numpy(), want,
+                                   rtol=2 ** -7, atol=1e-6)
+
+
 @pytest.mark.parametrize("M,K,N", [(1, 256, 100), (64, 960, 130),
                                    (3, 129, 7)])
 def test_matmul_bf16_f32_out_matches_jnp_dot(M, K, N):

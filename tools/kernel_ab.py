@@ -1,17 +1,21 @@
 """Time ``decode_attention``, the f32 ``matmul``, ``flash_attention``,
-``winograd_tile_matmul``, ``ssd_scan``, ``matmul_packed`` and
-``matmul_dequant_int4`` of one source tree of the PyTorch port on a CUDA
-card, so that two commits can be compared on one card.
+``winograd_tile_matmul``, ``ssd_scan``, ``matmul_packed``,
+``matmul_dequant_int8``, ``matmul_dequant_int4`` and the f32
+``gmm_blocks`` of one source tree of the PyTorch port on a CUDA card, so
+that two commits can be compared on one card.
 
 Each row calls the tree's own wrapper (``repro_torch.kernels.ops``) at a
-decode, GEMM, prefill, Winograd, SSD-scan, packed-GEMM or int4-GEMM shape
-of ``chip_smoke.py`` and prints one JSON object:
+decode, GEMM, prefill, Winograd, SSD-scan, packed-GEMM, int8- or
+int4-GEMM or expert-GEMM shape of ``chip_smoke.py`` and prints one JSON
+object:
 ``ms``, the mean of 20 calls after 3 warm-ups by CUDA events (the ruler of
 ``chip_smoke.py``'s kernel rows, host cost included), and ``device_ms``,
 the same 20 calls captured in a CUDA graph and replayed (device time),
 beside the PyTorch library call (SDPA, ``torch.matmul``, ``torch.bmm``;
-``torch.matmul`` on the unpacked weight for ``matmul_packed`` with f32 x;
-none for ``ssd_scan``, ``matmul_dequant_int4`` and bf16 x) timed both ways,
+``torch.matmul`` on the unpacked weight for ``matmul_packed`` with f32 x,
+``torch._weight_int8pack_mm`` for ``matmul_dequant_int8`` where the card
+takes it; none for ``ssd_scan``, ``matmul_dequant_int4``, a routed
+``gmm_blocks`` and a packed bf16 x) timed both ways,
 and the output's error against the tree's plain version (the worst of y
 and the final state for ``ssd_scan``). A row whose input the tree's
 wrapper refuses (the parent's ``matmul_packed`` with a bf16 x) prints
@@ -30,13 +34,17 @@ change, change, parent:
 one launch (no split) where the cache is a few tiles, the f32 skinny path
 with K slices of at least 4 and 8 steps, every other cut of
 ``flash_plans``, and for Winograd the stream path at one block an SM and
-the batched tile path's other tiles. ``--ptxas`` prints what ``ptxas -v``
+the batched tile path's other tiles, and for the f32 ``gmm_blocks`` the
+batched tile path's other tiles and the batched skinny path split 2, 4
+and 8 ways. ``--ptxas`` prints what ``ptxas -v``
 said of each kernel of the libraries the rows built (registers, stack
 frame, spills). Rows run for the kernels named by ``--only`` (default:
-all seven). Without a CUDA card it exits 2.
+all nine). The plan is printed where the tree's wrapper launches along
+it. Without a CUDA card it exits 2.
 
     python3 tools/kernel_ab.py --only ssd_scan --phases
     python3 tools/kernel_ab.py --only packed,dequant_int4,matmul
+    python3 tools/kernel_ab.py --only dequant_int8,gmm_f32
 """
 from __future__ import annotations
 
@@ -109,6 +117,32 @@ DQ4_ROWS = [("resnet_head", 1, 256, 100, "float32"),
             ("up_bf16", 64, 960, 2560, "bfloat16"),
             ("ragged", 3, 129, 7, "float32"),
             ("up_M1", 1, 960, 2560, "float32")]
+# matmul_dequant_int8 at chip_smoke.py's int8 rows: the resnet50 head, the
+# up projection in f32 and bf16 x, decode at M 1 and 8, ragged edges
+DQ8_ROWS = [("resnet_head", 1, 256, 100, "float32"),
+            ("up_f32", 64, 960, 2560, "float32"),
+            ("up_bf16", 64, 960, 2560, "bfloat16"),
+            ("ragged", 3, 129, 7, "float32"),
+            ("up_M1", 1, 960, 2560, "float32"),
+            ("up_M8", 8, 960, 2560, "bfloat16"),
+            ("ragged_tile", 64, 129, 100, "bfloat16"),
+            ("ragged_tile_bytes", 20, 37, 7, "float32")]
+# (row, E, C, d, n, routed tokens): the f32 gmm_blocks at
+# granite-moe-3b-a800m's gate projection, decode C 8 without group sizes
+# and routed for 1 and 4 tokens (top-8 of 40), a 512-token prefill C 208,
+# and the Pallas sweep's 8x128x128x128
+GMM_F32_ROWS = [("decode_gate_f32", 40, 8, 1536, 512, None),
+                ("decode_gate_routed_T1_f32", 40, 8, 1536, 512, 1),
+                ("decode_gate_routed_T4_f32", 40, 8, 1536, 512, 4),
+                ("prefill_gate_f32", 40, 208, 1536, 512, None),
+                ("sweep_8x128x128x128_f32", 8, 128, 128, 128, None)]
+
+
+# the kernel library each --only name launches
+LIBRARY = {"decode": "decode_attention", "matmul": "matmul",
+           "flash": "flash_attention", "winograd": "conv_winograd",
+           "ssd_scan": "ssd", "packed": "matmul", "dequant_int8": "quant",
+           "dequant_int4": "quant", "gmm_f32": "gmm"}
 
 
 def main() -> int:
@@ -122,9 +156,10 @@ def main() -> int:
                     help="also print each row's kernels by device time "
                          "(torch.profiler over 10 calls)")
     ap.add_argument("--only", default="decode,matmul,flash,winograd,ssd_scan,"
-                    "packed,dequant_int4",
+                    "packed,dequant_int8,dequant_int4,gmm_f32",
                     help="comma-separated: decode, matmul, flash, winograd, "
-                         "ssd_scan, packed, dequant_int4")
+                         "ssd_scan, packed, dequant_int8, dequant_int4, "
+                         "gmm_f32")
     args = ap.parse_args()
     only = set(args.only.split(","))
 
@@ -230,6 +265,10 @@ def main() -> int:
             key = (m.group(0) if m else e.key)[:80]
             out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3 / n
         return out
+
+    # the libraries the chosen rows launch, built together (one nvcc each)
+    from repro_torch.kernels import _native
+    _native.build_all(sorted({LIBRARY[k] for k in only}))
 
     has_plans = hasattr(A, "plan_decode") and hasattr(MM, "plan_f32_gemm")
     if args.variants and not has_plans:
@@ -436,14 +475,101 @@ def main() -> int:
             return KQ.matmul_dequant_int4_plain(x, p4, s4, K)
 
         plan = MM.plan_f32_gemm(M, N, K) if has_plans else None
-        loader = (KQ.int4_loader(p4, M, plan.path)
-                  if hasattr(KQ, "int4_loader") else None)
+        q_loader = getattr(KQ, "q_loader", getattr(KQ, "int4_loader", None))
+        loader = q_loader(p4, M, plan.path) if q_loader else None
         row("matmul_dequant_int4", name, call, plain, None,
             plan and {"path": plan.path, "tile": [plan.bm, plan.bn],
                       "split": plan.split, "loader_bytes": loader})
 
+    # a tree whose int8 wrapper launches along plan_f32_gemm has q_loader
+    int8_planned = hasattr(KQ, "q_loader")
+    for name, M, K, N, dname in DQ8_ROWS if "dequant_int8" in only else []:
+        dt = getattr(torch, dname)
+        x = rand(M, K, dtype=dt)
+        a = (rand(K, N) * K ** -0.5).cpu().numpy()
+        q8, s8, _ = RQ.quantize_int8(a)
+        q8, s8 = torch.from_numpy(q8).to(dev), torch.from_numpy(s8).to(dev)
+        qT, sv = q8.T.contiguous(), s8.view(-1)
+
+        def call():
+            return ops.matmul_dequant_int8(x, q8, s8)
+
+        def plain():
+            return KQ.matmul_dequant_int8_plain(x, q8, s8)
+
+        def lib():
+            return torch._weight_int8pack_mm(x, qT, sv)
+
+        try:
+            lib()
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # the card refuses it for this dtype
+            torch.cuda.synchronize()
+            print(json.dumps({"label": args.label, "kernel":
+                              "matmul_dequant_int8", "row": name,
+                              "library_refused": str(e).splitlines()[0]}),
+                  flush=True)
+            lib = None
+        plan = MM.plan_f32_gemm(M, N, K) if int8_planned else None
+        row("matmul_dequant_int8", name, call, plain, lib,
+            plan and {"path": plan.path, "tile": [plan.bm, plan.bn],
+                      "split": plan.split,
+                      "loader_bytes": KQ.q_loader(q8, M, plan.path)})
+
+    from repro_torch.kernels import gmm as GMM
+    # a tree whose f32 gmm_blocks launches along plan_f32_gemm takes
+    # row_limit
+    gmm_planned = ("row_limit"
+                   in MM.plan_f32_gemm.__wrapped__.__code__.co_varnames)
+    for name, E, C, d, n, tokens in GMM_F32_ROWS if "gmm_f32" in only \
+            else []:
+        x, w = rand(E, C, d), rand(E, d, n) * d ** -0.5
+        gs = None
+        if tokens:
+            picks = torch.cat([torch.randperm(E, generator=gen,
+                                              device=dev)[:8]
+                               for _ in range(tokens)])
+            gs = torch.bincount(picks, minlength=E).to(torch.int32)
+
+        def call():
+            return ops.gmm_blocks(x, w, gs)
+
+        def plain():
+            return GMM.gmm_blocks_plain(x, w, gs)
+
+        def lib():
+            return torch.bmm(x, w)
+
+        plan = (MM.plan_f32_gemm(C, n, d, False, E, True) if gmm_planned
+                else None)
+        row("gmm_blocks", name, call, plain, None if tokens else lib,
+            plan and {"path": plan.path, "tile": [plan.bm, plan.bn],
+                      "split": plan.split})
+        if not (args.variants and gmm_planned):
+            continue
+        if plan.path == "tile":   # every other tile, unsplit
+            vars_ = [MM.GemmPlan("tile", bm, bn, 1, plan.ksteps,
+                                 E * -(-C // bm) * -(-n // bn))
+                     for bm in MM.F32_TILE_BM for bn in MM.F32_TILE_BN]
+        else:                     # the skinny path split 2, 4 and 8 ways
+            tiles = plan.blocks // plan.split
+            vars_ = [plan._replace(split=sp, blocks=tiles * sp)
+                     for sp in (2, 4, 8) if plan.ksteps % sp == 0]
+        orig = GMM.plan_f32_gemm
+        for var in vars_:
+            if var == plan:
+                continue
+            GMM.plan_f32_gemm = lambda *a, var=var: var
+            try:
+                row("gmm_blocks",
+                    f"{name}_{var.path}_{var.bm}x{var.bn}_split{var.split}",
+                    call, plain, None if tokens else lib,
+                    {"path": var.path, "tile": [var.bm, var.bn],
+                     "split": var.split})
+            finally:
+                GMM.plan_f32_gemm = orig
+
     if args.ptxas:
-        from repro_torch.kernels import _native
         for lib_name, log in _native.build_logs.items():
             fn = None
             for line in log.splitlines():
