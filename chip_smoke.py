@@ -72,6 +72,25 @@ Run from the root of a checkout, on a machine with a CUDA card and
      with ``SyntheticProfiler``, and ``run_cold`` with the head on the
      ``int8``, ``int4`` and ``bf16`` caches (im2col convs), each held to an
      all-plain forward whose head uses the same (dequantized) weights;
+     then continuous mode (paper §3.5): a ``ContinuousSession`` on the
+     same engine, K_cold the decided plan (or the pinned im2col plan where
+     the decided plan already is K_warm on every weighted layer),
+     ``cold_infer`` from a first read and ``warm_infer(wait=True)`` twice,
+     each output held to the all-plain forward, the times beside
+     ``run_warm``; it fails unless the layers whose K_warm differs all
+     switched (at least one); then the fleet: ``FrontDoor(n_workers=2,
+     device="cuda")`` serving resnet50@224 from two worker processes, an
+     SD-card-class edge disk emulated under their local reads, on one
+     plan decided with measured profiles under that disk and written into
+     both workers' stores (so both and every restart hold it): a SIGKILL
+     of the first worker right after a request is dispatched to it, the
+     failover served from disk by the second (held to the all-plain
+     forward), the restart, a cold start on the restarted worker raced
+     against the second's RAM (peer layers must be fetched), and a warm
+     run on each; every output bitwise equal to the failover's, and no
+     request left in flight or queued. Each result carries its own
+     request's kernel launches, which must add up to the plan's launches
+     per forward times the forwards served;
   5. drives the cold-LLM path: smollm-360m at its full published width
      (d_model 960, 15/5 heads, d_ff 2560, vocab 49152) and ``LLM_DEPTH``
      blocks, random weights from seed 0, a 64-token prompt, from
@@ -125,7 +144,8 @@ Run from the root of a checkout, on a machine with a CUDA card and
      ``forward`` over two 256-token chunks (LLM gate);
   8. fails unless every kernel of a path launched during that path's runs
      (each path's launch counts are zeroed just before its runs and read
-     just after; ``gmm_blocks`` 3 times a layer per ``forward`` or
+     just after; the fleet's are its served requests' own;
+     ``gmm_blocks`` 3 times a layer per ``forward`` or
      ``decode_step``, ``ssd_scan`` once a layer per ``forward``) and no
      kernel was demoted by the fault ladder.
 
@@ -920,10 +940,20 @@ def serving_path(dev, depth: int) -> dict:
         budget = srv.budget.snapshot()
         kv_left = sum(n for t, n in budget["by_tag"].items()
                       if t.startswith("kv:"))
+        # the packed decode params stay charged, at their own bytes: a
+        # sibling worker's warm-state fetch can take them
+        packed = sum(int(v.nbytes) for st in srv._packed_state.values()
+                     for v in st.values())
+        charged = sum(n for t, n in budget["by_tag"].items()
+                      if t.startswith("packed:"))
         print(f"  MemoryBudget after close: {json.dumps(budget)} "
               f"(KV reservations left: {kv_left} B; resident "
-              f"{srv.resident_bytes()} B)")
-        gate(kv_left == 0 and budget["used"] == srv.resident_bytes(),
+              f"{srv.resident_bytes()} B; packed decode params {packed} B, "
+              f"charged {charged} B)")
+        gate(packed > 0 and charged == packed,
+             "the packed decode params are not charged at their bytes")
+        gate(kv_left == 0
+             and budget["used"] == srv.resident_bytes() + packed,
              "the KV reservation did not return to the budget")
         repairs = eng.repairs.counts()
         gate(not repairs.get("kernel_demoted") and not eng.breaker.open_keys(),
@@ -1491,6 +1521,259 @@ def ssm_path(dev, depth: int) -> dict:
     gates.finish()
     return {"ssd_scan": gates.main["ssd_scan"],
             "matmul": gates.main["matmul"]}
+
+
+# the hand-written kernel each CNN registry kernel launches, once a layer
+# per forward (``direct`` convs run cuDNN, the reference's lax.conv)
+CNN_KERNELS = {("conv2d", "im2col_sgemm"): "matmul",
+               ("conv2d", "winograd_f2x3"): "winograd_tile_matmul",
+               ("linear", "direct"): "matmul",
+               ("linear", "packed"): "matmul_packed"}
+
+
+def cnn_kernels(layers, choices) -> dict:
+    """The hand-written kernels a CNN plan's choices launch, with their
+    launches per forward."""
+    out = {}
+    for l, c in zip(layers, choices):
+        k = CNN_KERNELS.get((l.spec.op_type, c.kernel))
+        if k is not None:
+            out[k] = out.get(k, 0) + 1
+    return out
+
+
+def switching_path(card, eng, layers, x_np, decided, im2col_pin,
+                   check_output) -> dict:
+    """``ContinuousSession`` (paper §3.5) on resnet50@224: K_cold is the
+    decided plan, or the pinned im2col plan where the decided plan already
+    is K_warm on every weighted layer; ``cold_infer`` from a first read,
+    then ``warm_infer(wait=True)`` twice against ``run_warm``. Returns the
+    launch counts of the session's three inferences."""
+    from repro_torch.core.switching import ContinuousSession
+    from repro_torch.kernels import ops
+
+    print(f"continuous mode: ContinuousSession on resnet50 image=224 "
+          f"width=1.0 ({card})")
+    warm = eng.warm_best_choices()
+    weighted = [i for i, l in enumerate(layers) if l.spec.weight_shapes]
+    if all(decided.choices[i].kernel == warm[i].kernel for i in weighted):
+        eng.set_plan(replace(decided, choices=im2col_pin))
+        label = "pinned im2col+direct (the decided plan is K_warm)"
+    else:
+        eng.set_plan(decided)
+        label = "decided plan"
+    plan = eng.plan
+    moves = [layers[i].spec.name for i in weighted
+             if plan.choices[i].kernel != warm[i].kernel]
+    print(f"  K_cold: {label}; K_warm differs on {len(moves)} of "
+          f"{len(weighted)} weighted layers "
+          f"({json.dumps(plan_summary([(warm[i].kernel, False) for i in weighted]))})")
+    t_warm = eng.run_warm(x_np)
+    print(f"  run_warm: {t_warm:.4f} s (best of 3)")
+    start = decided_arm_state(eng, "nnv12", "")
+    ops.reset_launch_counts()
+    sess = ContinuousSession(eng)
+    r1 = sess.cold_infer(x_np)
+    t0 = time.perf_counter()
+    r2 = sess.warm_infer(x_np, wait=True)
+    prep_wait = time.perf_counter() - t0 - r2.total_s
+    r3 = sess.warm_infer(x_np, wait=True)
+    counts = ops.launch_counts()
+    switched = sorted(sess.warm_weights)
+    print(f"  cold_infer [start: {start}]: total_s={r1.total_s:.4f} "
+          f"stage_seconds={json.dumps(r1.stage_seconds())}")
+    for n, r in (("2nd", r2), ("3rd", r3)):
+        print(f"  warm_infer {n} (wait=True): total_s={r.total_s:.4f}, "
+              f"{r.total_s / t_warm:.3f}x run_warm {t_warm:.4f} s")
+    print(f"  switched {len(switched)} of {len(moves)} layers (the 2nd "
+          f"warm_infer first waited {prep_wait:.4f} s for the warm preps); "
+          f"launches={json.dumps({k: n for k, n in counts.items() if n})}")
+    for n, r in (("cold_infer", r1), ("2nd warm_infer", r2),
+                 ("3rd warm_infer", r3)):
+        check_output(f"ContinuousSession {n}", r.output)
+    if not switched:
+        fail("ContinuousSession switched no layer")
+    if switched != sorted(moves):
+        fail(f"ContinuousSession switched {switched}, not {sorted(moves)}")
+    used = set(cnn_kernels(layers, plan.choices)) | set(cnn_kernels(
+        [l for l in layers if l.spec.name in switched],
+        [c for l, c in zip(layers, warm) if l.spec.name in switched]))
+    for k in sorted(used):
+        if counts[k] <= 0:
+            fail(f"kernel {k} never launched in the ContinuousSession runs")
+    eng.set_plan(decided)
+    return {k: counts[k] for k in used}
+
+
+# the fleet phase's workers: an SD-card-class edge disk emulated under
+# every local read (``--sim-disk-bytes-per-s``); the pinned plan is decided
+# under it, so its read costs are the disk's
+FLEET_DISK_BYTES_PER_S = 25e6
+# the SIGKILL lands this long after the front door dispatched the request
+# (the cold start it interrupts takes over a second at the disk's rate)
+FLEET_KILL_AFTER_S = 0.1
+FLEET_MODEL = dict(name="resnet50", image=224, width=1.0, classes=100,
+                   seed=0)
+FLEET_WORKERS = ("w0", "w1")
+
+
+def fleet_plan(root, x_np, device, model):
+    """The fleet's one plan: ``decide()`` with measured profiles, as a
+    worker would, under the workers' emulated disk (an ``IOEngine`` of its
+    own), written into every worker's store before ``add_model`` so each
+    worker and restart serves it. Returns the deciding engine."""
+    from repro_torch.core.engine import ColdEngine
+    from repro_torch.core.scheduler import transfer_estimate
+    from repro_torch.ioengine import IOEngine
+    from repro_torch.models.cnn import build_cnn
+
+    layers, _ = build_cnn(**model)
+    io = IOEngine()
+    io.set_sim_read_bandwidth(FLEET_DISK_BYTES_PER_S)
+    try:
+        eng = ColdEngine(layers, root / "plan", store_fmt="super",
+                         io_engine=io, device=device)
+        stats = eng.decide(x_np, n_little=2)
+    finally:
+        io.close()
+    plan_json = (root / "plan" / "plan.json").read_text()
+    for wid in FLEET_WORKERS:
+        d = root / "fd" / wid / model["name"]
+        d.mkdir(parents=True)
+        (d / "plan.json").write_text(plan_json)
+    summary = plan_summary((c.kernel, c.use_cache) for c in eng.plan.choices
+                           if c.kernel != "fn")
+    print(f"  pinned plan (measured, under the emulated disk): decide "
+          f"{stats['plan_generation_s']:.2f} s, io_interference="
+          f"{stats['io_interference']:.3f} est_makespan_s="
+          f"{stats['est_makespan_s']:.6f} against the transfer estimate "
+          f"{transfer_estimate(eng.store.model_bytes()):.6f} s of the "
+          f"model's {eng.store.model_bytes()} B over an unmeasured link; "
+          f"{json.dumps(summary)}")
+    return eng
+
+
+def fleet_path(card, x_np, ref_out, check_output, device="cuda",
+               model=FLEET_MODEL) -> dict:
+    """``FrontDoor(n_workers=2, device="cuda")`` serving resnet50@224 on one
+    pinned measured plan: a SIGKILL mid cold start fails over to the
+    sibling, which serves it from disk; the victim restarts; a cold start
+    pinned to it races the sibling's RAM; then one warm run on each.
+    Outputs bitwise equal across the workers. Returns the launches of the
+    served requests (each result carries its own request's), which must be
+    the plan's launches per forward times the forwards served. ``device``
+    and ``model`` (``build_cnn``'s arguments) let the phase be rehearsed
+    on the CPU at a small size."""
+    import numpy as np
+    import torch
+
+    from repro_torch.executor.frontdoor import FrontDoor
+
+    print(f"fleet: FrontDoor(n_workers=2, device='cuda') serving resnet50 "
+          f"image=224 width=1.0, edge disk "
+          f"{FLEET_DISK_BYTES_PER_S / 1e6:g} MB/s ({card})")
+    served = []
+
+    def show(label, res):
+        served.append(res)
+        peer = res.get("peer") or {}
+        print(f"  {label}: worker {res['worker']} (pid {res['pid']}) "
+              f"warm={res['warm']} total_s={res['total_s']:.4f} peer "
+              f"layers={peer.get('layers_fetched', 0)} "
+              f"bytes={peer.get('bytes_fetched', 0)} "
+              f"won={peer.get('won', 0)} launches="
+              f"{json.dumps({k: n for k, n in res['launches'].items() if n})}")
+
+    def wait(cond, timeout_s, what):
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if cond():
+                return
+            time.sleep(0.02)
+        fail(f"fleet: timed out waiting for {what}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        pinned = fleet_plan(Path(tmp), x_np, device, model)
+        fd = FrontDoor(Path(tmp) / "fd", n_workers=len(FLEET_WORKERS),
+                       device=device, spawn_timeout_s=300.0,
+                       worker_args={"store_fmt": "super",
+                                    "sim_disk_bytes_per_s":
+                                        FLEET_DISK_BYTES_PER_S})
+        try:
+            t0 = time.perf_counter()
+            fd.start()
+            t1 = time.perf_counter()
+            fd.add_model("resnet50", "repro_torch.models.cnn:build_cnn",
+                         **model)
+            t2 = time.perf_counter()
+            print(f"  spawn (CUDA context, kernel libraries) {t1 - t0:.2f} "
+                  f"s; add_model on both workers (build, store, the pinned "
+                  f"plan's cache) {t2 - t1:.2f} s")
+            # SIGKILL mid cold start: failover to the sibling, from disk
+            req = fd.request("resnet50", x_np, deadline_s=300.0,
+                             worker="w0")
+            wait(lambda: req.worker is not None, 60, "the first dispatch")
+            time.sleep(FLEET_KILL_AFTER_S)
+            fd.kill_worker("w0")
+            t_kill = time.perf_counter()
+            disk = req.result(timeout=300)
+            show(f"cold start after SIGKILL of w0 {t_kill - t2:.2f} s in "
+                 f"(failover, from disk; request wall "
+                 f"{time.perf_counter() - t2:.2f} s)", disk)
+            if disk["worker"] != "w1" or disk["warm"] or disk["peer"]:
+                fail(f"fleet: the failover was not a cold start on w1: "
+                     f"{disk['worker']} warm={disk['warm']}")
+            check_output("fleet failover (w1, from disk)",
+                         torch.from_numpy(disk["output"]).to(ref_out.device))
+            wait(lambda: fd.health()["workers"]["w0"]["alive"]
+                 and "resnet50" in fd._workers["w0"].ready_models, 300,
+                 "w0's restart")
+            h = fd.health()
+            print(f"  w0 restarted {time.perf_counter() - t_kill:.2f} s "
+                  f"after the kill: stats={json.dumps(h['stats'])}")
+            left = (sum(w["in_flight"] for w in h["workers"].values()),
+                    sum(h["queues"].values()))
+            if h["stats"]["worker_restarts"] < 1 \
+                    or h["stats"]["failovers"] < 1 or left != (0, 0):
+                fail(f"fleet: restart/failover/leftovers wrong: {h}")
+            # the restarted w0 cold-starts racing w1's RAM
+            wait(lambda: "resnet50" in (fd._workers["w1"].health.get(
+                "resident") or ()), 60, "w1's residency")
+            raced = fd.request("resnet50", x_np, deadline_s=300.0,
+                               worker="w0").result(timeout=300)
+            show("cold start raced against w1's RAM", raced)
+            peer = raced.get("peer") or {}
+            if raced["worker"] != "w0" or raced["warm"] \
+                    or peer.get("layers_fetched", 0) <= 0 \
+                    or peer.get("crc_failures"):
+                fail(f"fleet: the raced cold start took no peer layer: "
+                     f"{raced['worker']} warm={raced['warm']} {peer}")
+            if not np.array_equal(raced["output"], disk["output"]):
+                fail("fleet: the peer-raced output differs from the "
+                     "disk-served one")
+            for wid in FLEET_WORKERS:
+                again = fd.request("resnet50", x_np, deadline_s=300.0,
+                                   worker=wid).result(timeout=300)
+                show(f"warm run on {wid}", again)
+                if not again["warm"] or not np.array_equal(
+                        again["output"], disk["output"]):
+                    fail(f"fleet: warm run on {wid} not warm or not "
+                         f"bitwise equal")
+            print(f"  outputs bitwise equal across workers, after the "
+                  f"failover, peer- and disk-served")
+        finally:
+            fd.shutdown()
+        per_forward = cnn_kernels(pinned.layers, pinned.plan.choices)
+        counts = {k: sum(r["launches"].get(k, 0) for r in served)
+                  for k in per_forward}
+        print(f"  requests' launches {json.dumps(counts)}: "
+              f"{json.dumps(per_forward)} a forward x {len(served)} "
+              f"forwards served")
+        for k, n in per_forward.items():
+            if counts[k] != n * len(served):
+                fail(f"fleet: {k} launched {counts[k]} times in the served "
+                     f"requests, not {n} x {len(served)}")
+        return counts
 
 
 def main() -> None:
@@ -2537,10 +2820,23 @@ def main() -> None:
         if leng.repairs.counts().get("kernel_demoted") \
                 or leng.breaker.open_keys():
             fail(f"kernels were demoted: {leng.repairs.counts()}")
+
+        # -- 4a. continuous mode: kernel switching ---------------------------
+        for k, n in switching_path(card, eng, layers, x_np, decided,
+                                   runs[2][1], check_output).items():
+            launches[k] += n
+        if eng.repairs.counts().get("kernel_demoted") \
+                or eng.breaker.open_keys():
+            fail(f"kernels were demoted: {eng.repairs.counts()}")
     reset_io_engine()
     reset_stage_engine()
     reset_core_pool()
     print(f"  [CNN path done at {time.perf_counter() - t_start:.1f} s]")
+
+    # -- 4b. the front-door fleet with peer warm-state transfer --------------
+    for k, n in fleet_path(card, x_np, ref_out, check_output).items():
+        launches[k] += n
+    print(f"  [fleet path done at {time.perf_counter() - t_start:.1f} s]")
 
     # -- 5. the cold-LLM path -----------------------------------------------
     launches.update(llm_path(dev, LLM_DEPTH))

@@ -160,7 +160,23 @@ class ColdEngine:
         return ks
 
     def _profiler(self) -> Profiler:
-        return self.profiler_factory(self.store, device=self.device)
+        prof = self.profiler_factory(self.store, device=self.device)
+        prof.emulated_read_bytes_per_s = self._emulated_read_bytes_per_s()
+        return prof
+
+    def _emulated_read_bytes_per_s(self) -> Optional[float]:
+        """The edge-disk emulation (``IOEngine.set_sim_read_bandwidth``)
+        of the IO engine this engine's runtimes read through, or None: a
+        decision measured under it prices reads as the runtime pays them."""
+        io_eng = self._io_engine_opt
+        if io_eng == "auto":
+            if not getattr(self.store, "supports_async", False):
+                return None
+            from repro_torch.ioengine import current_io_engine
+
+            io_eng = current_io_engine()
+        return getattr(io_eng, "sim_read_bytes_per_s", None) if io_eng \
+            else None
 
     def _trace_shapes(self, x: np.ndarray) -> List[np.ndarray]:
         """Propagate an example input through default kernels to get each
@@ -343,7 +359,8 @@ class ColdEngine:
             from repro_torch.core.profiler import measure_read_interference
 
             self.io_interference = measure_read_interference(
-                self.store, [l.spec.name for l in self.layers], n_little)
+                self.store, [l.spec.name for l in self.layers], n_little,
+                emulated_read_bytes_per_s=self._emulated_read_bytes_per_s())
 
         # partition into shape classes; profile one representative per
         # (class × kernel), consulting the persistent profile DB first
@@ -444,40 +461,7 @@ class ColdEngine:
         self.plan.read_depth = plan_read_depth(
             read_costs, other_costs, io_interference=self.io_interference)
         self._runtimes.clear()     # cached runtimes are plan-bound
-        # materialize/drop the weight cache per the plan; entries already
-        # materialized by a previous decide() from the SAME raw weights
-        # (fingerprint sidecar) are kept as-is, so a warm-DB decide performs
-        # zero transforms — but an updated checkpoint invalidates them
-        fp_path = self.store.root / "cache_fingerprints.json"
-        try:
-            fps: Dict[str, Dict[str, str]] = json.loads(fp_path.read_text())
-        except (FileNotFoundError, json.JSONDecodeError):
-            fps = {}
-        for l, choice in zip(self.layers, self.plan.choices):
-            if not l.spec.weight_shapes:
-                continue
-            kern = self._kernel_by_name(l.spec, choice.kernel)
-            for k2 in self._kernels_for(l.spec):
-                if k2.name != kern.name or not choice.use_cache:
-                    self.store.drop_cached(l.spec.name, k2.name)
-            if not choice.use_cache:
-                fps.pop(l.spec.name, None)
-                continue
-            fp = self._raw_fingerprint(l)
-            fresh = (not force_reprofile and fp != ""
-                     and self.store.has_cached(l.spec.name, kern.name)
-                     and fps.get(l.spec.name, {}).get(kern.name) == fp)
-            if not fresh:
-                raw = self.store.read_raw(l.spec.name)
-                self.store.write_cached(l.spec.name, kern.name,
-                                        kern.transform(raw, l.spec))
-            fps[l.spec.name] = {kern.name: fp}
-        # durable sidecar commit: a crash mid-write must not leave a torn
-        # fingerprint file silently validating stale cache entries
-        atomic_write_text(fp_path, json.dumps(fps, indent=1), durable=True)
-        # post-materialization maintenance: dropped/superseded cache entries
-        # leave dead extents in a super-bundle container; compact them out
-        maintenance = self.store.maintain()
+        maintenance = self._materialize_cache(force_reprofile)
         # a fresh decision answers any pending re-decide requests left by
         # runtime kernel demotions (_fallback_execute)
         rp = self.store.root / "replan_pending.json"
@@ -539,6 +523,58 @@ class ColdEngine:
         atomic_write_text(self.store.root / "plan.json", json.dumps(
             {"plan": self.plan.to_dict(), "stats": stats}, indent=1))
         return stats
+
+    def adopt_plan(self, x_example: np.ndarray, *, n_little: int = 3) -> Plan:
+        """Serve the persisted ``plan.json`` (a restart, or one plan pinned
+        across a fleet's workers by writing it into each store) as
+        ``decide()`` would leave it: the plan reloaded (:meth:`ensure_plan`),
+        its cache entries materialized in this store, and each layer's
+        input example traced now. Without the cache the cold starts would
+        re-derive every cached layer from raw; without the trace the first
+        one would run the tracing forward itself."""
+        plan = self.ensure_plan(x_example, n_little=n_little)
+        self._materialize_cache()
+        if self._layer_inputs is None:
+            self._layer_inputs = self._trace_shapes(x_example)
+        return plan
+
+    def _materialize_cache(self, force: bool = False) -> Dict[str, Any]:
+        """Materialize the plan's cached choices in the store and drop every
+        other cache entry of a weighted layer. Entries already materialized
+        from the SAME raw weights (fingerprint sidecar) are kept as-is, so a
+        warm-DB decide performs zero transforms, but an updated checkpoint
+        (or ``force``) re-derives them. Returns the store's maintenance
+        summary."""
+        fp_path = self.store.root / "cache_fingerprints.json"
+        try:
+            fps: Dict[str, Dict[str, str]] = json.loads(fp_path.read_text())
+        except (FileNotFoundError, json.JSONDecodeError):
+            fps = {}
+        for l, choice in zip(self.layers, self.plan.choices):
+            if not l.spec.weight_shapes:
+                continue
+            kern = self._kernel_by_name(l.spec, choice.kernel)
+            for k2 in self._kernels_for(l.spec):
+                if k2.name != kern.name or not choice.use_cache:
+                    self.store.drop_cached(l.spec.name, k2.name)
+            if not choice.use_cache:
+                fps.pop(l.spec.name, None)
+                continue
+            fp = self._raw_fingerprint(l)
+            fresh = (not force and fp != ""
+                     and self.store.has_cached(l.spec.name, kern.name)
+                     and fps.get(l.spec.name, {}).get(kern.name) == fp)
+            if not fresh:
+                raw = self.store.read_raw(l.spec.name)
+                self.store.write_cached(l.spec.name, kern.name,
+                                        kern.transform(raw, l.spec))
+            fps[l.spec.name] = {kern.name: fp}
+        # durable sidecar commit: a crash mid-write must not leave a torn
+        # fingerprint file silently validating stale cache entries
+        atomic_write_text(fp_path, json.dumps(fps, indent=1), durable=True)
+        # post-materialization maintenance: dropped/superseded cache entries
+        # leave dead extents in a super-bundle container; compact them out
+        return self.store.maintain()
 
     def _kernel_by_name(self, spec: LayerSpec, name: str) -> Kernel:
         return next(k for k in self._kernels_for(spec) if k.name == name)
@@ -799,14 +835,17 @@ class ColdEngine:
 
     def submit_cold(self, x, *, n_little: int = 3, work_stealing: bool = True,
                     graph_hook=None,
-                    deadline_s: Optional[float] = None) -> PipelineJob:
+                    deadline_s: Optional[float] = None,
+                    peer_fetch=None) -> PipelineJob:
         """Non-blocking cold run: compile the plan's task graph and enqueue
         it on the shared pool (the ColdServer's admission path).
         ``deadline_s`` bounds the whole run end-to-end (typed
-        ``DeadlineExceeded`` from the pool watchdog once blown)."""
+        ``DeadlineExceeded`` from the pool watchdog once blown).
+        ``peer_fetch`` (a ``warmstate.PeerFetcher``) arms the peer
+        warm-state race against the local prep chains."""
         rt = self._runtime(n_little=n_little, work_stealing=work_stealing)
         return rt.submit(x, self.plan, graph_hook=graph_hook,
-                         job_deadline_s=deadline_s)
+                         job_deadline_s=deadline_s, peer_fetch=peer_fetch)
 
     def run_cold(self, x, *, n_little: int = 3, mode: str = "nnv12") -> RunResult:
         """mode: nnv12 (full) | sequential (ncnn-like baseline) |

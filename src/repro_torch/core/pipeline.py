@@ -40,6 +40,7 @@ from repro_torch.device import as_device, new_stream, on_stream, sync, to_device
 from repro_torch.executor.graph import OpTrace, compile_plan
 from repro_torch.executor.pool import CorePool, Job, get_core_pool
 from repro_torch.faults import TransientFault
+from repro_torch.ioengine import ReadAbandoned
 
 __all__ = ["OpTrace", "PipelineJob", "PipelineRuntime", "RunResult"]
 
@@ -148,6 +149,17 @@ class _AsyncReads:
         if h is None:
             return {}
         return h.wait()
+
+    def abort(self, layer: str) -> None:
+        """Race-loser interrupt: flag the layer's in-flight read abandoned
+        so a waiter parked in the engine's emulated-disk pacing raises
+        ``ReadAbandoned`` and frees its pool slot now. Flag-only — buffer
+        recycling still happens at job-end ``close()``."""
+        with self.lock:
+            h = self.pending.get(layer)
+        ab = getattr(h, "abort", None)
+        if ab is not None:
+            ab()
 
     def close(self) -> None:
         with self.lock:
@@ -339,7 +351,8 @@ class PipelineRuntime:
 
     # -- graph compilation + submission -------------------------------------
     def submit(self, x, plan: Plan, *, graph_hook=None,
-               job_deadline_s: Optional[float] = None) -> PipelineJob:
+               job_deadline_s: Optional[float] = None,
+               peer_fetch=None) -> PipelineJob:
         """Compile the plan into a task graph and hand it to the persistent
         pool; returns immediately with a :class:`PipelineJob`.
 
@@ -347,7 +360,21 @@ class PipelineRuntime:
         the LLM bridge's decode-path packing) before submission.
         ``job_deadline_s`` is the run's END-TO-END budget: the pool
         watchdog fails the job with a typed ``DeadlineExceeded`` once it is
-        blown (the front door's deadline propagation lands here)."""
+        blown (the front door's deadline propagation lands here).
+
+        ``peer_fetch`` (a ``warmstate.PeerFetcher``) arms the warm-state
+        race: the peer's post-transform staged weights stream in on the
+        fetcher's own background thread (started at submit, so the wire
+        races the disk from t=0), each layer racing its local
+        ``read → transform → stage`` chain.  First finisher wins — the
+        winner cancels the loser via ``CorePool.cancel_tasks`` (preps-done
+        still fires exactly once); every weighted layer also gets a
+        dep-free ``fetch_remote`` marker task so the race is visible and
+        cancellable in the DAG.  A peer-landed layer goes through the same
+        stage path as a local one, so both are bit-identical.  Any
+        ``TransientFault`` on the wire falls back to the local chains
+        without failing the job.  Every outcome lands in the job's
+        ``fault_events`` journal."""
         t0 = time.perf_counter()
         weights: Dict[str, Any] = {
             n: {} for n in self.order if not self.specs[n].weight_shapes}
@@ -383,6 +410,10 @@ class PipelineRuntime:
             st = getattr(self.store, "readahead_stats", None)
             if st is not None:
                 ra_stats = {"mode": "madvise", **st}
+        fetch_layers = None
+        if peer_fetch is not None:
+            fetch_layers = [n for n in self.order
+                            if self.specs[n].weight_shapes]
 
         graph = compile_plan(
             self.order, plan,
@@ -392,7 +423,29 @@ class PipelineRuntime:
             prep_costs=self.prep_costs,
             stage_in_prep=self.stage_in_prep,
             deferred_stage_affinity="any" if self.prefetch else "big",
+            fetch_layers=fetch_layers,
         )
+        # race bookkeeping: the winner cancels the loser by tid.  jobref is
+        # a late-bound cell — task fns can start before ``pool.submit``
+        # returns the Job; a miss in that window just means both sides run
+        # to completion and stage bit-identical weights (the first kept).
+        # Race journal lines from that window wait in ``early`` until the
+        # Job exists.
+        jobref: List[Optional[Job]] = [None]
+        early: List[Dict[str, Any]] = []
+
+        def journal(event):
+            with lock:
+                job = jobref[0]
+                if job is None:
+                    early.append(event)
+                    return
+            job.fault_events.append(event)
+
+        chain_tids: Dict[str, List[int]] = {
+            n: [t.tid for t in ts] for n, ts in graph.prep_chains().items()}
+        fetch_tids: Dict[str, int] = {
+            t.layer: t.tid for t in graph.tasks if t.kind == "fetch_remote"}
         # lane successors for depth prefetch: a read task submits its own
         # layer plus the next (depth-1) layers of its lane, so a little
         # core keeps Plan.read_depth reads in flight instead of one
@@ -420,11 +473,26 @@ class PipelineRuntime:
 
             def fn():
                 reads.prefetch(ahead)   # keep the lane at planned depth
-                pending[(name, "read")] = self._read_op_async(reads, name)
+                try:
+                    pending[(name, "read")] = self._read_op_async(reads,
+                                                                  name)
+                except ReadAbandoned:
+                    # warm-state fetch won this layer mid-read: the chain's
+                    # later tasks are already cancelled — bail, freeing the
+                    # slot instead of sleeping out the emulated disk
+                    return
             return fn
+
+        def fetch_won(name):
+            """The peer landed this layer while its local read was
+            abandoned: the chain's remaining tasks have nothing to do."""
+            with lock:
+                return name in weights
 
         def transform_fn(name):
             def fn():
+                if (name, "read") not in pending and fetch_won(name):
+                    return
                 pending[(name, "xf")] = self.kernels[name].transform(
                     pending[(name, "read")], self.specs[name])
             return fn
@@ -433,10 +501,75 @@ class PipelineRuntime:
             def fn():
                 src = pending.get((name, "xf"), None)
                 if src is None:
+                    if (name, "read") not in pending and fetch_won(name):
+                        return
                     src = pending[(name, "read")]
                 w = self._stage(src)
                 with lock:
-                    weights[name] = w
+                    won = name not in weights
+                    if won:
+                        weights[name] = w
+                # local chain finished first: retire the pending fetch task
+                # (a RUNNING fetch is left alone — it re-checks ``weights``
+                # before writing, and both values are bit-identical anyway)
+                ftid = fetch_tids.get(name)
+                if won and ftid is not None:
+                    job = jobref[0]
+                    if job is not None:
+                        self._get_pool().cancel_tasks(
+                            job, [ftid], reason="race_local_won")
+            return fn
+
+        # The peer stream drains on the PeerFetcher's OWN thread (started
+        # eagerly below, like the read prefetch — bytes are moving before
+        # any worker picks up a task) and delivers layers through these
+        # callbacks; the graph's ``fetch_remote`` tasks are the race's
+        # instant, cancellable markers (running one backstop-starts the
+        # stream; a local win retires its layer's pending marker).  The
+        # stream NEVER fails the job: any TransientFault (refusal,
+        # disconnect, CRC mismatch, injected chaos at the warmstate.*
+        # sites) journals a fallback and leaves the local chains — always
+        # racing — authoritative.
+        def fetch_landed(name, w):
+            with lock:
+                lost = name in weights           # local chain already won
+            if not lost:
+                staged = self._stage(w)
+                with lock:
+                    lost = name in weights       # ...or won while we staged
+                    if not lost:
+                        weights[name] = staged
+            journal({"action": "fetch_lost" if lost else "fetch_won",
+                     "layer": name})
+            if lost:
+                return
+            job = jobref[0]
+            # fetch won: retire the local read→transform→stage chain;
+            # cancellation fires preps-done through the pool's
+            # exactly-once accounting. A read task already RUNNING can't
+            # be cancelled — interrupt its (emulated-disk) wait instead
+            if job is None:
+                return      # no cancel yet: the local chain runs out
+            self._get_pool().cancel_tasks(
+                job, chain_tids.get(name, ()), reason="race_fetch_won")
+            if reads is not None:
+                reads.abort(name)
+
+        def fetch_failed(e):
+            journal({"action": "fetch_fallback",
+                     "error": type(e).__name__, "detail": str(e)})
+            if self.repair_log is not None:
+                self.repair_log.record(
+                    "fetch_fallback", error=type(e).__name__)
+
+        def race_decided():
+            with lock:
+                return all(n in weights for n in (fetch_layers or ()))
+
+        def fetch_fn(name):
+            def fn():
+                peer_fetch.start_stream(fetch_landed, on_error=fetch_failed,
+                                        should_stop=race_decided)
             return fn
 
         def execute_fn(name):
@@ -469,7 +602,8 @@ class PipelineRuntime:
             return fn
 
         binders = {"read": read_fn, "transform": transform_fn,
-                   "stage": stage_fn, "execute": execute_fn}
+                   "stage": stage_fn, "execute": execute_fn,
+                   "fetch_remote": fetch_fn}
         for task in graph.tasks:
             if task.kind == "read":
                 task.fn = read_fn(task.layer, task.depth)
@@ -478,15 +612,35 @@ class PipelineRuntime:
         if graph_hook is not None:
             graph_hook(graph, weights, lock)
 
+        if peer_fetch is not None and fetch_layers:
+            # arm the race NOW — the peer stream races the disk from t=0,
+            # not from whenever a pool worker first idles
+            peer_fetch.start_stream(fetch_landed, on_error=fetch_failed,
+                                    should_stop=race_decided)
+
         job = self._get_pool().submit(
             graph, name=f"cold:{self.order[0]}..{self.order[-1]}",
             allow_steal=self.work_stealing, t0=t0,
             retry=self.retry, deadline_s=self.deadline_s,
             job_deadline_s=job_deadline_s)
+        with lock:
+            jobref[0] = job
+            job.fault_events.extend(early)
         if reads is not None:
             # engine buffers recycle only once no retry/zombie can still
             # reap them — i.e. when the job is finished for good
             job.add_done_callback(lambda _j: reads.close())
+        if peer_fetch is not None:
+            def _end_race(j):
+                peer_fetch.close()
+                # journal the race's closing line next to the per-layer
+                # win/loss/fallback events
+                j.fault_events.append({
+                    "action": "fetch_race_end",
+                    **{k: peer_fetch.stats[k]
+                       for k in ("layers_fetched", "bytes_fetched",
+                                 "crc_failures", "refused")}})
+            job.add_done_callback(_end_race)
         return PipelineJob(job, state, weights, readahead=ra_stats)
 
     def run(self, x, plan: Plan) -> RunResult:

@@ -130,6 +130,11 @@ class Profiler:
         self._stream = None  # exec-timing stream (CUDA only), made lazily
         self._scratch: Optional[Path] = None
         self.calls = 0
+        # an emulated edge disk under the runtime's reads (the IO engine's
+        # sim_read_bytes_per_s, set by the engine): a profiled read then
+        # takes at least its bytes over that bandwidth, as the runtime's
+        # paced reads do
+        self.emulated_read_bytes_per_s: Optional[float] = None
 
     @property
     def scratch(self) -> Path:
@@ -148,18 +153,22 @@ class Profiler:
     def __exit__(self, *exc):
         self.close()
 
-    def _time_read(self, fn) -> float:
-        """Disk-read timing. With cold_reads (and privilege) the OS page
-        cache is dropped first, like the paper's methodology; otherwise the
-        warm-cache read time is reported."""
+    def _time_read(self, fn, nbytes: int) -> float:
+        """Disk-read timing of ``nbytes``. With cold_reads (and privilege)
+        the OS page cache is dropped first, like the paper's methodology;
+        otherwise the warm-cache read time is reported. Under an emulated
+        disk the read takes at least ``nbytes`` over its bandwidth."""
         from repro_torch.core.oscache import CAN_DROP, drop_page_cache
 
         if self.cold_reads and CAN_DROP:
             drop_page_cache()
             t0 = time.perf_counter()
             fn()
-            return time.perf_counter() - t0
-        return _time(fn, repeats=self.repeats)
+            t = time.perf_counter() - t0
+        else:
+            t = _time(fn, repeats=self.repeats)
+        bw = self.emulated_read_bytes_per_s
+        return max(t, nbytes / bw) if bw else t
 
     def _time_exec(self, fn, w, x) -> Tuple[float, float]:
         """(first call incl. any kernel build, best of ``repeats`` warmed
@@ -207,12 +216,14 @@ class Profiler:
         if warm is not None:
             warm([spec.name])
         raw = self.store.read_raw(spec.name)
-        t_read = self._time_read(_read_raw)
+        rbytes = sum(v.nbytes for v in raw.values())
+        t_read = self._time_read(_read_raw, rbytes)
         if spec.weight_shapes:
             from repro_torch.checkpoint.bundle import read_bundle, write_bundle
 
             t_transform = _time(lambda: kernel.transform(raw, spec), repeats=self.repeats)
             transformed = kernel.transform(raw, spec)
+            tbytes = sum(v.nbytes for v in transformed.values())
             # cached-read timing goes through a scratch bundle, NOT the
             # model store — decide() drops the losers, and a super-bundle
             # store would pay one container rewrite per candidate
@@ -220,11 +231,9 @@ class Profiler:
             write_bundle(scratch, transformed)
             try:
                 t_read_cached = self._time_read(
-                    lambda: read_bundle(scratch, mmap=False))
+                    lambda: read_bundle(scratch, mmap=False), tbytes)
             finally:
                 scratch.unlink(missing_ok=True)
-            tbytes = sum(v.nbytes for v in transformed.values())
-            rbytes = sum(v.nbytes for v in raw.values())
         else:
             t_transform, t_read_cached, tbytes, rbytes = 0.0, 0.0, 0, 0
             transformed = raw
@@ -251,11 +260,15 @@ class Profiler:
         )
 
 
-def measure_read_interference(store, layer_names, n_threads: int = 3) -> float:
+def measure_read_interference(store, layer_names, n_threads: int = 3, *,
+                              emulated_read_bytes_per_s: Optional[float]
+                              = None) -> float:
     """§3.2: co-running read operations interfere through shared disk
     bandwidth. Measures the real slowdown factor on this host: wall time of
     n_threads concurrent cold reads of different layers vs the same reads
-    serial. Returns per-op slowdown ≥ 1 (1.0 = no interference)."""
+    serial. Returns per-op slowdown ≥ 1 (1.0 = no interference). Under an
+    emulated disk (one shared bandwidth) each pass takes at least all its
+    bytes over that bandwidth."""
     import threading
 
     from repro_torch.core.oscache import CAN_DROP, drop_page_cache
@@ -296,6 +309,10 @@ def measure_read_interference(store, layer_names, n_threads: int = 3) -> float:
     for t in threads:
         t.join()
     concurrent = time.perf_counter() - t0
+    if emulated_read_bytes_per_s:
+        floor = sum(store.raw_bytes(n) for n in names) \
+            / emulated_read_bytes_per_s
+        serial, concurrent = max(serial, floor), max(concurrent, floor)
     # perfect overlap -> concurrent == serial/n; full serialization ->
     # concurrent == serial. slowdown per op = concurrent * n / serial.
     return max(1.0, concurrent * len(names) / max(serial, 1e-9))

@@ -13,6 +13,10 @@
     start into first-token serving that overlaps later-layer prep with
     prefill of already-staged early layers, then decodes on a
     ``BatchedServer``.
+  * ``frontdoor``/``worker`` — ``FrontDoor``: a supervised fleet of worker
+    processes, one ``ColdServer`` each, with lanes, shedding, cost-based
+    routing and crash failover; ``warmstate`` streams a sibling's resident
+    staged weights to a cold-starting worker, racing its local disk.
 
 ``server``/``llm_bridge`` import the engine (which imports the pipeline
 facade, which imports ``graph``/``pool``), so they are exposed lazily to
@@ -29,6 +33,7 @@ _LAZY = {
     "ColdServer": ("repro_torch.executor.server", "ColdServer"),
     "ColdStart": ("repro_torch.executor.server", "ColdStart"),
     "MemoryBudget": ("repro_torch.executor.server", "MemoryBudget"),
+    "FrontDoor": ("repro_torch.executor.frontdoor", "FrontDoor"),
     "ColdLLMResult": ("repro_torch.executor.llm_bridge", "ColdLLMResult"),
     "cold_start_llm": ("repro_torch.executor.llm_bridge", "cold_start_llm"),
 }

@@ -9,6 +9,13 @@ an explicit DAG of typed tasks:
     donor metric);
   * per layer, an ``execute`` task on the big cores, depending on the
     layer's ``stage`` and the previous layer's ``execute`` (the exec chain);
+  * optionally, per weighted layer, a dep-free ``fetch_remote`` task
+    (affinity ``any``) that races the local prep chain by streaming the
+    layer's staged weights from a sibling worker — first finisher wins,
+    the loser is cancelled (``CorePool.cancel_tasks``).  ``fetch_remote``
+    is deliberately NOT a ``PREP_KINDS`` member: prep accounting
+    (admission slots, preps-done, steal metrics) describes the *local*
+    chain, and a fetch win retires that chain through cancellation;
   * arbitrary extra tasks (e.g. the LLM bridge's decode-path ``pack`` ops)
     can be appended with explicit deps before submission.
 
@@ -138,6 +145,7 @@ def compile_plan(
     stage_in_prep: bool = True,
     deferred_stage_affinity: str = "any",
     read_depth: Optional[int] = None,
+    fetch_layers: Optional[Sequence[str]] = None,
 ) -> TaskGraph:
     """Compile a scheduling ``Plan`` into a typed task graph.
 
@@ -151,10 +159,20 @@ def compile_plan(
 
     ``read_depth`` (default: the plan's) stamps every read task with the
     I/O queue depth the async engine should sustain — the runtime's read
-    op submits that many lane successors before reaping its own layer."""
+    op submits that many lane successors before reaping its own layer.
+
+    ``fetch_layers`` names weighted layers for which a ``fetch_remote``
+    race task is also emitted: dep-free, affinity ``any``, placed FIRST
+    (lowest tids) so idle workers start the peer stream before local
+    chains queue up.  The execute chain keeps its dep on ``stage`` only —
+    a fetch win satisfies it by cancelling the stage task, a fetch loss
+    or fault leaves the local chain authoritative."""
     prep_costs = prep_costs or {}
     depth = max(1, int(plan.read_depth if read_depth is None else read_depth))
     g = TaskGraph()
+    for name in (fetch_layers or ()):
+        if weighted.get(name, False):
+            g.add(name, "fetch_remote", affinity="any")
     placement: Dict[str, Tuple[str, Optional[int]]] = {}
     for i in plan.big_prep:
         placement[order[i]] = ("big", None)

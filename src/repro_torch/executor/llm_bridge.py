@@ -23,9 +23,9 @@ staging copy (``staging.consume``), dequantizes a ``:q8``/``:q4`` group
 with the ``dequant_int8``/``dequant_int4`` kernels (``llm_graph._dequant``,
 the reference's ``q·s`` in f32 bit for bit) and casts to ``cfg.dtype``, and
 synchronizes before the task ends, so the ``pack`` trace is the real work.
-The stacked params are made on that stream too. The reference hands the
-packed params to ``ColdServer.register_packed_state`` for peer transfer;
-that waits for the port of ``executor/warmstate.py``.
+The stacked params are made on that stream too. The packed params are
+handed to ``ColdServer.register_packed_state``, so a sibling worker's
+warm-state fetch can take them (``executor/warmstate.py``).
 """
 from __future__ import annotations
 
@@ -164,6 +164,15 @@ def cold_start_llm(
     decode_prep_s = max(t.end for t in pack_traces)
     overlapped = sum(1 for t in prep_traces if t.end > first_exec_start)
     overlapped_packs = sum(1 for t in pack_traces if t.start < first_token_s)
+
+    # packed decode params are now "present" on this worker: register them
+    # with the ColdServer so sibling workers' warm-state fetches can ride
+    # them over the transfer stream (the ``__packed__`` pseudo-layer),
+    # flattened to "layer/key" so they cross the wire as plain tensors
+    if server is not None and model_name is not None:
+        flat = {f"{lname}/{k}": v
+                for lname, kv in packed.items() for k, v in kv.items()}
+        server.register_packed_state(model_name, flat)
 
     # decode continuation: stack params, replay prompt + token 1 into a KV
     # slot, decode the rest greedily; the KV allocation draws from the

@@ -29,11 +29,11 @@ This is the port of ``repro/executor/server.py`` on the H100. Every
 engine it adds takes the server's ``device`` (default ``"cuda"``, which
 raises without a card). Warm runs execute the staged tensors on the
 engine's stream and synchronize it, where the reference calls
-``jax.block_until_ready``. The peer warm-state parts of the reference
-(the ``peers`` argument of ``cold_start``, ``_maybe_peer_fetch``,
-``_note_fetch_stats``, ``resident_state_for_transfer`` and
-``register_packed_state``, with their stats) wait for the port of
-``executor/warmstate.py``.
+``jax.block_until_ready``. Peer warm-state transfers
+(``executor/warmstate.py``) read the resident staged tensors: the
+``WarmStateServer`` copies each to pinned host memory before its
+CRC-32C, and the fetching side stages what lands through the same stage
+path as a local read.
 """
 from __future__ import annotations
 
@@ -46,9 +46,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 from repro_torch.core.engine import ColdEngine, LayerDef
 from repro_torch.core.pipeline import PipelineJob, RunResult
 from repro_torch.core.profiler import ProfileDB
+from repro_torch.core.scheduler import transfer_estimate
 from repro_torch.core.staging import consume
 from repro_torch.device import on_stream, resolve_device, sync, to_device
 from repro_torch.executor.pool import CorePool, get_core_pool
+from repro_torch.executor.warmstate import PACKED_LAYER, PeerFetcher
 from repro_torch.faults import DeadlineExceeded, ModelQuarantined
 
 
@@ -69,7 +71,8 @@ class MemoryBudget:
     registered evictors (the ColdServer's LRU) free least-recently-used
     staged weights first.  ``reserve`` never refuses — a KV allocation is
     a correctness requirement — it evicts what it can and returns whether
-    the pool is still within budget, so callers can see the overcommit.
+    the pool is still within budget, so callers (and the warm-state
+    transfer server's memory-pressure refusal) can see the overcommit.
     ``total_bytes=None`` disables the cap but keeps the accounting."""
 
     def __init__(self, total_bytes: Optional[int] = None):
@@ -203,8 +206,8 @@ class ColdServer:
         self.n_little = n_little
         self.max_concurrent_preps = max_concurrent_preps
         # one accounted device-memory pool: staged-weight residency (this
-        # server's LRU) and — when the same budget is handed to a
-        # BatchedServer — KV-cache growth draw from it
+        # server's LRU), packed decode params, and — when the same budget
+        # is handed to a BatchedServer — KV-cache growth all draw from it
         self.budget = budget if budget is not None \
             else MemoryBudget(memory_budget_bytes)
         self.budget.add_evictor(self._evict_for_budget)
@@ -230,7 +233,19 @@ class ColdServer:
                       "load_failures": 0, "quarantined": 0,
                       "idle_compactions": 0, "idle_compaction_bytes": 0,
                       "idle_reprofiles": 0, "warm_runs": 0,
-                      "warm_batches": 0}
+                      "warm_batches": 0, "peer_races": 0,
+                      "peer_races_declined": 0, "peer_layers_fetched": 0,
+                      "peer_bytes_fetched": 0, "peer_crc_failures": 0,
+                      "peer_refusals": 0, "transfers_served": 0,
+                      "transfer_refusals": 0}
+        # packed decode params (LLM bridge) by model — servable over the
+        # warm-state channel under the reserved ``__packed__`` pseudo-layer
+        self._packed_state: Dict[str, Dict[str, Any]] = {}
+        # peer link bandwidth EWMA, seeded by the first measured transfer;
+        # feeds the same transfer_estimate the front door routes with
+        self._link_bw: Optional[float] = None
+        # test/operator lever: refuse every warm-state transfer request
+        self.refuse_transfers = False
         # graceful drain (front-door worker handoff): _draining refuses new
         # admissions; _outstanding counts in-flight cold starts end-to-end
         # (admission -> job done), so drain() can wait the tail out
@@ -283,6 +298,7 @@ class ColdServer:
     # -- serving ------------------------------------------------------------
     def cold_start(self, name: str, x, *, n_little: Optional[int] = None,
                    graph_hook=None, deadline_s: Optional[float] = None,
+                   peers: Optional[Sequence[Dict[str, Any]]] = None,
                    ) -> ColdStart:
         """Admit one cold-start request (blocks while ``max_concurrent_preps``
         jobs are in their prep phase) and submit its task graph.
@@ -290,7 +306,13 @@ class ColdServer:
         ``deadline_s`` is the request's remaining end-to-end budget — it
         becomes the job's watchdog deadline (typed ``DeadlineExceeded``
         once blown), and a budget already too small to cover the queue is
-        shed HERE, before the admission semaphore is touched."""
+        shed HERE, before the admission semaphore is touched.
+
+        ``peers`` lists sibling workers holding this model resident
+        (``{"host", "port", "resident_bytes", "link_bytes_per_s"?}``).
+        When the best peer's ``transfer_estimate`` beats the plan's local
+        cold estimate, the job is armed with a :class:`PeerFetcher` and
+        every local prep chain races a ``fetch_remote`` task."""
         eng = self.engines[name]
         now = time.monotonic()
         with self._lock:
@@ -331,17 +353,71 @@ class ColdServer:
                 self.stats["max_active_preps"], self.stats["active_preps"])
             self._outstanding += 1
             self._served[name] = self._served.get(name, 0) + 1
+        peer_fetch = self._maybe_peer_fetch(name, peers) if peers else None
         try:
             job = eng.submit_cold(x, n_little=n_little or self.n_little,
                                   graph_hook=graph_hook,
-                                  deadline_s=deadline_s)
+                                  deadline_s=deadline_s,
+                                  peer_fetch=peer_fetch)
         except BaseException:
+            if peer_fetch is not None:
+                peer_fetch.close()
             self._release_prep_slot()
             self._request_done()
             raise
         job.job.add_preps_callback(lambda _job: self._release_prep_slot())
         job.job.add_done_callback(lambda _job: self._request_done())
+        if peer_fetch is not None:
+            job.job.add_done_callback(
+                lambda _job: self._note_fetch_stats(peer_fetch))
         return ColdStart(self, name, job)
+
+    # -- peer warm-state transfer ---------------------------------------------
+    def _maybe_peer_fetch(self, name: str,
+                          peers: Sequence[Dict[str, Any]]
+                          ) -> Optional[PeerFetcher]:
+        """Arm the fetch race iff the best peer's transfer estimate beats
+        the plan's local cold estimate — the SAME ``transfer_estimate``
+        arithmetic the front door routes with, so routing and execution
+        never disagree about when a transfer is worth it."""
+        eng = self.engines[name]
+        with self._lock:
+            link_bw = self._link_bw
+        best = None
+        for p in peers:
+            bw = float(p.get("link_bytes_per_s") or link_bw or 0.0)
+            est = transfer_estimate(int(p.get("resident_bytes") or 0), bw)
+            if best is None or est < best[0]:
+                best = (est, p)
+        if best is None:
+            return None
+        # local cold estimate: the plan's simulated makespan (read +
+        # transform + stage + exec). 0.0 = fallback/degraded plan, cost
+        # unknown — peer RAM almost always beats cold disk, so arm.
+        local_est = float(eng.plan.est_makespan) if eng.plan else 0.0
+        if local_est > 0.0 and best[0] >= local_est:
+            with self._lock:
+                self.stats["peer_races_declined"] += 1
+            return None
+        with self._lock:
+            self.stats["peer_races"] += 1
+        host, port = best[1]["host"], int(best[1]["port"])
+        return PeerFetcher(name, [(host, port)], io_engine=self.io_engine,
+                           injector=eng.fault_injector)
+
+    def _note_fetch_stats(self, pf: PeerFetcher) -> None:
+        """Job-done hook: fold the race's outcome into the server stats and
+        the link-bandwidth EWMA the next routing decision uses."""
+        s = pf.stats
+        with self._lock:
+            self.stats["peer_layers_fetched"] += int(s["layers_fetched"])
+            self.stats["peer_bytes_fetched"] += int(s["bytes_fetched"])
+            self.stats["peer_crc_failures"] += int(s["crc_failures"])
+            self.stats["peer_refusals"] += int(s["refused"])
+            bw = float(s.get("measured_bytes_per_s") or 0.0)
+            if bw > 0.0:
+                self._link_bw = (bw if self._link_bw is None
+                                 else 0.7 * self._link_bw + 0.3 * bw)
 
     def _request_done(self):
         with self._drain_cv:
@@ -487,10 +563,13 @@ class ColdServer:
                 "served": dict(self._served),
                 "outstanding": int(self._outstanding),
                 "draining": bool(self._draining),
+                "link_bytes_per_s": float(self._link_bw or 0.0),
             }
         snap["pool"] = dict(getattr(self.pool, "health", {}) or {})
         snap["budget"] = self.budget.snapshot()
-        # bytes this worker's engines pulled off the local disk
+        # bytes this worker's engines pulled off the LOCAL disk
+        # (peer-transferred bytes count in stats["peer_bytes_fetched"]
+        # instead, never here)
         total_read = 0
         for eng in self.engines.values():
             try:
@@ -568,7 +647,7 @@ class ColdServer:
     @property
     def memory_budget_bytes(self) -> Optional[int]:
         """Live view over the shared pool's cap: assigning retunes
-        ``budget.total`` (residency and KV share it),
+        ``budget.total`` (residency, packed params, and KV all share it),
         so operator code that always adjusted this attribute keeps
         working against the pooled accounting."""
         return self.budget.total
@@ -592,6 +671,61 @@ class ColdServer:
         if nb is not None:
             self.budget.release(f"staged:{name}", nb)
         return nb is not None
+
+    # -- warm-state transfer serving -------------------------------------------
+    def resident_state_for_transfer(self, name: str, *, packed: bool = False):
+        """The ``WarmStateServer``'s data source: ``(state, reason)`` where
+        ``state`` is ``{layer: {key: tensor}}`` or None (refusal). The
+        values are the resident staged tensors themselves; the server
+        moves each to pinned host bytes as it sends it, so a transfer
+        never holds a second whole-model host copy.
+
+        Refuses rather than serves a partial answer when the model is not
+        resident, the server is draining, the shared memory budget is
+        overcommitted (serving a transfer materializes host copies —
+        exactly the wrong moment to add pressure), or the operator flag
+        ``refuse_transfers`` is set.  ``packed=True`` additionally rides
+        the registered packed decode params under ``__packed__``."""
+        with self._lock:
+            if self.refuse_transfers:
+                self.stats["transfer_refusals"] += 1
+                return None, "refused by operator"
+            if self._draining:
+                self.stats["transfer_refusals"] += 1
+                return None, "draining"
+            weights = self._resident_weights.get(name)
+            if weights is None:
+                self.stats["transfer_refusals"] += 1
+                return None, "not resident"
+            state = {lname: dict(kv) for lname, kv in weights.items() if kv}
+            if packed:
+                pk = self._packed_state.get(name)
+                if pk:
+                    state[PACKED_LAYER] = dict(pk)
+            self._resident.move_to_end(name)    # a transfer is a warm use
+            self.stats["transfers_served"] += 1
+        if self.budget.over_budget():
+            with self._lock:
+                self.stats["transfers_served"] -= 1
+                self.stats["transfer_refusals"] += 1
+            return None, "memory pressure"
+        return state, "ok"
+
+    def register_packed_state(self, name: str, params: Dict[str, Any]):
+        """Packed decode-path params (the LLM bridge's ``pack`` output):
+        kept servable over the warm-state channel under the reserved
+        ``__packed__`` pseudo-layer, charged to the shared budget."""
+        flat = {k: v for k, v in params.items()
+                if getattr(v, "nbytes", None) is not None}
+        if not flat:
+            return
+        nbytes = sum(int(v.nbytes) for v in flat.values())
+        with self._lock:
+            old = self._packed_state.pop(name, None)
+            self._packed_state[name] = flat
+        if old is not None:
+            self.budget.release(f"packed:{name}")
+        self.budget.reserve(f"packed:{name}", nbytes)
 
     # -- warm-run batching (front-door worker coalescing) --------------------
     def warm_run_many(self, name: str, xs: Sequence[Any]

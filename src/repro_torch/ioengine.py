@@ -1154,6 +1154,12 @@ def get_io_engine(**kw) -> IOEngine:
         return _engine
 
 
+def current_io_engine() -> Optional[IOEngine]:
+    """The process-wide engine if one was made, without making one."""
+    with _engine_lock:
+        return _engine
+
+
 def reset_io_engine() -> None:
     global _engine
     with _engine_lock:

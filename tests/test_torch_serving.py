@@ -304,9 +304,13 @@ def test_cold_llm_first_token_before_last_layer_prep(tmp_path, monkeypatch):
     assert res.decode_steps == toks.shape[1] + 1 + 1
     # decode_s times the ticks after the first one: none are left here
     assert res.decode_ticks == len(res.tokens) - 3 == 0
-    # one pack per weighted layer, and the KV reservation came back
+    # one pack per weighted layer, and the KV reservation came back; the
+    # packed decode params stay charged, servable to a sibling worker
     assert sum(t.kind == "pack" for t in res.run.traces) == len(graph)
-    assert srv.budget.used() == srv.resident_bytes()
+    packed = srv.budget.used_by("packed:llm")
+    assert packed == sum(int(v.nbytes)
+                         for v in srv._packed_state["llm"].values()) > 0
+    assert srv.budget.used() == srv.resident_bytes() + packed
 
 
 def _pair(tmp_path, lossy=False):
