@@ -17,11 +17,14 @@ Run from the root of a checkout, on a machine with a CUDA card and
      and one library call with CUDA events; ``decode_attention``
      also over the Pallas sweep in its prefix form, a wrapped ring with a
      window, the int8 cache, a softcap, granite-moe-3b-a800m's heads,
-     zamba2-2.7b's head dim 80 and head dims 100, 67 and 256, each row
-     printing its
+     zamba2-2.7b's head dim 80, internvl2-76b's 64/8 heads of 128 (B 1, W
+     512; B 4, W 4096), musicgen-medium's 24/24 heads and head dims 100,
+     67 and 256, each row printing its
      split plan; ``flash_attention`` at smollm-360m's 64- and 2048-token
      prefills, granite-moe-3b-a800m's 512-token prefill (24/8 heads),
-     zamba2-2.7b's head dim 80 in bf16 and f32, ragged S, head dims 32,
+     zamba2-2.7b's head dim 80 in bf16 and f32 (1024 tokens, 32/32 heads),
+     internvl2-76b's 320-token prefill (64/8 heads of 128),
+     musicgen-medium's 512 frames (24/24 of 64), ragged S, head dims 32,
      67, 100, 128 and 256 with windows and softcaps, and a batch whose
      plan puts two query heads in a block, each row printing its
      ``plan_flash`` cut; ``winograd_tile_matmul`` at resnet50's four
@@ -33,8 +36,10 @@ Run from the root of a checkout, on a machine with a CUDA card and
      each row printing its path, tile and split; the bf16 ``matmul`` also
      at the decode projections (M 1 and 4) of smollm-360m,
      granite-moe-3b-a800m and mamba2-2.7b, the prefill projections of
-     granite (512 tokens) and mamba2 (1024), the tied heads at decode and
-     prefill reading
+     granite (512 tokens) and mamba2 (1024), internvl2-76b's 320-token
+     prefill (its MLP up (8192, 28672) and down (28672, 8192)
+     projections and its untied head over 128256), the tied heads at
+     decode and prefill reading
      ``embed`` K-major in place, and ragged, unaligned edges;
      ``gmm_blocks`` at granite-moe-3b-a800m's expert GEMMs (C 8 at decode,
      208 at a 512-token prefill) in bf16 and in f32 (each f32 row printing
@@ -121,8 +126,9 @@ Run from the root of a checkout, on a machine with a CUDA card and
      max_len=512)`` run of 6 greedy requests, each of which must finish
      with its token count (agreement with the plain run is reported,
      and for each request that leaves it, its first flip);
-  7. drives the moe family: granite-moe-3b-a800m at full width, all 32
-     layers (``MOE_DEPTH``), bf16, weights drawn on the card: ``forward``
+  7. drives the moe family: granite-moe-3b-a800m at full width, 16 of
+     its 32 layers (``MOE_DEPTH``, a cut), bf16, weights drawn on the
+     card: ``forward``
      on a 512-token prompt against the all-plain forward, one MoE layer on
      identical inputs, decode by steps against ``forward`` on 32 tokens and
      the ``BatchedServer`` run of the serving phase; a bf16 rounding
@@ -139,15 +145,42 @@ Run from the root of a checkout, on a machine with a CUDA card and
      (``SSM_DEPTH``): in bf16 ``forward`` on 1024 tokens, each layer held
      to its plain version on the same input and the whole model's
      difference from the all-plain forward reported, and the same
-     ``BatchedServer`` run; in f32
-     ``forward`` against the all-plain forward and decode by steps against
-     ``forward`` over two 256-token chunks (LLM gate);
+     ``BatchedServer`` run; in f32 at ``SSM_F32_DEPTH`` layers (32, a
+     cut) ``forward`` against the all-plain forward and decode by steps
+     against ``forward`` over two 256-token chunks (LLM gate); then the
+     hybrid family: zamba2-2.7b at full width (d_model 2560, 32/32 heads of 80,
+     d_ff 10240, 80 SSM heads of P 64, N 64, vocab 32000 tied), all 54
+     layers (``HYBRID_DEPTH``: 9 groups of 6 mamba blocks, each followed by
+     the one shared attention block), bf16: ``forward`` on 1024 tokens,
+     each mamba block and each of the 9 shared-block applications held to
+     its plain version on the same input (lockstep), the whole model's
+     difference from the all-plain forward and its amplification of the
+     worst block's reported, the ``BatchedServer`` run of the request mix
+     with the kernels (no plain run: at this amplification token
+     agreement says where greedy ties fall); in f32 at
+     ``HYBRID_F32_DEPTH`` layers (12, two groups: a cut) ``forward``
+     against the all-plain forward and decode by steps against
+     ``forward`` over 256 tokens (LLM gate); then the input modes:
+     musicgen-medium (all 48 layers, ``embeddings``: 512 frame
+     embeddings from numpy seed 0, an untied head over 2048 codes), in
+     bf16 ``forward`` with each block held to its plain version in
+     lockstep and decode by steps over ``MUSICGEN_DECODE`` frames, the
+     whole model's differences reported (it amplifies a block's rounding
+     past the LLM gate), in f32 ``forward`` against the all-plain forward
+     and decode by steps against ``forward`` (LLM gate); internvl2-76b
+     (``vlm``, full width, ``VLM_DEPTH`` = 4 of its 80 layers, a cut: the
+     whole model does not fit one card) ``forward`` on 256 prefix
+     embeddings and 64 text tokens against the all-plain forward, then 32
+     decode steps of text tokens against the all-plain decode (LLM gate);
   8. fails unless every kernel of a path launched during that path's runs
      (each path's launch counts are zeroed just before its runs and read
      just after; the fleet's are its served requests' own;
      ``gmm_blocks`` 3 times a layer per ``forward`` or
-     ``decode_step``, ``ssd_scan`` once a layer per ``forward``) and no
-     kernel was demoted by the fault ladder.
+     ``decode_step``, ``ssd_scan`` once a mamba layer per ``forward``,
+     ``flash_attention`` once an attention layer or shared-block
+     application per ``forward``, ``decode_attention`` once an attention
+     layer or application per ``decode_step``) and no kernel was demoted
+     by the fault ladder.
 
 Every run of a decided plan in the CNN and LLM phases (nnv12,
 sequential, nnv12_nosteal) starts from the first arm's state: the store
@@ -160,11 +193,12 @@ follows it with that audit still landed (the store not reopened) and the
 audit of the cache entries the decided plan reads landed (and timed)
 first, its files evicted again: it pays no audit.
 
-``LLM_DEPTH``, ``LOSSY_DEPTH`` and ``SERVE_DEPTH`` (16 of smollm-360m's
-32 blocks, a cut for the run's time limit: the smollm-360m phases are host
-work, ``decide()``'s profiling, cache writes and the software CRC-32C,
-and grow with depth) are the first to cut should the run near its limit
-again; the kernels run at full width either way.
+``LLM_DEPTH``, ``LOSSY_DEPTH`` and ``SERVE_DEPTH`` (8 of smollm-360m's
+32 blocks), ``MOE_DEPTH`` (16 of granite's 32 layers), ``SSM_F32_DEPTH``
+(32 of mamba2's 64 in f32) and ``MUSICGEN_DECODE`` (32 steps) are cuts
+for the run's time limit: those phases are host work (``decide()``'s
+profiling, cache writes, the software CRC-32C, one dispatch per op) and
+grow with depth; the kernels run at full width either way.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -196,15 +230,27 @@ PEAKS = {"sxm": {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12},
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PATH_TOL = 1e-4
 LLM_ATOL, LLM_RTOL = 0.1, 0.05
-# the smollm-360m phases at 16 of its 32 blocks (a cut: at 32 blocks one
-# H100 machine, whose host ran these host-bound phases 1.4-1.5x slower
-# than others, took 1352.5 s, past the script's 1200 s budget)
-LLM_DEPTH = 16
-LOSSY_DEPTH = 16
-SERVE_DEPTH = 16
-MOE_DEPTH = 32
+# cuts for the run's time, every one of them host work that grows with
+# depth: the smollm-360m phases at 8 of its 32 blocks (at 32 one H100
+# machine, whose host ran them 1.4-1.5x slower than others, took 1352.5
+# s, past the 1200 s budget; at 16, with the hybrid and input-modes
+# paths, 981.7-1013.2 s on two hosts and 1246.0 s on a slower one),
+# granite-moe-3b-a800m at 16 of its 32 layers, mamba2-2.7b's f32 phase
+# at 32 of its 64 (its bf16 runs keep all 64) and musicgen-medium's
+# decode at 32 steps
+LLM_DEPTH = 8
+LOSSY_DEPTH = 8
+SERVE_DEPTH = 8
+MOE_DEPTH = 16
 MOE_F32_DEPTH = 4   # the f32 granite forward: a cut of its 32 layers
 SSM_DEPTH = 64
+SSM_F32_DEPTH = 32
+HYBRID_DEPTH = 54
+HYBRID_F32_DEPTH = 12  # the f32 zamba2 forward and decode: a cut of its 54
+MUSICGEN_DECODE = 32   # musicgen-medium's decode steps against forward
+# internvl2-76b's layers: a cut of its 80 (the whole model, ~141 GB in
+# bf16, does not fit one 80 GB card; 4 layers and the two heads ~11 GB)
+VLM_DEPTH = 4
 # whole-model MoE runs, kernels against plain: the share of (token, expert)
 # assignments that must agree (a wrong hidden state routes near k/E = 0.2)
 ROUTE_AGREE = 0.9
@@ -1129,6 +1175,71 @@ class PathGates:
             fail(f"{self.name}: " + "; ".join(self.failures))
 
 
+def rel_err(a, b) -> float:
+    """max|a - b| / max|b|, in f32."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def held(fn):
+    """``fn()`` with the kernels and with their plain versions, on the same
+    inputs: (the kernels' output, max|d|/max|plain|)."""
+    y = fn()
+    with plain_kernels():
+        want = fn()
+    return y, rel_err(y, want)
+
+
+def draw_model(cfg, dev):
+    """``cfg``'s random weights from seed 0, drawn on ``dev``."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    p = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"  {cfg.dtype} weights, {cfg.num_layers} layers: "
+          f"{sum(t.numel() for t in leaves(p))} params drawn on {dev} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return p
+
+
+def counted(gates, label, fn):
+    """``fn()`` with the launch counts zeroed just before it and read (and
+    added to the path's) just after; returns (its result, the counts)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    gates.add(counts)
+    print(f"  {label}: {(time.perf_counter() - t0) * 1e3:.1f} ms with the "
+          f"kernels; launches "
+          f"{json.dumps({k: n for k, n in counts.items() if n})}")
+    return out, counts
+
+
+def decode_by_steps(params, cfg, dev, key, inputs, n):
+    """``n`` teacher-forced ``decode_step``s of ``inputs[:, t:t + 1]``
+    under ``key`` ("tokens" or "embeds") from a zero state: (B, n, V)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    state = T.init_decode_state(cfg, inputs.shape[0], n, device=dev)
+    outs = []
+    for t in range(n):
+        lg, state = T.decode_step(params, state, {key: inputs[:, t:t + 1]},
+                                  t, cfg)
+        outs.append(lg[:, 0])
+    return torch.stack(outs, 1)
+
+
 def moe_path(dev, depth: int) -> dict:
     """granite-moe-3b-a800m at full width, ``depth`` layers, bf16, random
     weights from seed 0 drawn on the card: ``forward`` on a 512-token
@@ -1236,8 +1347,7 @@ def moe_path(dev, depth: int) -> dict:
     with routing_log() as plog, plain_kernels():
         y_p, _ = MOE.moe_apply(bp, xn, cfg)
     torch.cuda.synchronize()
-    rel = ((y_k.float() - y_p.float()).abs().max()
-           / y_p.float().abs().max().clamp_min(1e-30)).item()
+    rel = rel_err(y_k, y_p)
     share, _ = routing_agreement(klog, plog)
     ms_k = wall_ms(lambda: MOE.moe_apply(bp, xn, cfg))
     with plain_kernels():
@@ -1374,9 +1484,10 @@ def ssm_path(dev, depth: int) -> dict:
     model's difference from the all-plain forward reported (this
     random-weight model amplifies a rounding-size difference about 25-fold
     over 64 layers, so no logits gate holds between two bf16 roundings of
-    it), and a ``BatchedServer`` run against the plain kernels' run. In f32, where a rounding difference stays small: the
-    kernels' forward against the all-plain forward, and decode by steps
-    against ``forward`` over two 256-token chunks (the kernel's chunked
+    it), and a ``BatchedServer`` run against the plain kernels' run. In
+    f32 at ``SSM_F32_DEPTH`` layers (a cut), where a rounding difference
+    stays small: the kernels' forward against the all-plain forward, and
+    decode by steps against ``forward`` over two 256-token chunks (the kernel's chunked
     scan against the recurrence of ``ssd_decode_step``), both within the
     LLM gate. Returns the launch counts of the main runs (both forwards,
     the decode steps and the batched server), each zeroed just before it;
@@ -1395,18 +1506,13 @@ def ssm_path(dev, depth: int) -> dict:
           f"{base.ssm_inner}, {base.ssm_heads} heads of P {base.ssm_head_dim},"
           f" N {base.ssm_state}, chunk {base.ssm_chunk}, vocab "
           f"{base.vocab_size}), layers={depth} (of 64): forward, decode_step,"
-          f" BatchedServer in bf16; forward and decode against forward in "
-          f"f32")
+          f" BatchedServer in bf16; at {SSM_F32_DEPTH} layers (a cut) forward"
+          f" and decode against forward in f32")
     gates = PathGates("ssm path")
 
-    def draw(dtype):
-        c = dataclasses.replace(base, dtype=dtype)
-        t0 = time.perf_counter()
-        p = T.init_params(c, torch.Generator(device=dev).manual_seed(0))
-        torch.cuda.synchronize()
-        print(f"  {dtype} weights: {sum(t.numel() for t in leaves(p))} "
-              f"params drawn on {dev} in {time.perf_counter() - t0:.2f} s")
-        return c, p
+    def draw(dtype, layers):
+        c = dataclasses.replace(base, dtype=dtype, num_layers=layers)
+        return c, draw_model(c, dev)
 
     def counted_forward(params, cfg, toks):
         ops.reset_launch_counts()
@@ -1422,10 +1528,10 @@ def ssm_path(dev, depth: int) -> dict:
               f"(first call); launches "
               f"{json.dumps({k: n for k, n in counts.items() if n})}")
         gates.launched(f"{cfg.dtype} forward", "ssd_scan",
-                       counts["ssd_scan"], depth)
+                       counts["ssd_scan"], cfg.num_layers)
         if cfg.dtype == "float32":  # six projections a layer, the tied head
             gates.launched(f"{cfg.dtype} forward", "matmul", counts["matmul"],
-                           6 * depth + 1)
+                           6 * cfg.num_layers + 1)
         return logits
 
     S = 1024
@@ -1433,7 +1539,7 @@ def ssm_path(dev, depth: int) -> dict:
         0, base.vocab_size, size=(1, S))).to(dev)
 
     # -- bf16 ----------------------------------------------------------------
-    cfg, params = draw("bfloat16")
+    cfg, params = draw("bfloat16", depth)
     logits = counted_forward(params, cfg, toks)
     with plain_kernels():
         t0 = time.perf_counter()
@@ -1447,19 +1553,12 @@ def ssm_path(dev, depth: int) -> dict:
                 "bf16 forward: non-finite")
     del logits, ref
     # each layer against its plain version on the same input, in lockstep
-    def rel(a, b):
-        return ((a.float() - b.float()).abs().max()
-                / b.float().abs().max().clamp_min(1e-30)).item()
-
     x = params["embed"][toks]
     worst = (0.0, -1)
     for i in range(depth):
         bp = T._layer(params["blocks"], i)
-        y, _ = T._mamba_block_seq(bp, x, cfg)
-        with plain_kernels():
-            want, _ = T._mamba_block_seq(bp, x, cfg)
-        worst = max(worst, (rel(y, want), i))
-        x = y
+        x, err = held(lambda: T._mamba_block_seq(bp, x, cfg)[0])
+        worst = max(worst, (err, i))
     print(f"  bf16 layers in lockstep, each kernel layer against its plain "
           f"version on the same input: worst max|d|/max|plain| "
           f"{worst[0]:.3e} (layer {worst[1]}, tol {KERNEL_TOL['bfloat16']})")
@@ -1488,7 +1587,7 @@ def ssm_path(dev, depth: int) -> dict:
     torch.cuda.empty_cache()
 
     # -- f32 -----------------------------------------------------------------
-    cfg, params = draw("float32")
+    cfg, params = draw("float32", SSM_F32_DEPTH)
     logits = counted_forward(params, cfg, toks)
     with plain_kernels():
         ref, _, _ = T.forward(params, {"tokens": toks}, cfg)
@@ -1512,7 +1611,7 @@ def ssm_path(dev, depth: int) -> dict:
     gates.logits(f"f32 decode by steps vs forward ({Sd} tokens, two chunks)",
                  torch.stack(outs, 1), fl)
     gates.launched("f32 decode", "matmul", counts["matmul"],
-                   (6 * depth + 1) * Sd)
+                   (6 * cfg.num_layers + 1) * Sd)
     profile_steps("8 f32 decode steps B=1", lambda i: T.decode_step(
         params, state, {"tokens": toks[:, Sd + i:Sd + i + 1]}, Sd + i, cfg),
         8, extra=("gemm_f32",))
@@ -1521,6 +1620,334 @@ def ssm_path(dev, depth: int) -> dict:
     gates.finish()
     return {"ssd_scan": gates.main["ssd_scan"],
             "matmul": gates.main["matmul"]}
+
+
+def hybrid_path(dev, depth: int, f32_depth: int) -> dict:
+    """zamba2-2.7b at full width, ``depth`` layers (G = depth /
+    shared_attn_every groups of mamba blocks, each followed by the one
+    shared attention block), random weights from seed 0 drawn on the card.
+    In bf16: ``forward`` on a 1024-token prompt with the kernels, each
+    mamba block and each application of the shared block held to its plain
+    version on the same input (lockstep), the whole model's difference
+    from the all-plain forward reported beside the worst block's (the
+    amplification; this random-weight model, like mamba2, is not held as a
+    whole in bf16), and a ``BatchedServer`` run of the request mix, each
+    request to finish with its token count. In f32 at ``f32_depth`` layers
+    (a cut): ``forward`` against the all-plain forward, and decode by steps
+    against ``forward`` over one 256-token chunk (the chunked scan and
+    flash against the recurrence and ``decode_attention``), both within
+    the LLM gate. Returns the launch
+    counts of the main runs, each zeroed just before it; launch gates are
+    checked last."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    base = dataclasses.replace(get_config("zamba2-2.7b"), num_layers=depth)
+    every = base.shared_attn_every
+    print(f"hybrid path: {base.name} full width (d_model {base.d_model}, "
+          f"{base.num_heads}/{base.num_kv_heads} heads of {base.head_dim}, "
+          f"d_ff {base.d_ff}, {base.ssm_heads} SSM heads of P "
+          f"{base.ssm_head_dim}, N {base.ssm_state}, chunk {base.ssm_chunk}, "
+          f"vocab {base.vocab_size} tied, the shared block after every "
+          f"{every} mamba blocks), layers={depth} (of 54): forward, "
+          f"decode_step, BatchedServer in bf16; at {f32_depth} layers (a "
+          f"cut) forward and decode against forward in f32")
+    gates = PathGates("hybrid path")
+
+    def mm_per_token(c):
+        # six projections a mamba block, seven a shared application, the
+        # tied head
+        return 6 * c.num_layers + 7 * (c.num_layers // every) + 1
+
+    def forward_gates(c, label, counts):
+        G = c.num_layers // every
+        gates.launched(label, "ssd_scan", counts["ssd_scan"], c.num_layers)
+        gates.launched(label, "flash_attention", counts["flash_attention"],
+                       G)
+        mm = "matmul" if c.dtype == "float32" else "matmul_bf16"
+        gates.launched(label, mm, counts[mm], mm_per_token(c))
+
+    S = 1024
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, base.vocab_size, size=(1, S))).to(dev)
+
+    # -- bf16 ----------------------------------------------------------------
+    cfg = base
+    params = draw_model(cfg, dev)
+    logits, counts = counted(gates, f"bf16 forward (1, {S})",
+                             lambda: T.forward(params, {"tokens": toks},
+                                               cfg)[0])
+    forward_gates(cfg, "bf16 forward", counts)
+    with plain_kernels():
+        t0 = time.perf_counter()
+        ref, _, _ = T.forward(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+    whole = rel_err(logits, ref)
+    _, dmax, rmax = logits_gate(logits, ref)
+    gates.check(bool(torch.isfinite(logits).all()),
+                "bf16 forward: non-finite")
+    del logits, ref
+    # each block against its plain version on the same input, in lockstep
+    x = params["embed"][toks]
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    worst = {"mamba": (0.0, -1), "shared": (0.0, -1)}
+    for grp in range(depth // every):
+        for j in range(every):
+            i = grp * every + j
+            bp = T._layer(params["blocks"], i)
+            x, err = held(lambda: T._mamba_block_seq(bp, x, cfg)[0])
+            worst["mamba"] = max(worst["mamba"], (err, i))
+        x, err = held(lambda: T._attn_block_seq(
+            params["shared"], x, cfg, positions, cfg.sliding_window)[0])
+        worst["shared"] = max(worst["shared"], (err, grp))
+    del x
+    block = max(worst["mamba"][0], worst["shared"][0])
+    print(f"  bf16 forward (1, {S}) vs all-plain ({t_p * 1e3:.1f} ms): "
+          f"max|d|={dmax:.4e} max|ref|={rmax:.4e}, max|d|/max|ref| "
+          f"{whole:.3e} (reported, not gated)")
+    print(f"  bf16 blocks in lockstep, each against its plain version on the "
+          f"same input: worst mamba block {worst['mamba'][0]:.3e} (layer "
+          f"{worst['mamba'][1]}), worst shared-block application "
+          f"{worst['shared'][0]:.3e} (group {worst['shared'][1]}), tol "
+          f"{KERNEL_TOL['bfloat16']}; the whole model amplifies the worst "
+          f"block's difference {whole / max(block, 1e-30):.1f}-fold")
+    for kind, (err, at) in worst.items():
+        gates.check(err <= KERNEL_TOL["bfloat16"],
+                    f"bf16 {kind} block {at} disagrees with its plain "
+                    f"version ({err:.3e})")
+    profile_steps(f"bf16 forward (1, {S})", lambda i: T.forward(
+        params, {"tokens": toks}, cfg), 1, extra=("ssd", "fa_bf16"))
+    state = T.init_decode_state(cfg, 1, 64, device=dev)
+    for t in range(4):  # warm
+        T.decode_step(params, state, {"tokens": toks[:, t:t + 1]}, t, cfg)
+    profile_steps("8 bf16 decode steps B=1", lambda i: T.decode_step(
+        params, state, {"tokens": toks[:, 4 + i:5 + i]}, 4 + i, cfg), 8,
+        extra=("decode_",))
+    # the batched mix with the kernels only: at this amplification token
+    # agreement with a plain run says where greedy ties fall, not whether
+    # the kernels are right (the blocks above and the f32 gates say that)
+    got, steps, dt, counts, _ = batched_run(params, cfg, dev, plain=False)
+    gates.add(counts)
+    finished = all(len(got.get(i, [])) == m
+                   for i, (_, m) in enumerate(BATCH_SHAPES))
+    print(f"  BatchedServer(max_batch=4, max_len=512): 6 requests, prompts "
+          f"{[n for n, _ in BATCH_SHAPES]}, max_new_tokens "
+          f"{[m for _, m in BATCH_SHAPES]}; all finished with their counts: "
+          f"{finished}; {steps} decode_steps in {dt:.3f} s "
+          f"({dt * 1e3 / steps:.3f} ms per step); launches "
+          f"{json.dumps({k: n for k, n in counts.items() if n})}")
+    gates.check(finished,
+                "a batched request did not finish with its token count")
+    gates.launched("batched", "decode_attention", counts["decode_attention"],
+                   depth // every * steps)
+    gates.launched("batched", "matmul_bf16", counts["matmul_bf16"],
+                   mm_per_token(cfg) * steps)
+    del params, state
+    torch.cuda.empty_cache()
+
+    # -- f32, a depth cut -----------------------------------------------------
+    cfg = dataclasses.replace(base, dtype="float32", num_layers=f32_depth)
+    params = draw_model(cfg, dev)
+    logits, counts = counted(gates, f"f32 forward (1, {S})",
+                             lambda: T.forward(params, {"tokens": toks},
+                                               cfg)[0])
+    forward_gates(cfg, "f32 forward", counts)
+    with plain_kernels():
+        ref, _, _ = T.forward(params, {"tokens": toks}, cfg)
+    gates.logits(f"f32 forward (1, {S}), {f32_depth} layers, vs all-plain",
+                 logits, ref)
+    del logits, ref
+    Sd = cfg.ssm_chunk
+    fl, counts = counted(gates, f"f32 forward (1, {Sd})", lambda: T.forward(
+        params, {"tokens": toks[:, :Sd]}, cfg)[0])
+    forward_gates(cfg, f"f32 forward (1, {Sd})", counts)
+    dec, counts = counted(gates, f"f32 decode, {Sd} steps B=1",
+                          lambda: decode_by_steps(params, cfg, dev, "tokens",
+                                                  toks, Sd))
+    gates.logits(f"f32 decode by steps vs forward ({Sd} tokens)", dec, fl)
+    gates.launched("f32 decode", "decode_attention",
+                   counts["decode_attention"], f32_depth // every * Sd)
+    gates.launched("f32 decode", "matmul", counts["matmul"],
+                   mm_per_token(cfg) * Sd)
+    del params, fl, dec
+    print(f"  hybrid path launches (forwards + decode steps + batched): "
+          f"{json.dumps({k: n for k, n in gates.main.items() if n})}")
+    gates.finish()
+    return {k: gates.main[k] for k in ("ssd_scan", "flash_attention",
+                                       "decode_attention", "matmul",
+                                       "matmul_bf16")}
+
+
+def modes_path(dev, music_decode: int, vlm_depth: int) -> dict:
+    """The ``embeddings`` and ``vlm`` input modes at full width, random
+    weights from seed 0 drawn on the card. musicgen-medium (all 48 layers,
+    untied head over 2048 codes), 512 frame embeddings (numpy seed 0): in
+    bf16, ``forward`` with each block held to its plain version on the
+    same input (lockstep) and decode by steps (an embedding a step) over
+    the first ``music_decode`` frames, the whole model's differences from
+    the all-plain forward and from ``forward`` reported (this random-weight
+    model amplifies a block's rounding past the LLM gate over 48 layers);
+    in f32, ``forward`` against the all-plain forward and decode by steps
+    against ``forward``. internvl2-76b in bf16 at ``vlm_depth`` of its 80
+    layers (a cut: the whole model, ~141 GB in bf16, does not fit one
+    card): ``forward`` on 256 prefix embeddings and 64 text tokens against
+    the all-plain forward, then 32 decode steps of text tokens against
+    the all-plain decode. Every whole-model gate is the LLM gate. Returns
+    the launch counts of the kernels' runs, each zeroed just before it;
+    launch gates are checked last."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    gates = PathGates("input-modes path")
+
+    def gate_mm(c, label, counts, n):
+        # seven projections a block, the head, once a token of decode
+        mm = "matmul" if c.dtype == "float32" else "matmul_bf16"
+        gates.launched(label, mm, counts[mm], (7 * c.num_layers + 1) * n)
+
+    def gate_forward(c, label, counts):
+        gates.launched(label, "flash_attention", counts["flash_attention"],
+                       c.num_layers)
+        gate_mm(c, label, counts, 1)
+
+    def gate_decode(c, label, counts, n):
+        gates.launched(label, "decode_attention", counts["decode_attention"],
+                       c.num_layers * n)
+        gate_mm(c, label, counts, n)
+
+    # -- musicgen-medium: frame embeddings, untied head -----------------------
+    base = get_config("musicgen-medium")
+    print(f"input-modes path: {base.name} full width (d_model "
+          f"{base.d_model}, {base.num_heads}/{base.num_kv_heads} heads of "
+          f"{base.head_dim}, d_ff {base.d_ff}, untied head over "
+          f"{base.vocab_size} codes), layers={base.num_layers} (of 48), input "
+          f"{base.input_mode}: in bf16 forward on 512 frame embeddings with "
+          f"each block held in lockstep, decode by steps over "
+          f"{music_decode}; in f32 both against the all-plain forward and "
+          f"forward")
+    S, Sd = 512, music_decode
+    emb = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, S, base.d_model)).astype(np.float32)).to(dev)
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None]
+
+    def musicgen_bf16(params, cfg, logits, ref, dec, fl):
+        """Each block against its plain version on the same input; the
+        whole model's differences reported beside the worst block's."""
+        whole = rel_err(logits, ref)
+        ok, dmax, rmax = logits_gate(logits, ref)
+        ok_d, dmax_d, _ = logits_gate(dec, fl)
+        x, worst = emb.to(torch.bfloat16), (0.0, -1)
+        for i in range(cfg.num_layers):
+            bp = T._layer(params["blocks"], i)
+            x, err = held(lambda: T._attn_block_seq(
+                bp, x, cfg, positions, cfg.sliding_window)[0])
+            worst = max(worst, (err, i))
+        print(f"  musicgen bf16 forward (1, {S}) vs all-plain: max|d|="
+              f"{dmax:.4e} max|ref|={rmax:.4e}, rows within the LLM gate "
+              f"{int(ok.sum())}/{len(ok)}; decode by steps vs forward "
+              f"({Sd} frames): max|d|={dmax_d:.4e}, rows "
+              f"{int(ok_d.sum())}/{len(ok_d)} (both reported, not gated)")
+        print(f"  musicgen bf16 blocks in lockstep, each against its plain "
+              f"version on the same input: worst {worst[0]:.3e} (layer "
+              f"{worst[1]}, tol {KERNEL_TOL['bfloat16']}); the whole model "
+              f"amplifies it {whole / max(worst[0], 1e-30):.1f}-fold "
+              f"(max|d|/max|ref| {whole:.3e})")
+        gates.check(worst[0] <= KERNEL_TOL["bfloat16"]
+                    and bool(torch.isfinite(logits).all()),
+                    f"musicgen bf16 block {worst[1]} disagrees with its "
+                    f"plain version ({worst[0]:.3e})")
+        profile_steps(f"musicgen bf16 forward (1, {S})", lambda i: T.forward(
+            params, {"embeds": emb}, cfg), 1, extra=("fa_bf16",))
+        state = T.init_decode_state(cfg, 1, 64, device=dev)
+        for t in range(4):  # warm
+            T.decode_step(params, state, {"embeds": emb[:, t:t + 1]}, t, cfg)
+        profile_steps("8 musicgen bf16 decode steps B=1", lambda i:
+                      T.decode_step(params, state,
+                                    {"embeds": emb[:, 4 + i:5 + i]}, 4 + i,
+                                    cfg), 8, extra=("decode_",))
+
+    for cfg in (base, dataclasses.replace(base, dtype="float32")):
+        dt = cfg.dtype
+        params = draw_model(cfg, dev)
+        logits, counts = counted(gates, f"musicgen {dt} forward (1, {S})",
+                                 lambda: T.forward(params, {"embeds": emb},
+                                                   cfg)[0])
+        gate_forward(cfg, f"musicgen {dt} forward", counts)
+        with plain_kernels():
+            ref, _, _ = T.forward(params, {"embeds": emb}, cfg)
+        fl = T.forward(params, {"embeds": emb[:, :Sd]}, cfg)[0]
+        dec, counts = counted(gates, f"musicgen {dt} decode, {Sd} steps B=1",
+                              lambda: decode_by_steps(params, cfg, dev,
+                                                      "embeds", emb, Sd))
+        gate_decode(cfg, f"musicgen {dt} decode", counts, Sd)
+        if dt == "float32":
+            gates.logits(f"musicgen f32 forward (1, {S}) vs all-plain",
+                         logits, ref)
+            gates.logits(f"musicgen f32 decode by steps vs forward ({Sd} "
+                         f"frames)", dec, fl)
+        else:
+            musicgen_bf16(params, cfg, logits, ref, dec, fl)
+        del params, logits, ref, fl, dec
+        torch.cuda.empty_cache()
+
+    # -- internvl2-76b: patch embeddings in front of the text -----------------
+    cfg = dataclasses.replace(get_config("internvl2-76b"),
+                              num_layers=vlm_depth)
+    P, Tt, Sd = cfg.num_prefix_embeds, 64, 32
+    print(f"input-modes path: {cfg.name} full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, untied vocab {cfg.vocab_size}), layers={vlm_depth} "
+          f"(of 80, a cut), input {cfg.input_mode}, {cfg.dtype}: forward on "
+          f"{P} prefix embeddings and {Tt} text tokens, {Sd} decode steps")
+    params = draw_model(cfg, dev)
+    rng = np.random.default_rng(1)
+    pre = torch.from_numpy((rng.standard_normal((1, P, cfg.d_model)) * 0.02)
+                           .astype(np.float32)).to(dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, Tt))).to(dev)
+    batch = {"prefix_embeds": pre, "tokens": toks}
+    logits, counts = counted(gates, f"internvl2 forward (1, {P}+{Tt})",
+                             lambda: T.forward(params, batch, cfg)[0])
+    gate_forward(cfg, "internvl2 forward", counts)
+    with plain_kernels():
+        ref, _, (_, mask) = T.forward(params, batch, cfg)
+    gates.check(float(mask[:, :P].sum()) == 0 and float(mask.sum()) == Tt,
+                "internvl2: the loss mask is not 0 over the prefix")
+    gates.logits(f"internvl2 forward (1, {P}+{Tt}) vs all-plain", logits, ref)
+    del logits, ref
+    dec, counts = counted(gates, f"internvl2 decode, {Sd} steps B=1",
+                          lambda: decode_by_steps(params, cfg, dev, "tokens",
+                                                  toks, Sd))
+    with plain_kernels():
+        want = decode_by_steps(params, cfg, dev, "tokens", toks, Sd)
+    gates.logits(f"internvl2 decode, {Sd} steps, vs all-plain decode", dec,
+                 want)
+    gate_decode(cfg, "internvl2 decode", counts, Sd)
+    profile_steps(f"internvl2 forward (1, {P + Tt})", lambda i: T.forward(
+        params, batch, cfg), 1, extra=("fa_bf16",))
+    state = T.init_decode_state(cfg, 1, 64, device=dev)
+    for t in range(4):  # warm
+        T.decode_step(params, state, {"tokens": toks[:, t:t + 1]}, t, cfg)
+    profile_steps("8 internvl2 decode steps B=1", lambda i: T.decode_step(
+        params, state, {"tokens": toks[:, 4 + i:5 + i]}, 4 + i, cfg), 8,
+        extra=("decode_",))
+    del params, state, dec, want
+    torch.cuda.empty_cache()
+    print(f"  input-modes path launches (forwards + decode steps): "
+          f"{json.dumps({k: n for k, n in gates.main.items() if n})}")
+    gates.finish()
+    return {k: gates.main[k] for k in ("flash_attention", "decode_attention",
+                                       "matmul", "matmul_bf16")}
 
 
 # the hand-written kernel each CNN registry kernel launches, once a layer
@@ -2159,6 +2586,12 @@ def main() -> None:
                 ("mamba2_in_M4", 4, 2560, 5120, False),
                 ("mamba2_out_M4", 4, 5120, 2560, False),
                 ("mamba2_head_tied_M4", 4, 2560, 50280, True),
+                # internvl2-76b's prefill (256 prefix embeddings and 64
+                # text tokens): its MLP up and down projections and its
+                # untied head
+                ("internvl2_up_prefill", 320, 8192, 28672, False),
+                ("internvl2_down_prefill", 320, 28672, 8192, False),
+                ("internvl2_head_prefill", 320, 8192, 128256, False),
                 # scalar copies: K, N or both not a multiple of 8
                 ("ragged_skinny", 3, 129, 7, False),
                 ("ragged_tile", 100, 200, 49155, False),
@@ -2196,6 +2629,10 @@ def main() -> None:
             ("zamba2_d80", 1, 1024, 32, 32, 80, None, None, torch.bfloat16),
             ("zamba2_d80_f32", 1, 1024, 32, 32, 80, None, None,
              torch.float32),
+            ("internvl2_prefill320", 1, 320, 64, 8, 128, None, None,
+             torch.bfloat16),
+            ("musicgen_prefill512", 1, 512, 24, 24, 64, None, None,
+             torch.bfloat16),
             ("ragged100", 1, 100, 15, 5, 64, None, None, torch.bfloat16),
             ("f32_window_softcap", 1, 1024, 15, 5, 64, 256, 50.0,
              torch.float32),
@@ -2315,6 +2752,14 @@ def main() -> None:
                 torch.bfloat16, [700, 511, 100, 1500], window=256)
     decode_case("d80_int8_B2_W512", 2, 512, 32, 32, 80, torch.bfloat16,
                 [511, 300], int8=True)
+    # internvl2-76b (64 heads, 8 kv heads, D 128) and musicgen-medium
+    # (24/24, D 64)
+    decode_case("internvl2_B1_W512", 1, 512, 64, 8, 128, torch.bfloat16,
+                [511])
+    decode_case("internvl2_B4_W4096", 4, 4096, 64, 8, 128, torch.bfloat16,
+                [4095] * 4)
+    decode_case("musicgen_B1_W512", 1, 512, 24, 24, 64, torch.bfloat16,
+                [511])
     # head dims that are not a multiple of 8: 100 in f32 (16-byte rows, a
     # lane with half a chunk), 67 in bf16 (134-byte rows: element loads)
     decode_case("d100_f32", 2, 600, 8, 2, 100, torch.float32, [599, 250])
@@ -2856,6 +3301,18 @@ def main() -> None:
         counts = path(dev, depth)
         launches["matmul"] += counts.pop("matmul")
         launches.update(counts)
+        torch.cuda.empty_cache()
+        print(f"  [{family} path done at "
+              f"{time.perf_counter() - t_start:.1f} s]")
+
+    # -- 7b. the hybrid family; the embeddings and vlm input modes ----------
+    for family, run in (
+            ("hybrid", lambda: hybrid_path(dev, HYBRID_DEPTH,
+                                           HYBRID_F32_DEPTH)),
+            ("input-modes", lambda: modes_path(dev, MUSICGEN_DECODE,
+                                               VLM_DEPTH))):
+        for k, n in run().items():
+            launches[k] = launches.get(k, 0) + n
         torch.cuda.empty_cache()
         print(f"  [{family} path done at "
               f"{time.perf_counter() - t_start:.1f} s]")

@@ -3,13 +3,16 @@ of ``repro/launch/serve.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
 
 The reduced config of ``--arch`` (``ArchConfig.reduced``, as the reference
 serves it) gets the port's own random weights from seed 0 and a
 ``BatchedServer`` with ``--max-batch`` slots; ``--requests`` prompts of
 ``--prompt-len`` random tokens (numpy seed 0) each decode ``--new-tokens``
-tokens. It runs on the card unless ``--device cpu`` is given. The dense,
-moe and ssm families are served; the others raise.
+tokens. It runs on the card unless ``--device cpu`` is given. Every
+token model is served (the dense, moe, ssm and hybrid families); an
+``embeddings`` or ``vlm`` configuration (musicgen-medium, internvl2-76b)
+exits, as in the reference.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Config-driven decoder, dense, moe and ssm families — the port of
+"""Config-driven decoder for every family and input mode — the port of
 ``repro/models/transformer.py``.
 
 ``init_params`` draws from an explicit ``torch.Generator`` on the
@@ -9,23 +9,36 @@ returns the port's, with the same values: parity tests and weight
 transfer go through it.
 
 ``forward`` is the reference's forward for the dense family (plain and
-gemma2's local/global layer pattern), the moe family (the MLP replaced by
-``moe.moe_apply``, whose load-balance losses sum into the aux loss) and
-the ssm family (mamba2 blocks, ``ssm.mamba_apply_seq``), a Python loop
-over the stacked blocks in place of ``lax.scan``. Attention goes through
-the flash kernel at every sequence length (the reference switches to
-``chunked_attention`` above 8192 tokens; the kernel is that path's
-analogue), the expert FFNs through ``gmm_blocks`` and the SSD scan through
-``ssd_scan``.
+gemma2's local/global layer pattern; vlm and audio run the same body),
+the moe family (the MLP replaced by ``moe.moe_apply``, whose load-balance
+losses sum into the aux loss), the ssm family (mamba2 blocks,
+``ssm.mamba_apply_seq``) and the hybrid family (zamba2: G =
+``num_layers / shared_attn_every`` groups, each ``shared_attn_every``
+mamba blocks followed by the one ``shared`` attention and MLP block, its
+weights unstacked and applied G times), a Python loop over the stacked
+blocks in place of ``lax.scan``. Attention goes through the flash kernel
+at every sequence length (the reference switches to ``chunked_attention``
+above 8192 tokens; the kernel is that path's analogue), the expert FFNs
+through ``gmm_blocks`` and the SSD scan through ``ssd_scan``.
+
+Input modes, as in the reference: ``tokens`` (``embed[tokens]``),
+``embeddings`` (``batch["embeds"]`` in the config dtype; no ``embed``, the
+head is ``lm_head`` whether tied or not) and ``vlm``
+(``batch["prefix_embeds"]`` in front of the token embeddings, RoPE
+positions over both, the loss mask 0 over the prefix).
 
 ``init_decode_state`` and ``decode_step`` are the reference's decode for
 the same families: plain, local/global (gemma2: a window ring for the
 local layers, a full cache for the global ones) and the int8 KV cache
-(``runtime_flags.FLAGS["kv_cache_int8"]``) for dense and moe, whose caches
-are the same; the conv and SSM states for ssm. Each step's attention runs
-on the ``decode_attention`` kernel. The state tensors are updated in place
-and returned as the new state. The hybrid, vlm and audio families and
-training wait for later slices.
+(``runtime_flags.FLAGS["kv_cache_int8"]``) for dense, moe, vlm and audio,
+whose caches are the same; the conv and SSM states for ssm; for hybrid
+the mamba states shaped (G, every, ...) and the shared block's caches
+``shared_k``/``shared_v`` shaped (G, B, W, KV, hd), one per application.
+A step takes ``batch["embeds"]`` (B, 1, d) in the ``embeddings`` mode and
+``embed[batch["tokens"]]`` otherwise. Each step's attention runs on the
+``decode_attention`` kernel. The state tensors are updated in place and
+returned as the new state. Training (``loss_fn``, ``remat``) and the
+prefill cache (``collect_cache``) wait for later slices.
 """
 from __future__ import annotations
 
@@ -50,15 +63,30 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+INPUT_MODES = ("tokens", "embeddings", "vlm")
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in FAMILIES or cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: the port's decoder covers the {'/'.join(FAMILIES)} "
-            f"families with token input; {cfg.family}/{cfg.input_mode} waits "
-            f"for a later slice")
+    """``ValueError`` for a family or input mode the decoder does not know,
+    the reference's refusal (``forward``, ``init_decode_state``,
+    ``decode_step``, ``_embed_input``)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
+    if cfg.input_mode not in INPUT_MODES:
+        raise ValueError(cfg.input_mode)
+    if cfg.family == "hybrid" and (
+            not cfg.shared_attn_every
+            or cfg.num_layers % cfg.shared_attn_every):
+        raise ValueError(
+            f"{cfg.name}: {cfg.num_layers} layers do not split into groups "
+            f"of shared_attn_every={cfg.shared_attn_every}")
+
+
+def _groups(cfg: ArchConfig) -> int:
+    """The hybrid family's G: mamba groups, each followed by the shared
+    block."""
+    return cfg.num_layers // cfg.shared_attn_every
 
 
 # ---------------------------------------------------------------------------
@@ -74,41 +102,59 @@ def init_params(cfg: ArchConfig, g: torch.Generator) -> Params:
     N(0, .02²), projections N(0, 1/fan_in), norms zero), stacked (L, ...)
     per block weight, in ``cfg.dtype``, on ``g``'s device (the CPU for a
     default generator; a CUDA generator draws a full-width model on the
-    card, with no f32 copy on the host)."""
+    card, with no f32 copy on the host). ``embed`` for the ``tokens`` and
+    ``vlm`` modes, ``lm_head`` for an untied head or the ``embeddings``
+    mode; the hybrid family's mamba ``blocks`` and its one ``shared``
+    attention block, drawn once and not stacked."""
     _check_family(cfg)
     dt = _dtype(cfg)
     dev = g.device
     d, V, Lr = cfg.d_model, cfg.vocab_size, cfg.num_layers
-    H, KV, hd, ff = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
-
-    def dense(shape):
-        return _normal(g, (Lr, *shape), 1.0 / math.sqrt(shape[0]), dt)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=dev)
 
-    params: Params = {"embed": _normal(g, (V, d), 0.02, dt)}
-    if not cfg.tie_embeddings:
+    params: Params = {}
+    if cfg.input_mode in ("tokens", "vlm"):
+        params["embed"] = _normal(g, (V, d), 0.02, dt)
+    if not cfg.tie_embeddings or cfg.input_mode == "embeddings":
         params["lm_head"] = _normal(g, (d, V), 1.0 / math.sqrt(d), dt)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         params["blocks"] = {"ln1": zeros(Lr, d),
                             "mamba": SSM.mamba_init(cfg, g, Lr)}
     else:
-        attn = {"wq": dense((d, H * hd)), "wk": dense((d, KV * hd)),
-                "wv": dense((d, KV * hd)), "wo": dense((H * hd, d))}
-        if cfg.qk_norm:
-            attn["q_norm"] = zeros(Lr, hd)
-            attn["k_norm"] = zeros(Lr, hd)
-        params["blocks"] = {"ln1": zeros(Lr, d), "ln2": zeros(Lr, d),
-                            "attn": attn}
-        if cfg.is_moe:
-            params["blocks"]["moe"] = MOE.moe_init(cfg, g, Lr)
-        else:
-            params["blocks"]["mlp"] = {
-                "w_gate": dense((d, ff)), "w_up": dense((d, ff)),
-                "w_down": dense((ff, d))}
+        params["blocks"] = _attn_blocks_init(cfg, g, Lr)
+    if cfg.family == "hybrid":
+        params["shared"] = _layer(_attn_blocks_init(cfg, g, 1), 0)
     params["final_norm"] = zeros(d)
     return params
+
+
+def _attn_blocks_init(cfg: ArchConfig, g: torch.Generator, n: int) -> Params:
+    """``n`` attention blocks (norms, attention, MLP or MoE) stacked
+    (n, ...)."""
+    dt = _dtype(cfg)
+    d, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, ff = cfg.head_dim, cfg.d_ff
+
+    def dense(shape):
+        return _normal(g, (n, *shape), 1.0 / math.sqrt(shape[0]), dt)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=g.device)
+
+    attn = {"wq": dense((d, H * hd)), "wk": dense((d, KV * hd)),
+            "wv": dense((d, KV * hd)), "wo": dense((H * hd, d))}
+    if cfg.qk_norm:
+        attn["q_norm"] = zeros(n, hd)
+        attn["k_norm"] = zeros(n, hd)
+    blocks = {"ln1": zeros(n, d), "ln2": zeros(n, d), "attn": attn}
+    if cfg.is_moe:
+        blocks["moe"] = MOE.moe_init(cfg, g, n)
+    else:
+        blocks["mlp"] = {"w_gate": dense((d, ff)), "w_up": dense((d, ff)),
+                         "w_down": dense((ff, d))}
+    return blocks
 
 
 def from_reference(params: Params) -> Params:
@@ -153,10 +199,25 @@ def _mamba_block_seq(bp, x, cfg, conv_states=None, ssm_state=None):
 
 
 def _embed_input(params, cfg, batch):
-    """Returns (x (B,S,d), loss_mask (B,S)); token input only."""
-    tokens = batch["tokens"]
-    x = params["embed"][tokens]
-    mask = torch.ones(tokens.shape, dtype=torch.float32, device=x.device)
+    """Returns (x (B,S,d), loss_mask (B,S)): the token embeddings, the
+    given embeddings in the config dtype, or the vlm prefix in front of
+    the token embeddings (mask 0 over the prefix, 1 over the text)."""
+    if cfg.input_mode == "tokens":
+        x = params["embed"][batch["tokens"]]
+        mask = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+    elif cfg.input_mode == "embeddings":
+        x = batch["embeds"].to(_dtype(cfg))
+        mask = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+    elif cfg.input_mode == "vlm":
+        tok = params["embed"][batch["tokens"]]
+        pre = batch["prefix_embeds"].to(_dtype(cfg))
+        x = torch.cat([pre, tok], dim=1)
+        mask = torch.cat(
+            [torch.zeros(pre.shape[:2], dtype=torch.float32, device=x.device),
+             torch.ones(tok.shape[:2], dtype=torch.float32,
+                        device=x.device)], dim=1)
+    else:
+        raise ValueError(cfg.input_mode)
     return x, mask
 
 
@@ -178,7 +239,7 @@ def _lm_logits(params, cfg, x) -> torch.Tensor:
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     """Full-sequence forward. Returns (logits, aux_loss, (None, mask)), the
     reference's return shape: the aux loss sums the MoE layers'
-    load-balance losses (zero for dense and ssm); the prefill cache
+    load-balance losses (zero for the other families); the prefill cache
     (``collect_cache``) is not ported, decode starts from
     ``init_decode_state``."""
     _check_family(cfg)
@@ -191,6 +252,17 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
         return _lm_logits(params, cfg, x), aux, (None, loss_mask)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        for grp in range(_groups(cfg)):
+            for j in range(every):
+                x, _ = _mamba_block_seq(
+                    _layer(params["blocks"], grp * every + j), x, cfg)
+            x, a = _attn_block_seq(params["shared"], x, cfg, positions,
+                                   cfg.sliding_window)
+            if a is not None:
+                aux = aux + a
+        return _lm_logits(params, cfg, x), aux, (None, loss_mask)
     for i in range(cfg.num_layers):
         window = cfg.sliding_window
         if cfg.local_global_pattern and i % 2 == 1:
@@ -214,9 +286,11 @@ def _layer(tree, i: int):
 def init_decode_state(cfg: ArchConfig, batch: int, context_len: int, *,
                       device="cuda") -> Params:
     """Zero-initialised decode caches sized for ``context_len`` history
-    (the reference's shapes and dtypes): KV caches for dense and moe, the
-    per-layer conv and SSM states for ssm. On the card unless ``device``
-    says otherwise; raises without one."""
+    (the reference's shapes and dtypes): KV caches for dense, moe, vlm and
+    audio, the per-layer conv and SSM states for ssm, and for hybrid the
+    mamba states (G, every, ...) with the shared block's KV caches
+    ``shared_k``/``shared_v`` (G, B, W, KV, hd). On the card unless
+    ``device`` says otherwise; raises without one."""
     _check_family(cfg)
     device = resolve_device(device)
     dt = _dtype(cfg)
@@ -225,9 +299,18 @@ def init_decode_state(cfg: ArchConfig, batch: int, context_len: int, *,
     def zeros(*shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    if cfg.family == "ssm":
+    W = (min(cfg.sliding_window, context_len) if cfg.sliding_window
+         else context_len)
+    if cfg.family in ("ssm", "hybrid"):
+        lead = ((Lr,) if cfg.family == "ssm"
+                else (_groups(cfg), cfg.shared_attn_every))
         s = SSM.mamba_state_init(cfg, batch, dt, device=device)
-        return {k: zeros(Lr, *v.shape, dtype=v.dtype) for k, v in s.items()}
+        state = {k: zeros(*lead, *v.shape, dtype=v.dtype)
+                 for k, v in s.items()}
+        if cfg.family == "hybrid":
+            state["shared_k"] = zeros(_groups(cfg), batch, W, KV, hd)
+            state["shared_v"] = zeros(_groups(cfg), batch, W, KV, hd)
+        return state
 
     if cfg.local_global_pattern:
         Wl = min(cfg.sliding_window, context_len)
@@ -237,8 +320,6 @@ def init_decode_state(cfg: ArchConfig, batch: int, context_len: int, *,
             "k_global": zeros(Lr // 2, batch, context_len, KV, hd),
             "v_global": zeros(Lr // 2, batch, context_len, KV, hd),
         }
-    W = (min(cfg.sliding_window, context_len) if cfg.sliding_window
-         else context_len)
     if FLAGS.get("kv_cache_int8", False):
         return {
             "k": zeros(Lr, batch, W, KV, hd, dtype=torch.int8),
@@ -268,21 +349,41 @@ def _mamba_block_decode(bp, x, st, cfg):
     return x + h, {"conv_x": sx, "conv_B": sB, "conv_C": sC, "ssm": ssm}
 
 
+def _mamba_layer_decode(blocks, i, x, state, at, cfg):
+    """Mamba layer ``i`` of ``blocks`` on its state ``state[k][at]``,
+    updated in place."""
+    x, st = _mamba_block_decode(
+        _layer(blocks, i), x, {k: state[k][at] for k in _MAMBA_STATE}, cfg)
+    for k in _MAMBA_STATE:
+        state[k][at].copy_(st[k])
+    return x
+
+
 def decode_step(params: Params, state: Params,
                 batch: Dict[str, torch.Tensor], pos: int, cfg: ArchConfig):
     """One token decode for a batch at position ``pos`` (one for the
-    batch, as in the reference). Returns (logits (B,1,V), state); the
-    state's tensors are updated in place (an ssm model ignores ``pos``)."""
+    batch, as in the reference): ``batch["embeds"]`` (B, 1, d) in the
+    ``embeddings`` mode, ``batch["tokens"]`` (B, 1) otherwise. Returns
+    (logits (B,1,V), state); the state's tensors are updated in place (an
+    ssm model ignores ``pos``)."""
     _check_family(cfg)
-    x = params["embed"][batch["tokens"]]
+    if cfg.input_mode == "embeddings":
+        x = batch["embeds"].to(_dtype(cfg))
+    else:
+        x = params["embed"][batch["tokens"]]
     blocks = params["blocks"]
     if cfg.family == "ssm":
         for i in range(cfg.num_layers):
-            x, st = _mamba_block_decode(
-                _layer(blocks, i), x, {k: state[k][i] for k in _MAMBA_STATE},
-                cfg)
-            for k in _MAMBA_STATE:
-                state[k][i].copy_(st[k])
+            x = _mamba_layer_decode(blocks, i, x, state, i, cfg)
+    elif cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        for grp in range(_groups(cfg)):
+            for j in range(every):
+                x = _mamba_layer_decode(blocks, grp * every + j, x, state,
+                                        (grp, j), cfg)
+            x = _attn_block_decode(
+                params["shared"], x, state["shared_k"][grp],
+                state["shared_v"][grp], pos, cfg, cfg.sliding_window)
     elif cfg.local_global_pattern:
         for i in range(cfg.num_layers // 2):
             x = _attn_block_decode(

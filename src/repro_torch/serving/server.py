@@ -4,11 +4,14 @@ A small but real server: requests enter a queue; the engine admits up to
 ``max_batch`` concurrent sequences into fixed slots; each scheduler tick
 decodes one token for every live slot (one ``decode_step`` for the whole
 batch: on the ``decode_attention`` kernel for the dense and moe families,
-whose expert FFNs run on ``gmm_blocks``; the recurrent step for ssm);
+whose expert FFNs run on ``gmm_blocks``; the recurrent step for ssm; both
+for hybrid, whose shared block attends to one cache per application);
 finished sequences free their slots for queued requests. A new request's
 prompt is replayed token by token through ``decode_step`` into its slot.
 The decode state is a flat dict of tensors for every family (KV caches,
-or conv and SSM states); ``kv_bytes`` counts all of it.
+conv and SSM states, or both); ``kv_bytes`` counts all of it. Token models
+only, as in the reference: an ``embeddings`` or ``vlm`` model (no token
+prompt to replay, or a prefix the step cannot take) is refused.
 
 The reference's behaviour is kept as it is, because parity is held to it:
 one shared position per ``decode_step`` (slots run in lockstep at the

@@ -365,9 +365,27 @@ def test_init_decode_state_matches_reference(case, request):
             == RefServer(rp, rcfg, max_batch=3, max_len=40).kv_bytes)
 
 
-def test_decode_rejects_other_families():
-    # the ssm family is served since the families slice; hybrid is not yet
-    cfg = get_config("zamba2-2.7b").reduced()
-    with pytest.raises(NotImplementedError):
-        T.init_decode_state(cfg, 1, 8)
-    assert dataclasses.asdict(cfg)["family"] == "hybrid"
+@pytest.mark.parametrize("field", ["family", "input_mode"])
+def test_decode_rejects_other_families(field):
+    """Every family and input mode of the configs is ported; an unknown
+    one raises ``ValueError`` from ``forward`` and ``init_decode_state``,
+    the reference's refusal (its ``init_decode_state`` reads the family
+    only; the port checks both up front)."""
+    rcfg = dataclasses.replace(ref_get_config("smollm-360m").reduced(),
+                               **{field: "unknown"})
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              **{field: "unknown"})
+    toks = np.zeros((1, 4), np.int32)
+    rp = RT.init_params(jax.random.PRNGKey(0), rcfg)
+    with pytest.raises(ValueError, match="unknown"):
+        RT.forward(rp, {"tokens": jnp.asarray(toks)}, rcfg)
+    if field == "family":
+        with pytest.raises(ValueError, match="unknown"):
+            RT.init_decode_state(rcfg, 1, 8)
+    with pytest.raises(ValueError, match="unknown"):
+        T.forward(T.from_reference(jax.tree.map(np.asarray, rp)),
+                  {"tokens": torch.from_numpy(toks)}, cfg)
+    with pytest.raises(ValueError, match="unknown"):
+        T.init_decode_state(cfg, 1, 8, device="cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        T.init_params(cfg, torch.Generator().manual_seed(0))

@@ -1,13 +1,16 @@
-"""``BatchedServer`` and the serve launcher on the moe and ssm families
-(reduced granite-moe-3b-a800m and mamba2-2.7b), against the JAX package's,
-on the CPU.
+"""``BatchedServer`` and the serve launcher on the moe, ssm and hybrid
+families (reduced granite-moe-3b-a800m, mamba2-2.7b and zamba2-2.7b, the
+last at 4 layers: two groups, each with its own application of the shared
+block), against the JAX package's, on the CPU.
 
 * Greedy tokens equal to the reference ``BatchedServer``'s for the same
   requests through two recycled slots, on f32 configs with the reference's
   params (``transformer.from_reference``): the same greedy argmax at the
   1e-4 logits agreement of ``test_torch_moe``/``test_torch_ssm``.
 * ``kv_bytes``, the bytes of the decode state (KV caches for moe, conv and
-  SSM states for ssm), equal to the reference server's.
+  SSM states for ssm, both for hybrid), equal to the reference server's.
+* Both servers refuse an ``embeddings`` and a ``vlm`` model
+  (musicgen-medium, internvl2-76b), as the reference does.
 * ``repro_torch.launch.serve.main`` serves both on the CPU when asked
   (``--device cpu``) and needs a card otherwise.
 """
@@ -29,7 +32,7 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving import BatchedServer, Request  # noqa: E402
 
 torch.set_num_threads(1)
-ARCHS = ["granite-moe-3b-a800m", "mamba2-2.7b"]
+ARCHS = ["granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-2.7b"]
 
 
 def _requests(cls, vocab):
@@ -40,7 +43,8 @@ def _requests(cls, vocab):
 
 
 def _pair(arch, **over):
-    kw = {"num_layers": 2, "vocab_size": 64, "dtype": "float32", **over}
+    kw = {"num_layers": 4 if arch == "zamba2-2.7b" else 2, "vocab_size": 64,
+          "dtype": "float32", **over}
     rcfg = ref_get_config(arch).reduced(**kw)
     cfg = get_config(arch).reduced(**kw)
     rp = RT.init_params(jax.random.PRNGKey(3), rcfg)
@@ -88,6 +92,19 @@ def test_serve_launcher_runs_on_the_cpu(arch, capsys):
     assert all(r.done_s is not None for r in reqs)
     out = capsys.readouterr().out
     assert f"arch={arch}-reduced" in out and "device=cpu" in out
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "internvl2-76b"])
+def test_batched_server_refuses_non_token_models(arch):
+    """The server demo serves token models only, in both packages; so does
+    the launcher."""
+    rcfg, cfg, rp, pp = _pair(arch)
+    with pytest.raises(AssertionError):
+        RefServer(rp, rcfg, max_batch=2, max_len=16)
+    with pytest.raises(AssertionError):
+        BatchedServer(pp, cfg, max_batch=2, max_len=16, device="cpu")
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", arch, "--device", "cpu"])
 
 
 def test_serve_launcher_needs_a_card_by_default():
