@@ -64,7 +64,16 @@ Run from the root of a checkout, on a machine with a CUDA card and
      at M 1 and 8 and ragged tiles with an odd K, each row printing its
      ``plan_f32_gemm`` plan (and byte loader), two launches bitwise equal,
      a device time, each launch's output first handed a NaN-filled block
-     (int8 beside ``torch._weight_int8pack_mm``); with
+     (int8 beside ``torch._weight_int8pack_mm``); ``flash_attention_bwd``
+     (the backward of prefill attention, three launches counted as one)
+     at smollm-360m's training attention (8 and 4 sequences of 512, 15/5
+     heads of 64) in bf16 and f32 and a windowed, softcapped bf16 shape
+     of gemma2's kind (1, 1024, 32/16, 128), dq, dk and dv against
+     ``flash_attention_bwd_plain`` fed the kernel forward's o and lse,
+     two launches bitwise equal, each launch's three outputs first handed
+     NaN-filled blocks, beside SDPA's backward through autograd (events
+     only); the bf16 ``matmul`` also at the training path's backward
+     GEMMs (dx reading w K-major in place, dw over 2048 tokens); with
      ``--kernels-only`` the script stops here (a first check of a new
      kernel, without the paths or a result line);
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
@@ -172,6 +181,18 @@ Run from the root of a checkout, on a machine with a CUDA card and
      whole model does not fit one card) ``forward`` on 256 prefix
      embeddings and 64 text tokens against the all-plain forward, then 32
      decode steps of text tokens against the all-plain decode (LLM gate);
+     then training (``training_path``): smollm-360m at full width on
+     ``SyntheticPipeline(batch 8, seq 512, microbatches 2, seed 0)``; in
+     f32 at ``TRAIN_F32_DEPTH`` = 4 of its 32 layers (a cut of depth) one
+     step's loss and every gradient leaf against torch autograd through
+     the plain versions (loss 1e-5 relative, each leaf ``PATH_TOL`` of its
+     max|ref|), ``remat`` bitwise equal to none, and a ``save_pytree`` /
+     ``load_pytree`` round trip of params and AdamW state bitwise; in bf16
+     at all 32 layers the loss within 1e-2 of plain's and each gradient
+     leaf within 5e-2 (``TRAIN_BF16_TOL``; each block's gradients held in
+     lockstep too), two ``make_train_step`` steps from one state bitwise
+     equal, the loss falling over 20 steps on ``batch_at(0)``, tokens/s
+     and a step's device busy and idle;
   8. fails unless every kernel of a path launched during that path's runs
      (each path's launch counts are zeroed just before its runs and read
      just after; the fleet's are its served requests' own;
@@ -179,8 +200,11 @@ Run from the root of a checkout, on a machine with a CUDA card and
      ``decode_step``, ``ssd_scan`` once a mamba layer per ``forward``,
      ``flash_attention`` once an attention layer or shared-block
      application per ``forward``, ``decode_attention`` once an attention
-     layer or application per ``decode_step``) and no kernel was demoted
-     by the fault ladder.
+     layer or application per ``decode_step``; a training step's
+     ``flash_attention_bwd`` once a layer a microbatch, ``flash_attention``
+     once (twice with remat) and the matmul 3 x (7 L + 1) times a
+     microbatch (4 x 7 L + 3 with remat), no plain version called) and no
+     kernel was demoted by the fault ladder.
 
 Every run of a decided plan in the CNN and LLM phases (nnv12,
 sequential, nnv12_nosteal) starts from the first arm's state: the store
@@ -251,6 +275,15 @@ MUSICGEN_DECODE = 32   # musicgen-medium's decode steps against forward
 # internvl2-76b's layers: a cut of its 80 (the whole model, ~141 GB in
 # bf16, does not fit one 80 GB card; 4 layers and the two heads ~11 GB)
 VLM_DEPTH = 4
+# the training path: smollm-360m in f32 at TRAIN_F32_DEPTH of its 32
+# layers (a cut of depth only, for the f32 gate against plain) and in bf16
+# at all 32; SyntheticPipeline(batch 8, seq 512, microbatches 2): 4096
+# tokens a step; the loss curve's steps on batch_at(0); the bf16 gradient
+# leaves' gate against plain (max|d|/max|ref|)
+TRAIN_F32_DEPTH = 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 512, 2
+TRAIN_CURVE = 20
+TRAIN_BF16_TOL = 5e-2
 # whole-model MoE runs, kernels against plain: the share of (token, expert)
 # assignments that must agree (a wrong hidden state routes near k/E = 0.2)
 ROUTE_AGREE = 0.9
@@ -269,13 +302,16 @@ def plain_kernels():
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant as Q
     from repro_torch.kernels.attention import (decode_attention_plain,
+                                               flash_attention_bwd_plain,
                                                flash_attention_plain,
                                                plan_decode)
     from repro_torch.kernels.gmm import gmm_blocks_plain
     from repro_torch.kernels.matmul import matmul_plain
     from repro_torch.kernels.ssd import ssd_scan_plain
 
+    # under grad, the plain versions run under torch's autograd
     plain = {"matmul": matmul_plain, "flash_attention": flash_attention_plain,
+             "flash_attention_bwd": flash_attention_bwd_plain,
              "decode_attention": decode_attention_plain,
              "dequant_int8": Q.dequant_int8_plain,
              "dequant_int4": Q.dequant_int4_plain,
@@ -1950,6 +1986,266 @@ def modes_path(dev, music_decode: int, vlm_depth: int) -> dict:
                                        "matmul", "matmul_bf16")}
 
 
+def training_path(dev, card: str, f32_depth: int) -> dict:
+    """Dense-body training at smollm-360m's full width (d_model 960, 15/5
+    heads of 64, d_ff 2560, tied vocab 49152) on ``SyntheticPipeline(cfg,
+    TRAIN_BATCH, TRAIN_SEQ, microbatches=TRAIN_MICRO, seed=0)``, weights
+    drawn on the card from seed 0. In f32 at ``f32_depth`` layers (a cut
+    of depth): one step's loss and every f32 gradient leaf (``step_grads``,
+    microbatches summed) with the kernels against the same with
+    ``plain_kernels()`` (torch autograd through the plain versions): loss
+    within 1e-5 relative, each leaf within ``PATH_TOL`` of its max|ref|;
+    ``remat=True`` gives bitwise the same loss and gradients; one
+    ``make_train_step`` step, then ``save_pytree`` of params and AdamW
+    state and ``load_pytree`` give back bitwise-equal tensors. In bf16 at
+    all 32 layers: the loss within 1e-2 relative of plain's, each
+    gradient leaf's max|d|/max|ref| reported and gated at
+    ``TRAIN_BF16_TOL`` (where the whole model amplifies rounding past it,
+    each block's gradients, of its weights and its input, held to its
+    plain version's on the same input and output gradient instead, and
+    said); two ``make_train_step`` steps (remat on, lr 3e-3, warmup 5)
+    from copies of one state give bitwise-equal params and moments; the
+    loss over ``TRAIN_CURVE`` steps on ``batch_at(0)`` must fall; tokens/s
+    and a step's device busy and idle (``torch.profiler``). Launch gates a
+    step: ``flash_attention_bwd`` L x microbatches, ``flash_attention`` L
+    x microbatches (twice with remat), the matmul 3 x (7L + 1) x
+    microbatches (4 x 7L + 3 a microbatch with remat), and no plain
+    version called on the kernel path. Returns the launch counts of the
+    kernels' runs, each zeroed just before it; gates are checked last."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import matmul as KM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step, step_grads
+
+    gates = PathGates("training path")
+    n = TRAIN_MICRO
+    base = get_config("smollm-360m")
+    print(f"training path: {base.name} full width (d_model {base.d_model}, "
+          f"{base.num_heads}/{base.num_kv_heads} heads of {base.head_dim}, "
+          f"d_ff {base.d_ff}, tied vocab {base.vocab_size}), "
+          f"SyntheticPipeline(batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, "
+          f"microbatches {n}, seed 0): {TRAIN_BATCH * TRAIN_SEQ} tokens a "
+          f"step; f32 at {f32_depth} of {base.num_layers} layers (a cut of "
+          f"depth), bf16 at all {base.num_layers}")
+    plain_calls = {}
+
+    @contextlib.contextmanager
+    def plain_counted():
+        """The plain versions of the path's kernels, counted where a
+        wrapper would call them (on CPU tensors only)."""
+        saved = [(KA, "flash_attention_plain"),
+                 (KA, "flash_attention_bwd_plain"), (KM, "matmul_plain")]
+        fns = [getattr(m, name) for m, name in saved]
+        for (m, name), fn in zip(saved, fns):
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                plain_calls[_name] = plain_calls.get(_name, 0) + 1
+                return _fn(*a, **kw)
+            setattr(m, name, wrapped)
+        try:
+            yield
+        finally:
+            for (m, name), fn in zip(saved, fns):
+                setattr(m, name, fn)
+
+    def draw(cfg):
+        params = draw_model(cfg, dev)
+        for p in pytree.leaves(params):
+            p.requires_grad_(True)
+        return params
+
+    def gate_step(cfg, label, counts, remat):
+        L, mm = cfg.num_layers, ("matmul" if cfg.dtype == "float32"
+                                 else "matmul_bf16")
+        gates.launched(label, "flash_attention_bwd",
+                       counts["flash_attention_bwd"], L * n)
+        gates.launched(label, "flash_attention", counts["flash_attention"],
+                       L * n * (2 if remat else 1))
+        gates.launched(label, mm, counts[mm],
+                       (4 * 7 * L + 3) * n if remat else 3 * (7 * L + 1) * n)
+
+    def grads_held(cfg, params, batch, label):
+        """One step's (gradients, metrics) with the kernels (counted and
+        gated) and with the plain versions; the worst leaf reported."""
+        with plain_counted():
+            (g, m), counts = counted(gates, label, lambda: step_grads(
+                params, batch, cfg, num_microbatches=n, remat=False))
+        gate_step(cfg, label, counts, False)
+        with plain_kernels():
+            gp, mp = step_grads(params, batch, cfg, num_microbatches=n,
+                                remat=False)
+        keys = [k for k, _ in pytree.flatten_with_path(params)]
+        worst = max((rel_err(a, b), k) for a, b, k in zip(g, gp, keys))
+        lrel = abs(m["loss"].item() - mp["loss"].item()) / abs(
+            mp["loss"].item())
+        finite = all(bool(torch.isfinite(a).all()) for a in g)
+        print(f"  {label} vs plain: loss {m['loss'].item():.6f} vs "
+              f"{mp['loss'].item():.6f} (rel {lrel:.3e}); worst of "
+              f"{len(keys)} gradient leaves {worst[1]} max|d|/max|ref| "
+              f"{worst[0]:.3e}; finite {finite}")
+        return g, m, lrel, worst, finite
+
+    # -- f32 at f32_depth layers: the f32 gate, remat, a checkpoint -------
+    cfg = dataclasses.replace(base, num_layers=f32_depth, dtype="float32")
+    params = draw(cfg)
+    batch = SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, microbatches=n,
+                              seed=0, device=dev).batch_at(0)
+    g, m, lrel, worst, finite = grads_held(
+        cfg, params, batch, f"f32 {f32_depth}-layer step gradients")
+    gates.check(finite and lrel <= 1e-5 and worst[0] <= PATH_TOL,
+                f"f32 step: loss rel {lrel:.3e} (gate 1e-5) or leaf "
+                f"{worst[1]} {worst[0]:.3e} (gate {PATH_TOL}) leaves the "
+                f"gate")
+    label = f"f32 {f32_depth}-layer step gradients, remat"
+    with plain_counted():
+        (gr, mr), counts = counted(gates, label, lambda: step_grads(
+            params, batch, cfg, num_microbatches=n, remat=True))
+    gate_step(cfg, label, counts, True)
+    same = torch.equal(m["loss"], mr["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(g, gr))
+    print(f"  remat=True vs remat=False: loss and {len(g)} gradient leaves "
+          f"bitwise equal: {same}")
+    gates.check(same, "remat changes the f32 gradients' bits")
+    del g, gr
+    step = make_train_step(cfg, num_microbatches=n, remat=False)
+    params, opt, _ = step(params, adamw_init(params), batch)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_pytree(d, (params, opt))
+        back = load_pytree(d, (params, opt))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    src, got = pytree.leaves((params, opt)), pytree.leaves(back)
+    same = len(src) == len(got) and all(
+        a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+        for a, b in zip(src, got))
+    print(f"  checkpoint: save_pytree + load_pytree of params and AdamW "
+          f"state ({len(src)} leaves, "
+          f"{sum(t.numel() * 4 for t in src) / 1e9:.2f} GB as f32 .npy) in "
+          f"{dt:.2f} s: bitwise equal {same}")
+    gates.check(same, "checkpoint round trip is not bitwise equal")
+    del params, opt, back, src, got, batch
+    torch.cuda.empty_cache()
+
+    # -- bf16 at all layers -----------------------------------------------
+    cfg = base
+    L = cfg.num_layers
+    params = draw(cfg)
+    pipe = SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, microbatches=n,
+                             seed=0, device=dev)
+    batch = pipe.batch_at(0)
+    g, m, lrel, worst, finite = grads_held(
+        cfg, params, batch, f"bf16 {L}-layer step gradients")
+    del g
+    gates.check(finite and lrel <= 1e-2,
+                f"bf16 step: loss rel {lrel:.3e} leaves the gate 1e-2")
+    # each block on the kernels' hidden state, its gradients (weights and
+    # input) under one output gradient, against its plain version's
+    mb = {k: v[0] for k, v in batch.items()}
+    with torch.no_grad():
+        x, _ = T._embed_input(params, cfg, mb)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=dev).expand(x.shape[0], -1)
+    dy = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        tuple(x.shape)).astype(np.float32)).to(dev, x.dtype)
+    blocks = T._unbind(params["blocks"], L)
+    names = ["x"] + [k for k, _ in pytree.flatten_with_path(blocks[0])]
+    lock = (0.0, -1, "")
+    for i in range(L):
+        bp = pytree.tree_map(lambda t: t.detach().requires_grad_(),
+                             blocks[i])
+        xi = x.detach().requires_grad_()
+        ins = [xi] + pytree.leaves(bp)
+
+        def block():
+            out, _ = T._attn_block_seq(bp, xi, cfg, positions,
+                                       cfg.sliding_window)
+            return out, torch.autograd.grad(out, ins, dy)
+
+        out, gk = block()
+        with plain_kernels():
+            _, gp = block()
+        lock = max([lock] + [(rel_err(a, b), i, nm)
+                             for a, b, nm in zip(gk, gp, names)])
+        x = out.detach()
+    whole = worst[0] <= TRAIN_BF16_TOL
+    print(f"  bf16 blocks in lockstep (each block's gradients of its "
+          f"weights and input, one output gradient, on the kernels' hidden "
+          f"state): worst {lock[0]:.3e} (layer {lock[1]}, {lock[2]}); the "
+          f"whole model's worst leaf {worst[0]:.3e}; gate {TRAIN_BF16_TOL} "
+          f"held by " + ("the whole model's leaves" if whole else
+                         "the blocks in lockstep: the whole model amplifies "
+                         "rounding past it"))
+    gates.check(whole or lock[0] <= TRAIN_BF16_TOL,
+                f"bf16 gradients leave the gate: whole model {worst[1]} "
+                f"{worst[0]:.3e}, lockstep layer {lock[1]} {lock[2]} "
+                f"{lock[0]:.3e}")
+    del blocks, x, dy, out, gk, gp
+    # two steps from copies of one state: bitwise equal
+    step = make_train_step(cfg, lr=3e-3, warmup=5, total_steps=TRAIN_CURVE,
+                           num_microbatches=n, remat=True)
+    opt = adamw_init(params)
+    copy = pytree.tree_map(lambda t: t.detach().clone(), (params, opt))
+    p2, o2 = copy
+    label = "bf16 train step (remat)"
+    (params, opt, m0), counts = counted(gates, label,
+                                        lambda: step(params, opt, batch))
+    gate_step(cfg, label, counts, True)
+    p2, o2, _ = step(p2, o2, batch)
+    same = all(torch.equal(a, b) for a, b in zip(
+        pytree.leaves((params, opt)), pytree.leaves((p2, o2))))
+    print(f"  two bf16 steps from copies of one state: params and moments "
+          f"bitwise equal: {same}")
+    gates.check(same, "two train steps from one state differ")
+    del p2, o2, copy
+    torch.cuda.empty_cache()
+    # the loss curve on batch_at(0): the step above is its first
+    losses = [m0["loss"].item()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_CURVE - 1):
+        params, opt, mi = step(params, opt, batch)
+        losses.append(mi["loss"])
+    losses = losses[:1] + [t.item() for t in losses[1:]]
+    dt = time.perf_counter() - t0
+    tok_s = TRAIN_BATCH * TRAIN_SEQ * (TRAIN_CURVE - 1) / dt
+    print(f"  loss over {TRAIN_CURVE} steps on batch_at(0) (lr 3e-3, warmup "
+          f"5): " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"  bf16 train step, {L} layers, {TRAIN_BATCH * TRAIN_SEQ} tokens "
+          f"in {n} microbatches, remat: {dt * 1e3 / (TRAIN_CURVE - 1):.1f} "
+          f"ms/step wall, {tok_s:,.0f} tokens/s ({card})")
+    gates.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"the loss does not fall over {TRAIN_CURVE} steps: "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    state = [params, opt]
+
+    def one_step(i):
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    profile_steps(f"bf16 train step ({L} layers, {n} microbatches, remat)",
+                  one_step, 2, extra=("fab_", "fa_bf16", "gemm_",
+                                      "elementwise", "reduce"))
+    del params, opt, state, batch
+    torch.cuda.empty_cache()
+    print(f"  training path launches: "
+          f"{json.dumps({k: c for k, c in gates.main.items() if c})}")
+    gates.check(not plain_calls, f"plain versions called on the kernel "
+                                 f"path: {plain_calls}")
+    gates.finish()
+    return {k: gates.main[k] for k in ("flash_attention_bwd",
+                                       "flash_attention", "matmul",
+                                       "matmul_bf16")}
+
+
 # the hand-written kernel each CNN registry kernel launches, once a layer
 # per forward (``direct`` convs run cuDNN, the reference's lax.conv)
 CNN_KERNELS = {("conv2d", "im2col_sgemm"): "matmul",
@@ -2228,7 +2524,9 @@ def main() -> None:
                                       reset_stage_engine)
     from repro_torch.kernels import _native, ops
     from repro_torch.kernels import quant as Q
+    from repro_torch.kernels.attention import _flash_forward as flash_forward
     from repro_torch.kernels.attention import (decode_attention_plain,
+                                               flash_attention_bwd_plain,
                                                flash_attention_plain,
                                                plan_decode, plan_flash)
     from repro_torch.kernels.attention import visible as attn_visible
@@ -2344,15 +2642,20 @@ def main() -> None:
 
     def nan_block(like):
         """Hand the caching allocator back a NaN-filled block of ``like``'s
-        (shape, dtype) on the check stream, which the kernel's next output
-        of that size takes: an output element the kernel skips stays NaN
-        rather than the last call's value. Returns its address."""
+        (shape, dtype) — or one of each, for a list — on the check stream,
+        which the kernel's next output of that size takes: an output
+        element the kernel skips stays NaN rather than the last call's
+        value. Returns their addresses."""
         if like is None:
-            return None
-        t = torch.full(like[0], float("nan"), dtype=like[1], device=dev)
-        ptr = t.data_ptr()
-        del t
-        return ptr
+            return set()
+        ts = [torch.full(shape, float("nan"), dtype=dt, device=dev)
+              for shape, dt in (like if isinstance(like, list) else [like])]
+        ptrs = {t.data_ptr() for t in ts}
+        del ts
+        return ptrs
+
+    def outputs(r):
+        return r if isinstance(r, tuple) else (r,)
 
     def library_or_error(name, fn):
         """``fn`` where one call of it runs on the card; otherwise None,
@@ -2369,31 +2672,34 @@ def main() -> None:
 
     def check(label, kernel, plain, library, flops, nbytes,
               dtype="float32", peak=None, exact=False, repeat_equal=False,
-              nan_out=None, nan_scratch=None):
+              nan_out=None, nan_scratch=None, library_graph=True):
         """A kernel returning a tuple is held to its plain version output
         by output, each to its own max|plain|: the worst is reported. With
         ``repeat_equal`` a second launch on the same inputs must give the
-        same bits. ``nan_out`` (shape, dtype): each launch's output is
-        first filled with NaN where the allocator hands it that block;
-        ``nan_scratch`` (floats): so is a K split's f32 scratch."""
+        same bits. ``nan_out`` (shape, dtype), or a list of them for a
+        kernel returning a tuple: each launch's outputs are first filled
+        with NaN where the allocator hands them those blocks;
+        ``nan_scratch`` (floats): so is a K split's f32 scratch.
+        ``library_graph=False``: the library call is timed by events only
+        (autograd's backward does not run on a capturing stream)."""
         torch.cuda.synchronize()  # inputs were copied on the default stream
         scratch = (((nan_scratch,), torch.float32) if nan_scratch
                    else None)
         with torch.cuda.stream(stream):
             nan_block(scratch)
-            nan_ptr = nan_block(nan_out)
+            nan_ptrs = nan_block(nan_out)
             got = kernel()
-            hits = int(nan_ptr is not None and got.data_ptr() == nan_ptr)
+            hits = sum(o.data_ptr() in nan_ptrs for o in outputs(got))
             ref = plain()
             if repeat_equal:
                 nan_block(scratch)
-                nan_ptr = nan_block(nan_out)
+                nan_ptrs = nan_block(nan_out)
                 again = kernel()
-                hits += int(nan_ptr is not None and
-                            again.data_ptr() == nan_ptr)
+                hits += sum(o.data_ptr() in nan_ptrs for o in outputs(again))
         stream.synchronize()
         if nan_out is not None:
-            print(f"  ({hits} of {1 + int(repeat_equal)} launches wrote "
+            n_out = len(outputs(got)) * (1 + int(repeat_equal))
+            print(f"  ({hits} of {n_out} launch outputs wrote "
                   f"into a NaN-filled block"
                   + (", each after a NaN-filled scratch block of "
                      f"{nan_scratch} floats" if scratch else "") + ")")
@@ -2419,7 +2725,8 @@ def main() -> None:
         if repeat_equal:
             dev["device_ms"] = device_ms(kernel)
             dev["library_device_ms"] = (device_ms(library, library=True)
-                                        if library is not None else None)
+                                        if library is not None
+                                        and library_graph else None)
 
         def fmt(v):
             return "-" if v is None else f"{v:.4f}"
@@ -2597,6 +2904,20 @@ def main() -> None:
                 ("ragged_tile", 100, 200, 49155, False),
                 ("ragged_kmajor", 20, 37, 50, True),
                 ("unaligned_n_skinny", 5, 1536, 49155, False)]
+    # the backward GEMMs of the training path at smollm-360m's widths (a
+    # microbatch of 4 x 512 = 2048 tokens): dx = dy (2048, N) · wᵀ, w read
+    # in place K-major (the tied head's embed row-major); dw = xᵀ (K, 2048)
+    # · dy, a contraction over the 2048 tokens
+    mm_rows += [("bwd_dx_qo", 2048, 960, 960, True),
+                ("bwd_dx_kv", 2048, 320, 960, True),
+                ("bwd_dx_up", 2048, 2560, 960, True),
+                ("bwd_dx_down", 2048, 960, 2560, True),
+                ("bwd_dx_head_tied", 2048, 49152, 960, False),
+                ("bwd_dw_qo", 960, 2048, 960, False),
+                ("bwd_dw_kv", 960, 2048, 320, False),
+                ("bwd_dw_up", 960, 2048, 2560, False),
+                ("bwd_dw_down", 2560, 2048, 960, False),
+                ("bwd_dw_head", 960, 2048, 49152, False)]
     for tag, M, K, N, kmajor in mm_rows:
         x = rand(M, K, dtype=torch.bfloat16)
         w = (rand(N, K, dtype=torch.bfloat16, scale=K ** -0.5).T if kmajor
@@ -2668,6 +2989,52 @@ def main() -> None:
                   repeat_equal=True)
         results.setdefault("flash_attention", {})[tag] = {
             **r, "plan": plan._asdict()}
+
+    print("kernels vs plain versions (flash_attention_bwd, the backward of "
+          "prefill attention: smollm-360m's training attention at (8, 512, "
+          "15/5, 64) and one microbatch (4, 512) in bf16, (8, 512) in f32, "
+          "and a windowed, softcapped bf16 shape of gemma2's kind; the "
+          "bound counts five products of the visible pairs (one recompute "
+          "of the scores) at the inputs' peak; library: SDPA's backward "
+          "through autograd, a comparison only):")
+    for tag, B, S, H, KV, D, win, cap, dt in [
+            ("smollm_B8", 8, 512, 15, 5, 64, None, None, torch.bfloat16),
+            ("smollm_mb", 4, 512, 15, 5, 64, None, None, torch.bfloat16),
+            ("smollm_B8_f32", 8, 512, 15, 5, 64, None, None, torch.float32),
+            ("gemma2_window_softcap", 1, 1024, 32, 16, 128, 256, 50.0,
+             torch.bfloat16)]:
+        q = rand(B, S, H, D, dtype=dt, scale=0.5)
+        k = rand(B, S, KV, D, dtype=dt, scale=0.5)
+        v = rand(B, S, KV, D, dtype=dt, scale=0.5)
+        do = rand(B, S, H, D, dtype=dt)
+        kw = dict(causal=True, window=win, softcap=cap)
+        o, lse = flash_forward(q, k, v, True, win, cap, True)
+        lib = None
+        if cap is None and win is None:
+            # the forward on the check stream, where autograd then runs
+            # the backward that the events time
+            with torch.cuda.stream(stream):
+                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                              for t in (q, k, v))
+                ot = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            stream.synchronize()
+            lib = (lambda ot=ot, ins=(qt, kt, vt), g=do.transpose(1, 2):
+                   torch.autograd.grad(ot, ins, g, retain_graph=True))
+        dname = str(dt).replace("torch.", "")
+        r = check(f"flash_attention_bwd {tag} B={B} S={S} H={H} KV={KV} "
+                  f"D={D} window={win} softcap={cap} {dname} (three "
+                  f"launches: delta, dK/dV, dQ)",
+                  lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                  lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                    **kw), lib,
+                  10 * B * H * D * visible_pairs(S, win),
+                  q.element_size() * 4 * B * S * (H + KV) * D + 4 * B * H * S,
+                  dname, repeat_equal=True,
+                  nan_out=[((B, S, H, D), dt), ((B, S, KV, D), dt),
+                           ((B, S, KV, D), dt)], library_graph=False)
+        results.setdefault("flash_attention_bwd", {})[tag] = r
+        del q, k, v, do, o, lse, lib
 
     print("kernels vs plain versions (decode_attention: the Pallas sweep in "
           "its prefix form, smollm-360m decode shapes, a wrapped ring with a "
@@ -3317,10 +3684,17 @@ def main() -> None:
         print(f"  [{family} path done at "
               f"{time.perf_counter() - t_start:.1f} s]")
 
+    # -- 7c. training: the dense body -----------------------------------------
+    for k, n in training_path(dev, card, TRAIN_F32_DEPTH).items():
+        launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    print(f"  [training path done at {time.perf_counter() - t_start:.1f} s]")
+
     # -- 8. report ----------------------------------------------------------
     main_shape = {"winograd_tile_matmul": "stage0", "matmul": "im2col_s1b0",
                   "matmul_packed": "head", "matmul_bf16": "head",
                   "flash_attention": "prefill64",
+                  "flash_attention_bwd": "smollm_mb",
                   "decode_attention": "B1_W82_bfloat16",
                   "dequant_int8": "head",
                   "dequant_int4": "head",

@@ -1,4 +1,6 @@
-from repro_torch.checkpoint.io import LayerStore  # noqa: F401
+from repro_torch.checkpoint.io import (  # noqa: F401
+    LayerStore, load_pytree, save_pytree,
+)
 from repro_torch.checkpoint.bundle import (  # noqa: F401
     atomic_write, bundle_nbytes, read_bundle, read_header, write_bundle,
 )

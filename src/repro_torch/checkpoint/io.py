@@ -29,8 +29,12 @@
     number the cold-I/O benchmarks compare across formats: N_tensors for
     npy, N_layers for bundle, 1 per model for super).
 
-The training-checkpoint pytree helpers of the JAX package are not part of
-this package: the port has no training loop yet.
+  * ``save_pytree``/``load_pytree`` — training checkpoints (params and
+    optimizer state): one ``leaf_{i:05d}.npy`` a leaf in JAX's leaf order
+    (``repro_torch.pytree``), bf16 widened to f32 and recorded as
+    ``"bfloat16"``, and an ``index.json`` whose ``leaves`` (key, file,
+    dtype) are the reference's, so a checkpoint written by either package
+    loads in the other.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import bf16
 from repro_torch.checkpoint.bundle import (
@@ -734,3 +739,64 @@ class LayerStore:
             return sb.file_size() - sb.cache_disk_bytes()
         return sum(p.stat().st_size
                    for p in (self.root / "raw").rglob("*") if p.is_file())
+
+
+# ---------------------------------------------------------------------------
+# training-checkpoint pytrees
+# ---------------------------------------------------------------------------
+def save_pytree(root: Path, tree: Any) -> None:
+    """Write ``tree`` (nested dicts and NamedTuples of tensors or numpy
+    arrays) under ``root``: ``leaf_{i:05d}.npy`` per leaf in JAX's leaf
+    order, bf16 stored widened to f32 with the dtype recorded as
+    "bfloat16" (``.npy`` has no bf16), and ``index.json`` with
+    ``leaves`` [{key (JAX's keystr), file, dtype}] and the port's own
+    ``treedef`` string. Any other void-kind dtype raises ``TypeError``."""
+    from repro_torch import pytree
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    index = []
+    for i, (key, leaf) in enumerate(pytree.flatten_with_path(tree)):
+        fname = f"leaf_{i:05d}.npy"
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu()
+        else:
+            leaf = np.asarray(leaf)
+            if bf16.is_bf16(leaf):
+                leaf = bf16.to_tensor(np.ascontiguousarray(leaf))
+            elif leaf.dtype.kind == "V":
+                # a structured dtype (or another extension type) would be
+                # widened or mislabeled silently
+                raise TypeError(
+                    f"save_pytree: unsupported dtype {leaf.dtype} at {key!r}"
+                    f" — only numpy-native dtypes and bfloat16 round-trip")
+        if isinstance(leaf, torch.Tensor):
+            arr = leaf.to(torch.float32 if leaf.dtype == torch.bfloat16
+                          else leaf.dtype).numpy()
+            dtype_str = bf16.dtype_name(leaf)
+        else:
+            arr, dtype_str = leaf, str(leaf.dtype)
+        np.save(root / fname, arr, allow_pickle=False)
+        index.append({"key": key, "file": fname, "dtype": dtype_str})
+    (root / "index.json").write_text(json.dumps(
+        {"leaves": index, "treedef": pytree.treedef_str(tree)}, indent=1))
+
+
+def load_pytree(root: Path, like: Any) -> Any:
+    """The tree ``save_pytree`` (of either package) wrote under ``root``,
+    in ``like``'s structure, each leaf a tensor in the dtype and on the
+    device of ``like``'s leaf (a bf16 leaf stored widened comes back
+    exact)."""
+    from repro_torch import pytree
+
+    root = Path(root)
+    flat = pytree.leaves(like)
+    idx = json.loads((root / "index.json").read_text())["leaves"]
+    if len(idx) != len(flat):
+        raise ValueError(f"load_pytree: {root} holds {len(idx)} leaves, the "
+                         f"tree {len(flat)}")
+    out = []
+    for e, f in zip(idx, flat):
+        t = torch.from_numpy(np.load(root / e["file"], allow_pickle=False))
+        out.append(t.to(device=f.device, dtype=f.dtype))
+    return pytree.unflatten(like, out)

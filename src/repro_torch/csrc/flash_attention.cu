@@ -18,6 +18,12 @@
 // inside a tile the block takes, by each warp whose rows see none of it.
 // No atomics: two launches on the same inputs give the same bits.
 //
+// Where the caller passes an `lse` buffer (B, H, S) f32 (the training
+// path: flash_attention_bwd.cu recomputes P = exp(s - lse) from it), each
+// query row's log-sum-exp m + log l of its scaled, softcapped scores is
+// written there; with a key split, group 0 writes it after the merge. The
+// inference path passes null and writes nothing more.
+//
 // bf16: tensor cores (FA2-style), one block per (b, `hb` query heads of
 // one kv head, `bq` query rows), chosen on the host by plan_flash
 // (kernels/attention.py). Each warp owns 16 query rows of one head.
@@ -83,6 +89,7 @@ namespace {
 namespace tc = repro_torch::tc;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -137,6 +144,7 @@ struct FaArgs {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;  // (B, H, S) f32 log-sum-exp a query row, or null
   int S, H, KV, D, bq, hb, ks, nst, causal, window, vec;
   float sl, ci, co;  // scale·log2e; scale/softcap, softcap·log2e (0: none)
 };
@@ -435,6 +443,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32, Bf16Cfg<DP>::MINB)
   }
   if (!warp_live) return;
 
+  // m is in log2 units of the scaled (softcapped) scores
+  if (a.lse != nullptr && tq == 0) {
+    float* lr = a.lse + ((long long)b * a.H + h0 + hh) * S;
+    if (rowA < S) lr[rowA] = m_r[0] * kLn2 + logf(l_r[0]);
+    if (rowB < S) lr[rowB] = m_r[1] * kLn2 + logf(l_r[1]);
+  }
+
   // the output staged in the warp's own query rows (no other warp reads
   // them now) and stored 16 bytes at a time
   float inv[2];
@@ -468,7 +483,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, Bf16Cfg<DP>::MINB)
 
 template <int DP>
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                const __nv_bfloat16* v, __nv_bfloat16* o, int B, int S, int H,
+                const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int B,
+                int S, int H,
                 int KV, int D, int causal, int window, float softcap, int bq,
                 int hb, int ks, cudaStream_t stream) {
   const int rep = H / KV;
@@ -491,6 +507,7 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = lse;
   a.S = S;
   a.H = H;
   a.KV = KV;
@@ -529,9 +546,9 @@ constexpr size_t f32_smem_floats() {
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
     fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int S,
-                  int H, int KV, int D, float scale, int causal, int window,
-                  float softcap) {
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int S, int H, int KV, int D,
+                  float scale, int causal, int window, float softcap) {
   constexpr int CN = DP / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;
@@ -663,6 +680,8 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
     const float inv_l = 1.0f / fmaxf(l[i], 1e-37f);
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * S + row] = m[i] + logf(l[i]);
 #pragma unroll
     for (int c = 0; c < CN; ++c) {
       const int col = tx * CN + c;
@@ -673,8 +692,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int DP>
 int launch_f32(const float* q, const float* k, const float* v, float* o,
-               int B, int S, int H, int KV, int D, int causal, int window,
-               float softcap, int bq, int hb, cudaStream_t stream) {
+               float* lse, int B, int S, int H, int KV, int D, int causal,
+               int window, float softcap, int bq, int hb, cudaStream_t stream) {
   if (bq != kBQ || hb != 1) return (int)cudaErrorInvalidValue;
   const size_t smem = f32_smem_floats<DP>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -683,7 +702,7 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   fa_f32_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, S, H, KV, D, 1.0f / sqrtf((float)D), causal, window,
+      q, k, v, o, lse, S, H, KV, D, 1.0f / sqrtf((float)D), causal, window,
       softcap);
   return (int)cudaGetLastError();
 }
@@ -703,18 +722,19 @@ extern "C" {
 // window <= 0: no sliding window; softcap <= 0: no softcap. bq (query rows
 // a head in a block), heads (query heads a block), ksplit (warp groups that
 // split each key stage, 1 or 2; f32: 1) and dp (D padded in shared memory)
-// as plan_flash decided.
+// as plan_flash decided. lse: (B, H, S) f32, or null (inference).
 int repro_flash_attention_f32(const float* q, const float* k, const float* v,
-                              float* o, int B, int S, int H, int KV, int D,
-                              int causal, int window, float softcap, int bq,
-                              int heads, int ksplit, int dp, void* stream) {
+                              float* o, float* lse, int B, int S, int H,
+                              int KV, int D, int causal, int window,
+                              float softcap, int bq, int heads, int ksplit,
+                              int dp, void* stream) {
   if (ksplit != 1) return (int)cudaErrorInvalidValue;
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaGetLastError();
   if (int err = check_args(H, KV, D, dp)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FA_F32(W)                                                    \
   case W:                                                                  \
-    return launch_f32<W>(q, k, v, o, B, S, H, KV, D, causal, window,       \
+    return launch_f32<W>(q, k, v, o, lse, B, S, H, KV, D, causal, window,  \
                          softcap, bq, heads, st);
   switch (dp) {
     REPRO_FA_F32(32)
@@ -731,7 +751,8 @@ int repro_flash_attention_f32(const float* q, const float* k, const float* v,
 
 int repro_flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, __nv_bfloat16* o,
-                               int B, int S, int H, int KV, int D, int causal,
+                               float* lse, int B, int S, int H, int KV, int D,
+                               int causal,
                                int window, float softcap, int bq, int heads,
                                int ksplit, int dp, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaGetLastError();
@@ -739,7 +760,7 @@ int repro_flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FA_BF16(W)                                                   \
   case W:                                                                  \
-    return launch_bf16<W>(q, k, v, o, B, S, H, KV, D, causal, window,      \
+    return launch_bf16<W>(q, k, v, o, lse, B, S, H, KV, D, causal, window, \
                           softcap, bq, heads, ksplit, st);
   switch (dp) {
     REPRO_FA_BF16(32)

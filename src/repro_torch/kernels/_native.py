@@ -31,8 +31,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("matmul", "conv_winograd", "flash_attention", "decode_attention",
-           "quant", "gmm", "ssd")  # csrc/<name>.cu
+SOURCES = ("matmul", "conv_winograd", "flash_attention", "flash_attention_bwd",
+           "decode_attention", "quant", "gmm", "ssd")  # csrc/<name>.cu
 HEADERS = ("gemm_f32_paths.cuh", "gemm_bf16_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,12 +49,16 @@ ARGTYPES = {
     "repro_matmul_packed_bf16": [_P, _P, _P] + [_I] * 8 + [_P, _P],
     # V, U, out, P, T, C, O, path, bm, bn, split, blocks, scratch, stream
     "repro_winograd_tile_matmul_f32": [_P, _P, _P] + [_I] * 9 + [_P, _P],
-    # q, k, v, o, B, S, H, KV, D, causal, window, softcap, bq, heads,
-    # ksplit, dp, stream
-    "repro_flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F] + [_I] * 4
+    # q, k, v, o, lse (or null), B, S, H, KV, D, causal, window, softcap,
+    # bq, heads, ksplit, dp, stream
+    "repro_flash_attention_f32": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 4
     + [_P],
-    "repro_flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F] + [_I] * 4
+    "repro_flash_attention_bf16": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 4
     + [_P],
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, D, causal,
+    # window, softcap, dp, stream
+    "repro_flash_attention_bwd_f32": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+    "repro_flash_attention_bwd_bf16": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
     # q, k, v, k_scale, v_scale, pos, o, scratch, B, W, H, KV, D, window,
     # softcap, hg, hgroups, lpr, chunk, split, stream
     "repro_decode_attention_f32": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 5
@@ -206,7 +210,20 @@ def on_cpu(kernel: str, *ts,
     plain version). Otherwise the tensors must share one of ``dtypes``
     (float32 unless the kernel takes more), or, where ``each`` is given,
     tensor i must have one of ``each[i]``; they must be contiguous and lie
-    on one CUDA device, or this raises: there is no fallback."""
+    on one CUDA device, or this raises: there is no fallback.
+
+    Every kernel call passes here, so here too a call that autograd would
+    have to differentiate (grad mode on, an input requiring grad) raises
+    ``NotImplementedError``, on the CPU as on the card: a kernel writes
+    its output through ctypes, with no ``grad_fn``, and a backward would
+    stop there silently. ``matmul`` and ``flash_attention`` have backward
+    kernels and reach this only with grad mode off (inside their autograd
+    Functions)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{kernel}: no backward kernel yet, so no gradient flows through "
+            f"it; call it under torch.no_grad() or on inputs that do not "
+            f"require grad")
     devs = {t.device for t in ts}
     if {d.type for d in devs} == {"cpu"}:
         return True

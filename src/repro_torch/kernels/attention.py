@@ -37,6 +37,21 @@ k, v and o (1.25 µs); a long prefill (S = 2048, 15 heads, D = 64) by its
 scores and softmax in f32 over the whole (S, S) matrix, cast to q's dtype
 at the end.
 
+Training. Under grad (grad mode on and q, k or v requiring grad)
+``flash_attention`` runs as a ``torch.autograd.Function``: its forward asks
+the kernel for each query row's log-sum-exp as well (``lse`` (B, H, S) f32,
+m + log l of the scaled, softcapped scores; the inference path passes
+null), and its backward is ``flash_attention_bwd`` (``csrc/
+flash_attention_bwd.cu``, which replaces no Pallas kernel: the JAX package
+differentiates its jnp attention). That kernel recomputes P = exp(s - lse)
+tile by tile in f32 on the CUDA cores, in three launches (δ = rowsum(dO∘o);
+dK and dV a key tile of one kv head, looping over its query heads, so the
+GQA sum needs no atomics; dQ a query tile), counted as one.
+``flash_attention_bwd_plain`` spells out the same formulas over the whole
+score matrix in f32. Bound on an H100 SXM at smollm-360m's training shape
+(4, 512, 15/5, 64) in bf16: ~7.0 GFLOP of the causal products, 7 µs at the
+tensor-core peak (the CUDA cores' 67 TFLOP/s make it ~105 µs).
+
 Decode. One new token per row, q (B, H, D), against a KV cache k, v
 (B, W, KV, D) that is a ring buffer: slot w holds position
 ``pos - ((pos - w) mod W)``, visible when that is >= 0 and, with a
@@ -75,7 +90,8 @@ from repro_torch.kernels.matmul import SMS
 
 NEG_INF = -2.0e38
 
-launches = {"flash_attention": 0, "decode_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_bwd": 0,
+            "decode_attention": 0}
 _lock = threading.Lock()
 
 
@@ -91,11 +107,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"fit q {tuple(q.shape)}")
 
 
+def _mask(S: int, causal: bool, window: Optional[int],
+          device) -> torch.Tensor:
+    """(S, S) bool: which keys (columns) each query row sees."""
+    idx = torch.arange(S, device=device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= idx[None, :] <= idx[:, None]
+    if window is not None:
+        mask &= idx[None, :] > idx[:, None] - window
+    return mask
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None,
-                          softcap: Optional[float] = None) -> torch.Tensor:
-    """Masked softmax attention in f32 over the whole score matrix."""
+                          softcap: Optional[float] = None,
+                          return_lse: bool = False):
+    """Masked softmax attention in f32 over the whole score matrix; with
+    ``return_lse``, (out, the rows' log-sum-exp (B, H, S) f32)."""
     _check(q, k, v)
     B, S, H, D = q.shape
     rep = H // k.shape[2]
@@ -104,15 +134,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) / math.sqrt(D)
     if softcap:
         s = torch.tanh(s / softcap) * softcap
-    idx = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= idx[None, :] <= idx[:, None]
-    if window is not None:
-        mask &= idx[None, :] > idx[:, None] - window
-    s = s.masked_fill(~mask, NEG_INF)
+    s = s.masked_fill(~_mask(S, causal, window, q.device), NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
 FLASH_MAX_D = 256
@@ -237,26 +262,36 @@ def plan_flash(B: int, S: int, H: int, KV: int, D: int,
     return min(plans, key=key)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, window: Optional[int],
+                   softcap: Optional[float], want_lse: bool
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out, lse or None): the kernel (or, on the CPU, the plain version),
+    writing the rows' log-sum-exp too where ``want_lse``."""
     _check(q, k, v)
     if _native.on_cpu("flash_attention", q, k, v,
                       dtypes=(torch.float32, torch.bfloat16)):
+        if want_lse:
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, softcap=softcap,
+                                         return_lse=True)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap)
+                                     softcap=softcap), None
     B, S, H, D = q.shape
     plan = plan_flash(B, S, H, k.shape[2], D, q.dtype, causal, window)
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, "
                          f"got {window}")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     if B and S and H and D:
         lib = _native.library("flash_attention")
         fn = (lib.repro_flash_attention_bf16 if q.dtype == torch.bfloat16
               else lib.repro_flash_attention_f32)
         with _native.on_device(q.device):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    None if lse is None else lse.data_ptr(),
                     B, S, H, k.shape[2], D, int(causal),
                     int(window) if window is not None else 0,
                     float(softcap) if softcap else 0.0,
@@ -265,7 +300,135 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _native.check(rc, "flash_attention")
         with _lock:
             launches["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Attention over a prefill; under grad (grad mode on and an input
+    requiring grad) the autograd Function whose backward is
+    ``flash_attention_bwd``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _flash_forward(q, k, v, causal, window, softcap, False)[0]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward keeps o and the
+    rows' lse, the backward is the ``flash_attention_bwd`` kernel (its
+    plain version on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _flash_forward(q, k, v, causal, window, softcap, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.opts
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), causal=causal,
+                                         window=window, softcap=softcap)
+        return dq, dk, dv, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# the backward of prefill attention
+# ---------------------------------------------------------------------------
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True,
+                              window: Optional[int] = None,
+                              softcap: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_attention`` by the explicit formulas, in f32
+    over the whole score matrix: P = exp(s - lse) (masked entries 0), dP =
+    dO·Vᵀ, δ = rowsum(dO∘o), dS = P∘(dP - δ), times 1 - tanh² of the
+    softcap's argument; dQ = dS·K/√D, dK = dSᵀ·Q/√D and dV = Pᵀ·dO summed
+    over each kv head's query heads; each in its input's dtype."""
+    _check(q, k, v)
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    f = torch.float32
+    qf, dof = q.to(f), do.to(f)
+    kf = k.to(f).repeat_interleave(rep, dim=2)
+    vf = v.to(f).repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / math.sqrt(D)
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+    mask = _mask(S, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.to(f)[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * o.to(f)).sum(-1).permute(0, 2, 1)      # (B, H, S)
+    ds = p * (dp - delta[..., None])
+    if softcap:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) / math.sqrt(D)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) / math.sqrt(D)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(B, S, KV, rep, D).sum(3)
+    dv = dv.reshape(B, S, KV, rep, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` given its output ``o``,
+    the rows' ``lse`` (B, H, S) f32 and the output's gradient ``do``: the
+    kernel on CUDA tensors (three launches counted as one), the plain
+    version on CPU tensors."""
+    _check(q, k, v)
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape \
+            or tuple(lse.shape) != (B, H, S):
+        raise ValueError(f"flash_attention_bwd: o, do must be "
+                         f"{tuple(q.shape)} and lse {(B, H, S)}, got "
+                         f"{tuple(o.shape)}, {tuple(do.shape)}, "
+                         f"{tuple(lse.shape)}")
+    dt = (torch.float32, torch.bfloat16)
+    if _native.on_cpu("flash_attention_bwd", q, k, v, o, lse, do,
+                      each=(dt, (q.dtype,), (q.dtype,), (q.dtype,),
+                            (torch.float32,), (q.dtype,))):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, softcap=softcap)
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention_bwd: window must be positive, "
+                         f"got {window}")
+    if D > FLASH_MAX_D:
+        raise ValueError(f"flash_attention_bwd: the CUDA kernel takes "
+                         f"head_dim up to {FLASH_MAX_D}, got {D}")
+    dp = next(w for w in FLASH_DP[q.dtype] if w >= D)
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    if B and S and H and D:
+        delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        lib = _native.library("flash_attention_bwd")
+        fn = (lib.repro_flash_attention_bwd_bf16
+              if q.dtype == torch.bfloat16
+              else lib.repro_flash_attention_bwd_f32)
+        with _native.on_device(q.device):
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    B, S, H, KV, D, int(causal),
+                    int(window) if window is not None else 0,
+                    float(softcap) if softcap else 0.0, dp,
+                    _native.current_stream(q.device))
+        _native.check(rc, "flash_attention_bwd")
+        with _lock:
+            launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------

@@ -74,6 +74,16 @@ operations (27 µs at the tensor-core rate); every decode projection
 (M = 1-4) and the smollm-360m LM head (64,960)x(960,49152) (101 MB, 30 µs)
 by reading the weights, which the skinny path streams once.
 
+Training. Under grad (grad mode on and x or w requiring grad) ``matmul``
+runs as a ``torch.autograd.Function`` (the counterpart of the jnp products
+that ``jax.grad`` differentiates in the JAX package) whose backward is two
+more launches of the same kernels: dx = matmul(dy, w.T), where w.T of a
+row-major w is K-major and of a K-major w (the tied head's ``embed.T``)
+row-major, both read in place; and dw = matmul(x.T.contiguous(), dy), the
+one copy (an A operand read in place is later work). Same dtype rules:
+bf16 in, f32 accumulator, the gradient in the input's dtype; f32 stays
+IEEE. Inference takes the wrapper as before.
+
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises — there is no fallback. ``launches`` counts
 kernel launches only.
@@ -303,7 +313,35 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x (M, K) @ w (K, N) (float32 or bfloat16; w the same) in
     ``out_dtype``: x's dtype by default, or float32 for bf16 inputs. ``w``
-    is contiguous or K-major (``w.T`` contiguous, read in place)."""
+    is contiguous or K-major (``w.T`` contiguous, read in place). Under
+    grad, the autograd Function whose backward runs the same kernels."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Matmul.apply(x, w, out_dtype)
+    return _matmul(x, w, out_dtype)
+
+
+class _Matmul(torch.autograd.Function):
+    """``matmul`` under autograd: dx = matmul(dy, w.T) (w read in place,
+    K-major or row-major), dw = matmul(x.T.contiguous(), dy); dy is taken
+    in x's dtype (a bf16 product with f32 out hands back an f32 dy)."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype):
+        ctx.save_for_backward(x, w)
+        return _matmul(x, w, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = _matmul(dy, w.T) if ctx.needs_input_grad[0] else None
+        dw = (_matmul(x.T.contiguous(), dy) if ctx.needs_input_grad[1]
+              else None)
+        return dx, dw, None
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul: bad shapes {tuple(x.shape)} x {tuple(w.shape)}")
     out_dtype = out_dtype or x.dtype

@@ -21,6 +21,7 @@ matmul = _mm.matmul
 matmul_packed = _mm.matmul_packed
 winograd_tile_matmul = _wino.winograd_tile_matmul
 flash_attention = _attn.flash_attention
+flash_attention_bwd = _attn.flash_attention_bwd
 decode_attention = _attn.decode_attention
 dequant_int8 = _quant.dequant_int8
 dequant_int4 = _quant.dequant_int4
@@ -43,6 +44,12 @@ KERNELS = {
                              "src/repro/kernels/conv_winograd.py:39"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/attention.py:75"),
+    # no Pallas kernel: the reference differentiates its jnp attention
+    # (jax.grad of flash_attention_ref)
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "none (the reference differentiates jnp "
+                            "attention: jax.grad of "
+                            "src/repro/kernels/ref.py:22)"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/attention.py:163"),
     "dequant_int8": ("src/repro_torch/csrc/quant.cu",

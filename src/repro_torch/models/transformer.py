@@ -37,16 +37,34 @@ the mamba states shaped (G, every, ...) and the shared block's caches
 A step takes ``batch["embeds"]`` (B, 1, d) in the ``embeddings`` mode and
 ``embed[batch["tokens"]]`` otherwise. Each step's attention runs on the
 ``decode_attention`` kernel. The state tensors are updated in place and
-returned as the new state. Training (``loss_fn``, ``remat``) and the
-prefill cache (``collect_cache``) wait for later slices.
+returned as the new state.
+
+Training (the dense body: the dense, vlm and audio families in all three
+input modes). ``loss_fn`` is the reference's next-token cross-entropy
+(label slicing and mask per input mode, the logsumexp over the f32 logits,
+``+ 0.01 * aux``). ``forward(remat=True)`` checkpoints each block
+(``torch.utils.checkpoint``, non-reentrant), each group of
+``remat_group`` blocks where that divides the depth (the reference's
+hierarchical remat), or each of gemma2's (local, global) pairs. The
+stacked block weights are taken apart with one ``torch.unbind`` a leaf a
+forward: indexing a stack per layer under autograd would make each
+layer's backward write a zero-filled gradient of the whole stack. The
+gradients flow through the ``matmul`` and ``flash_attention`` kernels'
+autograd Functions, and the token embedding is read with ``F.embedding``,
+whose backward sums the rows deterministically. The moe, ssm and hybrid
+families refuse gradients (``NotImplementedError``) until ``gmm_blocks``
+and ``ssd_scan`` have backward kernels. The prefill cache
+(``collect_cache``) is not ported.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import bf16
 from repro_torch.configs.base import ArchConfig
@@ -55,6 +73,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.runtime_flags import FLAGS
+from repro_torch.pytree import leaves
 
 Params = Dict[str, Any]
 
@@ -203,13 +222,13 @@ def _embed_input(params, cfg, batch):
     given embeddings in the config dtype, or the vlm prefix in front of
     the token embeddings (mask 0 over the prefix, 1 over the text)."""
     if cfg.input_mode == "tokens":
-        x = params["embed"][batch["tokens"]]
+        x = F.embedding(batch["tokens"], params["embed"])
         mask = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
     elif cfg.input_mode == "embeddings":
         x = batch["embeds"].to(_dtype(cfg))
         mask = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
     elif cfg.input_mode == "vlm":
-        tok = params["embed"][batch["tokens"]]
+        tok = F.embedding(batch["tokens"], params["embed"])
         pre = batch["prefix_embeds"].to(_dtype(cfg))
         x = torch.cat([pre, tok], dim=1)
         mask = torch.cat(
@@ -236,13 +255,47 @@ def _lm_logits(params, cfg, x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # sequence forward (prefill)
 # ---------------------------------------------------------------------------
-def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
+def _check_trainable(params: Params, cfg: ArchConfig) -> None:
+    """``NotImplementedError`` where autograd would differentiate a family
+    whose kernels have no backward yet (moe: ``gmm_blocks``; ssm and
+    hybrid: ``ssd_scan``)."""
+    if cfg.family in ("moe", "ssm", "hybrid") and torch.is_grad_enabled() \
+            and any(t.requires_grad for t in leaves(params)):
+        kernel = "gmm_blocks" if cfg.family == "moe" else "ssd_scan"
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family needs a backward "
+            f"kernel for {kernel}, not ported yet; run it under "
+            f"torch.no_grad() or with params that do not require grad")
+
+
+def _unbind(tree, n: int) -> List[Params]:
+    """The (n, ...) stacked leaves of ``tree`` as n per-layer trees, one
+    ``torch.unbind`` a leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def _remat_unit(cfg: ArchConfig, remat_group: int) -> int:
+    """Blocks a checkpointed unit: gemma2's (local, global) pair, else
+    ``remat_group`` where it divides the depth, else one."""
+    if cfg.local_global_pattern:
+        return 2
+    g = max(remat_group, 1)
+    return g if cfg.num_layers % g == 0 else 1
+
+
+def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            *, remat: bool = False, remat_group: int = 1):
     """Full-sequence forward. Returns (logits, aux_loss, (None, mask)), the
     reference's return shape: the aux loss sums the MoE layers'
     load-balance losses (zero for the other families); the prefill cache
     (``collect_cache``) is not ported, decode starts from
-    ``init_decode_state``."""
+    ``init_decode_state``. ``remat`` (under grad) checkpoints the blocks
+    as ``_remat_unit`` groups them."""
     _check_family(cfg)
+    _check_trainable(params, cfg)
     x, loss_mask = _embed_input(params, cfg, batch)
     B, S, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -263,15 +316,59 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
             if a is not None:
                 aux = aux + a
         return _lm_logits(params, cfg, x), aux, (None, loss_mask)
-    for i in range(cfg.num_layers):
-        window = cfg.sliding_window
-        if cfg.local_global_pattern and i % 2 == 1:
-            window = None  # (local, global) pairs: odd layers are global
-        x, a = _attn_block_seq(_layer(params["blocks"], i), x, cfg,
-                               positions, window)
+    layers = _unbind(params["blocks"], cfg.num_layers)
+
+    def run(x, lo: int, hi: int):
+        aux_part = None
+        for i in range(lo, hi):
+            window = cfg.sliding_window
+            if cfg.local_global_pattern and i % 2 == 1:
+                window = None  # (local, global) pairs: odd layers are global
+            x, a = _attn_block_seq(layers[i], x, cfg, positions, window)
+            if a is not None:
+                aux_part = a if aux_part is None else aux_part + a
+        return x, aux_part
+
+    if remat and torch.is_grad_enabled():
+        # only families without an aux loss train (``_check_trainable``)
+        unit = _remat_unit(cfg, remat_group)
+        for lo in range(0, cfg.num_layers, unit):
+            x = checkpoint(lambda x, lo=lo: run(x, lo, lo + unit)[0], x,
+                           use_reentrant=False)
+    else:
+        x, a = run(x, 0, cfg.num_layers)
         if a is not None:
             aux = aux + a
     return _lm_logits(params, cfg, x), aux, (None, loss_mask)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            *, remat: bool = False, remat_group: int = 1):
+    """Next-token cross-entropy, the reference's: (total, {"loss",
+    "aux_loss"}) with total = loss + 0.01 · aux. The vlm mode scores the
+    text after its prefix; the embeddings mode scores ``batch["labels"]``;
+    the loss mask's mean over the scored positions (at least 1)."""
+    logits, aux, (_, mask) = forward(params, batch, cfg, remat=remat,
+                                     remat_group=remat_group)
+    if cfg.input_mode == "vlm":
+        P = cfg.num_prefix_embeds
+        lg = logits[:, P:-1]
+        lb = batch["tokens"][:, 1:]
+        m = mask[:, P + 1:]
+    elif cfg.input_mode == "embeddings":
+        lg = logits[:, :-1]
+        lb = batch["labels"][:, 1:]
+        m = mask[:, 1:]
+    else:
+        lg = logits[:, :-1]
+        lb = batch["tokens"][:, 1:]
+        m = mask[:, 1:]
+    logz = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, lb.to(torch.int64)[..., None])[..., 0]
+    nll = (logz - ll) * m
+    loss = nll.sum() / torch.clamp(m.sum(), min=1.0)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux_loss": aux}
 
 
 def _layer(tree, i: int):

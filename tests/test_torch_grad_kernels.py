@@ -1,0 +1,403 @@
+"""Gradients of the port's kernels on the CPU: the ``matmul`` and
+``flash_attention`` autograd Functions and ``flash_attention_bwd_plain``
+against ``jax.vjp`` of the reference's oracles (``matmul_ref``,
+``flash_attention_ref``), the wrappers' CUDA branch (forward and backward
+launches, the lse and scratch pointers, ``w`` read in place) through a
+stand-in library, and every kernel wrapper without a backward refusing
+gradients. Inputs come from numpy seeds.
+
+Tolerances:
+* f32: 1e-5 of max|ref| per gradient (the same f32 arithmetic in another
+  order);
+* bf16: 2e-2 of max|ref| (``KERNEL_TOL``'s bf16 gate: the port rounds q, k,
+  v, o and the gradients to bf16 at other places than XLA);
+* the lse of the plain forward: 1e-5 absolute against numpy's
+  logsumexp of the same masked scores in f64.
+"""
+import contextlib
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ref import flash_attention_ref, matmul_ref  # noqa: E402
+from repro_torch.kernels import _native, ops  # noqa: E402
+from repro_torch.kernels import attention as A  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+def _rng(*key):
+    return np.random.default_rng(list(key))
+
+
+def _rel(got, ref):
+    got = np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def _np(t):
+    return t.detach().to(torch.float32).numpy()
+
+
+def _jax_dtype(dtype):
+    return jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+
+
+def _tensor(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+FLASH_CASES = [
+    # B, S, H, KV, D, causal, window, softcap
+    (2, 24, 4, 2, 64, True, None, None),
+    (1, 40, 4, 1, 80, True, 7, None),
+    (1, 33, 2, 2, 64, True, None, 5.0),
+    (2, 20, 6, 3, 80, False, None, None),
+    (1, 30, 4, 2, 64, False, 9, 3.0),
+    (1, 37, 6, 2, 80, True, 11, 2.5),
+]
+
+
+def _flash_inputs(B, S, H, KV, D, seed=0):
+    rng = _rng(B, S, H, KV, D, seed)
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    do = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    return q, k, v, do
+
+
+def _flash_ref_grads(q, k, v, do, dtype, **kw):
+    """``jax.vjp`` of ``flash_attention_ref`` (jitted: one compile, rather
+    than one a primitive)."""
+    jd = _jax_dtype(dtype)
+
+    @jax.jit
+    def grads(a, b, c, g):
+        _, vjp = jax.vjp(lambda x, y, z: flash_attention_ref(x, y, z, **kw),
+                         a, b, c)
+        return vjp(g)
+
+    return [np.asarray(g, np.float32)
+            for g in grads(*(jnp.asarray(x, jd) for x in (q, k, v, do)))]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_flash_bwd_plain_and_function_match_jax_grad(case):
+    """``flash_attention_bwd_plain`` (fed the plain forward's o and lse)
+    and the autograd Function's gradients equal ``jax.vjp`` of
+    ``flash_attention_ref`` in f32 over causal, window, softcap, GQA and
+    D 64 and 80."""
+    B, S, H, KV, D, causal, window, softcap = case
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v, do = _flash_inputs(B, S, H, KV, D)
+    want = _flash_ref_grads(q, k, v, do, "float32", **kw)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = A.flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    got = A.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, **kw)
+    for g, w in zip(got, want):
+        assert _rel(_np(g), w) <= 1e-5
+    # the Function: ops.flash_attention under grad, backward through the
+    # wrapper's CPU branch
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = ops.flash_attention(*leaves, **kw)
+    assert out.grad_fn is not None
+    out.backward(tdo)
+    for t, w in zip(leaves, want):
+        assert _rel(_np(t.grad), w) <= 1e-5
+
+
+def test_flash_plain_lse_is_the_rows_logsumexp():
+    """The lse the plain forward returns (what the Function saves) is each
+    row's log-sum-exp of its scaled, softcapped, masked scores."""
+    B, S, H, KV, D = 1, 19, 2, 1, 64
+    q, k, v, _ = _flash_inputs(B, S, H, KV, D, seed=3)
+    _, lse = A.flash_attention_plain(*(torch.from_numpy(x) for x in (q, k,
+                                                                     v)),
+                                     causal=True, window=5, softcap=4.0,
+                                     return_lse=True)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    kf = np.repeat(k.astype(np.float64), H // KV, axis=2)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kf) / math.sqrt(D)
+    s = np.tanh(s / 4.0) * 4.0
+    i = np.arange(S)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - 5)
+    s = np.where(mask, s, -np.inf)
+    want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) \
+        + s.max(-1)
+    assert np.abs(lse.numpy() - want).max() <= 1e-5
+
+
+def test_flash_bwd_bf16_matches_jax_grad():
+    """bf16 inputs: the Function's gradients within the bf16 gate of
+    ``jax.vjp`` of ``flash_attention_ref`` on the same bf16 inputs."""
+    B, S, H, KV, D = 1, 32, 4, 2, 64
+    kw = dict(causal=True, window=12, softcap=None)
+    q, k, v, do = _flash_inputs(B, S, H, KV, D, seed=1)
+    want = _flash_ref_grads(q, k, v, do, "bfloat16", **kw)
+    leaves = [_tensor(x, "bfloat16").requires_grad_() for x in (q, k, v)]
+    out = ops.flash_attention(*leaves, **kw)
+    out.backward(_tensor(do, "bfloat16"))
+    for t, w in zip(leaves, want):
+        assert t.grad.dtype == torch.bfloat16
+        assert _rel(_np(t.grad), w) <= 2e-2
+
+
+def test_flash_inference_takes_no_function():
+    """Without grad (grad mode off, or no input requiring grad) the call is
+    the plain wrapper: no ``grad_fn``."""
+    q, k, v, _ = _flash_inputs(1, 8, 2, 1, 32)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    assert ops.flash_attention(tq, tk, tv).grad_fn is None
+    with torch.no_grad():
+        assert ops.flash_attention(tq.requires_grad_(), tk, tv).grad_fn \
+            is None
+
+
+def test_flash_bwd_refuses_bad_shapes():
+    q = torch.zeros(1, 8, 2, 32)
+    k = torch.zeros(1, 8, 1, 32)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError):
+        A.flash_attention_bwd(q, k, k, q, lse[:, :, :4], q)
+    with pytest.raises(ValueError):
+        A.flash_attention_bwd(q, k, k, q[:, :4], lse, q)
+
+
+# ---------------------------------------------------------------------------
+# matmul
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kmajor", [False, True], ids=["row_major",
+                                                      "k_major"])
+def test_matmul_function_matches_jax_grad(dtype, kmajor):
+    """dx and dw of ``ops.matmul`` under grad equal ``jax.vjp`` of
+    ``matmul_ref``, with w row-major or K-major (a transposed view, read
+    in place), each gradient in its input's dtype."""
+    rng = _rng(7, int(kmajor))
+    M, K, N = 13, 48, 40
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) / 7).astype(np.float32)
+    dy = rng.standard_normal((M, N)).astype(np.float32)
+    jd = _jax_dtype(dtype)
+    _, vjp = jax.vjp(matmul_ref, jnp.asarray(x, jd), jnp.asarray(w, jd))
+    want = vjp(jnp.asarray(dy, jd))
+    tx = _tensor(x, dtype).requires_grad_()
+    if kmajor:
+        base = _tensor(np.ascontiguousarray(w.T), dtype).requires_grad_()
+        tw = base.T
+        assert not tw.is_contiguous() and tw.T.is_contiguous()
+    else:
+        base = tw = _tensor(w, dtype).requires_grad_()
+    y = ops.matmul(tx, tw)
+    assert y.grad_fn is not None and y.dtype == tx.dtype
+    y.backward(_tensor(dy, dtype))
+    gw = base.grad.T if kmajor else base.grad
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert tx.grad.dtype == gw.dtype == getattr(torch, dtype)
+    assert _rel(_np(tx.grad), want[0]) <= tol
+    assert _rel(_np(gw), want[1]) <= tol
+
+
+def test_tied_head_gradient_reaches_embed():
+    """The tied head ``_mm(h, embed.T)`` (3-D h, embed read K-major in
+    place) and an embedding read of the same table: ``embed``'s gradient is
+    the sum of both, as ``jax.grad`` gives it."""
+    from repro_torch.models import layers as L
+
+    rng = _rng(11)
+    V, d, B, S = 50, 32, 2, 6
+    emb = (rng.standard_normal((V, d)) * 0.02).astype(np.float32)
+    h = rng.standard_normal((B, S, d)).astype(np.float32)
+    toks = rng.integers(0, V, (B, S)).astype(np.int32)
+    g = rng.standard_normal((B, S, V)).astype(np.float32)
+
+    def f(e, hh):
+        return jnp.sum(matmul_ref((hh + e[toks]).reshape(-1, d), e.T)
+                       .reshape(B, S, V) * g)
+
+    want = jax.grad(f, argnums=(0, 1))(jnp.asarray(emb), jnp.asarray(h))
+    te = torch.from_numpy(emb).requires_grad_()
+    th = torch.from_numpy(h).requires_grad_()
+    x = th + torch.nn.functional.embedding(torch.from_numpy(toks), te)
+    (L._mm(x, te.T) * torch.from_numpy(g)).sum().backward()
+    assert _rel(_np(te.grad), want[0]) <= 1e-5
+    assert _rel(_np(th.grad), want[1]) <= 1e-5
+
+
+def test_matmul_inference_takes_no_function():
+    x, w = torch.randn(3, 4), torch.randn(4, 5)
+    assert ops.matmul(x, w).grad_fn is None
+    with torch.no_grad():
+        assert ops.matmul(x.requires_grad_(), w).grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# the CUDA branch through a stand-in library
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def fake_kernels(monkeypatch):
+    """Run a wrapper's CUDA branch on CPU tensors against a stand-in
+    library that records each C call's arguments (no CUDA here)."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def fn(*args):
+                calls.append((name, args))
+                return 0
+            return fn
+
+    monkeypatch.setattr(_native, "on_cpu", lambda *a, **k: False)
+    monkeypatch.setattr(_native, "library", lambda name: Lib())
+    monkeypatch.setattr(_native, "on_device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(_native, "current_stream", lambda d: 0)
+    ops.reset_launch_counts()
+    yield calls
+    ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_backward_launches_two_gemms_w_in_place(fake_kernels, dtype):
+    """Under grad, the tied head's ``x @ embed.T`` launches one GEMM
+    forward (embed K-major) and two backward: dx reads ``embed`` itself
+    row-major (its storage, no copy), dw takes ``x.T`` as a new contiguous
+    (K, M) operand and dy; three launches counted."""
+    dt = getattr(torch, dtype)
+    M, d, V = 8, 32, 48
+    emb = torch.zeros(V, d, dtype=dt, requires_grad=True)
+    x = torch.zeros(M, d, dtype=dt, requires_grad=True)
+    y = ops.matmul(x, emb.T)
+    y.backward(torch.zeros(M, V, dtype=dt))
+    names = [n for n, _ in fake_kernels]
+    fn = "repro_matmul_bf16" if dtype == "bfloat16" else "repro_matmul_f32"
+    assert names == [fn] * 3
+    (_, fwd), (_, bwd1), (_, bwd2) = fake_kernels
+    # x, w, out, M, N, K, ldb, kmajor
+    assert fwd[1] == emb.data_ptr() and fwd[3:8] == (M, V, d, d, 1)
+    assert fwd[0] == x.data_ptr()
+    # dx = dy (M, V) @ embed (V, d), embed row-major in place
+    assert bwd1[1] == emb.data_ptr() and bwd1[3:8] == (M, d, V, d, 0)
+    # dw = x.T (d, M) @ dy (M, V): a copy of x, not x's storage
+    assert bwd2[0] != x.data_ptr() and bwd2[3:8] == (d, V, M, V, 0)
+    key = "matmul_bf16" if dtype == "bfloat16" else "matmul"
+    assert ops.launch_counts()[key] == 3
+
+
+def test_flash_function_passes_lse_and_bwd_its_args(fake_kernels):
+    """Under grad the forward hands ``repro_flash_attention_bf16`` an lse
+    buffer (inference passes None); the backward reaches
+    ``repro_flash_attention_bwd_bf16`` with that lse, a delta scratch, the
+    masks, softcap and the padded width, one launch counted each."""
+    B, S, H, KV, D = 2, 100, 6, 2, 80
+    q = torch.zeros(B, S, H, D, dtype=torch.bfloat16, requires_grad=True)
+    k = torch.zeros(B, S, KV, D, dtype=torch.bfloat16, requires_grad=True)
+    v = torch.zeros(B, S, KV, D, dtype=torch.bfloat16, requires_grad=True)
+    out = ops.flash_attention(q, k, v, causal=True, window=33, softcap=7.5)
+    out.backward(torch.zeros_like(out))
+    (n1, fwd), (n2, bwd) = fake_kernels
+    assert n1 == "repro_flash_attention_bf16"
+    assert n2 == "repro_flash_attention_bwd_bf16"
+    assert fwd[4] is not None and bwd[5] == fwd[4]       # the same lse
+    assert bwd[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert bwd[3] == fwd[3]                               # o
+    assert bwd[6] is not None                             # delta scratch
+    assert bwd[10:18] == (B, S, H, KV, D, 1, 33, 7.5)
+    assert bwd[18] == 80
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+
+
+def test_flash_bwd_f32_pads_d_to_the_forwards_widths(fake_kernels):
+    """f32 at D 80 runs the backward at the f32 forward's width 96."""
+    q = torch.zeros(1, 64, 2, 80)
+    k = torch.zeros(1, 64, 1, 80)
+    A.flash_attention_bwd(q, k, k, q, torch.zeros(1, 2, 64), q)
+    (name, args), = fake_kernels
+    assert name == "repro_flash_attention_bwd_f32"
+    assert args[10:18] == (1, 64, 2, 1, 80, 1, 0, 0.0) and args[18] == 96
+
+
+# ---------------------------------------------------------------------------
+# wrappers without a backward refuse gradients
+# ---------------------------------------------------------------------------
+def _no_backward_calls():
+    """(name, call) for each kernel wrapper without a backward; ``call(rg)``
+    runs it with one float input requiring grad where ``rg``."""
+    from repro_torch import quant as Qm
+
+    def decode(rg):
+        return ops.decode_attention(
+            torch.randn(1, 2, 8, requires_grad=rg), torch.randn(1, 4, 2, 8),
+            torch.randn(1, 4, 2, 8), torch.tensor([3], dtype=torch.int32))
+
+    def packed(rg):
+        return ops.matmul_packed(torch.randn(2, 128, requires_grad=rg),
+                                 torch.randn(1, 1, 128, 128), 128, 128)
+
+    def wino(rg):
+        return ops.winograd_tile_matmul(
+            torch.randn(16, 4, 3, requires_grad=rg), torch.randn(16, 3, 5))
+
+    w = np.random.default_rng(5).standard_normal((16, 8)).astype(np.float32)
+    q8, s8, _ = Qm.quantize_int8(w)
+    q4, s4 = Qm.quantize_int4(w)
+    q8, s8, q4, s4 = (torch.from_numpy(np.ascontiguousarray(a))
+                      for a in (q8, s8, q4, s4))
+
+    def scale(s, rg):
+        return s.clone().requires_grad_(rg)
+
+    def gmm(rg):
+        return ops.gmm_blocks(torch.randn(2, 3, 8, requires_grad=rg),
+                              torch.randn(2, 8, 4))
+
+    def ssd(rg):
+        B, S, H, P, N = 1, 8, 2, 4, 4
+        return ops.ssd_scan(torch.randn(B, S, H, P, requires_grad=rg),
+                            torch.rand(B, S, H), -torch.rand(H),
+                            torch.randn(B, S, N), torch.randn(B, S, N),
+                            torch.randn(H), chunk=4)
+
+    return [
+        ("decode_attention", decode),
+        ("matmul_packed", packed),
+        ("winograd_tile_matmul", wino),
+        ("dequant_int8", lambda rg: ops.dequant_int8(q8, scale(s8, rg))),
+        ("dequant_int4", lambda rg: ops.dequant_int4(q4, scale(s4, rg),
+                                                     K=16)),
+        ("matmul_dequant_int8", lambda rg: ops.matmul_dequant_int8(
+            torch.randn(3, 16, requires_grad=rg), q8, s8)),
+        ("matmul_dequant_int4", lambda rg: ops.matmul_dequant_int4(
+            torch.randn(3, 16, requires_grad=rg), q4, s4, K=16)),
+        ("gmm_blocks", gmm),
+        ("ssd_scan", ssd),
+    ]
+
+
+@pytest.mark.parametrize("name", [n for n, _ in _no_backward_calls()])
+def test_wrappers_without_backward_refuse_grad(name):
+    """Each wrapper with no backward kernel raises ``NotImplementedError``
+    naming itself when grad mode is on and an input requires grad, rather
+    than return a tensor with no ``grad_fn``; without grad it runs."""
+    call = dict(_no_backward_calls())[name]
+    with pytest.raises(NotImplementedError, match=name):
+        call(True)
+    out = call(False)
+    with torch.no_grad():
+        call(True)
+    assert out is not None

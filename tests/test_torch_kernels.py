@@ -656,7 +656,8 @@ def test_winograd_wrapper_passes_its_plan(fake_kernels):
 def test_flash_wrapper_passes_its_plan(fake_kernels):
     """``flash_attention`` at zamba2-2.7b's head dim 80 (outside the old
     {32, 64, 128}) reaches ``repro_flash_attention_bf16`` with
-    ``plan_flash``'s cut: one launch counted."""
+    ``plan_flash``'s cut and no lse buffer (inference): one launch
+    counted."""
     from repro_torch.kernels.attention import plan_flash
 
     B, S, H, KV, D = 1, 1024, 32, 32, 80
@@ -668,8 +669,9 @@ def test_flash_wrapper_passes_its_plan(fake_kernels):
     (name, args), = fake_kernels
     assert name == "repro_flash_attention_bf16"
     p = plan_flash(B, S, H, KV, D, torch.bfloat16, True, None)
-    assert args[4:12] == (B, S, H, KV, D, 1, 0, 0.0)
-    assert args[12:16] == (p.bq, p.heads, p.ksplit, p.dp)
+    assert args[4] is None
+    assert args[5:13] == (B, S, H, KV, D, 1, 0, 0.0)
+    assert args[13:17] == (p.bq, p.heads, p.ksplit, p.dp)
     assert p.dp == 80 and p.dp >= D
     assert ops.launch_counts()["flash_attention"] == 1
 

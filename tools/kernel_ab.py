@@ -1,7 +1,7 @@
 """Time ``decode_attention``, the f32 ``matmul``, ``flash_attention``,
-``winograd_tile_matmul``, ``ssd_scan``, ``matmul_packed``,
-``matmul_dequant_int8``, ``matmul_dequant_int4`` and the f32
-``gmm_blocks`` of one source tree of the PyTorch port on a CUDA card, so
+``flash_attention_bwd``, ``winograd_tile_matmul``, ``ssd_scan``,
+``matmul_packed``, ``matmul_dequant_int8``, ``matmul_dequant_int4`` and
+the f32 ``gmm_blocks`` of one source tree of the PyTorch port on a CUDA card, so
 that two commits can be compared on one card.
 
 Each row calls the tree's own wrapper (``repro_torch.kernels.ops``) at a
@@ -14,12 +14,15 @@ the same 20 calls captured in a CUDA graph and replayed (device time),
 beside the PyTorch library call (SDPA, ``torch.matmul``, ``torch.bmm``;
 ``torch.matmul`` on the unpacked weight for ``matmul_packed`` with f32 x,
 ``torch._weight_int8pack_mm`` for ``matmul_dequant_int8`` where the card
-takes it; none for ``ssd_scan``, ``matmul_dequant_int4``, a routed
+takes it, SDPA's backward through autograd for ``flash_attention_bwd``
+(by events only: autograd's backward does not run on a capturing
+stream); none for ``ssd_scan``, ``matmul_dequant_int4``, a routed
 ``gmm_blocks`` and a packed bf16 x) timed both ways,
 and the output's error against the tree's plain version (the worst of y
 and the final state for ``ssd_scan``). A row whose input the tree's
 wrapper refuses (the parent's ``matmul_packed`` with a bf16 x) prints
-``refused``.
+``refused``; so does every ``flash_bwd`` row of a tree that has no
+``flash_attention_bwd``.
 
 To compare a parent commit with a change, unpack the parent into a
 gitignored directory and run both trees in one call, in the order parent,
@@ -39,12 +42,13 @@ batched tile path's other tiles and the batched skinny path split 2, 4
 and 8 ways. ``--ptxas`` prints what ``ptxas -v``
 said of each kernel of the libraries the rows built (registers, stack
 frame, spills). Rows run for the kernels named by ``--only`` (default:
-all nine). The plan is printed where the tree's wrapper launches along
+all ten). The plan is printed where the tree's wrapper launches along
 it. Without a CUDA card it exits 2.
 
     python3 tools/kernel_ab.py --only ssd_scan --phases
     python3 tools/kernel_ab.py --only packed,dequant_int4,matmul
     python3 tools/kernel_ab.py --only dequant_int8,gmm_f32
+    python3 tools/kernel_ab.py --only flash_bwd --phases
 """
 from __future__ import annotations
 
@@ -67,6 +71,15 @@ DECODE_ROWS = [("smollm_B1_W82", 1, 82, 15, 5, 64),
                ("smollm_B4_W4096", 4, 4096, 15, 5, 64),
                ("granite_B1_W64", 1, 64, 24, 8, 64),
                ("granite_B4_W4096", 4, 4096, 24, 8, 64)]
+
+# (row, B, S, H, KV, D, dtype, window, softcap): the training path's
+# attention backward (smollm-360m's microbatch of 4 x 512 in bf16, the
+# batch of 8 in f32) and a windowed, softcapped shape of gemma2's kind
+FLASH_BWD_ROWS = [("smollm_mb", 4, 512, 15, 5, 64, "bfloat16", None, None),
+                  ("smollm_B8_f32", 8, 512, 15, 5, 64, "float32", None,
+                   None),
+                  ("gemma2_window_softcap", 1, 1024, 32, 16, 128,
+                   "bfloat16", 256, 50.0)]
 
 # (row, M, K, N, K-major w): resnet50's im2col GEMMs, granite-moe-3b-a800m's
 # router, mamba2-2.7b's f32 decode projections and tied head
@@ -140,7 +153,8 @@ GMM_F32_ROWS = [("decode_gate_f32", 40, 8, 1536, 512, None),
 
 # the kernel library each --only name launches
 LIBRARY = {"decode": "decode_attention", "matmul": "matmul",
-           "flash": "flash_attention", "winograd": "conv_winograd",
+           "flash": "flash_attention", "flash_bwd": "flash_attention_bwd",
+           "winograd": "conv_winograd",
            "ssd_scan": "ssd", "packed": "matmul", "dequant_int8": "quant",
            "dequant_int4": "quant", "gmm_f32": "gmm"}
 
@@ -155,11 +169,12 @@ def main() -> int:
     ap.add_argument("--phases", action="store_true",
                     help="also print each row's kernels by device time "
                          "(torch.profiler over 10 calls)")
-    ap.add_argument("--only", default="decode,matmul,flash,winograd,ssd_scan,"
-                    "packed,dequant_int8,dequant_int4,gmm_f32",
-                    help="comma-separated: decode, matmul, flash, winograd, "
-                         "ssd_scan, packed, dequant_int8, dequant_int4, "
-                         "gmm_f32")
+    ap.add_argument("--only", default="decode,matmul,flash,flash_bwd,"
+                    "winograd,ssd_scan,packed,dequant_int8,dequant_int4,"
+                    "gmm_f32",
+                    help="comma-separated: decode, matmul, flash, "
+                         "flash_bwd, winograd, ssd_scan, packed, "
+                         "dequant_int8, dequant_int4, gmm_f32")
     args = ap.parse_args()
     only = set(args.only.split(","))
 
@@ -226,7 +241,8 @@ def main() -> int:
                               f"{type(e).__name__}: {e}"}), flush=True)
             return None
 
-    def row(kernel, name, fn, plain, library, plan=None):
+    def row(kernel, name, fn, plain, library, plan=None,
+            library_graph=True):
         torch.cuda.synchronize()
         try:
             with torch.cuda.stream(stream):
@@ -244,7 +260,8 @@ def main() -> int:
                "plan": plan, "rel_err": err, "ms": time_ms(fn),
                "device_ms": device_ms(fn),
                "library_ms": library and time_ms(library),
-               "library_device_ms": library and device_ms(library)}
+               "library_device_ms": (library and library_graph
+                                     and device_ms(library)) or None}
         if args.phases:
             rec["phases_ms"] = phases(fn)
         print(json.dumps(rec), flush=True)
@@ -268,7 +285,10 @@ def main() -> int:
 
     # the libraries the chosen rows launch, built together (one nvcc each)
     from repro_torch.kernels import _native
-    _native.build_all(sorted({LIBRARY[k] for k in only}))
+    libs = {LIBRARY[k] for k in only} & set(_native.SOURCES)
+    if "flash_bwd" in only:    # its rows run the forward for o and lse
+        libs.add("flash_attention")
+    _native.build_all(sorted(libs))
 
     has_plans = hasattr(A, "plan_decode") and hasattr(MM, "plan_f32_gemm")
     if args.variants and not has_plans:
@@ -375,6 +395,40 @@ def main() -> int:
                         call, plain, lib, var._asdict())
                 finally:
                     A.plan_flash = orig
+
+    for name, B, S, H, KV, D, dname, win, cap in (
+            FLASH_BWD_ROWS if "flash_bwd" in only else []):
+        if not hasattr(ops, "flash_attention_bwd"):
+            print(json.dumps({"label": args.label,
+                              "kernel": "flash_attention_bwd", "row": name,
+                              "refused": "no flash_attention_bwd in this "
+                                         "tree"}), flush=True)
+            continue
+        dt = getattr(torch, dname)
+        q, k, v = (rand(B, S, n, D, dtype=dt) * 0.5 for n in (H, KV, KV))
+        do = rand(B, S, H, D, dtype=dt)
+        kw = dict(causal=True, window=win, softcap=cap)
+        with torch.cuda.stream(stream):
+            o, lse = A._flash_forward(q, k, v, True, win, cap, True)
+            lib = None
+            if win is None and cap is None:
+                ins = [t.transpose(1, 2).detach().requires_grad_()
+                       for t in (q, k, v)]
+                ot = F.scaled_dot_product_attention(*ins, is_causal=True,
+                                                    enable_gqa=True)
+
+                def lib(ot=ot, ins=ins, g=do.transpose(1, 2)):
+                    return torch.autograd.grad(ot, ins, g, retain_graph=True)
+        stream.synchronize()
+
+        def call():
+            return ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+        def plain():
+            return A.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+
+        row("flash_attention_bwd", name, call, plain, lib,
+            {"window": win, "softcap": cap}, library_graph=False)
 
     from repro_torch.kernels import conv_winograd as CW
     for name, T, C, O in WINO_ROWS if "winograd" in only else []:
