@@ -73,7 +73,15 @@ Run from the root of a checkout, on a machine with a CUDA card and
      two launches bitwise equal, each launch's three outputs first handed
      NaN-filled blocks, beside SDPA's backward through autograd (events
      only); the bf16 ``matmul`` also at the training path's backward
-     GEMMs (dx reading w K-major in place, dw over 2048 tokens); with
+     GEMMs (dx reading w K-major in place, dw over 2048 tokens); the MoE
+     backward's products at granite-moe-3b-a800m's training microbatch
+     (2048 tokens, top-8 of 40, C 824) in bf16 and f32, under a top-8
+     routing's group sizes and with every expert full: ``gmm_blocks``'
+     dx (dh and dblk, the forward's weight read K-major in place) and
+     ``gmm_blocks_dw`` (dwg and dwd, each expert contracted over its own
+     rows), each beside ``torch.bmm`` on the masked blocks, two launches
+     bitwise equal, each output handed a NaN-filled block, a device time,
+     each row printing its plan; with
      ``--kernels-only`` the script stops here (a first check of a new
      kernel, without the paths or a result line);
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
@@ -192,7 +200,19 @@ Run from the root of a checkout, on a machine with a CUDA card and
      leaf within 5e-2 (``TRAIN_BF16_TOL``; each block's gradients held in
      lockstep too), two ``make_train_step`` steps from one state bitwise
      equal, the loss falling over 20 steps on ``batch_at(0)``, tokens/s
-     and a step's device busy and idle;
+     and a step's device busy and idle; then MoE training
+     (``moe_training_path``): granite-moe-3b-a800m at full width on the
+     same pipeline (2048 tokens a microbatch, expert blocks of C 824); in
+     f32 at ``MOE_TRAIN_F32_DEPTH`` = 2 of its 32 layers (a cut of depth)
+     one step's loss and every gradient leaf (router, experts, attention,
+     norms, embed) against torch autograd through the plain versions under
+     the kernel run's routing replayed (loss 1e-5 relative, each leaf
+     ``PATH_TOL`` of its max|ref|), ``remat`` bitwise equal to none; in
+     bf16 at ``MOE_TRAIN_DEPTH`` = 16 layers (the forward path's cut)
+     each leaf within ``TRAIN_BF16_TOL`` under the replayed routing (or
+     each block in lockstep, the amplification printed), two steps
+     bitwise equal, the loss falling over ``MOE_TRAIN_CURVE`` = 10 steps,
+     ms a step, tokens/s, a step's device busy and idle;
   8. fails unless every kernel of a path launched during that path's runs
      (each path's launch counts are zeroed just before its runs and read
      just after; the fleet's are its served requests' own;
@@ -203,8 +223,11 @@ Run from the root of a checkout, on a machine with a CUDA card and
      layer or application per ``decode_step``; a training step's
      ``flash_attention_bwd`` once a layer a microbatch, ``flash_attention``
      once (twice with remat) and the matmul 3 x (7 L + 1) times a
-     microbatch (4 x 7 L + 3 with remat), no plain version called) and no
-     kernel was demoted by the fault ladder.
+     microbatch (4 x 7 L + 3 with remat), no plain version called; an MoE
+     training step's ``gmm_blocks`` 8 times a layer a microbatch (11 with
+     remat), ``gmm_blocks_dw`` 3 times, the router's f32 matmul 3 times
+     (4), the attention's projections 12 times (16) and the tied head's 3)
+     and no kernel was demoted by the fault ladder.
 
 Every run of a decided plan in the CNN and LLM phases (nnv12,
 sequential, nnv12_nosteal) starts from the first arm's state: the store
@@ -284,6 +307,15 @@ TRAIN_F32_DEPTH = 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 512, 2
 TRAIN_CURVE = 20
 TRAIN_BF16_TOL = 5e-2
+# the moe training path: granite-moe-3b-a800m at full width on the same
+# pipeline, f32 at MOE_TRAIN_F32_DEPTH of its 32 layers and bf16 at
+# MOE_TRAIN_DEPTH (the forward path's cut), both cuts of depth; the loss
+# curve's steps; the expert blocks' capacity at a microbatch of 2048
+# tokens (top-8 of 40, capacity factor 2)
+MOE_TRAIN_F32_DEPTH = 2
+MOE_TRAIN_DEPTH = 16
+MOE_TRAIN_CURVE = 10
+MOE_TRAIN_C = 824
 # whole-model MoE runs, kernels against plain: the share of (token, expert)
 # assignments that must agree (a wrong hidden state routes near k/E = 0.2)
 ROUTE_AGREE = 0.9
@@ -298,16 +330,19 @@ def fail(msg: str) -> None:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Every kernel wrapper of ``ops`` swapped for its plain version."""
+    """Every kernel wrapper of ``ops`` swapped for its plain version; the
+    MoE layer's grouped FFN takes its plain forward under grad too, so that
+    torch autograd differentiates it, not the hand-written backward."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant as Q
     from repro_torch.kernels.attention import (decode_attention_plain,
                                                flash_attention_bwd_plain,
                                                flash_attention_plain,
                                                plan_decode)
-    from repro_torch.kernels.gmm import gmm_blocks_plain
+    from repro_torch.kernels.gmm import gmm_blocks_dw_plain, gmm_blocks_plain
     from repro_torch.kernels.matmul import matmul_plain
     from repro_torch.kernels.ssd import ssd_scan_plain
+    from repro_torch.models import moe as MOE
 
     # under grad, the plain versions run under torch's autograd
     plain = {"matmul": matmul_plain, "flash_attention": flash_attention_plain,
@@ -317,15 +352,19 @@ def plain_kernels():
              "dequant_int4": Q.dequant_int4_plain,
              "matmul_dequant_int8": Q.matmul_dequant_int8_plain,
              "matmul_dequant_int4": Q.matmul_dequant_int4_plain,
-             "gmm_blocks": gmm_blocks_plain, "ssd_scan": ssd_scan_plain}
+             "gmm_blocks": gmm_blocks_plain,
+             "gmm_blocks_dw": gmm_blocks_dw_plain, "ssd_scan": ssd_scan_plain}
     saved = {k: getattr(ops, k) for k in plain}
     for k, fn in plain.items():
         setattr(ops, k, fn)
+    grouped_ffn = MOE._grouped_ffn
+    MOE._grouped_ffn = MOE._grouped_ffn_fwd
     try:
         yield
     finally:
         for k, fn in saved.items():
             setattr(ops, k, fn)
+        MOE._grouped_ffn = grouped_ffn
 
 
 # the batched-serving request mix of every LLM path: (prompt length, new
@@ -1986,6 +2025,185 @@ def modes_path(dev, music_decode: int, vlm_depth: int) -> dict:
                                        "matmul", "matmul_bf16")}
 
 
+@contextlib.contextmanager
+def plain_counted(calls: dict):
+    """The plain versions of the training paths' kernels, counted in
+    ``calls`` where a wrapper would call them (on CPU tensors only)."""
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import gmm as KG
+    from repro_torch.kernels import matmul as KM
+
+    saved = [(KA, "flash_attention_plain"),
+             (KA, "flash_attention_bwd_plain"), (KM, "matmul_plain"),
+             (KG, "gmm_blocks_plain"), (KG, "gmm_blocks_dw_plain")]
+    fns = [getattr(m, name) for m, name in saved]
+    for (m, name), fn in zip(saved, fns):
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+        setattr(m, name, wrapped)
+    try:
+        yield
+    finally:
+        for (m, name), fn in zip(saved, fns):
+            setattr(m, name, fn)
+
+
+def trainable(cfg, dev):
+    """``cfg``'s random weights from seed 0 on ``dev``, requiring grad."""
+    from repro_torch import pytree
+
+    params = draw_model(cfg, dev)
+    for p in pytree.leaves(params):
+        p.requires_grad_(True)
+    return params
+
+
+def held_step_grads(gates, cfg, params, batch, label, calls, gate_step):
+    """One step's (gradients, metrics) with the kernels (counted, gated by
+    ``gate_step``, the plain calls counted in ``calls``, an MoE model's
+    routing recorded) and with the plain versions (torch autograd through
+    them) under that routing; returns (gradients, metrics, the loss's
+    relative difference, (the worst leaf's max|d|/max|ref|, its key),
+    all finite), each leaf's error printed."""
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.train import step_grads
+
+    with plain_counted(calls), routing_log() as log:
+        (g, m), counts = counted(gates, label, lambda: step_grads(
+            params, batch, cfg, num_microbatches=TRAIN_MICRO, remat=False))
+    gate_step(cfg, label, counts, False)
+    with plain_kernels(), routing_log(replay=log):
+        gp, mp = step_grads(params, batch, cfg, num_microbatches=TRAIN_MICRO,
+                            remat=False)
+    keys = [k for k, _ in pytree.flatten_with_path(params)]
+    rels = [(rel_err(a, b), k) for a, b, k in zip(g, gp, keys)]
+    worst = max(rels)
+    lrel = abs(m["loss"].item() - mp["loss"].item()) / abs(
+        mp["loss"].item())
+    aux = m["aux_loss"].item()
+    finite = all(bool(torch.isfinite(a).all()) for a in g)
+    print(f"  {label} vs plain" + (" (routing replayed)" if log else "")
+          + f": loss {m['loss'].item():.6f} vs {mp['loss'].item():.6f} "
+          f"(rel {lrel:.3e})"
+          + (f", aux {aux:.6f} vs {mp['aux_loss'].item():.6f}" if aux
+             else "")
+          + f"; worst of {len(keys)} gradient leaves {worst[1]} "
+          f"max|d|/max|ref| {worst[0]:.3e} ("
+          + ", ".join(f"{k.split(chr(39))[-2]} {e:.2e}" for e, k in rels)
+          + f"); finite {finite}")
+    return g, m, lrel, worst, finite
+
+
+def lockstep_block_grads(params, cfg, batch, dev):
+    """Each attention block of ``params`` on the kernels' hidden state of
+    ``batch``'s first microbatch, its gradients (weights and input) under
+    one cotangent of its output (and 0.01 of its aux loss, an MoE block's
+    routing replayed), against its plain version's: (the worst
+    max|d|/max|ref|, its layer, its leaf)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.models import transformer as T
+
+    mb = {k: v[0] for k, v in batch.items()}
+    with torch.no_grad():
+        x, _ = T._embed_input(params, cfg, mb)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=dev).expand(x.shape[0], -1)
+    dy = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        tuple(x.shape)).astype(np.float32)).to(dev, x.dtype)
+    daux = torch.tensor(0.01, device=dev)
+    blocks = T._unbind(params["blocks"], cfg.num_layers)
+    names = ["x"] + [k for k, _ in pytree.flatten_with_path(blocks[0])]
+    lock = (0.0, -1, "")
+    for i, blk in enumerate(blocks):
+        bp = pytree.tree_map(lambda t: t.detach().requires_grad_(), blk)
+        xi = x.detach().requires_grad_()
+        ins = [xi] + pytree.leaves(bp)
+
+        def block():
+            out, aux = T._attn_block_seq(bp, xi, cfg, positions,
+                                         cfg.sliding_window)
+            if aux is None:
+                return out, torch.autograd.grad(out, ins, dy)
+            return out, torch.autograd.grad([out, aux], ins, [dy, daux])
+
+        with routing_log() as log:
+            out, gk = block()
+        with plain_kernels(), routing_log(replay=log):
+            _, gp = block()
+        lock = max([lock] + [(rel_err(a, b), i, nm)
+                             for a, b, nm in zip(gk, gp, names)])
+        x = out.detach()
+    return lock
+
+
+def train_steps_held(gates, cfg, params, batch, curve, calls, gate_step,
+                     card, extra):
+    """``make_train_step`` (remat, lr 3e-3, warmup 5) on ``batch``: two
+    steps from copies of one state must give bitwise-equal params and
+    moments; the loss over ``curve`` steps must fall; ms a step, tokens/s,
+    and two steps' device busy and idle (``profile_steps``, the kernels
+    named by ``extra``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+
+    L, n, tokens = cfg.num_layers, TRAIN_MICRO, TRAIN_BATCH * TRAIN_SEQ
+    step = make_train_step(cfg, lr=3e-3, warmup=5, total_steps=curve,
+                           num_microbatches=n, remat=True)
+    opt = adamw_init(params)
+    p2, o2 = pytree.tree_map(lambda t: t.detach().clone(), (params, opt))
+    label = f"{cfg.dtype} train step (remat)"
+    with plain_counted(calls):
+        (params, opt, m0), counts = counted(
+            gates, label, lambda: step(params, opt, batch))
+    gate_step(cfg, label, counts, True)
+    p2, o2, _ = step(p2, o2, batch)
+    same = all(torch.equal(a, b) for a, b in zip(
+        pytree.leaves((params, opt)), pytree.leaves((p2, o2))))
+    print(f"  two {cfg.dtype} steps from copies of one state: params and "
+          f"moments bitwise equal: {same}")
+    gates.check(same, "two train steps from one state differ")
+    del p2, o2
+    torch.cuda.empty_cache()
+    # the loss curve on batch: the step above is its first
+    losses = [m0["loss"].item()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with plain_counted(calls):
+        for _ in range(curve - 1):
+            params, opt, mi = step(params, opt, batch)
+            losses.append(mi["loss"])
+    losses = losses[:1] + [t.item() for t in losses[1:]]
+    dt = time.perf_counter() - t0
+    print(f"  loss over {curve} steps on batch_at(0) (lr 3e-3, warmup 5): "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"  {cfg.dtype} train step, {L} layers, {tokens} tokens in {n} "
+          f"microbatches, remat: {dt * 1e3 / (curve - 1):.1f} ms/step "
+          f"wall, {tokens * (curve - 1) / dt:,.0f} tokens/s ({card})")
+    gates.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"the loss does not fall over {curve} steps: "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    state = [params, opt]
+
+    def one_step(i):
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    with plain_counted(calls):
+        profile_steps(f"{cfg.dtype} {cfg.name} train step ({L} layers, {n} "
+                      f"microbatches, remat)", one_step, 2, extra=extra)
+    del params, opt, state
+    torch.cuda.empty_cache()
+
+
 def training_path(dev, card: str, f32_depth: int) -> dict:
     """Dense-body training at smollm-360m's full width (d_model 960, 15/5
     heads of 64, d_ff 2560, tied vocab 49152) on ``SyntheticPipeline(cfg,
@@ -2014,15 +2232,12 @@ def training_path(dev, card: str, f32_depth: int) -> dict:
     kernels' runs, each zeroed just before it; gates are checked last."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from repro_torch import pytree
     from repro_torch.checkpoint import load_pytree, save_pytree
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticPipeline
-    from repro_torch.kernels import attention as KA
-    from repro_torch.kernels import matmul as KM
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw_init
     from repro_torch.train import make_train_step, step_grads
@@ -2039,30 +2254,6 @@ def training_path(dev, card: str, f32_depth: int) -> dict:
           f"depth), bf16 at all {base.num_layers}")
     plain_calls = {}
 
-    @contextlib.contextmanager
-    def plain_counted():
-        """The plain versions of the path's kernels, counted where a
-        wrapper would call them (on CPU tensors only)."""
-        saved = [(KA, "flash_attention_plain"),
-                 (KA, "flash_attention_bwd_plain"), (KM, "matmul_plain")]
-        fns = [getattr(m, name) for m, name in saved]
-        for (m, name), fn in zip(saved, fns):
-            def wrapped(*a, _fn=fn, _name=name, **kw):
-                plain_calls[_name] = plain_calls.get(_name, 0) + 1
-                return _fn(*a, **kw)
-            setattr(m, name, wrapped)
-        try:
-            yield
-        finally:
-            for (m, name), fn in zip(saved, fns):
-                setattr(m, name, fn)
-
-    def draw(cfg):
-        params = draw_model(cfg, dev)
-        for p in pytree.leaves(params):
-            p.requires_grad_(True)
-        return params
-
     def gate_step(cfg, label, counts, remat):
         L, mm = cfg.num_layers, ("matmul" if cfg.dtype == "float32"
                                  else "matmul_bf16")
@@ -2073,40 +2264,20 @@ def training_path(dev, card: str, f32_depth: int) -> dict:
         gates.launched(label, mm, counts[mm],
                        (4 * 7 * L + 3) * n if remat else 3 * (7 * L + 1) * n)
 
-    def grads_held(cfg, params, batch, label):
-        """One step's (gradients, metrics) with the kernels (counted and
-        gated) and with the plain versions; the worst leaf reported."""
-        with plain_counted():
-            (g, m), counts = counted(gates, label, lambda: step_grads(
-                params, batch, cfg, num_microbatches=n, remat=False))
-        gate_step(cfg, label, counts, False)
-        with plain_kernels():
-            gp, mp = step_grads(params, batch, cfg, num_microbatches=n,
-                                remat=False)
-        keys = [k for k, _ in pytree.flatten_with_path(params)]
-        worst = max((rel_err(a, b), k) for a, b, k in zip(g, gp, keys))
-        lrel = abs(m["loss"].item() - mp["loss"].item()) / abs(
-            mp["loss"].item())
-        finite = all(bool(torch.isfinite(a).all()) for a in g)
-        print(f"  {label} vs plain: loss {m['loss'].item():.6f} vs "
-              f"{mp['loss'].item():.6f} (rel {lrel:.3e}); worst of "
-              f"{len(keys)} gradient leaves {worst[1]} max|d|/max|ref| "
-              f"{worst[0]:.3e}; finite {finite}")
-        return g, m, lrel, worst, finite
-
     # -- f32 at f32_depth layers: the f32 gate, remat, a checkpoint -------
     cfg = dataclasses.replace(base, num_layers=f32_depth, dtype="float32")
-    params = draw(cfg)
+    params = trainable(cfg, dev)
     batch = SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, microbatches=n,
                               seed=0, device=dev).batch_at(0)
-    g, m, lrel, worst, finite = grads_held(
-        cfg, params, batch, f"f32 {f32_depth}-layer step gradients")
+    g, m, lrel, worst, finite = held_step_grads(
+        gates, cfg, params, batch, f"f32 {f32_depth}-layer step gradients",
+        plain_calls, gate_step)
     gates.check(finite and lrel <= 1e-5 and worst[0] <= PATH_TOL,
                 f"f32 step: loss rel {lrel:.3e} (gate 1e-5) or leaf "
                 f"{worst[1]} {worst[0]:.3e} (gate {PATH_TOL}) leaves the "
                 f"gate")
     label = f"f32 {f32_depth}-layer step gradients, remat"
-    with plain_counted():
+    with plain_counted(plain_calls):
         (gr, mr), counts = counted(gates, label, lambda: step_grads(
             params, batch, cfg, num_microbatches=n, remat=True))
     gate_step(cfg, label, counts, True)
@@ -2138,103 +2309,20 @@ def training_path(dev, card: str, f32_depth: int) -> dict:
 
     # -- bf16 at all layers -----------------------------------------------
     cfg = base
-    L = cfg.num_layers
-    params = draw(cfg)
-    pipe = SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, microbatches=n,
-                             seed=0, device=dev)
-    batch = pipe.batch_at(0)
-    g, m, lrel, worst, finite = grads_held(
-        cfg, params, batch, f"bf16 {L}-layer step gradients")
+    params = trainable(cfg, dev)
+    batch = SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, microbatches=n,
+                              seed=0, device=dev).batch_at(0)
+    g, m, lrel, worst, finite = held_step_grads(
+        gates, cfg, params, batch, f"bf16 {cfg.num_layers}-layer step "
+        f"gradients", plain_calls, gate_step)
     del g
     gates.check(finite and lrel <= 1e-2,
                 f"bf16 step: loss rel {lrel:.3e} leaves the gate 1e-2")
-    # each block on the kernels' hidden state, its gradients (weights and
-    # input) under one output gradient, against its plain version's
-    mb = {k: v[0] for k, v in batch.items()}
-    with torch.no_grad():
-        x, _ = T._embed_input(params, cfg, mb)
-    positions = torch.arange(x.shape[1], dtype=torch.int32,
-                             device=dev).expand(x.shape[0], -1)
-    dy = torch.from_numpy(np.random.default_rng(5).standard_normal(
-        tuple(x.shape)).astype(np.float32)).to(dev, x.dtype)
-    blocks = T._unbind(params["blocks"], L)
-    names = ["x"] + [k for k, _ in pytree.flatten_with_path(blocks[0])]
-    lock = (0.0, -1, "")
-    for i in range(L):
-        bp = pytree.tree_map(lambda t: t.detach().requires_grad_(),
-                             blocks[i])
-        xi = x.detach().requires_grad_()
-        ins = [xi] + pytree.leaves(bp)
-
-        def block():
-            out, _ = T._attn_block_seq(bp, xi, cfg, positions,
-                                       cfg.sliding_window)
-            return out, torch.autograd.grad(out, ins, dy)
-
-        out, gk = block()
-        with plain_kernels():
-            _, gp = block()
-        lock = max([lock] + [(rel_err(a, b), i, nm)
-                             for a, b, nm in zip(gk, gp, names)])
-        x = out.detach()
-    whole = worst[0] <= TRAIN_BF16_TOL
-    print(f"  bf16 blocks in lockstep (each block's gradients of its "
-          f"weights and input, one output gradient, on the kernels' hidden "
-          f"state): worst {lock[0]:.3e} (layer {lock[1]}, {lock[2]}); the "
-          f"whole model's worst leaf {worst[0]:.3e}; gate {TRAIN_BF16_TOL} "
-          f"held by " + ("the whole model's leaves" if whole else
-                         "the blocks in lockstep: the whole model amplifies "
-                         "rounding past it"))
-    gates.check(whole or lock[0] <= TRAIN_BF16_TOL,
-                f"bf16 gradients leave the gate: whole model {worst[1]} "
-                f"{worst[0]:.3e}, lockstep layer {lock[1]} {lock[2]} "
-                f"{lock[0]:.3e}")
-    del blocks, x, dy, out, gk, gp
-    # two steps from copies of one state: bitwise equal
-    step = make_train_step(cfg, lr=3e-3, warmup=5, total_steps=TRAIN_CURVE,
-                           num_microbatches=n, remat=True)
-    opt = adamw_init(params)
-    copy = pytree.tree_map(lambda t: t.detach().clone(), (params, opt))
-    p2, o2 = copy
-    label = "bf16 train step (remat)"
-    (params, opt, m0), counts = counted(gates, label,
-                                        lambda: step(params, opt, batch))
-    gate_step(cfg, label, counts, True)
-    p2, o2, _ = step(p2, o2, batch)
-    same = all(torch.equal(a, b) for a, b in zip(
-        pytree.leaves((params, opt)), pytree.leaves((p2, o2))))
-    print(f"  two bf16 steps from copies of one state: params and moments "
-          f"bitwise equal: {same}")
-    gates.check(same, "two train steps from one state differ")
-    del p2, o2, copy
-    torch.cuda.empty_cache()
-    # the loss curve on batch_at(0): the step above is its first
-    losses = [m0["loss"].item()]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_CURVE - 1):
-        params, opt, mi = step(params, opt, batch)
-        losses.append(mi["loss"])
-    losses = losses[:1] + [t.item() for t in losses[1:]]
-    dt = time.perf_counter() - t0
-    tok_s = TRAIN_BATCH * TRAIN_SEQ * (TRAIN_CURVE - 1) / dt
-    print(f"  loss over {TRAIN_CURVE} steps on batch_at(0) (lr 3e-3, warmup "
-          f"5): " + " ".join(f"{x:.4f}" for x in losses))
-    print(f"  bf16 train step, {L} layers, {TRAIN_BATCH * TRAIN_SEQ} tokens "
-          f"in {n} microbatches, remat: {dt * 1e3 / (TRAIN_CURVE - 1):.1f} "
-          f"ms/step wall, {tok_s:,.0f} tokens/s ({card})")
-    gates.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-                f"the loss does not fall over {TRAIN_CURVE} steps: "
-                f"{losses[0]:.4f} -> {losses[-1]:.4f}")
-    state = [params, opt]
-
-    def one_step(i):
-        state[0], state[1], _ = step(state[0], state[1], batch)
-
-    profile_steps(f"bf16 train step ({L} layers, {n} microbatches, remat)",
-                  one_step, 2, extra=("fab_", "fa_bf16", "gemm_",
-                                      "elementwise", "reduce"))
-    del params, opt, state, batch
+    bf16_grads_gated(gates, params, cfg, batch, dev, worst)
+    train_steps_held(gates, cfg, params, batch, TRAIN_CURVE, plain_calls,
+                     gate_step, card, ("fab_", "fa_bf16", "gemm_",
+                                       "elementwise", "reduce"))
+    del params, batch
     torch.cuda.empty_cache()
     print(f"  training path launches: "
           f"{json.dumps({k: c for k, c in gates.main.items() if c})}")
@@ -2242,6 +2330,159 @@ def training_path(dev, card: str, f32_depth: int) -> dict:
                                  f"path: {plain_calls}")
     gates.finish()
     return {k: gates.main[k] for k in ("flash_attention_bwd",
+                                       "flash_attention", "matmul",
+                                       "matmul_bf16")}
+
+
+def bf16_grads_gated(gates, params, cfg, batch, dev, worst) -> None:
+    """The bf16 gradient gate: the whole model's worst leaf ``worst``
+    within ``TRAIN_BF16_TOL``, or else each block in lockstep
+    (``lockstep_block_grads``, run either way and printed with the
+    model's amplification of its worst block)."""
+    lock = lockstep_block_grads(params, cfg, batch, dev)
+    whole = worst[0] <= TRAIN_BF16_TOL
+    print(f"  bf16 blocks in lockstep (each block's gradients of its "
+          f"weights and input under one output cotangent, on the kernels' "
+          f"hidden state): worst {lock[0]:.3e} (layer {lock[1]}, "
+          f"{lock[2]}); the whole model's worst leaf {worst[0]:.3e} "
+          f"({worst[0] / max(lock[0], 1e-30):.1f}x); gate "
+          f"{TRAIN_BF16_TOL} held by "
+          + ("the whole model's leaves" if whole else
+             "the blocks in lockstep: the whole model amplifies rounding "
+             "past it"))
+    gates.check(whole or lock[0] <= TRAIN_BF16_TOL,
+                f"bf16 gradients leave the gate: whole model {worst[1]} "
+                f"{worst[0]:.3e}, lockstep layer {lock[1]} {lock[2]} "
+                f"{lock[0]:.3e}")
+
+
+def moe_training_path(dev, card: str, f32_depth: int, depth: int) -> dict:
+    """MoE training at granite-moe-3b-a800m's full width (d_model 1536,
+    24/8 heads of 64, 40 experts of d_ff 512, top-8, tied vocab 49155) on
+    ``SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, microbatches=
+    TRAIN_MICRO, seed=0)`` (2048 tokens a microbatch: expert blocks of C
+    ``MOE_TRAIN_C``), weights drawn on the card from seed 0. In f32 at
+    ``f32_depth`` layers (a cut of depth): one step's loss and every f32
+    gradient leaf (router, experts, attention, norms, embed) with the
+    kernels against torch autograd through the plain versions
+    (``plain_kernels()``: the grouped FFN's plain forward differentiated
+    by autograd) under the kernel run's routing replayed (the replayed
+    top-k weights keep their gradient through the router's
+    probabilities): loss within 1e-5 relative, each leaf within
+    ``PATH_TOL`` of its max|ref|; ``remat=True`` gives bitwise the same
+    loss, aux loss and gradients (the recomputed forward routes as the
+    first). In bf16 at ``depth`` layers: the loss within 1e-2 of plain's,
+    each leaf within ``TRAIN_BF16_TOL`` under the replayed routing, or,
+    where the model amplifies rounding past it, each block in lockstep
+    (its output and 0.01 of its aux loss under one cotangent, its routing
+    replayed; run and printed either way, with the amplification); two
+    ``make_train_step`` steps from copies of one state bitwise equal; the
+    loss falling over ``MOE_TRAIN_CURVE`` steps on ``batch_at(0)``; ms a
+    step, tokens/s and a step's device busy and idle. Launch gates a
+    microbatch: a layer's ``gmm_blocks`` 8 times (3 forward, 5 backward:
+    g and u recomputed, dh and dblk's two products with w read K-major in
+    place), 11 with remat, ``gmm_blocks_dw`` 3 times,
+    ``flash_attention_bwd`` once, ``flash_attention`` once (twice with
+    remat); the f32 ``matmul`` the router's 3 a layer (4 with remat) and,
+    in f32, the attention's 12 (16) and the tied head's 3, in bf16 those
+    on ``matmul_bf16``; and no plain version called on the kernel path.
+    Returns the launch counts of the kernels' runs, each zeroed just
+    before it; gates are checked last."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models import moe as MOE
+    from repro_torch.train import step_grads
+
+    gates = PathGates("moe training path")
+    n = TRAIN_MICRO
+    base = get_config("granite-moe-3b-a800m")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    C = MOE.capacity(tokens // n, base)
+    print(f"moe training path: {base.name} full width (d_model "
+          f"{base.d_model}, {base.num_heads}/{base.num_kv_heads} heads of "
+          f"{base.head_dim}, {base.num_experts} experts of d_ff "
+          f"{base.d_ff}, top-{base.top_k}, vocab {base.vocab_size}), "
+          f"SyntheticPipeline(batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, "
+          f"microbatches {n}, seed 0): {tokens} tokens a step, expert "
+          f"blocks of C {C}; f32 at {f32_depth} and bf16 at {depth} of "
+          f"{base.num_layers} layers (cuts of depth)")
+    gates.check(C == MOE_TRAIN_C, f"capacity {C}, not {MOE_TRAIN_C}")
+    plain_calls = {}
+
+    def gate_step(cfg, label, counts, remat):
+        L, r = cfg.num_layers, int(remat)
+        gates.launched(label, "gmm_blocks", counts["gmm_blocks"],
+                       (8 + 3 * r) * L * n)
+        gates.launched(label, "gmm_blocks_dw", counts["gmm_blocks_dw"],
+                       3 * L * n)
+        gates.launched(label, "flash_attention_bwd",
+                       counts["flash_attention_bwd"], L * n)
+        gates.launched(label, "flash_attention", counts["flash_attention"],
+                       (1 + r) * L * n)
+        proj = (12 + 4 * r) * L + 3     # attention's four, the tied head
+        router = (3 + r) * L
+        if cfg.dtype == "float32":
+            gates.launched(label, "matmul", counts["matmul"],
+                           (proj + router) * n)
+        else:
+            gates.launched(label, "matmul", counts["matmul"], router * n)
+            gates.launched(label, "matmul_bf16", counts["matmul_bf16"],
+                           proj * n)
+
+    # -- f32 at f32_depth layers: the f32 gate under one routing, remat ---
+    cfg = dataclasses.replace(base, num_layers=f32_depth, dtype="float32")
+    params = trainable(cfg, dev)
+    batch = SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, microbatches=n,
+                              seed=0, device=dev).batch_at(0)
+    g, m, lrel, worst, finite = held_step_grads(
+        gates, cfg, params, batch, f"f32 {f32_depth}-layer step gradients",
+        plain_calls, gate_step)
+    gates.check(finite and lrel <= 1e-5 and worst[0] <= PATH_TOL,
+                f"f32 step: loss rel {lrel:.3e} (gate 1e-5) or leaf "
+                f"{worst[1]} {worst[0]:.3e} (gate {PATH_TOL}) leaves the "
+                f"gate")
+    label = f"f32 {f32_depth}-layer step gradients, remat"
+    with plain_counted(plain_calls):
+        (gr, mr), counts = counted(gates, label, lambda: step_grads(
+            params, batch, cfg, num_microbatches=n, remat=True))
+    gate_step(cfg, label, counts, True)
+    same = all(torch.equal(m[k], mr[k]) for k in ("loss", "aux_loss")) \
+        and all(torch.equal(a, b) for a, b in zip(g, gr))
+    print(f"  remat=True vs remat=False: loss, aux and {len(g)} gradient "
+          f"leaves bitwise equal: {same}")
+    gates.check(same, "remat changes the f32 loss or gradients' bits")
+    del g, gr, params, batch
+    torch.cuda.empty_cache()
+
+    # -- bf16 at depth layers -----------------------------------------------
+    cfg = dataclasses.replace(base, num_layers=depth)
+    params = trainable(cfg, dev)
+    batch = SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, microbatches=n,
+                              seed=0, device=dev).batch_at(0)
+    g, m, lrel, worst, finite = held_step_grads(
+        gates, cfg, params, batch, f"bf16 {depth}-layer step gradients",
+        plain_calls, gate_step)
+    del g
+    gates.check(finite and lrel <= 1e-2,
+                f"bf16 step: loss rel {lrel:.3e} leaves the gate 1e-2")
+    bf16_grads_gated(gates, params, cfg, batch, dev, worst)
+    train_steps_held(gates, cfg, params, batch, MOE_TRAIN_CURVE,
+                     plain_calls, gate_step, card,
+                     ("gemm_", "fab_", "fa_bf16", "elementwise", "reduce",
+                      "index"))
+    del params, batch
+    torch.cuda.empty_cache()
+    print(f"  moe training path launches: "
+          f"{json.dumps({k: c for k, c in gates.main.items() if c})}")
+    gates.check(not plain_calls, f"plain versions called on the kernel "
+                                 f"path: {plain_calls}")
+    gates.finish()
+    return {k: gates.main[k] for k in ("gmm_blocks", "gmm_blocks_dw",
+                                       "flash_attention_bwd",
                                        "flash_attention", "matmul",
                                        "matmul_bf16")}
 
@@ -2531,7 +2772,7 @@ def main() -> None:
                                                plan_decode, plan_flash)
     from repro_torch.kernels.attention import visible as attn_visible
     from repro_torch.kernels.conv_winograd import winograd_tile_matmul_plain
-    from repro_torch.kernels.gmm import gmm_blocks_plain
+    from repro_torch.kernels.gmm import gmm_blocks_dw_plain, gmm_blocks_plain
     from repro_torch.kernels.matmul import (matmul_packed_plain, matmul_plain,
                                             plan_bf16_gemm, plan_f32_gemm)
     from repro_torch.kernels.ssd import plan_ssd, ssd_scan_plain
@@ -3343,6 +3584,81 @@ def main() -> None:
         results["gmm_blocks"][tag] = {**r, "path": plan.path,
                                       "experts_read": active}
 
+    print("kernels vs plain versions (the MoE backward: gmm_blocks' dx "
+          "with w read K-major in place and gmm_blocks_dw, at "
+          "granite-moe-3b-a800m's training microbatch: 2048 tokens, top-8 "
+          "of 40, C 824, in bf16 and f32):")
+    # the four products of _GroupedFFN's backward: dh = dyb (E,C,d)·wdᵀ
+    # and dblk's dg (E,C,ff)·wgᵀ (gmm_blocks, the forward's weight read
+    # K-major in place); dwg = blkᵀ·dg and dwd = hᵀ·dyb (gmm_blocks_dw,
+    # contracted over each expert's rows). Group sizes: a top-8-of-40
+    # routing of 2048 tokens (numpy seed) and all experts full. The
+    # inputs' rows past a group hold data (in the model: the next
+    # expert's tokens); torch.bmm, the library call, takes them masked.
+    # Bounds count what the sizes need: the rows within the groups, the
+    # weights of the experts that have any (dx), the whole output.
+    E, C, d, ff = 40, MOE_TRAIN_C, 1536, 512
+    picks = np.concatenate([rng.choice(E, 8, replace=False)
+                            for _ in range(TRAIN_BATCH * TRAIN_SEQ
+                                           // TRAIN_MICRO)])
+    bwd_sizes = {"routed": np.minimum(np.bincount(picks, minlength=E), C),
+                 "full": np.full(E, C)}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        sfx = "" if dt == torch.bfloat16 else "_f32"
+        for gtag, gs_np in bwd_sizes.items():
+            gs = torch.from_numpy(gs_np.astype(np.int32)).to(dev)
+            keep = (torch.arange(C, device=dev)[None, :]
+                    < gs[:, None])[..., None]
+            rows, active = int(gs_np.sum()), int((gs_np > 0).sum())
+            es = 2 if dt == torch.bfloat16 else 4
+            # dx: (tag, K = d_in, N = d_out); w stored (E, N, K)
+            for tag, K, N in (("dh", d, ff), ("dblk", ff, d)):
+                x = rand(E, C, K, dtype=dt)
+                w = rand(E, N, K, dtype=dt, scale=K ** -0.5)
+                wt = w.transpose(1, 2)
+                xm = torch.where(keep, x, torch.zeros((), dtype=dt,
+                                                      device=dev))
+                plan = (plan_bf16_gemm(C, N, K, E) if dt == torch.bfloat16
+                        else plan_f32_gemm(C, N, K, True, E, True))
+                r = check(f"gmm_blocks bwd_{tag}_{gtag}{sfx} ({E},{C},{K})x"
+                          f"({E},{K},{N}) w K-major {dname}, {rows} rows in "
+                          f"{active} experts, {plan.path} path {plan.bm}x"
+                          f"{plan.bn} split {plan.split} ({plan.blocks} "
+                          f"blocks)",
+                          lambda: ops.gmm_blocks(x, wt, gs),
+                          lambda: gmm_blocks_plain(x, wt, gs),
+                          lambda: torch.bmm(xm, wt), 2 * rows * K * N,
+                          es * (rows * K + active * K * N + E * C * N),
+                          dname, repeat_equal=True,
+                          nan_out=((E, C, N), dt))
+                results["gmm_blocks"][f"bwd_{tag}_{gtag}{sfx}"] = {
+                    **r, "path": plan.path, "experts_read": active}
+            # dw: (tag, d_in of x, d_out of dy): x (E,C,K), dy (E,C,N)
+            for tag, K, N in (("dwg", d, ff), ("dwd", ff, d)):
+                x = rand(E, C, K, dtype=dt)
+                dy = rand(E, C, N, dtype=dt)
+                zero = torch.zeros((), dtype=dt, device=dev)
+                xm, dym = torch.where(keep, x, zero), torch.where(keep, dy,
+                                                                  zero)
+                plan = (plan_bf16_gemm(K, N, C, E) if dt == torch.bfloat16
+                        else plan_f32_gemm(K, N, C, False, E, True))
+                r = check(f"gmm_blocks_dw bwd_{tag}_{gtag}{sfx} ({E},{C},"
+                          f"{K})^T x ({E},{C},{N}) {dname}, {rows} rows in "
+                          f"{active} experts, {plan.path} path {plan.bm}x"
+                          f"{plan.bn} split {plan.split} ({plan.blocks} "
+                          f"blocks)",
+                          lambda: ops.gmm_blocks_dw(x, dy, gs),
+                          lambda: gmm_blocks_dw_plain(x, dy, gs),
+                          lambda: torch.bmm(xm.transpose(1, 2), dym),
+                          2 * rows * K * N,
+                          es * (rows * K + rows * N + E * K * N), dname,
+                          repeat_equal=True, nan_out=((E, K, N), dt))
+                results.setdefault("gmm_blocks_dw", {})[
+                    f"bwd_{tag}_{gtag}{sfx}"] = {**r, "path": plan.path}
+        del x, w, wt, xm, dy, dym
+        torch.cuda.empty_cache()
+
     print("kernels vs plain versions (ssd_scan: mamba2-2.7b at S 1024 in "
           "bf16 from a zero and a random state, in f32, at B 4, and at S 512 "
           "from a random state; zamba2-2.7b's N 64; y and the final state; "
@@ -3690,6 +4006,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"  [training path done at {time.perf_counter() - t_start:.1f} s]")
 
+    # -- 7d. training: the moe family -----------------------------------------
+    for k, n in moe_training_path(dev, card, MOE_TRAIN_F32_DEPTH,
+                                  MOE_TRAIN_DEPTH).items():
+        launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    print(f"  [moe training path done at "
+          f"{time.perf_counter() - t_start:.1f} s]")
+
     # -- 8. report ----------------------------------------------------------
     main_shape = {"winograd_tile_matmul": "stage0", "matmul": "im2col_s1b0",
                   "matmul_packed": "head", "matmul_bf16": "head",
@@ -3701,6 +4025,7 @@ def main() -> None:
                   "matmul_dequant_int8": "resnet_head",
                   "matmul_dequant_int4": "resnet_head",
                   "gmm_blocks": "decode_gate",
+                  "gmm_blocks_dw": "bwd_dwg_routed",
                   "ssd_scan": "mamba2_S1024"}
     out = []
     for k, (source, replaces) in ops.KERNELS.items():

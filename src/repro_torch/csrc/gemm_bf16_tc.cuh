@@ -9,7 +9,12 @@
 //              embed.T, with no copy.
 // With `rows` (one int per batch entry, read on the device), output rows
 // r >= rows[z] are zero, and a tile whose rows all lie past rows[z] loads
-// nothing: an expert with no rows reads none of its weights.
+// nothing: an expert with no rows reads none of its weights. With `klim`
+// (one int per batch entry, read on the device), batch entry z contracts
+// over k < klim[z] only: A's columns and B's k rows past it are never read
+// (zero-filled in the copies), a K step wholly past it is not taken, and
+// an entry or a K split with nothing left stores zeros (gmm_blocks_dw:
+// dw[e] = x[e]^T dy[e] over the expert's group_sizes[e] rows).
 //
 // Two paths, chosen on the host by plan_bf16_gemm (kernels/matmul.py):
 //
@@ -69,6 +74,7 @@ struct Problem {
   const __nv_bfloat16* B;  // row-major (K,N) or K-major (N,K), ldb
   void* C;                 // (batch, M, N) out, or f32 partials
   const int* rows;         // (batch,) valid rows, or nullptr
+  const int* klim;         // (batch,) K depth of each entry, or nullptr
   int M, N, K, ldb;
   long long batch_a, batch_b, batch_c;
   long long split_stride;  // elements between two splits' partials
@@ -257,6 +263,21 @@ __device__ __forceinline__ int valid_rows(const Problem& p, int z) {
   return r < 0 ? 0 : (r < p.M ? r : p.M);
 }
 
+// the K depth that batch entry z contracts over: K, or its limit
+__device__ __forceinline__ int valid_depth(const Problem& p, int z) {
+  if (p.klim == nullptr) return p.K;
+  const int k = p.klim[z];
+  return k < 0 ? 0 : (k < p.K ? k : p.K);
+}
+
+// K steps [kbeg, kbeg + n) of split sp, none past the depth kdep
+__device__ __forceinline__ int split_steps(const Problem& p, int sp,
+                                           int kdep, int* kbeg) {
+  *kbeg = sp * p.ksteps_per_split;
+  const int n = (kdep + kBK - 1) / kBK - *kbeg;
+  return n < p.ksteps_per_split ? n : p.ksteps_per_split;
+}
+
 // ---------------------------------------------------------------------------
 // tile path: wgmma, NWG consumer warpgroups (BM = 64·NWG), BN 128
 // ---------------------------------------------------------------------------
@@ -274,32 +295,34 @@ __device__ __forceinline__ void tile_load_stage(const Problem& p,
                                                 const __nv_bfloat16* A,
                                                 const __nv_bfloat16* B,
                                                 uint32_t sa, int m0, int n0,
-                                                int rows, int kt) {
+                                                int rows, int kdep, int kt) {
   constexpr int BM = 64 * NWG;
   constexpr int THREADS = 128 * NWG;
   const uint32_t sb = sa + BM * 128;
   const int k0 = kt * kBK;
   for (int q = threadIdx.x; q < BM * 8; q += THREADS) {
     const int r = q >> 3, c = q & 7;
-    load_chunk(sa + swz(r, c), A, p.K, m0 + r, rows, k0 + c * 8, p.K,
+    load_chunk(sa + swz(r, c), A, p.K, m0 + r, rows, k0 + c * 8, kdep,
                p.a_vec);
   }
   if constexpr (KMAJOR_B) {  // 128 rows of n, 64 k each
     for (int q = threadIdx.x; q < kTileBN * 8; q += THREADS) {
       const int n = q >> 3, c = q & 7;
-      load_chunk(sb + swz(n, c), B, p.ldb, n0 + n, p.N, k0 + c * 8, p.K,
+      load_chunk(sb + swz(n, c), B, p.ldb, n0 + n, p.N, k0 + c * 8, kdep,
                  p.b_vec);
     }
   } else {  // 64 rows of k, 128 n each: two 64-column atoms
     for (int q = threadIdx.x; q < kBK * 16; q += THREADS) {
       const int k = q >> 4, c = q & 15;
       load_chunk(sb + (c >> 3) * (kBK * 128) + swz(k, c & 7), B, p.ldb,
-                 k0 + k, p.K, n0 + c * 8, p.N, p.b_vec);
+                 k0 + k, kdep, n0 + c * 8, p.N, p.b_vec);
     }
   }
 }
 
-template <int NWG, bool KMAJOR_B, typename TC>
+// KLIM: p.klim is given (a template flag: the entries without a K limit
+// compile the kernels as they were)
+template <int NWG, bool KMAJOR_B, typename TC, bool KLIM>
 __global__ void __launch_bounds__(128 * NWG)
     gemm_tile_kernel(Problem p, int m_tiles) {
   constexpr int BM = 64 * NWG;
@@ -311,15 +334,13 @@ __global__ void __launch_bounds__(128 * NWG)
   const int z = blockIdx.z;
   const int mt = blockIdx.y % m_tiles, sp = blockIdx.y / m_tiles;
   const int m0 = mt * BM, n0 = blockIdx.x * kTileBN;
-  const int rows = valid_rows(p, z);
+  const int rows = valid_rows(p, z), kdep = KLIM ? valid_depth(p, z) : p.K;
   const __nv_bfloat16* A = p.A + (size_t)z * p.batch_a;
   const __nv_bfloat16* B = p.B + (size_t)z * p.batch_b;
   TC* C = static_cast<TC*>(p.C) + (size_t)sp * p.split_stride +
           (size_t)z * p.batch_c;
-  const int ksteps = (p.K + kBK - 1) / kBK;
-  const int kbeg = sp * p.ksteps_per_split;
-  int nks = ksteps - kbeg;
-  nks = nks < p.ksteps_per_split ? nks : p.ksteps_per_split;
+  int kbeg;
+  const int nks = split_steps(p, sp, kdep, &kbeg);
 
   const int wg = threadIdx.x / 128;
   float acc[2][32];
@@ -337,7 +358,7 @@ __global__ void __launch_bounds__(128 * NWG)
     for (int s = 0; s < S - 2; ++s) {
       if (s < nks)
         tile_load_stage<NWG, KMAJOR_B>(p, A, B, ring + s * STAGE, m0, n0,
-                                       rows, kbeg + s);
+                                       rows, kdep, kbeg + s);
       cp_async_commit();
     }
     for (int t = 0; t < nks; ++t) {
@@ -348,7 +369,7 @@ __global__ void __launch_bounds__(128 * NWG)
       if (nt < nks)
         tile_load_stage<NWG, KMAJOR_B>(p, A, B,
                                        ring + (nt % S) * STAGE, m0, n0,
-                                       rows, kbeg + nt);
+                                       rows, kdep, kbeg + nt);
       cp_async_commit();
       const uint32_t sa = ring + (t % S) * STAGE + wg * (64 * 128);
       const uint32_t sb = ring + (t % S) * STAGE + BM * 128;
@@ -397,28 +418,29 @@ __device__ __forceinline__ void skinny_load_stage(const Problem& p,
                                                   const __nv_bfloat16* A,
                                                   const __nv_bfloat16* B,
                                                   uint32_t sa, int n0,
-                                                  int rows, int kt) {
+                                                  int rows, int kdep,
+                                                  int kt) {
   const uint32_t sb = sa + kSkinnyBM * 128;
   const int k0 = kt * kBK;
   {  // A: 16 rows x 8 chunks, one a thread
     const int r = threadIdx.x >> 3, c = threadIdx.x & 7;
-    load_chunk(sa + swz(r, c), A, p.K, r, rows, k0 + c * 8, p.K, p.a_vec);
+    load_chunk(sa + swz(r, c), A, p.K, r, rows, k0 + c * 8, kdep, p.a_vec);
   }
 #pragma unroll
   for (int i = 0; i < kSkinnyBN * 8 / kSkinnyThreads; ++i) {
     const int q = threadIdx.x + i * kSkinnyThreads;
     const int r = q >> 3, c = q & 7;
     if constexpr (KMAJOR_B) {  // 64 rows of n, 64 k each
-      load_chunk(sb + swz(r, c), B, p.ldb, n0 + r, p.N, k0 + c * 8, p.K,
+      load_chunk(sb + swz(r, c), B, p.ldb, n0 + r, p.N, k0 + c * 8, kdep,
                  p.b_vec);
     } else {  // 64 rows of k, 64 n each
-      load_chunk(sb + swz(r, c), B, p.ldb, k0 + r, p.K, n0 + c * 8, p.N,
+      load_chunk(sb + swz(r, c), B, p.ldb, k0 + r, kdep, n0 + c * 8, p.N,
                  p.b_vec);
     }
   }
 }
 
-template <bool KMAJOR_B, typename TC>
+template <bool KMAJOR_B, typename TC, bool KLIM>
 __global__ void __launch_bounds__(kSkinnyThreads)
     gemm_skinny_kernel(Problem p) {
   __shared__ __align__(1024) uint8_t ring_mem[kSkinnyStages * kSkinnyStage];
@@ -426,15 +448,13 @@ __global__ void __launch_bounds__(kSkinnyThreads)
 
   const int z = blockIdx.z, sp = blockIdx.y;
   const int n0 = blockIdx.x * kSkinnyBN;
-  const int rows = valid_rows(p, z);
+  const int rows = valid_rows(p, z), kdep = KLIM ? valid_depth(p, z) : p.K;
   const __nv_bfloat16* A = p.A + (size_t)z * p.batch_a;
   const __nv_bfloat16* B = p.B + (size_t)z * p.batch_b;
   TC* C = static_cast<TC*>(p.C) + (size_t)sp * p.split_stride +
           (size_t)z * p.batch_c;
-  const int ksteps = (p.K + kBK - 1) / kBK;
-  const int kbeg = sp * p.ksteps_per_split;
-  int nks = ksteps - kbeg;
-  nks = nks < p.ksteps_per_split ? nks : p.ksteps_per_split;
+  int kbeg;
+  const int nks = split_steps(p, sp, kdep, &kbeg);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
@@ -444,7 +464,7 @@ __global__ void __launch_bounds__(kSkinnyThreads)
     for (int s = 0; s < kSkinnyStages - 1; ++s) {
       if (s < nks)
         skinny_load_stage<KMAJOR_B>(p, A, B, ring + s * kSkinnyStage, n0,
-                                    rows, kbeg + s);
+                                    rows, kdep, kbeg + s);
       cp_async_commit();
     }
     for (int t = 0; t < nks; ++t) {
@@ -454,7 +474,7 @@ __global__ void __launch_bounds__(kSkinnyThreads)
       if (nt < nks)
         skinny_load_stage<KMAJOR_B>(
             p, A, B, ring + (nt % kSkinnyStages) * kSkinnyStage, n0, rows,
-            kbeg + nt);
+            kdep, kbeg + nt);
       cp_async_commit();
       const uint32_t sa = ring + (t % kSkinnyStages) * kSkinnyStage;
       const uint32_t sb = sa + kSkinnyBM * 128;
@@ -509,10 +529,10 @@ __global__ void __launch_bounds__(256)
 // instantiates this header (an inline template's static), while each
 // library holds its own copy of the kernel; the call costs about a
 // microsecond of host time, and only prefill shapes take this path.
-template <int NWG, bool KMAJOR_B, typename TC>
+template <int NWG, bool KMAJOR_B, typename TC, bool KLIM>
 inline cudaError_t launch_tile(const Problem& p, int batch, int split,
                                cudaStream_t stream) {
-  auto kernel = gemm_tile_kernel<NWG, KMAJOR_B, TC>;
+  auto kernel = gemm_tile_kernel<NWG, KMAJOR_B, TC, KLIM>;
   constexpr int bytes = tile_smem_bytes<NWG>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -523,23 +543,25 @@ inline cudaError_t launch_tile(const Problem& p, int batch, int split,
   return cudaGetLastError();
 }
 
-template <typename TC>
+template <typename TC, bool KLIM>
 inline cudaError_t launch_path(const Problem& p, bool b_kmajor, int batch,
                                int path, int bm, int split,
                                cudaStream_t stream) {
   if (path == kSkinny) {
     dim3 grid((p.N + kSkinnyBN - 1) / kSkinnyBN, split, batch);
     if (b_kmajor)
-      gemm_skinny_kernel<true, TC><<<grid, kSkinnyThreads, 0, stream>>>(p);
+      gemm_skinny_kernel<true, TC, KLIM>
+          <<<grid, kSkinnyThreads, 0, stream>>>(p);
     else
-      gemm_skinny_kernel<false, TC><<<grid, kSkinnyThreads, 0, stream>>>(p);
+      gemm_skinny_kernel<false, TC, KLIM>
+          <<<grid, kSkinnyThreads, 0, stream>>>(p);
     return cudaGetLastError();
   }
   if (bm == 128)
-    return b_kmajor ? launch_tile<2, true, TC>(p, batch, split, stream)
-                    : launch_tile<2, false, TC>(p, batch, split, stream);
-  return b_kmajor ? launch_tile<1, true, TC>(p, batch, split, stream)
-                  : launch_tile<1, false, TC>(p, batch, split, stream);
+    return b_kmajor ? launch_tile<2, true, TC, KLIM>(p, batch, split, stream)
+                    : launch_tile<2, false, TC, KLIM>(p, batch, split, stream);
+  return b_kmajor ? launch_tile<1, true, TC, KLIM>(p, batch, split, stream)
+                  : launch_tile<1, false, TC, KLIM>(p, batch, split, stream);
 }
 
 inline bool aligned16(const void* ptr, long long ld, long long batch) {
@@ -550,17 +572,19 @@ inline bool aligned16(const void* ptr, long long ld, long long batch) {
 // Enqueue C = A · B (batched) on `stream` as the host planner decided:
 // `path` (kSkinny needs M <= 16; kTile with bm 64 or 128), `split` (a
 // divisor of the K steps; > 1 needs `scratch` of split·batch·M·N floats,
-// and a batched C contiguous, batch_c == M·N). Returns the first launch
-// error, checked after each launch; cudaErrorInvalidValue for a plan the
-// kernels do not take.
-template <typename TC>
+// and a batched C contiguous, batch_c == M·N). `rows` (or null): each
+// batch entry's valid rows; `klim` (or null): each batch entry's K depth,
+// taken only where KLIM. Returns the first launch error, checked after
+// each launch; cudaErrorInvalidValue for a plan the kernels do not take.
+template <bool KLIM = false, typename TC>
 inline int launch_gemm_bf16_tc(const __nv_bfloat16* A,
                                const __nv_bfloat16* B, TC* C,
                                const int* rows, int M, int N, int K, int ldb,
                                bool b_kmajor, int batch, long long batch_a,
                                long long batch_b, long long batch_c, int path,
                                int bm, int split, float* scratch,
-                               cudaStream_t stream) {
+                               cudaStream_t stream,
+                               const int* klim = nullptr) {
   if (M <= 0 || N <= 0 || batch <= 0) return (int)cudaGetLastError();
   const int ksteps = (K + kBK - 1) / kBK;
   const bool ok_path = (path == kSkinny && M <= kSkinnyBM) ||
@@ -568,12 +592,13 @@ inline int launch_gemm_bf16_tc(const __nv_bfloat16* A,
   if (!ok_path || K < 0 || split < 1 || (ksteps > 0 && ksteps % split) ||
       (ksteps == 0 && split != 1) || (split > 1 && scratch == nullptr) ||
       (split > 1 && batch > 1 && batch_c != (long long)M * N) ||
-      ldb < (b_kmajor ? K : N))
+      ldb < (b_kmajor ? K : N) || (klim != nullptr && !KLIM))
     return (int)cudaErrorInvalidValue;
   Problem p;
   p.A = A;
   p.B = B;
   p.rows = rows;
+  p.klim = klim;
   p.M = M;
   p.N = N;
   p.K = K;
@@ -588,12 +613,13 @@ inline int launch_gemm_bf16_tc(const __nv_bfloat16* A,
   if (split == 1) {
     p.C = C;
     p.split_stride = 0;
-    err = launch_path<TC>(p, b_kmajor, batch, path, bm, 1, stream);
+    err = launch_path<TC, KLIM>(p, b_kmajor, batch, path, bm, 1, stream);
   } else {
     const long long total = (long long)batch * M * N;
     p.C = scratch;
     p.split_stride = total;
-    err = launch_path<float>(p, b_kmajor, batch, path, bm, split, stream);
+    err = launch_path<float, KLIM>(p, b_kmajor, batch, path, bm, split,
+                                   stream);
     if (err != cudaSuccess) return (int)err;
     long long blocks = (total + 255) / 256;
     if (blocks > 4096) blocks = 4096;

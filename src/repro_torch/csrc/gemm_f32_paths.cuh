@@ -28,7 +28,13 @@
 // With a row limit (one int per batch entry, read on the device: no host
 // sync), rows r >= row_limit[z] of batch entry z are never read from A and
 // are written as zeros; a block whose rows all lie past the limit copies
-// no B, so a batch entry with no rows reads none of its B.
+// no B, so a batch entry with no rows reads none of its B. With a K limit
+// (the same, one int per batch entry), batch entry z contracts over k <
+// k_limit[z] only: A's columns and B's k rows past it are never read, and
+// a block or a K split with nothing left stores zeros (gmm_blocks_dw: dw[e]
+// = x[e]^T dy[e] over the expert's group_sizes[e] rows). Both limits come
+// with the kRowLimit entries, on the tile path (row-major or K-major B)
+// and the grouped skinny path (row-major B).
 // It carries matmul's f32 entry (batch 1), winograd_tile_matmul (the 16
 // GEMMs of Winograd F(2x2,3x3)), matmul_packed (panels, f32 or bf16 x),
 // matmul_dequant_int8 and matmul_dequant_int4 (int8 and int4, f32 or bf16
@@ -160,6 +166,7 @@ struct Problem {
                            // bytes
   const int* row_limit;    // rows of each batch entry that hold data, or
                            // null (all M)
+  const int* k_limit;      // K depth of each batch entry, or null (all K)
 };
 
 // ---------------------------------------------------------------------------
@@ -224,16 +231,27 @@ __device__ __forceinline__ void cp_async_wait() {
 // Copy the 4 floats at (row, col..col+3) of a row-major matrix with
 // leading dimension ld into the 16-byte shared slot dst; elements outside
 // [0, nrows) x [0, ncols) are zero. vec: ncols, ld and the base are
-// multiples of 4 floats, so the 4 are wholly inside or outside.
+// multiples of 4 floats, so the 4 are wholly inside or outside; RAGGED
+// (a K limit, which need not be a multiple of 4): ld and the base are,
+// and a copy that ncols cuts short reads only the floats before it.
+template <bool RAGGED = false>
 __device__ __forceinline__ void load4(uint32_t dst, const float* src,
                                       long long ld, int row, int nrows,
                                       int col, int ncols, int vec) {
   if (vec) {
-    const bool ok = row < nrows && col < ncols;
-    cp_async16(dst,
-               ok ? (const void*)(src + (size_t)row * ld + col)
-                  : (const void*)src,
-               ok ? 16 : 0);
+    if constexpr (RAGGED) {
+      const int valid = row < nrows ? min(max(ncols - col, 0), 4) : 0;
+      cp_async16(dst,
+                 valid ? (const void*)(src + (size_t)row * ld + col)
+                       : (const void*)src,
+                 4 * valid);
+    } else {
+      const bool ok = row < nrows && col < ncols;
+      cp_async16(dst,
+                 ok ? (const void*)(src + (size_t)row * ld + col)
+                    : (const void*)src,
+                 ok ? 16 : 0);
+    }
   } else {
     float v[4];
 #pragma unroll
@@ -247,10 +265,13 @@ __device__ __forceinline__ void load4(uint32_t dst, const float* src,
   }
 }
 
-// The same for the 8 bf16 at (row, col..col+7); vec: multiples of 8.
+// The same for the 8 bf16 at (row, col..col+7); vec: multiples of 8 (a
+// bf16 A comes only with panels, never with a K limit).
+template <bool RAGGED = false>
 __device__ __forceinline__ void load4(uint32_t dst, const __nv_bfloat16* src,
                                       long long ld, int row, int nrows,
                                       int col, int ncols, int vec) {
+  static_assert(!RAGGED, "a K limit comes with an f32 A only");
   if (vec) {
     const bool ok = row < nrows && col < ncols;
     cp_async16(dst,
@@ -372,34 +393,35 @@ __device__ __forceinline__ const float* b_panel(const Problem& p,
 }
 
 // A's rows [m0, m0 + BM) x k [k0, k0 + kTileBK), zero past kend (the
-// split's end) and past row mrows (M, or the batch entry's row limit)
-template <int BM, typename TX>
+// split's end, or a K limit where RAGGED) and past row mrows (M, or the
+// batch entry's row limit)
+template <int BM, typename TX, bool RAGGED = false>
 __device__ __forceinline__ void a_tile_load(const Problem& p, const TX* A,
                                             uint32_t sa, int m0, int mrows,
                                             int k0, int kend) {
   constexpr int PER = ATile<TX>::PER, CQ = kTileBK / PER;
   for (int q = threadIdx.x; q < BM * CQ; q += kThreads) {
     const int r = q / CQ, c = (q % CQ) * PER;
-    load4(sa + (r * ATile<TX>::LD + c) * (int)sizeof(TX), A, p.K, m0 + r,
-          mrows, k0 + c, kend, p.a_vec);
+    load4<RAGGED>(sa + (r * ATile<TX>::LD + c) * (int)sizeof(TX), A, p.K,
+                  m0 + r, mrows, k0 + c, kend, p.a_vec);
   }
 }
 
 // one K step: k in [k0, k0 + kTileBK), zero past kend (the split's end),
 // A's rows zero past mrows. B: as b_panel gives it for a row-major B
-template <int BM, int BN, bool KMAJOR, typename TX>
+template <int BM, int BN, bool KMAJOR, typename TX, bool RAGGED = false>
 __device__ __forceinline__ void tile_load(const Problem& p, const TX* A,
                                           const float* B, uint32_t sa,
                                           int m0, int mrows, int n0, int k0,
                                           int kend) {
   constexpr int BK = kTileBK;
   const uint32_t sb = sa + Tile<BM, BN, KMAJOR, TX>::A_BYTES;
-  a_tile_load<BM, TX>(p, A, sa, m0, mrows, k0, kend);
+  a_tile_load<BM, TX, RAGGED>(p, A, sa, m0, mrows, k0, kend);
   if constexpr (KMAJOR) {  // BN rows of B^T, BK k each
     for (int q = threadIdx.x; q < BN * (BK / 4); q += kThreads) {
       const int n = q / (BK / 4), c = (q % (BK / 4)) * 4;
-      load4(sb + (n * kLDA + c) * 4, B, p.ldb, n0 + n, p.N, k0 + c, kend,
-            p.b_vec);
+      load4<RAGGED>(sb + (n * kLDA + c) * 4, B, p.ldb, n0 + n, p.N, k0 + c,
+                    kend, p.b_vec);
     }
   } else {  // BK rows of k, BN n each
     for (int q = threadIdx.x; q < BK * (BN / 4); q += kThreads) {
@@ -507,11 +529,19 @@ __device__ __forceinline__ int rows_of(const Problem& p, int bz) {
   return p.row_limit ? min(max(p.row_limit[bz], 0), p.M) : p.M;
 }
 
+// the K depth batch entry bz contracts over: K, or its K limit
+__device__ __forceinline__ int depth_of(const Problem& p, int bz) {
+  return p.k_limit ? min(max(p.k_limit[bz], 0), p.K) : p.K;
+}
+
 // two blocks an SM (at most 128 registers a thread): a split tile grid
-// runs two waves side by side. LIMIT: p.row_limit may be given
-template <int BM, int BN, int LAYOUT, typename TX, bool LIMIT>
+// runs two waves side by side. LIM: 0 no limits; 1 p.row_limit may be
+// given; 2 p.k_limit is given too (its copies zero-fill a K limit that is
+// no multiple of 4; the other kernels keep the whole-float4 copies)
+template <int BM, int BN, int LAYOUT, typename TX, int LIM>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_f32_tile_kernel(Problem p) {
+  constexpr bool LIMIT = LIM > 0, KLIM = LIM == 2;
   constexpr bool KMAJOR = LAYOUT == kKMajorB;
   using TL = Tile<BM, BN, KMAJOR, TX>;
   constexpr int TM = TL::TM, TN = TL::TN, BK = kTileBK;
@@ -524,9 +554,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* B = static_cast<const float*>(p.B) + bz * p.bsb;
   if constexpr (LAYOUT == kPanelsB) B = b_panel(p, B, n0);
   const int mrows = LIMIT ? rows_of(p, bz) : p.M;
-  // this split's k range, in steps of BK; none for a block past the limit
+  // this split's k range, in steps of BK, up to the entry's depth; none
+  // for a block past the row limit
   const int kbeg = sp * p.kps * kBK;
-  const int kend = min(p.K, kbeg + p.kps * kBK);
+  const int kend = min(KLIM ? depth_of(p, bz) : p.K, kbeg + p.kps * kBK);
   const int nks = kend > kbeg && (!LIMIT || m0 < mrows)
                       ? (kend - kbeg + BK - 1) / BK
                       : 0;
@@ -540,7 +571,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nks)
-      tile_load<BM, BN, KMAJOR, TX>(p, A, B, ring + s * TL::STAGE, m0,
+      tile_load<BM, BN, KMAJOR, TX, KLIM>(p, A, B, ring + s * TL::STAGE, m0,
                                     mrows, n0, kbeg + s * BK, kend);
     cp_async_commit();
   }
@@ -549,7 +580,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // stage t landed; the slot of step t - 1 is free
     const int nt = t + kStages - 1;
     if (nt < nks)
-      tile_load<BM, BN, KMAJOR, TX>(p, A, B,
+      tile_load<BM, BN, KMAJOR, TX, KLIM>(p, A, B,
                                     ring + (nt % kStages) * TL::STAGE, m0,
                                     mrows, n0, kbeg + nt * BK, kend);
     cp_async_commit();
@@ -1020,7 +1051,8 @@ __device__ __forceinline__ void skinny_store(const Problem& p,
 
 // row-major B or its panel: columns [n0, n0 + 128) of split blockIdx.y.
 // GROUPED: batch entry blockIdx.z, whose rows past its row limit read no
-// x and no B and are stored as zeros (their sums never take an FMA)
+// x and no B and are stored as zeros (their sums never take an FMA), and
+// whose k rows past its K limit are not read
 template <int MT, typename TX, bool GROUPED>
 __global__ void __launch_bounds__(kThreads)
     gemm_f32_skinny_kernel(Problem p) {
@@ -1029,7 +1061,8 @@ __global__ void __launch_bounds__(kThreads)
   const int n0 = blockIdx.x * kSkinnyCols, sp = blockIdx.y;
   const int bz = GROUPED ? blockIdx.z : 0;
   const int kb0 = sp * p.kps * kBK;
-  const int kn = max(0, min(p.kps * kBK, p.K - kb0));
+  const int kn =
+      max(0, min(p.kps * kBK, (GROUPED ? depth_of(p, bz) : p.K) - kb0));
   const int M = GROUPED ? rows_of(p, bz) : p.M;
   const int ncols = min(kSkinnyCols, p.N - n0);
   const int CG = (ncols + 3) / 4;  // float4 columns
@@ -1354,14 +1387,14 @@ inline cudaError_t launch_smem(K kernel, dim3 grid, int bytes,
   return cudaGetLastError();
 }
 
-template <int LAYOUT, typename TX, bool LIMIT>
+template <int LAYOUT, typename TX, int LIM>
 struct TileLaunch {
   const Problem& p;
   cudaStream_t stream;
   template <int BM, int BN>
   cudaError_t go() const {
     dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.batch * p.split);
-    return launch_smem(gemm_f32_tile_kernel<BM, BN, LAYOUT, TX, LIMIT>, grid,
+    return launch_smem(gemm_f32_tile_kernel<BM, BN, LAYOUT, TX, LIM>, grid,
                        Tile<BM, BN, LAYOUT == kKMajorB, TX>::BYTES, p,
                        stream);
   }
@@ -1540,8 +1573,9 @@ inline int finish_split(const Problem& p, cudaError_t err, TC* C,
 // compiles only the kernels its entries launch): kPanels, B is
 // LinearPacked's panels (x f32 or bf16; else B is row-major or K-major
 // with an f32 x); kStreamPath, the stream path; kRowLimit, a batch with
-// per-entry row limits (p.row_limit, row-major B) on the tile path and on
-// the grouped skinny path, which takes the batch on blockIdx.z.
+// per-entry row and K limits (p.row_limit, p.k_limit) on the tile path
+// (row-major or K-major B) and on the grouped skinny path (row-major B),
+// which takes the batch on blockIdx.z.
 enum EntryFlags : unsigned { kPanels = 1, kStreamPath = 2, kRowLimit = 4 };
 
 // f32 B: C[z] = A[z] · B[z] on `stream` as the host planner decided. p
@@ -1561,15 +1595,18 @@ inline int launch_planned(Problem p, bool kmajor, int path, int bm, int bn,
                  LIMIT = FLAGS & kRowLimit;
   TX* C = static_cast<TX*>(p.C);
   if (p.batch <= 0 || p.M <= 0 || p.N <= 0) return (int)cudaGetLastError();
-  const bool kmajor_ok = !kmajor || (sizeof(TX) == 4 && !PANELS && !LIMIT);
+  // a K-major B takes row limits on the tile path, and no K limit
+  const bool kmajor_ok =
+      !kmajor || (sizeof(TX) == 4 && !PANELS && p.k_limit == nullptr &&
+                  (!LIMIT || path == kTile));
   const bool ok_path =
       (path == kSkinny && kmajor_ok) ||
       (path == kTile && tile_shape_ok(bm, bn) && kmajor_ok) ||
       (STREAM && path == kStream && !kmajor && p.row_limit == nullptr &&
-       p.K <= kStreamMaxK && split == 1 && bm == kStreamBM &&
-       bn == kStreamBN && blocks > 0);
-  if ((p.row_limit != nullptr && !LIMIT) || !ok_path ||
-      !plan_split(p, path, split, scratch, C, LIMIT))
+       p.k_limit == nullptr && p.K <= kStreamMaxK && split == 1 &&
+       bm == kStreamBM && bn == kStreamBN && blocks > 0);
+  if (((p.row_limit != nullptr || p.k_limit != nullptr) && !LIMIT) ||
+      !ok_path || !plan_split(p, path, split, scratch, C, LIMIT))
     return (int)cudaErrorInvalidValue;
   p.c_vec = aligned16(p.C) && p.N % 4 == 0 && p.bsc % 4 == 0;
   cudaError_t err = cudaErrorInvalidValue;
@@ -1580,16 +1617,17 @@ inline int launch_planned(Problem p, bool kmajor, int path, int bm, int bn,
       err = by_rows(p.M, SkinnyLaunch<TX, false>{p, kmajor, stream});
     }
   } else if constexpr (PANELS) {
-    err = by_tile_shape(bm, bn, TileLaunch<kPanelsB, TX, false>{p, stream});
+    err = by_tile_shape(bm, bn, TileLaunch<kPanelsB, TX, 0>{p, stream});
   } else {
     static_assert(sizeof(TX) == 4, "a bf16 x comes only with panels");
+    constexpr int LIM = LIMIT ? 1 : 0;
     if (path == kTile && kmajor) {
-      if constexpr (!LIMIT)  // (refused above with row limits)
-        err = by_tile_shape(bm, bn,
-                            TileLaunch<kKMajorB, TX, false>{p, stream});
+      err = by_tile_shape(bm, bn, TileLaunch<kKMajorB, TX, LIM>{p, stream});
+    } else if (path == kTile && LIMIT && p.k_limit != nullptr) {
+      if constexpr (LIMIT)
+        err = by_tile_shape(bm, bn, TileLaunch<kRowMajorB, TX, 2>{p, stream});
     } else if (path == kTile) {
-      err = by_tile_shape(bm, bn,
-                          TileLaunch<kRowMajorB, TX, LIMIT>{p, stream});
+      err = by_tile_shape(bm, bn, TileLaunch<kRowMajorB, TX, LIM>{p, stream});
     } else if constexpr (STREAM) {
       err = launch_stream<TX>(p, blocks, stream);
     }
@@ -1618,8 +1656,9 @@ inline Problem make_problem(const void* A, const void* B, void* C,
 // that a library that never calls it compiles none of its kernels), B
 // row-major (K,N) or K-major (N,K) with leading dimension ldb; batch entry
 // z of A, B and C starts bsa, bsb and bsc floats after entry z - 1, and
-// holds data in its first row_limit[z] rows where row_limit is given
-// (kRowLimit). The plan and FLAGS as in launch_planned.
+// holds data in its first row_limit[z] rows where row_limit is given, and
+// contracts over its first k_limit[z] k where k_limit is (kRowLimit). The
+// plan and FLAGS as in launch_planned.
 template <unsigned FLAGS, typename T>
 inline int launch_gemm_f32_batched(const T* A, const float* B, T* C,
                                    int batch, long long bsa, long long bsb,
@@ -1627,7 +1666,8 @@ inline int launch_gemm_f32_batched(const T* A, const float* B, T* C,
                                    int ldb, bool kmajor, int path, int bm,
                                    int bn, int split, int blocks,
                                    float* scratch, cudaStream_t stream,
-                                   const int* row_limit = nullptr) {
+                                   const int* row_limit = nullptr,
+                                   const int* k_limit = nullptr) {
   if (batch > 0 && M > 0 && N > 0 && ldb < (kmajor ? K : N))
     return (int)cudaErrorInvalidValue;
   Problem p = make_problem(A, B, C, nullptr, M, N, K, ldb);
@@ -1636,6 +1676,7 @@ inline int launch_gemm_f32_batched(const T* A, const float* B, T* C,
   p.bsb = bsb;
   p.bsc = bsc;
   p.row_limit = row_limit;
+  p.k_limit = k_limit;
   p.a_vec = aligned16(A) && K % 4 == 0 && bsa % 4 == 0;
   p.b_vec = aligned16(B) && ldb % 4 == 0 && (kmajor ? K : N) % 4 == 0 &&
             bsb % 4 == 0;

@@ -73,10 +73,14 @@ ARGTYPES = {
     "repro_matmul_dequant_int8_bf16": [_P] * 4 + [_I] * 7 + [_P, _P],
     "repro_matmul_dequant_int4_f32": [_P] * 4 + [_I] * 7 + [_P, _P],
     "repro_matmul_dequant_int4_bf16": [_P] * 4 + [_I] * 7 + [_P, _P],
-    # x, w, out, group_sizes, E, C, d, n, path, bm, [bn,] split, scratch,
+    # x, w, out, group_sizes, E, C, d, n, kmajor, path, bm, [bn,] split,
+    # scratch, stream
+    "repro_gmm_blocks_f32": [_P] * 4 + [_I] * 9 + [_P, _P],
+    "repro_gmm_blocks_bf16": [_P] * 4 + [_I] * 8 + [_P, _P],
+    # xt, dy, out, group_sizes, E, C, d, n, path, bm, [bn,] split, scratch,
     # stream
-    "repro_gmm_blocks_f32": [_P] * 4 + [_I] * 8 + [_P, _P],
-    "repro_gmm_blocks_bf16": [_P] * 4 + [_I] * 7 + [_P, _P],
+    "repro_gmm_blocks_dw_f32": [_P] * 4 + [_I] * 8 + [_P, _P],
+    "repro_gmm_blocks_dw_bf16": [_P] * 4 + [_I] * 7 + [_P, _P],
     # x, dt, A, Bm, Cm, D, init, y, final, cum, cb, states, B, S, H, P, N,
     # Q, stream
     "repro_ssd_scan_f32": [_P] * 12 + [_I] * 6 + [_P],
@@ -218,7 +222,8 @@ def on_cpu(kernel: str, *ts,
     its output through ctypes, with no ``grad_fn``, and a backward would
     stop there silently. ``matmul`` and ``flash_attention`` have backward
     kernels and reach this only with grad mode off (inside their autograd
-    Functions)."""
+    Functions), as ``gmm_blocks`` and ``gmm_blocks_dw`` do inside the MoE
+    layer's (``models.moe``)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
             f"{kernel}: no backward kernel yet, so no gradient flows through "

@@ -38,11 +38,36 @@ prefill C = 208: 97 MB against 13.1 GFLOP, bound by bytes at the
 tensor-core rate in bf16 (0.029 ms) and by operations in f32 (0.195
 ms).
 
+Training. ``w`` may also be K-major, a view whose ``w.transpose(1, 2)``
+is contiguous: ``gmm_blocks(dy, w.transpose(1, 2), group_sizes)`` is the
+backward's dx = dy·wᵀ per expert with the forward's weight (E, d, n) read
+in place, as ``matmul``'s dx reads ``w.T``, on both templates (bf16: the
+K-major B of either path; f32: the batched tile path, which
+``plan_f32_gemm(C, n, d, True, E, True)`` takes at any C). ``gmm_blocks_dw``
+is the weight gradient, dw[e] = x[e]ᵀ·dy[e] with x (E, C, d) and dy (E, C,
+n), out (E, d, n) in x's dtype with an f32 accumulator, contracted over
+the first ``group_sizes[e]`` rows only (the reference's ``blk.T @ dg`` in
+``_grouped_ffn_bwd``, whose masked rows add zeros). The kernels
+(``repro_gmm_blocks_dw_*``) take the group sizes as each expert's K limit:
+rows past it are never read, whatever they hold (the next expert's
+tokens), a K step wholly past it is not taken, an expert with no rows
+writes zeros and reads nothing, and a K split past it writes zero
+partials. It runs on the same templates along ``plan_bf16_gemm(d, n, C,
+E)`` and ``plan_f32_gemm(d, n, C, False, E, True)``, with xᵀ (E, d, C)
+copied contiguous as the A operand (an A read in place is later work, as
+for ``matmul``'s dw). At granite-moe-3b-a800m's training microbatch (E 40,
+C 824, d 1536, n 512; ~410 rows an expert) both products are bound by
+operations at the tensor-core rate in bf16; the K limit halves dw's
+reads and work against full blocks. Neither wrapper is differentiable
+itself: the MoE layer's autograd Functions (``models.moe``) call them.
+
 ``gmm_blocks_plain`` is the plain version (``ref.gmm_ref``): the f32
-einsum, cast to x's dtype, rows past the group sizes set to zero. On a CPU
-tensor the wrapper runs it; on a CUDA tensor it launches the kernel or
-raises — there is no fallback. ``launches`` counts kernel launches only
-(a split-K launch and its reduction count once).
+einsum, cast to x's dtype, rows past the group sizes set to zero;
+``gmm_blocks_dw_plain`` the f32 einsum over the rows within the group
+sizes, cast. On a CPU tensor a wrapper runs its plain version; on a CUDA
+tensor it launches the kernel or raises — there is no fallback.
+``launches`` counts kernel launches only (a split-K launch and its
+reduction count once).
 """
 from __future__ import annotations
 
@@ -55,8 +80,14 @@ from repro_torch.kernels import _native
 from repro_torch.kernels.matmul import (launch_bf16, launch_f32,
                                         plan_bf16_gemm, plan_f32_gemm)
 
-launches = {"gmm_blocks": 0}
+launches = {"gmm_blocks": 0, "gmm_blocks_dw": 0}
 _lock = threading.Lock()
+
+
+def _kept(C: int, group_sizes: torch.Tensor, device) -> torch.Tensor:
+    """(E, C, 1) True at the rows r < group_sizes[e] of each expert."""
+    return (torch.arange(C, device=device)[None, :]
+            < group_sizes.to(device)[:, None])[..., None]
 
 
 def gmm_blocks_plain(x: torch.Tensor, w: torch.Tensor,
@@ -66,50 +97,114 @@ def gmm_blocks_plain(x: torch.Tensor, w: torch.Tensor,
     r >= group_sizes[e] of expert e are zero where group sizes are given."""
     y = torch.einsum("ecd,edn->ecn", x.to(torch.float32), w.to(torch.float32))
     if group_sizes is not None:
-        keep = (torch.arange(x.shape[1], device=x.device)[None, :]
-                < group_sizes.to(x.device)[:, None])
-        y = torch.where(keep[..., None], y, torch.zeros((), device=y.device))
+        y = torch.where(_kept(x.shape[1], group_sizes, x.device), y,
+                        torch.zeros((), device=y.device))
     return y.to(x.dtype)
+
+
+def gmm_blocks_dw_plain(x: torch.Tensor, dy: torch.Tensor,
+                        group_sizes: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """f32-accumulated per-expert x[e]ᵀ @ dy[e] over the rows r <
+    group_sizes[e] (all rows without group sizes), cast to x's dtype."""
+    xf, dyf = x.to(torch.float32), dy.to(torch.float32)
+    if group_sizes is not None:
+        keep = _kept(x.shape[1], group_sizes, x.device)
+        zero = torch.zeros((), device=x.device)
+        xf, dyf = torch.where(keep, xf, zero), torch.where(keep, dyf, zero)
+    return torch.einsum("ecd,ecn->edn", xf, dyf).to(x.dtype)
+
+
+def _group_sizes_arg(kernel: str, group_sizes, x: torch.Tensor):
+    """``group_sizes``' device pointer (or None) for a CUDA launch."""
+    if group_sizes is None:
+        return None
+    if group_sizes.device != x.device or group_sizes.dtype != torch.int32 \
+            or not group_sizes.is_contiguous():
+        raise TypeError(f"{kernel}: the CUDA kernel takes group_sizes as "
+                        f"contiguous int32 on x's device")
+    return group_sizes.data_ptr()
+
+
+def _check_group_sizes(kernel: str, group_sizes, E: int) -> None:
+    if group_sizes is not None and tuple(group_sizes.shape) != (E,):
+        raise ValueError(f"{kernel}: group_sizes {tuple(group_sizes.shape)}"
+                         f" for {E} experts")
+
+
+def _count(name: str) -> None:
+    with _lock:
+        launches[name] += 1
 
 
 def gmm_blocks(x: torch.Tensor, w: torch.Tensor,
                group_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (E, C, d) @ w (E, d, n) -> (E, C, n) in x's dtype; rows past
-    ``group_sizes`` ((E,) int32) zero."""
+    ``group_sizes`` ((E,) int32) zero. ``w`` contiguous, or K-major (its
+    ``transpose(1, 2)`` contiguous, read in place)."""
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"gmm_blocks: bad shapes {tuple(x.shape)} x "
                          f"{tuple(w.shape)}")
-    if group_sizes is not None and tuple(group_sizes.shape) != (x.shape[0],):
-        raise ValueError(f"gmm_blocks: group_sizes {tuple(group_sizes.shape)}"
-                         f" for {x.shape[0]} experts")
-    if _native.on_cpu("gmm_blocks", x, w,
+    _check_group_sizes("gmm_blocks", group_sizes, x.shape[0])
+    # any other strides reach on_cpu as they are: fine on the CPU, refused
+    # (not contiguous) on the card
+    kmajor = not w.is_contiguous() and w.transpose(1, 2).is_contiguous()
+    if _native.on_cpu("gmm_blocks", x, w.transpose(1, 2) if kmajor else w,
                       dtypes=(torch.float32, torch.bfloat16)):
         if group_sizes is not None and group_sizes.device.type != "cpu":
             raise ValueError("gmm_blocks: group_sizes on another device")
         return gmm_blocks_plain(x, w, group_sizes)
-    gs_ptr = None
-    if group_sizes is not None:
-        if group_sizes.device != x.device or group_sizes.dtype != torch.int32 \
-                or not group_sizes.is_contiguous():
-            raise TypeError("gmm_blocks: the CUDA kernel takes group_sizes "
-                            "as contiguous int32 on x's device")
-        gs_ptr = group_sizes.data_ptr()
+    gs_ptr = _group_sizes_arg("gmm_blocks", group_sizes, x)
     E, C, d = x.shape
     n = w.shape[2]
     out = torch.empty((E, C, n), dtype=x.dtype, device=x.device)
     if E and C and n:
         lib = _native.library("gmm")
         args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), gs_ptr, E, C, d,
-                n)
+                n, int(kmajor))
         if x.dtype == torch.bfloat16:
             launch_bf16("gmm_blocks", lib.repro_gmm_blocks_bf16,
                         plan_bf16_gemm(C, n, d, E), x.device, E * C * n,
                         *args)
         else:
             launch_f32("gmm_blocks", lib.repro_gmm_blocks_f32,
-                       plan_f32_gemm(C, n, d, False, E, True), x.device,
+                       plan_f32_gemm(C, n, d, kmajor, E, True), x.device,
                        E * C * n, *args)
-        with _lock:
-            launches["gmm_blocks"] += 1
+        _count("gmm_blocks")
+    return out
+
+
+def gmm_blocks_dw(x: torch.Tensor, dy: torch.Tensor,
+                  group_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (E, C, d)ᵀ @ dy (E, C, n) -> (E, d, n) in x's dtype, expert e
+    contracted over its first ``group_sizes[e]`` rows ((E,) int32; all C
+    without them)."""
+    if x.dim() != 3 or dy.dim() != 3 or x.shape[:2] != dy.shape[:2]:
+        raise ValueError(f"gmm_blocks_dw: bad shapes {tuple(x.shape)}, "
+                         f"{tuple(dy.shape)}")
+    _check_group_sizes("gmm_blocks_dw", group_sizes, x.shape[0])
+    if _native.on_cpu("gmm_blocks_dw", x, dy,
+                      dtypes=(torch.float32, torch.bfloat16)):
+        if group_sizes is not None and group_sizes.device.type != "cpu":
+            raise ValueError("gmm_blocks_dw: group_sizes on another device")
+        return gmm_blocks_dw_plain(x, dy, group_sizes)
+    gs_ptr = _group_sizes_arg("gmm_blocks_dw", group_sizes, x)
+    E, C, d = x.shape
+    n = dy.shape[2]
+    out = torch.empty((E, d, n), dtype=x.dtype, device=x.device)
+    if E and d and n:
+        xt = x.transpose(1, 2).contiguous()   # the A operand (E, d, C)
+        lib = _native.library("gmm")
+        args = (xt.data_ptr(), dy.data_ptr(), out.data_ptr(), gs_ptr, E, C,
+                d, n)
+        if x.dtype == torch.bfloat16:
+            launch_bf16("gmm_blocks_dw", lib.repro_gmm_blocks_dw_bf16,
+                        plan_bf16_gemm(d, n, C, E), x.device, E * d * n,
+                        *args)
+        else:
+            launch_f32("gmm_blocks_dw", lib.repro_gmm_blocks_dw_f32,
+                       plan_f32_gemm(d, n, C, False, E, True), x.device,
+                       E * d * n, *args)
+        _count("gmm_blocks_dw")
     return out

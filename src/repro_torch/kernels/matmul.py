@@ -234,10 +234,12 @@ def plan_f32_gemm(M: int, N: int, K: int, kmajor: bool = False,
     items are fewer) walk the 128 x 64 items, each block a contiguous
     run. At batch 1, M <= 16 takes the skinny path (128 columns a block,
     32 for a K-major w), split as ``_f32_skinny_split`` says within the x
-    slice a block holds. ``row_limit`` (the f32 ``gmm_blocks``: a batch
-    with a row limit per entry, row-major w) plans without the stream
-    path, which takes no row limit, and takes the skinny path at M <= 16
-    at any batch, split over batch x column blocks. Otherwise the tile
+    slice a block holds. ``row_limit`` (the f32 ``gmm_blocks`` and
+    ``gmm_blocks_dw``: a batch with a row or K limit per entry) plans
+    without the stream path, which takes neither, and takes the skinny
+    path at M <= 16 at any batch for a row-major w, split over batch x
+    column blocks; a K-major w with row limits (``gmm_blocks``' dx)
+    takes the tile path at any M. Otherwise the tile
     path over batch x tiles: each
     tile of ``F32_TILE_BM`` x ``F32_TILE_BN`` (BN 128 only where N > 64)
     with no split where its tiles reach ``SMS`` blocks, else with each
@@ -256,7 +258,7 @@ def plan_f32_gemm(M: int, N: int, K: int, kmajor: bool = False,
         items = batch * -(-M // bm) * -(-N // bn)
         return GemmPlan("stream", bm, bn, 1, ksteps,
                         max(1, min(items, F32_STREAM_PER_SM * SMS)))
-    if M <= SKINNY_MAX_M and (batch == 1 or row_limit):
+    if M <= SKINNY_MAX_M and (batch == 1 or (row_limit and not kmajor)):
         bn = F32_SKINNY_COLS[bool(kmajor)]
         tiles = batch * -(-N // bn)
         split = _f32_skinny_split(tiles, ksteps,

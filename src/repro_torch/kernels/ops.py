@@ -28,6 +28,7 @@ dequant_int4 = _quant.dequant_int4
 matmul_dequant_int8 = _quant.matmul_dequant_int8
 matmul_dequant_int4 = _quant.matmul_dequant_int4
 gmm_blocks = _gmm.gmm_blocks
+gmm_blocks_dw = _gmm.gmm_blocks_dw
 ssd_scan = _ssd.ssd_scan
 
 # launch-count name -> (CUDA source, TPU kernel it replaces); ``matmul``
@@ -62,6 +63,10 @@ KERNELS = {
                             "src/repro/kernels/quant.py:179"),
     "gmm_blocks": ("src/repro_torch/csrc/gmm.cu",
                    "src/repro/kernels/gmm.py:36"),
+    # no Pallas kernel: the reference's custom VJP computes dw with jnp
+    "gmm_blocks_dw": ("src/repro_torch/csrc/gmm.cu",
+                      "none (the reference's custom VJP computes dw with "
+                      "jnp: src/repro/models/moe.py:163)"),
     "ssd_scan": ("src/repro_torch/csrc/ssd.cu",
                  "src/repro/kernels/ssd.py:64"),
 }
@@ -84,6 +89,6 @@ def reset_launch_counts() -> None:
 
 
 def gemm_path_counts() -> Dict[str, int]:
-    """Launches of the bf16 tensor-core template (``matmul`` and
-    ``gmm_blocks``) by path: tile, skinny, and those that split K."""
+    """Launches of the bf16 tensor-core template (``matmul``,
+    ``gmm_blocks`` and ``gmm_blocks_dw``) by path: tile, skinny, and those that split K."""
     return dict(_mm.gemm_paths)

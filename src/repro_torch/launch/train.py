@@ -4,6 +4,9 @@
       --steps 50 --batch 8 --seq 512 --microbatches 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --reduced --steps 5 --batch 4 --seq 64 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch granite-moe-3b-a800m --steps 10 --batch 8 --seq 512 \\
+      --microbatches 2
 
 ``--arch`` at full width (or ``--reduced``, with ``--d-model`` and
 ``--layers`` overrides as in the reference) gets the port's own random
@@ -11,9 +14,10 @@ weights from ``--seed``, trains on ``data.SyntheticPipeline`` batches with
 ``train.make_train_step`` (remat on, the reference's warmup of min(100,
 steps / 10 + 1)), prints loss, grad norm and tokens/s, and writes
 checkpoints with ``checkpoint.save_pytree`` every ``--ckpt-every`` steps.
-The dense body trains (the dense, vlm and audio families); the moe, ssm
-and hybrid families raise until their kernels have backwards. It runs on
-the card unless ``--device cpu`` is given, and raises without one.
+The dense body (the dense, vlm and audio families) and the moe family
+train; the ssm and hybrid families raise until ``ssd_scan`` has a
+backward. It runs on the card unless ``--device cpu`` is given, and
+raises without one.
 """
 from __future__ import annotations
 

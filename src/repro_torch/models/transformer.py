@@ -40,21 +40,26 @@ A step takes ``batch["embeds"]`` (B, 1, d) in the ``embeddings`` mode and
 returned as the new state.
 
 Training (the dense body: the dense, vlm and audio families in all three
-input modes). ``loss_fn`` is the reference's next-token cross-entropy
+input modes; and the moe family). ``loss_fn`` is the reference's
+next-token cross-entropy
 (label slicing and mask per input mode, the logsumexp over the f32 logits,
 ``+ 0.01 * aux``). ``forward(remat=True)`` checkpoints each block
 (``torch.utils.checkpoint``, non-reentrant), each group of
 ``remat_group`` blocks where that divides the depth (the reference's
-hierarchical remat), or each of gemma2's (local, global) pairs. The
+hierarchical remat), or each of gemma2's (local, global) pairs; the aux
+loss is carried through each checkpointed unit and summed layer by layer
+in the same order as without remat (the same bits), and the recomputed
+forward routes as the first did (a stable sort, no host sync). The
 stacked block weights are taken apart with one ``torch.unbind`` a leaf a
 forward: indexing a stack per layer under autograd would make each
 layer's backward write a zero-filled gradient of the whole stack. The
 gradients flow through the ``matmul`` and ``flash_attention`` kernels'
-autograd Functions, and the token embedding is read with ``F.embedding``,
-whose backward sums the rows deterministically. The moe, ssm and hybrid
-families refuse gradients (``NotImplementedError``) until ``gmm_blocks``
-and ``ssd_scan`` have backward kernels. The prefill cache
-(``collect_cache``) is not ported.
+autograd Functions and the MoE layer's (``moe._GroupedFFN``, whose
+backward runs ``gmm_blocks`` and ``gmm_blocks_dw``), and the token
+embedding is read with ``F.embedding``, whose backward sums the rows
+deterministically. The ssm and hybrid families refuse gradients
+(``NotImplementedError``) until ``ssd_scan`` has a backward kernel. The
+prefill cache (``collect_cache``) is not ported.
 """
 from __future__ import annotations
 
@@ -257,14 +262,12 @@ def _lm_logits(params, cfg, x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def _check_trainable(params: Params, cfg: ArchConfig) -> None:
     """``NotImplementedError`` where autograd would differentiate a family
-    whose kernels have no backward yet (moe: ``gmm_blocks``; ssm and
-    hybrid: ``ssd_scan``)."""
-    if cfg.family in ("moe", "ssm", "hybrid") and torch.is_grad_enabled() \
+    whose kernels have no backward yet (ssm and hybrid: ``ssd_scan``)."""
+    if cfg.family in ("ssm", "hybrid") and torch.is_grad_enabled() \
             and any(t.requires_grad for t in leaves(params)):
-        kernel = "gmm_blocks" if cfg.family == "moe" else "ssd_scan"
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family needs a backward "
-            f"kernel for {kernel}, not ported yet; run it under "
+            f"kernel for ssd_scan, not ported yet; run it under "
             f"torch.no_grad() or with params that do not require grad")
 
 
@@ -318,27 +321,25 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         return _lm_logits(params, cfg, x), aux, (None, loss_mask)
     layers = _unbind(params["blocks"], cfg.num_layers)
 
-    def run(x, lo: int, hi: int):
-        aux_part = None
+    def run(x, aux, lo: int, hi: int):
         for i in range(lo, hi):
             window = cfg.sliding_window
             if cfg.local_global_pattern and i % 2 == 1:
                 window = None  # (local, global) pairs: odd layers are global
             x, a = _attn_block_seq(layers[i], x, cfg, positions, window)
             if a is not None:
-                aux_part = a if aux_part is None else aux_part + a
-        return x, aux_part
+                aux = aux + a
+        return x, aux
 
     if remat and torch.is_grad_enabled():
-        # only families without an aux loss train (``_check_trainable``)
+        # each unit's aux leaves its checkpoint with x, summed in layer order
         unit = _remat_unit(cfg, remat_group)
         for lo in range(0, cfg.num_layers, unit):
-            x = checkpoint(lambda x, lo=lo: run(x, lo, lo + unit)[0], x,
-                           use_reentrant=False)
+            x, aux = checkpoint(
+                lambda x, aux, lo=lo: run(x, aux, lo, lo + unit), x, aux,
+                use_reentrant=False)
     else:
-        x, a = run(x, 0, cfg.num_layers)
-        if a is not None:
-            aux = aux + a
+        x, aux = run(x, aux, 0, cfg.num_layers)
     return _lm_logits(params, cfg, x), aux, (None, loss_mask)
 
 

@@ -8,8 +8,8 @@ batch's. Gradients are cast to f32 and, with microbatches, summed in f32
 in microbatch order from zero and divided by n (the reference's scan);
 the metrics are the microbatches' mean. Gradients come from
 ``torch.autograd.grad`` through the ``matmul`` and ``flash_attention``
-kernels' backward (on CUDA tensors) or their plain versions (on CPU
-tensors).
+kernels' backward and the MoE layer's (``gmm_blocks``, ``gmm_blocks_dw``)
+on CUDA tensors, or their plain versions on CPU tensors.
 """
 from __future__ import annotations
 

@@ -765,11 +765,11 @@ GMM_F32_SHAPES = [(40, 8, 1536, 512), (40, 208, 1536, 512),
                          ids=["x".join(map(str, s)) for s in GMM_F32_SHAPES])
 def test_gmm_f32_wrapper_passes_its_plan(fake_kernels, E, C, d, n, routed):
     """The f32 ``gmm_blocks`` hands ``repro_gmm_blocks_f32`` the group
-    sizes as they lie (read on the device) and ``plan_f32_gemm(C, n, d,
-    batch=E, row_limit=True)``'s plan: no stream path, which takes no row
-    limit (without row limits the sweep's d 32 and d 20 would stream),
-    batched skinny at decode, batched tile above; a scratch only for a
-    split; one launch counted."""
+    sizes as they lie (read on the device), a row-major w (K-major flag 0)
+    and ``plan_f32_gemm(C, n, d, batch=E, row_limit=True)``'s plan: no
+    stream path, which takes no row limit (without row limits the sweep's
+    d 32 and d 20 would stream), batched skinny at decode, batched tile
+    above; a scratch only for a split; one launch counted."""
     from repro_torch.kernels.matmul import _PATH_CODE, plan_f32_gemm
 
     x, w = torch.zeros(E, C, d), torch.zeros(E, d, n)
@@ -779,14 +779,14 @@ def test_gmm_f32_wrapper_passes_its_plan(fake_kernels, E, C, d, n, routed):
     assert out.shape == (E, C, n) and out.dtype == torch.float32
     (name, args), = fake_kernels
     assert name == "repro_gmm_blocks_f32"
-    assert args[:8] == (x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                        gs.data_ptr() if routed else None, E, C, d, n)
+    assert args[:9] == (x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                        gs.data_ptr() if routed else None, E, C, d, n, 0)
     p = plan_f32_gemm(C, n, d, False, E, True)
     assert p.path == ("skinny" if C <= 16 else "tile")
     assert plan_f32_gemm(C, n, d, False, E).path == (
         "stream" if d <= 64 else "tile")
-    assert args[8:12] == (_PATH_CODE[p.path], p.bm, p.bn, p.split)
-    assert (args[12] is None) == (p.split == 1)
+    assert args[9:13] == (_PATH_CODE[p.path], p.bm, p.bn, p.split)
+    assert (args[13] is None) == (p.split == 1)
     assert ops.launch_counts()["gmm_blocks"] == 1
 
 

@@ -142,20 +142,19 @@ def test_remat_units():
     assert T._remat_unit(g2, 4) == 2         # (local, global) pairs
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-2.7b",
-                                  "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
 def test_loss_fn_refuses_grad_for_families_without_backward(arch):
-    """moe (``gmm_blocks``), ssm and hybrid (``ssd_scan``) raise under
-    grad instead of returning a loss whose gradient stops short."""
+    """ssm and hybrid (``ssd_scan``) raise under grad instead of returning
+    a loss whose gradient stops short (the moe family trains:
+    ``test_torch_moe_train.py``)."""
     _, cfg = _cfgs(arch)
     pp = T.init_params(cfg, torch.Generator().manual_seed(0))
     for p in pytree.leaves(pp):
         p.requires_grad_(True)
     _, pb = _batch(cfg, 1, 8)
-    kernel = "gmm_blocks" if cfg.family == "moe" else "ssd_scan"
-    with pytest.raises(NotImplementedError, match=kernel):
+    with pytest.raises(NotImplementedError, match="ssd_scan"):
         T.loss_fn(pp, pb, cfg)
-    with pytest.raises(NotImplementedError, match=kernel):
+    with pytest.raises(NotImplementedError, match="ssd_scan"):
         T.forward(pp, pb, cfg, remat=True)
 
 

@@ -1,8 +1,9 @@
 """Time ``decode_attention``, the f32 ``matmul``, ``flash_attention``,
 ``flash_attention_bwd``, ``winograd_tile_matmul``, ``ssd_scan``,
-``matmul_packed``, ``matmul_dequant_int8``, ``matmul_dequant_int4`` and
-the f32 ``gmm_blocks`` of one source tree of the PyTorch port on a CUDA card, so
-that two commits can be compared on one card.
+``matmul_packed``, ``matmul_dequant_int8``, ``matmul_dequant_int4``, the
+f32 ``gmm_blocks`` and the MoE backward's products (``gmm_blocks`` with w
+read K-major, ``gmm_blocks_dw``) of one source tree of the PyTorch port on
+a CUDA card, so that two commits can be compared on one card.
 
 Each row calls the tree's own wrapper (``repro_torch.kernels.ops``) at a
 decode, GEMM, prefill, Winograd, SSD-scan, packed-GEMM, int8- or
@@ -16,13 +17,15 @@ beside the PyTorch library call (SDPA, ``torch.matmul``, ``torch.bmm``;
 ``torch._weight_int8pack_mm`` for ``matmul_dequant_int8`` where the card
 takes it, SDPA's backward through autograd for ``flash_attention_bwd``
 (by events only: autograd's backward does not run on a capturing
-stream); none for ``ssd_scan``, ``matmul_dequant_int4``, a routed
+stream); ``torch.bmm`` on the masked blocks for the MoE backward's rows;
+none for ``ssd_scan``, ``matmul_dequant_int4``, a routed f32
 ``gmm_blocks`` and a packed bf16 x) timed both ways,
 and the output's error against the tree's plain version (the worst of y
 and the final state for ``ssd_scan``). A row whose input the tree's
 wrapper refuses (the parent's ``matmul_packed`` with a bf16 x) prints
 ``refused``; so does every ``flash_bwd`` row of a tree that has no
-``flash_attention_bwd``.
+``flash_attention_bwd``, and every ``gmm_bwd`` row of a tree whose
+``gmm_blocks`` refuses a K-major w or that has no ``gmm_blocks_dw``.
 
 To compare a parent commit with a change, unpack the parent into a
 gitignored directory and run both trees in one call, in the order parent,
@@ -42,13 +45,14 @@ batched tile path's other tiles and the batched skinny path split 2, 4
 and 8 ways. ``--ptxas`` prints what ``ptxas -v``
 said of each kernel of the libraries the rows built (registers, stack
 frame, spills). Rows run for the kernels named by ``--only`` (default:
-all ten). The plan is printed where the tree's wrapper launches along
+all eleven). The plan is printed where the tree's wrapper launches along
 it. Without a CUDA card it exits 2.
 
     python3 tools/kernel_ab.py --only ssd_scan --phases
     python3 tools/kernel_ab.py --only packed,dequant_int4,matmul
     python3 tools/kernel_ab.py --only dequant_int8,gmm_f32
     python3 tools/kernel_ab.py --only flash_bwd --phases
+    python3 tools/kernel_ab.py --only gmm_bwd
 """
 from __future__ import annotations
 
@@ -150,13 +154,27 @@ GMM_F32_ROWS = [("decode_gate_f32", 40, 8, 1536, 512, None),
                 ("prefill_gate_f32", 40, 208, 1536, 512, None),
                 ("sweep_8x128x128x128_f32", 8, 128, 128, 128, None)]
 
+# (row, product, E, C, K, N, dtype, routed): the MoE backward at
+# granite-moe-3b-a800m's training microbatch (2048 tokens, top-8 of 40, C
+# 824): dx = dy (E,C,K)·wᵀ with w stored (E,N,K) and read K-major (dh: K
+# 1536, N 512; dblk: K 512, N 1536) and dw = x (E,C,K)ᵀ·dy (E,C,N) over
+# each expert's rows (dwg: K 1536, N 512; dwd: K 512, N 1536), bf16 and
+# f32, a top-8 routing's group sizes and all experts full
+GMM_BWD_ROWS = [(f"{prod}_{g}{'' if dt == 'bfloat16' else '_f32'}", kind,
+                 40, 824, K, N, dt, g == "routed")
+                for dt in ("bfloat16", "float32")
+                for g in ("routed", "full")
+                for prod, kind, K, N in (("dh", "dx", 1536, 512),
+                                         ("dblk", "dx", 512, 1536),
+                                         ("dwg", "dw", 1536, 512),
+                                         ("dwd", "dw", 512, 1536))]
 
 # the kernel library each --only name launches
 LIBRARY = {"decode": "decode_attention", "matmul": "matmul",
            "flash": "flash_attention", "flash_bwd": "flash_attention_bwd",
            "winograd": "conv_winograd",
            "ssd_scan": "ssd", "packed": "matmul", "dequant_int8": "quant",
-           "dequant_int4": "quant", "gmm_f32": "gmm"}
+           "dequant_int4": "quant", "gmm_f32": "gmm", "gmm_bwd": "gmm"}
 
 
 def main() -> int:
@@ -171,10 +189,10 @@ def main() -> int:
                          "(torch.profiler over 10 calls)")
     ap.add_argument("--only", default="decode,matmul,flash,flash_bwd,"
                     "winograd,ssd_scan,packed,dequant_int8,dequant_int4,"
-                    "gmm_f32",
+                    "gmm_f32,gmm_bwd",
                     help="comma-separated: decode, matmul, flash, "
                          "flash_bwd, winograd, ssd_scan, packed, "
-                         "dequant_int8, dequant_int4, gmm_f32")
+                         "dequant_int8, dequant_int4, gmm_f32, gmm_bwd")
     args = ap.parse_args()
     only = set(args.only.split(","))
 
@@ -622,6 +640,53 @@ def main() -> int:
                      "split": var.split})
             finally:
                 GMM.plan_f32_gemm = orig
+
+    for name, kind, E, C, K, N, dname, routed in (
+            GMM_BWD_ROWS if "gmm_bwd" in only else []):
+        if kind == "dw" and not hasattr(ops, "gmm_blocks_dw"):
+            print(json.dumps({"label": args.label, "kernel": "gmm_blocks_dw",
+                              "row": name, "refused": "no gmm_blocks_dw in "
+                                                      "this tree"}),
+                  flush=True)
+            continue
+        dt = getattr(torch, dname)
+        if routed:
+            picks = torch.cat([torch.randperm(E, generator=gen,
+                                              device=dev)[:8]
+                               for _ in range(2048)])
+            gs = torch.bincount(picks, minlength=E).clamp(max=C).to(
+                torch.int32)
+        else:
+            gs = torch.full((E,), C, dtype=torch.int32, device=dev)
+        keep = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+        x = rand(E, C, K, dtype=dt)
+        xm = torch.where(keep, x, torch.zeros((), dtype=dt, device=dev))
+        if kind == "dx":
+            wt = (rand(E, N, K) * K ** -0.5).to(dt).transpose(1, 2)
+
+            def call(x=x, wt=wt, gs=gs):
+                return ops.gmm_blocks(x, wt, gs)
+
+            def plain(x=x, wt=wt, gs=gs):
+                return GMM.gmm_blocks_plain(x, wt, gs)
+
+            def lib(xm=xm, wt=wt):
+                return torch.bmm(xm, wt)
+        else:
+            dy = rand(E, C, N, dtype=dt)
+            dym = torch.where(keep, dy, torch.zeros((), dtype=dt,
+                                                    device=dev))
+
+            def call(x=x, dy=dy, gs=gs):
+                return ops.gmm_blocks_dw(x, dy, gs)
+
+            def plain(x=x, dy=dy, gs=gs):
+                return GMM.gmm_blocks_dw_plain(x, dy, gs)
+
+            def lib(xm=xm, dym=dym):
+                return torch.bmm(xm.transpose(1, 2), dym)
+        row("gmm_blocks" if kind == "dx" else "gmm_blocks_dw", name, call,
+            plain, lib, {"rows": int(gs.sum()), "experts": E, "C": C})
 
     if args.ptxas:
         for lib_name, log in _native.build_logs.items():
