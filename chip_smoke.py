@@ -67,7 +67,8 @@ Run from the root of a checkout, on a machine with a CUDA card and
      (int8 beside ``torch._weight_int8pack_mm``); ``flash_attention_bwd``
      (the backward of prefill attention, three launches counted as one)
      at smollm-360m's training attention (8 and 4 sequences of 512, 15/5
-     heads of 64) in bf16 and f32 and a windowed, softcapped bf16 shape
+     heads of 64) in bf16 and f32, zamba2-2.7b's training microbatch (4,
+     512, 32/32 heads of 80) in bf16 and a windowed, softcapped bf16 shape
      of gemma2's kind (1, 1024, 32/16, 128), dq, dk and dv against
      ``flash_attention_bwd_plain`` fed the kernel forward's o and lse,
      two launches bitwise equal, each launch's three outputs first handed
@@ -81,7 +82,14 @@ Run from the root of a checkout, on a machine with a CUDA card and
      ``gmm_blocks_dw`` (dwg and dwd, each expert contracted over its own
      rows), each beside ``torch.bmm`` on the masked blocks, two launches
      bitwise equal, each output handed a NaN-filled block, a device time,
-     each row printing its plan; with
+     each row printing its plan; ``ssd_scan_bwd`` (the backward of the
+     scan, six launches counted as one) at mamba2-2.7b's training
+     microbatch (B 4, S 512, two 256-token chunks) in bf16 and f32,
+     zamba2-2.7b's (N 64) in bf16, and mamba2 at S 1024 from a random
+     state under a nonzero gradient of the final state, its seven
+     gradients against ``ssd_scan_bwd_plain`` on the kernel forward's
+     cum, CB and chunk-entry states, two launches bitwise equal, each
+     output handed a NaN-filled block, a device time; with
      ``--kernels-only`` the script stops here (a first check of a new
      kernel, without the paths or a result line);
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
@@ -158,11 +166,11 @@ Run from the root of a checkout, on a machine with a CUDA card and
      cut): ``forward`` on the 512-token prompt against the all-plain f32
      forward under the same routing (``PATH_TOL`` relative to max|ref|);
      then
-     the ssm family: mamba2-2.7b at full width, all 64 layers
-     (``SSM_DEPTH``): in bf16 ``forward`` on 1024 tokens, each layer held
-     to its plain version on the same input and the whole model's
-     difference from the all-plain forward reported, and the same
-     ``BatchedServer`` run; in f32 at ``SSM_F32_DEPTH`` layers (32, a
+     the ssm family: mamba2-2.7b at full width, 32 of its 64 layers
+     (``SSM_DEPTH``, a cut): in bf16 ``forward`` on 1024 tokens, each
+     layer held to its plain version on the same input and the whole
+     model's difference from the all-plain forward reported, and the same
+     ``BatchedServer`` run; in f32 at ``SSM_F32_DEPTH`` layers (16, a
      cut) ``forward`` against the all-plain forward and decode by steps
      against ``forward`` over two 256-token chunks (LLM gate); then the
      hybrid family: zamba2-2.7b at full width (d_model 2560, 32/32 heads of 80,
@@ -185,7 +193,7 @@ Run from the root of a checkout, on a machine with a CUDA card and
      whole model's differences reported (it amplifies a block's rounding
      past the LLM gate), in f32 ``forward`` against the all-plain forward
      and decode by steps against ``forward`` (LLM gate); internvl2-76b
-     (``vlm``, full width, ``VLM_DEPTH`` = 4 of its 80 layers, a cut: the
+     (``vlm``, full width, ``VLM_DEPTH`` = 2 of its 80 layers, a cut: the
      whole model does not fit one card) ``forward`` on 256 prefix
      embeddings and 64 text tokens against the all-plain forward, then 32
      decode steps of text tokens against the all-plain decode (LLM gate);
@@ -208,11 +216,25 @@ Run from the root of a checkout, on a machine with a CUDA card and
      norms, embed) against torch autograd through the plain versions under
      the kernel run's routing replayed (loss 1e-5 relative, each leaf
      ``PATH_TOL`` of its max|ref|), ``remat`` bitwise equal to none; in
-     bf16 at ``MOE_TRAIN_DEPTH`` = 16 layers (the forward path's cut)
+     bf16 at ``MOE_TRAIN_DEPTH`` = 8 layers (a cut of depth)
      each leaf within ``TRAIN_BF16_TOL`` under the replayed routing (or
      each block in lockstep, the amplification printed), two steps
      bitwise equal, the loss falling over ``MOE_TRAIN_CURVE`` = 10 steps,
-     ms a step, tokens/s, a step's device busy and idle;
+     ms a step, tokens/s, a step's device busy and idle; then SSM and
+     hybrid training (``ssm_training_path``): mamba2-2.7b and zamba2-2.7b
+     at full width on the same pipeline (two 256-token chunks a
+     microbatch); in f32 at ``SSM_TRAIN_F32_DEPTH`` = 2 and
+     ``HYBRID_TRAIN_F32_DEPTH`` = 6 layers (cuts of depth; zamba2 one
+     group) one step's loss and every gradient leaf against torch autograd
+     through the plain versions (loss 1e-5 relative, each leaf
+     ``PATH_TOL``), ``remat`` (a mamba block, or a group with its shared
+     block, a checkpoint) bitwise equal to none; in bf16 at
+     ``SSM_TRAIN_DEPTH`` = 8 and ``HYBRID_TRAIN_DEPTH`` = 12 (two
+     groups) each leaf within ``TRAIN_BF16_TOL`` or each block in
+     lockstep (mamba blocks and each shared-block application, the
+     amplification printed), two steps bitwise equal, the loss falling
+     over ``SSM_TRAIN_CURVE`` = 10 steps, ms a step, tokens/s, a step's
+     device busy and idle;
   8. fails unless every kernel of a path launched during that path's runs
      (each path's launch counts are zeroed just before its runs and read
      just after; the fleet's are its served requests' own;
@@ -226,7 +248,12 @@ Run from the root of a checkout, on a machine with a CUDA card and
      microbatch (4 x 7 L + 3 with remat), no plain version called; an MoE
      training step's ``gmm_blocks`` 8 times a layer a microbatch (11 with
      remat), ``gmm_blocks_dw`` 3 times, the router's f32 matmul 3 times
-     (4), the attention's projections 12 times (16) and the tied head's 3)
+     (4), the attention's projections 12 times (16) and the tied head's 3;
+     an SSM or hybrid training step's ``ssd_scan`` once a mamba layer a
+     microbatch (twice with remat), ``ssd_scan_bwd`` once, the shared
+     block's ``flash_attention`` once an application (twice) and
+     ``flash_attention_bwd`` once, the matmul 3 x F times (4 x F - 1), F
+     = 6 a mamba layer + 7 a shared application + 1)
      and no kernel was demoted by the fault ladder.
 
 Every run of a decided plan in the CNN and LLM phases (nnv12,
@@ -241,11 +268,13 @@ audit of the cache entries the decided plan reads landed (and timed)
 first, its files evicted again: it pays no audit.
 
 ``LLM_DEPTH``, ``LOSSY_DEPTH`` and ``SERVE_DEPTH`` (8 of smollm-360m's
-32 blocks), ``MOE_DEPTH`` (16 of granite's 32 layers), ``SSM_F32_DEPTH``
-(32 of mamba2's 64 in f32) and ``MUSICGEN_DECODE`` (32 steps) are cuts
-for the run's time limit: those phases are host work (``decide()``'s
-profiling, cache writes, the software CRC-32C, one dispatch per op) and
-grow with depth; the kernels run at full width either way.
+32 blocks), ``MOE_DEPTH`` (16 of granite's 32 layers), ``SSM_DEPTH`` and
+``SSM_F32_DEPTH`` (32 and 16 of mamba2's 64), ``VLM_DEPTH`` (2
+of internvl2's 80), ``MUSICGEN_DECODE`` (32 steps) and the training
+paths' depths are cuts for the run's time limit: those phases are host
+work (``decide()``'s profiling, cache writes, the software CRC-32C, one
+dispatch per op) and grow with depth; the kernels run at full width
+either way.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -282,22 +311,27 @@ LLM_ATOL, LLM_RTOL = 0.1, 0.05
 # machine, whose host ran them 1.4-1.5x slower than others, took 1352.5
 # s, past the 1200 s budget; at 16, with the hybrid and input-modes
 # paths, 981.7-1013.2 s on two hosts and 1246.0 s on a slower one),
-# granite-moe-3b-a800m at 16 of its 32 layers, mamba2-2.7b's f32 phase
-# at 32 of its 64 (its bf16 runs keep all 64) and musicgen-medium's
-# decode at 32 steps
+# granite-moe-3b-a800m at 16 of its 32 layers, mamba2-2.7b's forward
+# path at 32 of its 64 in bf16 and 16 in f32 (64 and 32 until the ssm
+# training path came: with it runs took 1066.3 s and, at 32 in bf16 on a
+# slower host, 1104.9 s on an H100 SXM; its batched mix at 64 layers was
+# ~90 s of host-bound decode steps, its 512 f32 decode steps at 32 layers
+# ~40 s), musicgen-medium's decode at 32 steps and internvl2-76b at 2
+# layers
 LLM_DEPTH = 8
 LOSSY_DEPTH = 8
 SERVE_DEPTH = 8
 MOE_DEPTH = 16
 MOE_F32_DEPTH = 4   # the f32 granite forward: a cut of its 32 layers
-SSM_DEPTH = 64
-SSM_F32_DEPTH = 32
+SSM_DEPTH = 32
+SSM_F32_DEPTH = 16
 HYBRID_DEPTH = 54
 HYBRID_F32_DEPTH = 12  # the f32 zamba2 forward and decode: a cut of its 54
 MUSICGEN_DECODE = 32   # musicgen-medium's decode steps against forward
 # internvl2-76b's layers: a cut of its 80 (the whole model, ~141 GB in
-# bf16, does not fit one 80 GB card; 4 layers and the two heads ~11 GB)
-VLM_DEPTH = 4
+# bf16, does not fit one 80 GB card; 4 layers and the two heads ~11 GB
+# fit, 2 for the run's time)
+VLM_DEPTH = 2
 # the training path: smollm-360m in f32 at TRAIN_F32_DEPTH of its 32
 # layers (a cut of depth only, for the f32 gate against plain) and in bf16
 # at all 32; SyntheticPipeline(batch 8, seq 512, microbatches 2): 4096
@@ -309,13 +343,27 @@ TRAIN_CURVE = 20
 TRAIN_BF16_TOL = 5e-2
 # the moe training path: granite-moe-3b-a800m at full width on the same
 # pipeline, f32 at MOE_TRAIN_F32_DEPTH of its 32 layers and bf16 at
-# MOE_TRAIN_DEPTH (the forward path's cut), both cuts of depth; the loss
-# curve's steps; the expert blocks' capacity at a microbatch of 2048
-# tokens (top-8 of 40, capacity factor 2)
+# MOE_TRAIN_DEPTH (8 since the ssm training path came; 16 before), both
+# cuts of depth for the run's time; the loss curve's steps; the expert
+# blocks' capacity at a microbatch of 2048 tokens (top-8 of 40, capacity
+# factor 2)
 MOE_TRAIN_F32_DEPTH = 2
-MOE_TRAIN_DEPTH = 16
+MOE_TRAIN_DEPTH = 8
 MOE_TRAIN_CURVE = 10
 MOE_TRAIN_C = 824
+# the ssm and hybrid training path: mamba2-2.7b and zamba2-2.7b at full
+# width on the same pipeline (two 256-token chunks a microbatch, so the
+# reversed state passing carries a state across chunks); each depth a cut
+# of depth for the 1200 s limit: mamba2 in bf16 at 8 of its 64 layers (16
+# in a run of 1104.9 s) and in f32 at 2; zamba2 in bf16 at 12 of its 54
+# (two groups of 6, the fewest that keep two, so the shared block's
+# gradient sums two applications) and in f32 at 6 (one group); the loss
+# curve's steps
+SSM_TRAIN_DEPTH = 8
+SSM_TRAIN_F32_DEPTH = 2
+HYBRID_TRAIN_DEPTH = 12
+HYBRID_TRAIN_F32_DEPTH = 6
+SSM_TRAIN_CURVE = 10
 # whole-model MoE runs, kernels against plain: the share of (token, expert)
 # assignments that must agree (a wrong hidden state routes near k/E = 0.2)
 ROUTE_AGREE = 0.9
@@ -1558,8 +1606,8 @@ def ssm_path(dev, depth: int) -> dict:
     version on the same input (lockstep through the layers), the whole
     model's difference from the all-plain forward reported (this
     random-weight model amplifies a rounding-size difference about 25-fold
-    over 64 layers, so no logits gate holds between two bf16 roundings of
-    it), and a ``BatchedServer`` run against the plain kernels' run. In
+    over its 64 layers, so no logits gate holds between two bf16 roundings
+    of it), and a ``BatchedServer`` run against the plain kernels' run. In
     f32 at ``SSM_F32_DEPTH`` layers (a cut), where a rounding difference
     stays small: the kernels' forward against the all-plain forward, and
     decode by steps against ``forward`` over two 256-token chunks (the kernel's chunked
@@ -2032,10 +2080,13 @@ def plain_counted(calls: dict):
     from repro_torch.kernels import attention as KA
     from repro_torch.kernels import gmm as KG
     from repro_torch.kernels import matmul as KM
+    from repro_torch.kernels import ssd as KS
 
+    # ssd_scan's CPU branch runs the plain phases from ssd_cum_cb on
     saved = [(KA, "flash_attention_plain"),
              (KA, "flash_attention_bwd_plain"), (KM, "matmul_plain"),
-             (KG, "gmm_blocks_plain"), (KG, "gmm_blocks_dw_plain")]
+             (KG, "gmm_blocks_plain"), (KG, "gmm_blocks_dw_plain"),
+             (KS, "ssd_cum_cb"), (KS, "ssd_scan_bwd_plain")]
     fns = [getattr(m, name) for m, name in saved]
     for (m, name), fn in zip(saved, fns):
         def wrapped(*a, _fn=fn, _name=name, **kw):
@@ -2098,11 +2149,12 @@ def held_step_grads(gates, cfg, params, batch, label, calls, gate_step):
 
 
 def lockstep_block_grads(params, cfg, batch, dev):
-    """Each attention block of ``params`` on the kernels' hidden state of
-    ``batch``'s first microbatch, its gradients (weights and input) under
-    one cotangent of its output (and 0.01 of its aux loss, an MoE block's
-    routing replayed), against its plain version's: (the worst
-    max|d|/max|ref|, its layer, its leaf)."""
+    """Each block of ``params`` (an attention block; a mamba block; the
+    hybrid's shared block at each group's end) on the kernels' hidden
+    state of ``batch``'s first microbatch, its gradients (weights and
+    input) under one cotangent of its output (and 0.01 of its aux loss, an
+    MoE block's routing replayed), against its plain version's: (the
+    worst max|d|/max|ref|, its block, its leaf)."""
     import numpy as np
     import torch
 
@@ -2117,17 +2169,31 @@ def lockstep_block_grads(params, cfg, batch, dev):
     dy = torch.from_numpy(np.random.default_rng(5).standard_normal(
         tuple(x.shape)).astype(np.float32)).to(dev, x.dtype)
     daux = torch.tensor(0.01, device=dev)
+
+    def attn(bp, xi):
+        return T._attn_block_seq(bp, xi, cfg, positions, cfg.sliding_window)
+
+    def mamba(bp, xi):
+        return T._mamba_block_seq(bp, xi, cfg)[0], None
+
     blocks = T._unbind(params["blocks"], cfg.num_layers)
-    names = ["x"] + [k for k, _ in pytree.flatten_with_path(blocks[0])]
+    if cfg.family not in ("ssm", "hybrid"):
+        units = [(i, blk, attn) for i, blk in enumerate(blocks)]
+    else:
+        units = []
+        for i, blk in enumerate(blocks):
+            units.append((i, blk, mamba))
+            if cfg.family == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
+                units.append((f"shared after {i}", params["shared"], attn))
     lock = (0.0, -1, "")
-    for i, blk in enumerate(blocks):
+    for at, blk, fn in units:
         bp = pytree.tree_map(lambda t: t.detach().requires_grad_(), blk)
         xi = x.detach().requires_grad_()
         ins = [xi] + pytree.leaves(bp)
+        names = ["x"] + [k for k, _ in pytree.flatten_with_path(bp)]
 
         def block():
-            out, aux = T._attn_block_seq(bp, xi, cfg, positions,
-                                         cfg.sliding_window)
+            out, aux = fn(bp, xi)
             if aux is None:
                 return out, torch.autograd.grad(out, ins, dy)
             return out, torch.autograd.grad([out, aux], ins, [dy, daux])
@@ -2136,8 +2202,9 @@ def lockstep_block_grads(params, cfg, batch, dev):
             out, gk = block()
         with plain_kernels(), routing_log(replay=log):
             _, gp = block()
-        lock = max([lock] + [(rel_err(a, b), i, nm)
-                             for a, b, nm in zip(gk, gp, names)])
+        lock = max([lock] + [(rel_err(a, b), at, nm)
+                             for a, b, nm in zip(gk, gp, names)],
+                   key=lambda t: t[0])
         x = out.detach()
     return lock
 
@@ -2343,7 +2410,7 @@ def bf16_grads_gated(gates, params, cfg, batch, dev, worst) -> None:
     whole = worst[0] <= TRAIN_BF16_TOL
     print(f"  bf16 blocks in lockstep (each block's gradients of its "
           f"weights and input under one output cotangent, on the kernels' "
-          f"hidden state): worst {lock[0]:.3e} (layer {lock[1]}, "
+          f"hidden state): worst {lock[0]:.3e} (block {lock[1]}, "
           f"{lock[2]}); the whole model's worst leaf {worst[0]:.3e} "
           f"({worst[0] / max(lock[0], 1e-30):.1f}x); gate "
           f"{TRAIN_BF16_TOL} held by "
@@ -2352,7 +2419,7 @@ def bf16_grads_gated(gates, params, cfg, batch, dev, worst) -> None:
              "past it"))
     gates.check(whole or lock[0] <= TRAIN_BF16_TOL,
                 f"bf16 gradients leave the gate: whole model {worst[1]} "
-                f"{worst[0]:.3e}, lockstep layer {lock[1]} {lock[2]} "
+                f"{worst[0]:.3e}, lockstep block {lock[1]} {lock[2]} "
                 f"{lock[0]:.3e}")
 
 
@@ -2484,6 +2551,139 @@ def moe_training_path(dev, card: str, f32_depth: int, depth: int) -> dict:
     return {k: gates.main[k] for k in ("gmm_blocks", "gmm_blocks_dw",
                                        "flash_attention_bwd",
                                        "flash_attention", "matmul",
+                                       "matmul_bf16")}
+
+
+def ssm_training_path(dev, card: str) -> dict:
+    """SSM and hybrid training at full width on ``SyntheticPipeline(cfg,
+    TRAIN_BATCH, TRAIN_SEQ, microbatches=TRAIN_MICRO, seed=0)`` (2048
+    tokens a microbatch: two 256-token chunks, so the backward carries a
+    state gradient across chunks), weights drawn on the card from seed 0:
+    mamba2-2.7b (d_model 2560, 80 SSM heads of P 64, N 128) and zamba2-2.7b
+    (N 64, the shared attention block of 32/32 heads of 80 after every 6
+    mamba blocks). Each arch in f32 at a cut of depth
+    (``SSM_TRAIN_F32_DEPTH``, ``HYBRID_TRAIN_F32_DEPTH``): one step's loss
+    and every gradient leaf with the kernels against torch autograd through
+    the plain versions (``plain_kernels()``: ``ssd_scan_plain``, whose
+    exponent is masked before exp), loss within 1e-5 relative, each leaf
+    within ``PATH_TOL`` of its max|ref|, and ``remat=True`` (a mamba block
+    a checkpoint; a group and its shared block for hybrid) bitwise equal;
+    in bf16 at ``SSM_TRAIN_DEPTH`` and ``HYBRID_TRAIN_DEPTH``: the loss
+    within 1e-2 of plain's, each leaf within ``TRAIN_BF16_TOL`` or, where
+    the model amplifies rounding past it, each block in lockstep (mamba
+    blocks and each application of the shared block; run and printed
+    either way, with the amplification); two ``make_train_step`` steps from
+    copies of one state bitwise equal; the loss falling over
+    ``SSM_TRAIN_CURVE`` steps on ``batch_at(0)``; ms a step, tokens/s and a
+    step's device busy and idle. Launch gates a microbatch: ``ssd_scan``
+    once a mamba layer (twice with remat), ``ssd_scan_bwd`` once;
+    ``flash_attention`` once a shared-block application (twice with
+    remat), ``flash_attention_bwd`` once; the matmul 3 x F (4 x F - 1 with
+    remat), F = 6 a mamba layer + 7 a shared application + 1 (the tied
+    head), on ``matmul`` in f32 and ``matmul_bf16`` in bf16; and no plain
+    version called on the kernel path. Returns the launch counts of the
+    kernels' runs, each zeroed just before it; gates are checked last."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.train import step_grads
+
+    gates = PathGates("ssm training path")
+    n = TRAIN_MICRO
+    plain_calls = {}
+
+    def gate_step(cfg, label, counts, remat):
+        L, r = cfg.num_layers, int(remat)
+        G = L // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+        gates.launched(label, "ssd_scan", counts["ssd_scan"], (1 + r) * L * n)
+        gates.launched(label, "ssd_scan_bwd", counts["ssd_scan_bwd"], L * n)
+        if G:
+            gates.launched(label, "flash_attention",
+                           counts["flash_attention"], (1 + r) * G * n)
+            gates.launched(label, "flash_attention_bwd",
+                           counts["flash_attention_bwd"], G * n)
+        F = 6 * L + 7 * G + 1
+        mm = "matmul" if cfg.dtype == "float32" else "matmul_bf16"
+        gates.launched(label, mm, counts[mm], (4 * F - 1 if remat else 3 * F)
+                       * n)
+
+    for arch, f32_depth, depth in (
+            ("mamba2-2.7b", SSM_TRAIN_F32_DEPTH, SSM_TRAIN_DEPTH),
+            ("zamba2-2.7b", HYBRID_TRAIN_F32_DEPTH, HYBRID_TRAIN_DEPTH)):
+        base = get_config(arch)
+        print(f"ssm training path: {base.name} full width (d_model "
+              f"{base.d_model}, {base.ssm_heads} SSM heads of P "
+              f"{base.ssm_head_dim}, N {base.ssm_state}, chunk "
+              f"{base.ssm_chunk}"
+              + (f", the shared block of {base.num_heads}/"
+                 f"{base.num_kv_heads} heads of {base.head_dim} after every "
+                 f"{base.shared_attn_every} mamba blocks"
+                 if base.family == "hybrid" else "")
+              + f", tied vocab {base.vocab_size}), SyntheticPipeline(batch "
+              f"{TRAIN_BATCH}, seq {TRAIN_SEQ}, microbatches {n}, seed 0): "
+              f"{TRAIN_BATCH * TRAIN_SEQ} tokens a step; f32 at {f32_depth} "
+              f"and bf16 at {depth} of {base.num_layers} layers (cuts of "
+              f"depth)")
+        # -- f32: the f32 gate, remat ---------------------------------------
+        cfg = dataclasses.replace(base, num_layers=f32_depth,
+                                  dtype="float32")
+        params = trainable(cfg, dev)
+        batch = SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                  microbatches=n, seed=0,
+                                  device=dev).batch_at(0)
+        g, m, lrel, worst, finite = held_step_grads(
+            gates, cfg, params, batch,
+            f"{arch} f32 {f32_depth}-layer step gradients", plain_calls,
+            gate_step)
+        gates.check(finite and lrel <= 1e-5 and worst[0] <= PATH_TOL,
+                    f"{arch} f32 step: loss rel {lrel:.3e} (gate 1e-5) or "
+                    f"leaf {worst[1]} {worst[0]:.3e} (gate {PATH_TOL}) "
+                    f"leaves the gate")
+        label = f"{arch} f32 {f32_depth}-layer step gradients, remat"
+        with plain_counted(plain_calls):
+            (gr, mr), counts = counted(gates, label, lambda: step_grads(
+                params, batch, cfg, num_microbatches=n, remat=True))
+        gate_step(cfg, label, counts, True)
+        same = torch.equal(m["loss"], mr["loss"]) and all(
+            torch.equal(a, b) for a, b in zip(g, gr))
+        print(f"  remat=True vs remat=False: loss and {len(g)} gradient "
+              f"leaves bitwise equal: {same}")
+        gates.check(same, f"{arch}: remat changes the f32 gradients' bits")
+        del g, gr, params, batch
+        torch.cuda.empty_cache()
+
+        # -- bf16 -----------------------------------------------------------
+        cfg = dataclasses.replace(base, num_layers=depth)
+        params = trainable(cfg, dev)
+        batch = SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                  microbatches=n, seed=0,
+                                  device=dev).batch_at(0)
+        g, m, lrel, worst, finite = held_step_grads(
+            gates, cfg, params, batch,
+            f"{arch} bf16 {depth}-layer step gradients", plain_calls,
+            gate_step)
+        del g
+        gates.check(finite and lrel <= 1e-2,
+                    f"{arch} bf16 step: loss rel {lrel:.3e} leaves the gate "
+                    f"1e-2")
+        bf16_grads_gated(gates, params, cfg, batch, dev, worst)
+        train_steps_held(gates, cfg, params, batch, SSM_TRAIN_CURVE,
+                         plain_calls, gate_step, card,
+                         ("ssd_bwd", "ssd_", "gemm_", "fab_", "elementwise",
+                          "reduce"))
+        del params, batch
+        torch.cuda.empty_cache()
+    print(f"  ssm training path launches: "
+          f"{json.dumps({k: c for k, c in gates.main.items() if c})}")
+    gates.check(not plain_calls, f"plain versions called on the kernel "
+                                 f"path: {plain_calls}")
+    gates.finish()
+    return {k: gates.main[k] for k in ("ssd_scan", "ssd_scan_bwd",
+                                       "flash_attention",
+                                       "flash_attention_bwd", "matmul",
                                        "matmul_bf16")}
 
 
@@ -2775,7 +2975,9 @@ def main() -> None:
     from repro_torch.kernels.gmm import gmm_blocks_dw_plain, gmm_blocks_plain
     from repro_torch.kernels.matmul import (matmul_packed_plain, matmul_plain,
                                             plan_bf16_gemm, plan_f32_gemm)
-    from repro_torch.kernels.ssd import plan_ssd, ssd_scan_plain
+    from repro_torch.kernels.ssd import _ssd_forward as ssd_forward
+    from repro_torch.kernels.ssd import (plan_ssd, ssd_scan_bwd_plain,
+                                         ssd_scan_plain)
     from repro_torch.models.cnn import build_cnn
 
     # -- 1. the card --------------------------------------------------------
@@ -3234,6 +3436,7 @@ def main() -> None:
     print("kernels vs plain versions (flash_attention_bwd, the backward of "
           "prefill attention: smollm-360m's training attention at (8, 512, "
           "15/5, 64) and one microbatch (4, 512) in bf16, (8, 512) in f32, "
+          "zamba2-2.7b's training microbatch (4, 512, 32/32, 80) in bf16, "
           "and a windowed, softcapped bf16 shape of gemma2's kind; the "
           "bound counts five products of the visible pairs (one recompute "
           "of the scores) at the inputs' peak; library: SDPA's backward "
@@ -3242,6 +3445,7 @@ def main() -> None:
             ("smollm_B8", 8, 512, 15, 5, 64, None, None, torch.bfloat16),
             ("smollm_mb", 4, 512, 15, 5, 64, None, None, torch.bfloat16),
             ("smollm_B8_f32", 8, 512, 15, 5, 64, None, None, torch.float32),
+            ("zamba2_mb", 4, 512, 32, 32, 80, None, None, torch.bfloat16),
             ("gemma2_window_softcap", 1, 1024, 32, 16, 128, 256, 50.0,
              torch.bfloat16)]:
         q = rand(B, S, H, D, dtype=dt, scale=0.5)
@@ -3710,6 +3914,62 @@ def main() -> None:
                   None, flops, nbytes, dname, repeat_equal=True)
         results.setdefault("ssd_scan", {})[tag] = {**r,
                                                    "blocks": plan.blocks}
+
+    print("kernels vs plain versions (ssd_scan_bwd, the backward of the scan: "
+          "mamba2-2.7b's training microbatch (B 4, S 512, two chunks) in "
+          "bf16 and f32, zamba2-2.7b's (N 64) in bf16, and mamba2 at S 1024 "
+          "from a random state under a nonzero gradient of the final state; "
+          "the forward's cum, CB and chunk-entry states from the kernels; "
+          "the seven gradients each held to the plain backward's; the bound "
+          "counts the products over each chunk's lower triangle at x's "
+          "type's peak; library: none, no one PyTorch call computes it):")
+    for tag, B, S, H, P, N, Q, dt, init in [
+            ("mamba2_mb", 4, 512, 80, 64, 128, 256, torch.bfloat16, False),
+            ("mamba2_mb_f32", 4, 512, 80, 64, 128, 256, torch.float32,
+             False),
+            ("zamba2_mb_N64", 4, 512, 80, 64, 64, 256, torch.bfloat16,
+             False),
+            ("mamba2_S1024_init_dfinal", 1, 1024, 80, 64, 128, 256,
+             torch.bfloat16, True)]:
+        x = rand(B, S, H, P, dtype=dt, scale=0.3)
+        sdt = (torch.from_numpy(np.abs(rng.standard_normal(
+            (B, S, H))).astype(np.float32)) * 0.3).to(dev)
+        A = -torch.linspace(0.5, 2.0, H, device=dev)
+        Bm, Cm = rand(B, S, N, dtype=dt, scale=0.3), rand(B, S, N, dtype=dt,
+                                                         scale=0.3)
+        D = rand(H)
+        st = rand(B, H, P, N, scale=0.3) if init else None
+        dy = rand(B, S, H, P, dtype=dt)
+        dfin = rand(B, H, P, N) if init else None
+        _, _, (cum, cb, ins) = ssd_forward(x, sdt, A, Bm, Cm, D, Q, st, True)
+        dname, es = str(dt).replace("torch.", ""), x.element_size()
+        # the products: d in_c, 4' off the diagonal and 2' (two) on Q x N x
+        # P per head and chunk, dy_i.x_j and the dx product on the lower
+        # triangle's pairs, dC and dB from dCB on the pairs x N once per
+        # (b, chunk); the bytes: each input read once (CB's lower triangle),
+        # each output written once
+        nc, pairs = S // Q, Q * (Q + 1) // 2
+        flops = (2 * B * nc * H * (4 * Q * N * P + 2 * pairs * P)
+                 + 4 * B * nc * pairs * N)
+        nbytes = (es * (3 * B * S * H * P + 4 * B * S * N)
+                  + 4 * (3 * B * S * H + 4 * H + B * nc * pairs)
+                  + 4 * B * nc * H * N * P
+                  + 4 * B * H * P * N * (1 + int(init)))
+        r = check(f"ssd_scan_bwd {tag} B={B} S={S} H={H} P={P} N={N} Q={Q} "
+                  f"{dname} init_state={init} d_final={init} (six launches: "
+                  f"din, pass, chunk, dcb, bc, ad)",
+                  lambda: ops.ssd_scan_bwd(x, sdt, A, Bm, Cm, D, cum, cb,
+                                           ins, dy, dfin),
+                  lambda: ssd_scan_bwd_plain(x, sdt, A, Bm, Cm, D, cum, cb,
+                                             ins, dy, dfin),
+                  None, flops, nbytes, dname, repeat_equal=True,
+                  nan_out=[((B, S, H, P), dt), ((B, S, H), torch.float32),
+                           ((H,), torch.float32), ((B, S, N), dt),
+                           ((B, S, N), dt), ((H,), torch.float32),
+                           ((B, H, P, N), torch.float32)])
+        results.setdefault("ssd_scan_bwd", {})[tag] = r
+        del x, sdt, Bm, Cm, dy, cum, cb, ins
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     print(f"  [kernel phases done at {time.perf_counter() - t_start:.1f} s]")
     if "--kernels-only" in sys.argv[1:]:
@@ -4014,6 +4274,13 @@ def main() -> None:
     print(f"  [moe training path done at "
           f"{time.perf_counter() - t_start:.1f} s]")
 
+    # -- 7e. training: the ssm and hybrid families ----------------------------
+    for k, n in ssm_training_path(dev, card).items():
+        launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    print(f"  [ssm training path done at "
+          f"{time.perf_counter() - t_start:.1f} s]")
+
     # -- 8. report ----------------------------------------------------------
     main_shape = {"winograd_tile_matmul": "stage0", "matmul": "im2col_s1b0",
                   "matmul_packed": "head", "matmul_bf16": "head",
@@ -4026,7 +4293,8 @@ def main() -> None:
                   "matmul_dequant_int4": "resnet_head",
                   "gmm_blocks": "decode_gate",
                   "gmm_blocks_dw": "bwd_dwg_routed",
-                  "ssd_scan": "mamba2_S1024"}
+                  "ssd_scan": "mamba2_S1024",
+                  "ssd_scan_bwd": "mamba2_mb"}
     out = []
     for k, (source, replaces) in ops.KERNELS.items():
         r = results[k][main_shape[k]]

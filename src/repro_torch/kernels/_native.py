@@ -32,7 +32,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("matmul", "conv_winograd", "flash_attention", "flash_attention_bwd",
-           "decode_attention", "quant", "gmm", "ssd")  # csrc/<name>.cu
+           "decode_attention", "quant", "gmm", "ssd",
+           "ssd_bwd")  # csrc/<name>.cu
 HEADERS = ("gemm_f32_paths.cuh", "gemm_bf16_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -85,6 +86,11 @@ ARGTYPES = {
     # Q, stream
     "repro_ssd_scan_f32": [_P] * 12 + [_I] * 6 + [_P],
     "repro_ssd_scan_bf16": [_P] * 12 + [_I] * 6 + [_P],
+    # x, dt, A, Bm, Cm, D, cum, cb, ins, dy, dfinal, dx, ddt, dA, dBm, dCm,
+    # dD, dinit, ds, dlast, dbh, dch, dcbh, dcb, dad, B, S, H, P, N, Q,
+    # stream
+    "repro_ssd_scan_bwd_f32": [_P] * 25 + [_I] * 6 + [_P],
+    "repro_ssd_scan_bwd_bf16": [_P] * 25 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
@@ -220,10 +226,10 @@ def on_cpu(kernel: str, *ts,
     have to differentiate (grad mode on, an input requiring grad) raises
     ``NotImplementedError``, on the CPU as on the card: a kernel writes
     its output through ctypes, with no ``grad_fn``, and a backward would
-    stop there silently. ``matmul`` and ``flash_attention`` have backward
-    kernels and reach this only with grad mode off (inside their autograd
-    Functions), as ``gmm_blocks`` and ``gmm_blocks_dw`` do inside the MoE
-    layer's (``models.moe``)."""
+    stop there silently. ``matmul``, ``flash_attention`` and ``ssd_scan``
+    have backward kernels and reach this only with grad mode off (inside
+    their autograd Functions), as ``gmm_blocks`` and ``gmm_blocks_dw`` do
+    inside the MoE layer's (``models.moe``)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
             f"{kernel}: no backward kernel yet, so no gradient flows through "

@@ -30,6 +30,7 @@ matmul_dequant_int4 = _quant.matmul_dequant_int4
 gmm_blocks = _gmm.gmm_blocks
 gmm_blocks_dw = _gmm.gmm_blocks_dw
 ssd_scan = _ssd.ssd_scan
+ssd_scan_bwd = _ssd.ssd_scan_bwd
 
 # launch-count name -> (CUDA source, TPU kernel it replaces); ``matmul``
 # counts the f32 launches of the one wrapper, ``matmul_bf16`` its bf16 ones
@@ -69,6 +70,10 @@ KERNELS = {
                       "jnp: src/repro/models/moe.py:163)"),
     "ssd_scan": ("src/repro_torch/csrc/ssd.cu",
                  "src/repro/kernels/ssd.py:64"),
+    # no Pallas kernel: the reference differentiates its jnp scan
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_bwd.cu",
+                     "none (the reference differentiates jnp ssd_chunked: "
+                     "jax.grad of src/repro/models/ssm.py:36)"),
 }
 
 _COUNTERS = (_mm.launches, _wino.launches, _attn.launches, _quant.launches,

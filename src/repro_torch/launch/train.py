@@ -7,6 +7,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-3b-a800m --steps 10 --batch 8 --seq 512 \\
       --microbatches 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+      --steps 10 --batch 8 --seq 512 --microbatches 2
 
 ``--arch`` at full width (or ``--reduced``, with ``--d-model`` and
 ``--layers`` overrides as in the reference) gets the port's own random
@@ -14,10 +16,11 @@ weights from ``--seed``, trains on ``data.SyntheticPipeline`` batches with
 ``train.make_train_step`` (remat on, the reference's warmup of min(100,
 steps / 10 + 1)), prints loss, grad norm and tokens/s, and writes
 checkpoints with ``checkpoint.save_pytree`` every ``--ckpt-every`` steps.
-The dense body (the dense, vlm and audio families) and the moe family
-train; the ssm and hybrid families raise until ``ssd_scan`` has a
-backward. It runs on the card unless ``--device cpu`` is given, and
-raises without one.
+Every family trains: the dense body (the dense, vlm and audio families),
+moe, and ssm and hybrid (``ssd_scan``'s backward kernel, remat a mamba
+block or a hybrid group a checkpoint); ``--seq`` must be a multiple of
+an SSM config's chunk (256 at full width, 32 reduced). It runs on the
+card unless ``--device cpu`` is given, and raises without one.
 """
 from __future__ import annotations
 

@@ -3,10 +3,15 @@
 
 Sequence mode runs the chunked SSD scan on the ``ssd_scan`` kernel (its
 plain version on a CPU tensor), from an optional initial state, and returns
-the final state with y. Decode is the O(1) recurrent step, plain PyTorch as
-in the reference (which has no kernel for it). Every projection goes
-through the ``matmul`` kernel (``layers._mm``). G = 1: one B and C for
-every head, as in the mamba2 and zamba2 configs.
+the final state with y. Under grad the scan is ``ssd_scan``'s autograd
+Function, whose backward is the ``ssd_scan_bwd`` kernel; the casts and
+slices that feed it (``ssd_chunked``) keep the graph, the projections go
+through the ``matmul`` kernel's Function (``layers._mm``), and
+``causal_conv``, the SiLUs, the softplus and the gated norm are plain
+PyTorch that autograd differentiates, as ``jax.grad`` does the
+reference's. Decode is the O(1) recurrent step, plain PyTorch as in the
+reference (which has no kernel for it). G = 1: one B and C for every head,
+as in the mamba2 and zamba2 configs.
 """
 from __future__ import annotations
 

@@ -39,27 +39,31 @@ A step takes ``batch["embeds"]`` (B, 1, d) in the ``embeddings`` mode and
 ``decode_attention`` kernel. The state tensors are updated in place and
 returned as the new state.
 
-Training (the dense body: the dense, vlm and audio families in all three
-input modes; and the moe family). ``loss_fn`` is the reference's
-next-token cross-entropy
-(label slicing and mask per input mode, the logsumexp over the f32 logits,
-``+ 0.01 * aux``). ``forward(remat=True)`` checkpoints each block
-(``torch.utils.checkpoint``, non-reentrant), each group of
-``remat_group`` blocks where that divides the depth (the reference's
-hierarchical remat), or each of gemma2's (local, global) pairs; the aux
-loss is carried through each checkpointed unit and summed layer by layer
-in the same order as without remat (the same bits), and the recomputed
-forward routes as the first did (a stable sort, no host sync). The
-stacked block weights are taken apart with one ``torch.unbind`` a leaf a
-forward: indexing a stack per layer under autograd would make each
-layer's backward write a zero-filled gradient of the whole stack. The
+Training (every family: the dense body, the dense, vlm and audio
+families in all three input modes; moe; ssm; hybrid). ``loss_fn`` is the
+reference's next-token cross-entropy (label slicing and mask per input
+mode, the logsumexp over the f32 logits, ``+ 0.01 * aux``).
+``forward(remat=True)`` checkpoints (``torch.utils.checkpoint``,
+non-reentrant) each block, each group of ``remat_group`` blocks where
+that divides the depth (the reference's hierarchical remat), or each of
+gemma2's (local, global) pairs; for ssm each mamba block, and for hybrid
+each group of ``shared_attn_every`` mamba blocks with the shared block
+after them, as the reference's ``jax.checkpoint`` of its scan body and of
+its group (both ignore ``remat_group``). The aux loss is carried through
+each checkpointed unit and summed layer by layer in the same order as
+without remat (the same bits), and the recomputed forward routes as the
+first did (a stable sort, no host sync). The stacked block weights are
+taken apart with one ``torch.unbind`` a leaf a forward: indexing a stack
+per layer under autograd would make each layer's backward write a
+zero-filled gradient of the whole stack. The hybrid family's ``shared``
+block is one set of leaves read by every group, so its gradient sums the
+groups' in autograd's order, the same with remat as without. The
 gradients flow through the ``matmul`` and ``flash_attention`` kernels'
-autograd Functions and the MoE layer's (``moe._GroupedFFN``, whose
-backward runs ``gmm_blocks`` and ``gmm_blocks_dw``), and the token
+autograd Functions, the MoE layer's (``moe._GroupedFFN``, whose backward
+runs ``gmm_blocks`` and ``gmm_blocks_dw``) and ``ssd_scan``'s
+(``ssd._SsdScan``, whose backward is ``ssd_scan_bwd``), and the token
 embedding is read with ``F.embedding``, whose backward sums the rows
-deterministically. The ssm and hybrid families refuse gradients
-(``NotImplementedError``) until ``ssd_scan`` has a backward kernel. The
-prefill cache (``collect_cache``) is not ported.
+deterministically. The prefill cache (``collect_cache``) is not ported.
 """
 from __future__ import annotations
 
@@ -78,7 +82,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.runtime_flags import FLAGS
-from repro_torch.pytree import leaves
 
 Params = Dict[str, Any]
 
@@ -260,17 +263,6 @@ def _lm_logits(params, cfg, x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # sequence forward (prefill)
 # ---------------------------------------------------------------------------
-def _check_trainable(params: Params, cfg: ArchConfig) -> None:
-    """``NotImplementedError`` where autograd would differentiate a family
-    whose kernels have no backward yet (ssm and hybrid: ``ssd_scan``)."""
-    if cfg.family in ("ssm", "hybrid") and torch.is_grad_enabled() \
-            and any(t.requires_grad for t in leaves(params)):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family needs a backward "
-            f"kernel for ssd_scan, not ported yet; run it under "
-            f"torch.no_grad() or with params that do not require grad")
-
-
 def _unbind(tree, n: int) -> List[Params]:
     """The (n, ...) stacked leaves of ``tree`` as n per-layer trees, one
     ``torch.unbind`` a leaf."""
@@ -296,50 +288,53 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     load-balance losses (zero for the other families); the prefill cache
     (``collect_cache``) is not ported, decode starts from
     ``init_decode_state``. ``remat`` (under grad) checkpoints the blocks
-    as ``_remat_unit`` groups them."""
+    as ``_remat_unit`` groups them, a mamba block at a time for ssm and a
+    group (its mamba blocks and the shared block) at a time for hybrid."""
     _check_family(cfg)
-    _check_trainable(params, cfg)
     x, loss_mask = _embed_input(params, cfg, batch)
     B, S, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family == "ssm":
-        for i in range(cfg.num_layers):
-            x, _ = _mamba_block_seq(_layer(params["blocks"], i), x, cfg)
-        return _lm_logits(params, cfg, x), aux, (None, loss_mask)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    if cfg.family == "hybrid":
-        every = cfg.shared_attn_every
-        for grp in range(_groups(cfg)):
-            for j in range(every):
-                x, _ = _mamba_block_seq(
-                    _layer(params["blocks"], grp * every + j), x, cfg)
-            x, a = _attn_block_seq(params["shared"], x, cfg, positions,
-                                   cfg.sliding_window)
-            if a is not None:
-                aux = aux + a
-        return _lm_logits(params, cfg, x), aux, (None, loss_mask)
     layers = _unbind(params["blocks"], cfg.num_layers)
+    every = cfg.shared_attn_every
 
     def run(x, aux, lo: int, hi: int):
+        """Blocks lo .. hi - 1; a hybrid unit is one group, its mamba
+        blocks and then the shared block."""
         for i in range(lo, hi):
+            if cfg.family in ("ssm", "hybrid"):
+                x, _ = _mamba_block_seq(layers[i], x, cfg)
+                continue
             window = cfg.sliding_window
             if cfg.local_global_pattern and i % 2 == 1:
                 window = None  # (local, global) pairs: odd layers are global
             x, a = _attn_block_seq(layers[i], x, cfg, positions, window)
             if a is not None:
                 aux = aux + a
+        if cfg.family == "hybrid":
+            x, a = _attn_block_seq(params["shared"], x, cfg, positions,
+                                   cfg.sliding_window)
+            if a is not None:
+                aux = aux + a
         return x, aux
 
-    if remat and torch.is_grad_enabled():
-        # each unit's aux leaves its checkpoint with x, summed in layer order
-        unit = _remat_unit(cfg, remat_group)
-        for lo in range(0, cfg.num_layers, unit):
+    # the checkpointed unit: a mamba block (ssm), a group (hybrid, as the
+    # reference's jax.checkpoint(group)), else _remat_unit's blocks
+    unit = {"ssm": 1, "hybrid": every}.get(cfg.family) or _remat_unit(
+        cfg, remat_group)
+    ckpt = remat and torch.is_grad_enabled()
+    if not ckpt and cfg.family != "hybrid":
+        unit = cfg.num_layers
+    for lo in range(0, cfg.num_layers, unit):
+        if ckpt:
+            # each unit's aux leaves its checkpoint with x, summed in
+            # layer order
             x, aux = checkpoint(
                 lambda x, aux, lo=lo: run(x, aux, lo, lo + unit), x, aux,
                 use_reentrant=False)
-    else:
-        x, aux = run(x, aux, 0, cfg.num_layers)
+        else:
+            x, aux = run(x, aux, lo, lo + unit)
     return _lm_logits(params, cfg, x), aux, (None, loss_mask)
 
 

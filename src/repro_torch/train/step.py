@@ -8,8 +8,9 @@ batch's. Gradients are cast to f32 and, with microbatches, summed in f32
 in microbatch order from zero and divided by n (the reference's scan);
 the metrics are the microbatches' mean. Gradients come from
 ``torch.autograd.grad`` through the ``matmul`` and ``flash_attention``
-kernels' backward and the MoE layer's (``gmm_blocks``, ``gmm_blocks_dw``)
-on CUDA tensors, or their plain versions on CPU tensors.
+kernels' backward, the MoE layer's (``gmm_blocks``, ``gmm_blocks_dw``)
+and ``ssd_scan``'s (``ssd_scan_bwd``) on CUDA tensors, or their plain
+versions on CPU tensors; nothing here depends on the family.
 """
 from __future__ import annotations
 

@@ -366,13 +366,6 @@ def _no_backward_calls():
         return ops.gmm_blocks(torch.randn(2, 3, 8, requires_grad=rg),
                               torch.randn(2, 8, 4))
 
-    def ssd(rg):
-        B, S, H, P, N = 1, 8, 2, 4, 4
-        return ops.ssd_scan(torch.randn(B, S, H, P, requires_grad=rg),
-                            torch.rand(B, S, H), -torch.rand(H),
-                            torch.randn(B, S, N), torch.randn(B, S, N),
-                            torch.randn(H), chunk=4)
-
     return [
         ("decode_attention", decode),
         ("matmul_packed", packed),
@@ -385,7 +378,6 @@ def _no_backward_calls():
         ("matmul_dequant_int4", lambda rg: ops.matmul_dequant_int4(
             torch.randn(3, 16, requires_grad=rg), q4, s4, K=16)),
         ("gmm_blocks", gmm),
-        ("ssd_scan", ssd),
     ]
 
 
@@ -401,3 +393,20 @@ def test_wrappers_without_backward_refuse_grad(name):
     with torch.no_grad():
         call(True)
     assert out is not None
+
+
+def test_ssd_scan_has_a_backward():
+    """``ssd_scan`` left the wrappers without a backward: under grad it
+    returns the outputs of its autograd Function (a ``grad_fn``, the
+    gradient reaching x), under ``torch.no_grad()`` plain tensors."""
+    B, S, H, P, N = 1, 8, 2, 4, 4
+    x = torch.randn(B, S, H, P, requires_grad=True)
+    args = (torch.rand(B, S, H), -torch.rand(H), torch.randn(B, S, N),
+            torch.randn(B, S, N), torch.randn(H))
+    y, final = ops.ssd_scan(x, *args, chunk=4)
+    assert y.grad_fn is not None and final.grad_fn is not None
+    (gx,) = torch.autograd.grad(y.sum(), x)
+    assert gx.shape == x.shape and bool(torch.isfinite(gx).all())
+    with torch.no_grad():
+        y2, _ = ops.ssd_scan(x, *args, chunk=4)
+    assert y2.grad_fn is None and torch.equal(y2, y.detach())

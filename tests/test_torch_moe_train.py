@@ -608,15 +608,19 @@ def test_bf16_backward_passes_bitwise_equal():
         assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
 
 
-def test_ssm_and_hybrid_still_refuse_grad():
-    """The refusal is the ssm and hybrid families' alone: moe trains."""
-    for arch in ("mamba2-2.7b", "zamba2-2.7b"):
-        cfg = get_config(arch).reduced(dtype="float32")
-        pp = T.init_params(cfg, torch.Generator().manual_seed(0))
-        _requires_grad(pp)
-        _, pb = _tokens(cfg, 1, 8)
-        with pytest.raises(NotImplementedError, match="ssd_scan"):
-            T.loss_fn(pp, pb, cfg)
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_and_hybrid_train_beside_moe(arch):
+    """No family refuses gradients any more: ssm and hybrid give a finite
+    loss whose gradient reaches the mamba weights, as moe's reaches the
+    router."""
+    cfg = get_config(arch).reduced(dtype="float32")
+    pp = T.init_params(cfg, torch.Generator().manual_seed(0))
+    leaves = _requires_grad(pp)
+    _, pb = _tokens(cfg, 1, 32)
+    total, _ = T.loss_fn(pp, pb, cfg)
+    grads = pytree.unflatten(pp, torch.autograd.grad(total, leaves))
+    assert bool(torch.isfinite(total))
+    assert grads["blocks"]["mamba"]["A_log"].abs().max() > 0
 
 
 # ---------------------------------------------------------------------------

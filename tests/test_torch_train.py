@@ -143,19 +143,25 @@ def test_remat_units():
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
-def test_loss_fn_refuses_grad_for_families_without_backward(arch):
-    """ssm and hybrid (``ssd_scan``) raise under grad instead of returning
-    a loss whose gradient stops short (the moe family trains:
-    ``test_torch_moe_train.py``)."""
+def test_loss_fn_gives_grads_for_ssm_and_hybrid(arch):
+    """ssm and hybrid train (``ssd_scan``'s backward, ``ssd_scan_bwd``):
+    under grad, with and without remat, ``loss_fn`` returns a loss whose
+    gradient reaches every leaf, finite, the same bits either way (their
+    values against the reference: ``test_torch_ssm_train.py``)."""
     _, cfg = _cfgs(arch)
     pp = T.init_params(cfg, torch.Generator().manual_seed(0))
-    for p in pytree.leaves(pp):
+    leaves = pytree.leaves(pp)
+    for p in leaves:
         p.requires_grad_(True)
-    _, pb = _batch(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="ssd_scan"):
-        T.loss_fn(pp, pb, cfg)
-    with pytest.raises(NotImplementedError, match="ssd_scan"):
-        T.forward(pp, pb, cfg, remat=True)
+    _, pb = _batch(cfg, 1, 32)
+    runs = []
+    for remat in (False, True):
+        total, _ = T.loss_fn(pp, pb, cfg, remat=remat)
+        grads = torch.autograd.grad(total, leaves)
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+        assert all(g.abs().max() > 0 for g in grads)
+        runs.append([total] + list(grads))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 # ---------------------------------------------------------------------------
