@@ -65,24 +65,33 @@ Run from the root of a checkout, on a machine with a CUDA card and
      ``plan_f32_gemm`` plan (and byte loader), two launches bitwise equal,
      a device time, each launch's output first handed a NaN-filled block
      (int8 beside ``torch._weight_int8pack_mm``); ``flash_attention_bwd``
-     (the backward of prefill attention, three launches counted as one)
-     at smollm-360m's training attention (8 and 4 sequences of 512, 15/5
-     heads of 64) in bf16 and f32, zamba2-2.7b's training microbatch (4,
-     512, 32/32 heads of 80) in bf16 and a windowed, softcapped bf16 shape
-     of gemma2's kind (1, 1024, 32/16, 128), dq, dk and dv against
+     (the backward of prefill attention, three launches counted as one,
+     along ``plan_flash_bwd``'s route) at smollm-360m's training attention
+     (8 and 4 sequences of 512, 15/5 heads of 64) in bf16 and f32,
+     zamba2-2.7b's training microbatch (4, 512, 32/32 heads of 80) in
+     bf16, a windowed, softcapped bf16 shape of gemma2's kind (1, 1024,
+     32/16, 128), a ragged S with a head of 67 and a window, and a
+     256-wide bf16 head (the CUDA-core route), dq, dk and dv against
      ``flash_attention_bwd_plain`` fed the kernel forward's o and lse,
      two launches bitwise equal, each launch's three outputs first handed
-     NaN-filled blocks, beside SDPA's backward through autograd (events
-     only); the bf16 ``matmul`` also at the training path's backward
+     NaN-filled blocks, beside SDPA's backward through autograd (events;
+     and, for both, the summed device time of the kernels a call
+     launches by ``torch.profiler``, the ruler ``tools/kernel_ab.py``
+     shares); the bf16 ``matmul`` also at the training path's backward
      GEMMs (dx reading w K-major in place, dw over 2048 tokens); the MoE
      backward's products at granite-moe-3b-a800m's training microbatch
      (2048 tokens, top-8 of 40, C 824) in bf16 and f32, under a top-8
      routing's group sizes and with every expert full: ``gmm_blocks``'
      dx (dh and dblk, the forward's weight read K-major in place) and
      ``gmm_blocks_dw`` (dwg and dwd, each expert contracted over its own
-     rows), each beside ``torch.bmm`` on the masked blocks, two launches
-     bitwise equal, each output handed a NaN-filled block, a device time,
-     each row printing its plan; ``ssd_scan_bwd`` (the backward of the
+     rows, x and dy read in place along ``plan_gmm_dw``: the TMA +
+     ``wgmma`` kernel in bf16; under the routed sizes once more with the
+     rows past each group NaN; and two ragged shapes with an empty
+     expert, rows past the groups NaN: off TMA's 16-byte grid on the bf16
+     tile path, and d 200, n 72 on the TMA kernel), each beside
+     ``torch.bmm`` on the masked blocks, two launches bitwise equal, each
+     output handed a NaN-filled block, a device time, each row printing
+     its plan; ``ssd_scan_bwd`` (the backward of the
      scan, six launches counted as one) at mamba2-2.7b's training
      microbatch (B 4, S 512, two 256-token chunks) in bf16 and f32,
      zamba2-2.7b's (N 64) in bf16, and mamba2 at S 1024 from a random
@@ -2448,7 +2457,8 @@ def moe_training_path(dev, card: str, f32_depth: int, depth: int) -> dict:
     step, tokens/s and a step's device busy and idle. Launch gates a
     microbatch: a layer's ``gmm_blocks`` 8 times (3 forward, 5 backward:
     g and u recomputed, dh and dblk's two products with w read K-major in
-    place), 11 with remat, ``gmm_blocks_dw`` 3 times,
+    place), 11 with remat, ``gmm_blocks_dw`` 3 times (in bf16 every one
+    on its TMA path, ``gemm_path_counts``' "tma"),
     ``flash_attention_bwd`` once, ``flash_attention`` once (twice with
     remat); the f32 ``matmul`` the router's 3 a layer (4 with remat) and,
     in f32, the attention's 12 (16) and the tied head's 3, in bf16 those
@@ -2461,6 +2471,7 @@ def moe_training_path(dev, card: str, f32_depth: int, depth: int) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticPipeline
+    from repro_torch.kernels import ops
     from repro_torch.models import moe as MOE
     from repro_torch.train import step_grads
 
@@ -2486,6 +2497,16 @@ def moe_training_path(dev, card: str, f32_depth: int, depth: int) -> dict:
                        (8 + 3 * r) * L * n)
         gates.launched(label, "gmm_blocks_dw", counts["gmm_blocks_dw"],
                        3 * L * n)
+        if cfg.dtype != "float32":
+            # every bf16 dw on the TMA + wgmma kernel (the counts of the
+            # run just read, zeroed with the launch counts)
+            paths = ops.gemm_path_counts()
+            print(f"  {label}: bf16 GEMM launches by path "
+                  f"{json.dumps(paths)}")
+            gates.check(paths["tma"] == counts["gmm_blocks_dw"],
+                        f"{label}: {paths['tma']} of "
+                        f"{counts['gmm_blocks_dw']} gmm_blocks_dw launches "
+                        f"on the tma path")
         gates.launched(label, "flash_attention_bwd",
                        counts["flash_attention_bwd"], L * n)
         gates.launched(label, "flash_attention", counts["flash_attention"],
@@ -2969,10 +2990,12 @@ def main() -> None:
     from repro_torch.kernels.attention import (decode_attention_plain,
                                                flash_attention_bwd_plain,
                                                flash_attention_plain,
-                                               plan_decode, plan_flash)
+                                               plan_decode, plan_flash,
+                                               plan_flash_bwd)
     from repro_torch.kernels.attention import visible as attn_visible
     from repro_torch.kernels.conv_winograd import winograd_tile_matmul_plain
-    from repro_torch.kernels.gmm import gmm_blocks_dw_plain, gmm_blocks_plain
+    from repro_torch.kernels.gmm import (gmm_blocks_dw_plain,
+                                         gmm_blocks_plain, plan_gmm_dw)
     from repro_torch.kernels.matmul import (matmul_packed_plain, matmul_plain,
                                             plan_bf16_gemm, plan_f32_gemm)
     from repro_torch.kernels.ssd import _ssd_forward as ssd_forward
@@ -3078,6 +3101,25 @@ def main() -> None:
             torch.cuda.synchronize()
             return None
 
+    def profiled_ms(fn, n=10):
+        """Device time of one call of ``fn``: the summed device time of
+        every kernel (and copy) its ``n`` calls launch, by
+        ``torch.profiler`` (CUPTI), over n. The same ruler for a kernel
+        and for a library call that cannot be captured in a graph
+        (autograd's backward), so host gaps between the launches drop
+        out of both."""
+        from torch.profiler import ProfilerActivity, profile
+        with torch.cuda.stream(stream):
+            fn()
+        stream.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with torch.cuda.stream(stream):
+                for _ in range(n):
+                    fn()
+            stream.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages())
+        return total / 1e3 / n if total > 0 else None
+
     def bound(flops, nbytes, dtype="float32"):
         t_ops, t_bytes = flops / peaks[dtype], nbytes / peaks["bytes"]
         return (max(t_ops, t_bytes) * 1e3,
@@ -3115,7 +3157,8 @@ def main() -> None:
 
     def check(label, kernel, plain, library, flops, nbytes,
               dtype="float32", peak=None, exact=False, repeat_equal=False,
-              nan_out=None, nan_scratch=None, library_graph=True):
+              nan_out=None, nan_scratch=None, library_graph=True,
+              profiled=False):
         """A kernel returning a tuple is held to its plain version output
         by output, each to its own max|plain|: the worst is reported. With
         ``repeat_equal`` a second launch on the same inputs must give the
@@ -3124,7 +3167,10 @@ def main() -> None:
         with NaN where the allocator hands them those blocks;
         ``nan_scratch`` (floats): so is a K split's f32 scratch.
         ``library_graph=False``: the library call is timed by events only
-        (autograd's backward does not run on a capturing stream)."""
+        (autograd's backward does not run on a capturing stream).
+        ``profiled``: the kernel and the library call are also timed by
+        ``profiled_ms`` (the summed device time of their own kernels), the
+        one ruler that both take."""
         torch.cuda.synchronize()  # inputs were copied on the default stream
         scratch = (((nan_scratch,), torch.float32) if nan_scratch
                    else None)
@@ -3171,6 +3217,11 @@ def main() -> None:
                                         if library is not None
                                         and library_graph else None)
 
+        if profiled:
+            dev["profiled_ms"] = profiled_ms(kernel)
+            dev["library_profiled_ms"] = (profiled_ms(library)
+                                          if library is not None else None)
+
         def fmt(v):
             return "-" if v is None else f"{v:.4f}"
 
@@ -3180,7 +3231,10 @@ def main() -> None:
               f"peak)" + (f"; device_ms={fmt(dev['device_ms'])} "
                           f"library_device_ms="
                           f"{fmt(dev['library_device_ms'])}; two launches "
-                          f"bitwise equal" if repeat_equal else ""))
+                          f"bitwise equal" if repeat_equal else "")
+              + (f"; profiled_ms={fmt(dev['profiled_ms'])} "
+                 f"library_profiled_ms={fmt(dev['library_profiled_ms'])}"
+                 if profiled else ""))
         tol = 0.0 if exact else KERNEL_TOL[dtype]
         if not finite or err / scale > tol:
             fail(f"{label}: kernel disagrees with its plain version "
@@ -3434,20 +3488,27 @@ def main() -> None:
             **r, "plan": plan._asdict()}
 
     print("kernels vs plain versions (flash_attention_bwd, the backward of "
-          "prefill attention: smollm-360m's training attention at (8, 512, "
-          "15/5, 64) and one microbatch (4, 512) in bf16, (8, 512) in f32, "
-          "zamba2-2.7b's training microbatch (4, 512, 32/32, 80) in bf16, "
-          "and a windowed, softcapped bf16 shape of gemma2's kind; the "
-          "bound counts five products of the visible pairs (one recompute "
-          "of the scores) at the inputs' peak; library: SDPA's backward "
-          "through autograd, a comparison only):")
+          "prefill attention, along plan_flash_bwd's route: smollm-360m's "
+          "training attention at (8, 512, 15/5, 64) and one microbatch (4, "
+          "512) in bf16, (8, 512) in f32, zamba2-2.7b's training microbatch "
+          "(4, 512, 32/32, 80) in bf16, a windowed, softcapped bf16 shape "
+          "of gemma2's kind, a ragged S with a head off the 16-byte grid "
+          "and a window, and a 256-wide bf16 head (the CUDA-core route); "
+          "the bound counts five products of the visible pairs (one "
+          "recompute of the scores) at the inputs' peak; library: SDPA's "
+          "backward through autograd, a comparison only; profiled: the "
+          "summed device time of the kernels each call launches, by "
+          "torch.profiler, for both):")
     for tag, B, S, H, KV, D, win, cap, dt in [
             ("smollm_B8", 8, 512, 15, 5, 64, None, None, torch.bfloat16),
             ("smollm_mb", 4, 512, 15, 5, 64, None, None, torch.bfloat16),
             ("smollm_B8_f32", 8, 512, 15, 5, 64, None, None, torch.float32),
             ("zamba2_mb", 4, 512, 32, 32, 80, None, None, torch.bfloat16),
             ("gemma2_window_softcap", 1, 1024, 32, 16, 128, 256, 50.0,
-             torch.bfloat16)]:
+             torch.bfloat16),
+            ("ragged_d67_window", 2, 100, 6, 2, 67, 40, None,
+             torch.bfloat16),
+            ("d256", 1, 256, 4, 4, 256, None, None, torch.bfloat16)]:
         q = rand(B, S, H, D, dtype=dt, scale=0.5)
         k = rand(B, S, KV, D, dtype=dt, scale=0.5)
         v = rand(B, S, KV, D, dtype=dt, scale=0.5)
@@ -3467,9 +3528,12 @@ def main() -> None:
             lib = (lambda ot=ot, ins=(qt, kt, vt), g=do.transpose(1, 2):
                    torch.autograd.grad(ot, ins, g, retain_graph=True))
         dname = str(dt).replace("torch.", "")
+        plan = plan_flash_bwd(B, S, H, KV, D, dt, True, win)
         r = check(f"flash_attention_bwd {tag} B={B} S={S} H={H} KV={KV} "
                   f"D={D} window={win} softcap={cap} {dname} (three "
-                  f"launches: delta, dK/dV, dQ)",
+                  f"launches: delta, dK/dV, dQ), route {plan.route} dp "
+                  f"{plan.dp} rows {plan.rows} ({plan.blocks_dkdv} + "
+                  f"{plan.blocks_dq} blocks of {plan.threads} threads)",
                   lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, **kw),
                   lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                     **kw), lib,
@@ -3477,8 +3541,10 @@ def main() -> None:
                   q.element_size() * 4 * B * S * (H + KV) * D + 4 * B * H * S,
                   dname, repeat_equal=True,
                   nan_out=[((B, S, H, D), dt), ((B, S, KV, D), dt),
-                           ((B, S, KV, D), dt)], library_graph=False)
-        results.setdefault("flash_attention_bwd", {})[tag] = r
+                           ((B, S, KV, D), dt)], library_graph=False,
+                  profiled=True)
+        results.setdefault("flash_attention_bwd", {})[tag] = {
+            **r, "plan": plan._asdict()}
         del q, k, v, do, o, lse, lib
 
     print("kernels vs plain versions (decode_attention: the Pallas sweep in "
@@ -3838,30 +3904,73 @@ def main() -> None:
                           nan_out=((E, C, N), dt))
                 results["gmm_blocks"][f"bwd_{tag}_{gtag}{sfx}"] = {
                     **r, "path": plan.path, "experts_read": active}
-            # dw: (tag, d_in of x, d_out of dy): x (E,C,K), dy (E,C,N)
-            for tag, K, N in (("dwg", d, ff), ("dwd", ff, d)):
+            # dw: (tag, d_in of x, d_out of dy): x (E,C,K), dy (E,C,N);
+            # under the routed sizes once more with the rows past each
+            # group NaN (the kernel must never read them into a sum)
+            nans = (False, True) if gtag == "routed" else (False,)
+            for (tag, K, N), nan_past in [(t, f) for t in (
+                    ("dwg", d, ff), ("dwd", ff, d)) for f in nans]:
                 x = rand(E, C, K, dtype=dt)
                 dy = rand(E, C, N, dtype=dt)
                 zero = torch.zeros((), dtype=dt, device=dev)
                 xm, dym = torch.where(keep, x, zero), torch.where(keep, dy,
                                                                   zero)
-                plan = (plan_bf16_gemm(K, N, C, E) if dt == torch.bfloat16
-                        else plan_f32_gemm(K, N, C, False, E, True))
-                r = check(f"gmm_blocks_dw bwd_{tag}_{gtag}{sfx} ({E},{C},"
-                          f"{K})^T x ({E},{C},{N}) {dname}, {rows} rows in "
-                          f"{active} experts, {plan.path} path {plan.bm}x"
-                          f"{plan.bn} split {plan.split} ({plan.blocks} "
-                          f"blocks)",
+                if nan_past:
+                    nan = torch.full((), float("nan"), dtype=dt, device=dev)
+                    x, dy = torch.where(keep, x, nan), torch.where(keep, dy,
+                                                                   nan)
+                plan = plan_gmm_dw(K, N, C, E, dt)
+                ntag = f"bwd_{tag}_{gtag}{'_nan' if nan_past else ''}{sfx}"
+                r = check(f"gmm_blocks_dw {ntag} ({E},{C},{K})^T x ({E},{C},"
+                          f"{N}) {dname}, {rows} rows in {active} experts"
+                          f"{', rows past the groups NaN' if nan_past else ''}"
+                          f", {plan.path} path {plan.bm}x{plan.bn} split "
+                          f"{plan.split} ({plan.blocks} blocks)",
                           lambda: ops.gmm_blocks_dw(x, dy, gs),
                           lambda: gmm_blocks_dw_plain(x, dy, gs),
                           lambda: torch.bmm(xm.transpose(1, 2), dym),
                           2 * rows * K * N,
                           es * (rows * K + rows * N + E * K * N), dname,
                           repeat_equal=True, nan_out=((E, K, N), dt))
-                results.setdefault("gmm_blocks_dw", {})[
-                    f"bwd_{tag}_{gtag}{sfx}"] = {**r, "path": plan.path}
+                results.setdefault("gmm_blocks_dw", {})[ntag] = {
+                    **r, "path": plan.path}
         del x, w, wt, xm, dy, dym
         torch.cuda.empty_cache()
+    # gmm_blocks_dw at ragged shapes, an empty, a partial and a full
+    # expert with the rows past them NaN: d and n off TMA's 16-byte grid
+    # take the bf16 tile path with x read M-major in place (f32: its one
+    # route); d 200 and n 72 on the grid take the TMA kernel with boxes
+    # partly and wholly past d and n, fewer tiles than SMs and an expert
+    # that loads nothing
+    E, C = 3, 40
+    gs_np = np.array([0, 17, 40])
+    gs = torch.from_numpy(gs_np.astype(np.int32)).to(dev)
+    keep = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+    rows = int(gs_np.sum())
+    for tag, d_in, d_out, dt, route in (
+            ("ragged_nan", 20, 9, torch.bfloat16, "tile"),
+            ("ragged_nan_f32", 20, 9, torch.float32, "tile"),
+            ("ragged_tma_nan", 200, 72, torch.bfloat16, "tma")):
+        dname = str(dt).replace("torch.", "")
+        nan = torch.full((), float("nan"), dtype=dt, device=dev)
+        x = torch.where(keep, rand(E, C, d_in, dtype=dt), nan)
+        dy = torch.where(keep, rand(E, C, d_out, dtype=dt), nan)
+        plan = plan_gmm_dw(d_in, d_out, C, E, dt)
+        if plan.path != route:
+            fail(f"gmm_blocks_dw {tag}: planned {plan.path}, this row "
+                 f"checks the {route} route")
+        r = check(f"gmm_blocks_dw {tag} ({E},{C},{d_in})^T x ({E},{C},"
+                  f"{d_out}) {dname}, {rows} rows in 2 experts, rows past "
+                  f"the groups NaN, {plan.path} path {plan.bm}x{plan.bn} "
+                  f"split {plan.split} ({plan.blocks} blocks)",
+                  lambda: ops.gmm_blocks_dw(x, dy, gs),
+                  lambda: gmm_blocks_dw_plain(x, dy, gs), None,
+                  2 * rows * d_in * d_out,
+                  x.element_size() * (rows * (d_in + d_out)
+                                      + E * d_in * d_out), dname,
+                  repeat_equal=True, nan_out=((E, d_in, d_out), dt))
+        results["gmm_blocks_dw"][tag] = {**r, "path": plan.path}
+    del x, dy
 
     print("kernels vs plain versions (ssd_scan: mamba2-2.7b at S 1024 in "
           "bf16 from a zero and a random state, in f32, at B 4, and at S 512 "

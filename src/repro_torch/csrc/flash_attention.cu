@@ -132,11 +132,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // The kernel's arguments: shapes, the plan, and the softmax constants
 // (scores become log2 units: s·sl, or tanh(s·ci)·co with a softcap).
 struct FaArgs {
@@ -356,7 +351,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, Bf16Cfg<DP>::MINB)
         const float p0 = x0 == -INFINITY ? 0.0f : fast_exp2(x0 - m_r[r]);
         const float p1 = x1 == -INFINITY ? 0.0f : fast_exp2(x1 - m_r[r]);
         rs[r][nb & 1] += p0 + p1;  // l sums p unrounded
-        pf[nb][r] = pack_bf16(p0, p1);
+        pf[nb][r] = tc::pack_bf16(p0, p1);
       }
 #pragma unroll
     for (int r = 0; r < 2; ++r)

@@ -1,6 +1,7 @@
 // bf16 GEMM on Hopper's tensor cores (sm_90a) with an f32 accumulator:
 // C(M,N) = A(M,K) · B(K,N), batched on blockIdx.z with per-batch strides.
-// A is bf16 row-major. C is bf16 (each output rounded to nearest-even
+// A is bf16 row-major (or, on the tile path, M-major: (K, M) read in
+// place, gmm_blocks_dw's x (C, d) as xᵀ). C is bf16 (each output rounded to nearest-even
 // once) or f32 (the accumulator stored as it is). B is bf16 in one of two
 // layouts, read in place:
 //   row-major  (K,N) with leading dimension ldb (a weight as stored);
@@ -10,11 +11,12 @@
 // With `rows` (one int per batch entry, read on the device), output rows
 // r >= rows[z] are zero, and a tile whose rows all lie past rows[z] loads
 // nothing: an expert with no rows reads none of its weights. With `klim`
-// (one int per batch entry, read on the device), batch entry z contracts
-// over k < klim[z] only: A's columns and B's k rows past it are never read
-// (zero-filled in the copies), a K step wholly past it is not taken, and
-// an entry or a K split with nothing left stores zeros (gmm_blocks_dw:
-// dw[e] = x[e]^T dy[e] over the expert's group_sizes[e] rows).
+// (one int per batch entry, read on the device; an M-major A only), batch
+// entry z contracts over k < klim[z] only: A's and B's k rows past it are
+// never read (zero-filled in the copies), a K step wholly past it is not
+// taken, and an entry or a K split with nothing left stores zeros
+// (gmm_blocks_dw off TMA's grid: dw[e] = x[e]^T dy[e] over the expert's
+// group_sizes[e] rows).
 //
 // Two paths, chosen on the host by plan_bf16_gemm (kernels/matmul.py):
 //
@@ -24,8 +26,8 @@
 //     that the wgmma descriptors name; every thread both copies and
 //     computes (no TMA, no warp specialisation: ragged and unaligned edges
 //     are masked in the copies). Products: wgmma.mma_async m64n128k16, A
-//     and B from shared memory, A K-major, B K-major or N-major (the
-//     descriptor's transpose bit), with one group of them in flight while
+//     and B from shared memory, A K-major or M-major, B K-major or
+//     N-major (the descriptors' transpose bits), with one group of them in flight while
 //     the next stage's barrier and copies are issued.
 //   * skinny (M <= 16: decode at batch 1-4, MoE blocks of capacity 8):
 //     bound by the bytes of B, so each 128-thread block owns a 64-column
@@ -160,6 +162,12 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// two f32 as a bf16 pair, lo in the low half: an mma.sync A or B register
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
 // address, leading byte offset (bits 16-29) and stride byte offset (bits
 // 32-45) in 16-byte units, swizzle mode 1 (128 B) in bits 62-63. The
@@ -191,9 +199,10 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// d(64x128) += A(64x16) · B(16x128), one warpgroup; A K-major; B K-major
-// (TRANS_B 0) or N-major (TRANS_B 1). d0 holds columns 0-63, d1 64-127.
-template <int TRANS_B>
+// d(64x128) += A(64x16) · B(16x128), one warpgroup; A K-major (TRANS_A
+// 0) or M-major (TRANS_A 1); B K-major (TRANS_B 0) or N-major (TRANS_B 1).
+// d0 holds columns 0-63, d1 64-127.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d0)[32],
                                                  float (&d1)[32], uint64_t da,
                                                  uint64_t db) {
@@ -210,7 +219,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d0)[32],
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n"
+      "%64, %65, p, 1, 1, %68, %67;\n"
       "}\n"
       : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]),
         "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]),
@@ -225,7 +234,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d0)[32],
         "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]),
         "+f"(d1[23]), "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
         "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // ---------------------------------------------------------------------------
@@ -290,7 +299,10 @@ __host__ __device__ constexpr int tile_smem_bytes() {  // + 1024 to align
   return kTileStages * tile_stage_bytes<NWG>() + 1024;
 }
 
-template <int NWG, bool KMAJOR_B>
+// AMN: A is M-major, (K, M) with leading dimension M (gmm_blocks_dw's x
+// (C, d) read in place as xᵀ): stored like an N-major B, 64 rows of k of
+// NWG 64-column atoms, which the warpgroups' descriptors take transposed
+template <int NWG, bool KMAJOR_B, bool AMN = false>
 __device__ __forceinline__ void tile_load_stage(const Problem& p,
                                                 const __nv_bfloat16* A,
                                                 const __nv_bfloat16* B,
@@ -300,10 +312,18 @@ __device__ __forceinline__ void tile_load_stage(const Problem& p,
   constexpr int THREADS = 128 * NWG;
   const uint32_t sb = sa + BM * 128;
   const int k0 = kt * kBK;
-  for (int q = threadIdx.x; q < BM * 8; q += THREADS) {
-    const int r = q >> 3, c = q & 7;
-    load_chunk(sa + swz(r, c), A, p.K, m0 + r, rows, k0 + c * 8, kdep,
-               p.a_vec);
+  if constexpr (AMN) {
+    for (int q = threadIdx.x; q < kBK * NWG * 8; q += THREADS) {
+      const int k = q / (NWG * 8), c = q % (NWG * 8);
+      load_chunk(sa + (c >> 3) * (kBK * 128) + swz(k, c & 7), A, p.M,
+                 k0 + k, kdep, m0 + c * 8, rows, p.a_vec);
+    }
+  } else {
+    for (int q = threadIdx.x; q < BM * 8; q += THREADS) {
+      const int r = q >> 3, c = q & 7;
+      load_chunk(sa + swz(r, c), A, p.K, m0 + r, rows, k0 + c * 8, kdep,
+                 p.a_vec);
+    }
   }
   if constexpr (KMAJOR_B) {  // 128 rows of n, 64 k each
     for (int q = threadIdx.x; q < kTileBN * 8; q += THREADS) {
@@ -320,9 +340,9 @@ __device__ __forceinline__ void tile_load_stage(const Problem& p,
   }
 }
 
-// KLIM: p.klim is given (a template flag: the entries without a K limit
-// compile the kernels as they were)
-template <int NWG, bool KMAJOR_B, typename TC, bool KLIM>
+// AMN: A is M-major and p.klim may be given (the one entry with K limits,
+// gmm_blocks_dw; the others compile the kernels as they were)
+template <int NWG, bool KMAJOR_B, typename TC, bool AMN = false>
 __global__ void __launch_bounds__(128 * NWG)
     gemm_tile_kernel(Problem p, int m_tiles) {
   constexpr int BM = 64 * NWG;
@@ -334,7 +354,7 @@ __global__ void __launch_bounds__(128 * NWG)
   const int z = blockIdx.z;
   const int mt = blockIdx.y % m_tiles, sp = blockIdx.y / m_tiles;
   const int m0 = mt * BM, n0 = blockIdx.x * kTileBN;
-  const int rows = valid_rows(p, z), kdep = KLIM ? valid_depth(p, z) : p.K;
+  const int rows = valid_rows(p, z), kdep = AMN ? valid_depth(p, z) : p.K;
   const __nv_bfloat16* A = p.A + (size_t)z * p.batch_a;
   const __nv_bfloat16* B = p.B + (size_t)z * p.batch_b;
   TC* C = static_cast<TC*>(p.C) + (size_t)sp * p.split_stride +
@@ -357,8 +377,8 @@ __global__ void __launch_bounds__(128 * NWG)
 #pragma unroll
     for (int s = 0; s < S - 2; ++s) {
       if (s < nks)
-        tile_load_stage<NWG, KMAJOR_B>(p, A, B, ring + s * STAGE, m0, n0,
-                                       rows, kdep, kbeg + s);
+        tile_load_stage<NWG, KMAJOR_B, AMN>(p, A, B, ring + s * STAGE, m0,
+                                            n0, rows, kdep, kbeg + s);
       cp_async_commit();
     }
     for (int t = 0; t < nks; ++t) {
@@ -367,22 +387,25 @@ __global__ void __launch_bounds__(128 * NWG)
       __syncthreads();  // stage t landed; stage t-2 is no longer read
       const int nt = t + S - 2;
       if (nt < nks)
-        tile_load_stage<NWG, KMAJOR_B>(p, A, B,
-                                       ring + (nt % S) * STAGE, m0, n0,
-                                       rows, kdep, kbeg + nt);
+        tile_load_stage<NWG, KMAJOR_B, AMN>(p, A, B,
+                                            ring + (nt % S) * STAGE, m0, n0,
+                                            rows, kdep, kbeg + nt);
       cp_async_commit();
       const uint32_t sa = ring + (t % S) * STAGE + wg * (64 * 128);
       const uint32_t sb = ring + (t % S) * STAGE + BM * 128;
       wgmma_fence();
 #pragma unroll
       for (int s = 0; s < kBK / 16; ++s) {
-        const uint64_t da = wgmma_desc(sa + s * 32, 16);
+        // an M-major A: 16 rows of k (two atoms down) of its one atom
+        const uint64_t da = AMN ? wgmma_desc(sa + s * (16 * 128), kBK * 128)
+                                : wgmma_desc(sa + s * 32, 16);
         if constexpr (KMAJOR_B) {  // 128 rows of n: 16 atoms down
-          wgmma_m64n128k16<0>(acc[0], acc[1], da,
-                              wgmma_desc(sb + s * 32, 16));
+          wgmma_m64n128k16<0, AMN>(acc[0], acc[1], da,
+                                   wgmma_desc(sb + s * 32, 16));
         } else {  // 16 rows of k (two atoms down), two atoms across
-          wgmma_m64n128k16<1>(acc[0], acc[1], da,
-                              wgmma_desc(sb + s * (16 * 128), kBK * 128));
+          wgmma_m64n128k16<1, AMN>(
+              acc[0], acc[1], da,
+              wgmma_desc(sb + s * (16 * 128), kBK * 128));
         }
       }
       wgmma_commit();
@@ -440,7 +463,7 @@ __device__ __forceinline__ void skinny_load_stage(const Problem& p,
   }
 }
 
-template <bool KMAJOR_B, typename TC, bool KLIM>
+template <bool KMAJOR_B, typename TC>
 __global__ void __launch_bounds__(kSkinnyThreads)
     gemm_skinny_kernel(Problem p) {
   __shared__ __align__(1024) uint8_t ring_mem[kSkinnyStages * kSkinnyStage];
@@ -448,7 +471,7 @@ __global__ void __launch_bounds__(kSkinnyThreads)
 
   const int z = blockIdx.z, sp = blockIdx.y;
   const int n0 = blockIdx.x * kSkinnyBN;
-  const int rows = valid_rows(p, z), kdep = KLIM ? valid_depth(p, z) : p.K;
+  const int rows = valid_rows(p, z), kdep = p.K;
   const __nv_bfloat16* A = p.A + (size_t)z * p.batch_a;
   const __nv_bfloat16* B = p.B + (size_t)z * p.batch_b;
   TC* C = static_cast<TC*>(p.C) + (size_t)sp * p.split_stride +
@@ -529,10 +552,10 @@ __global__ void __launch_bounds__(256)
 // instantiates this header (an inline template's static), while each
 // library holds its own copy of the kernel; the call costs about a
 // microsecond of host time, and only prefill shapes take this path.
-template <int NWG, bool KMAJOR_B, typename TC, bool KLIM>
+template <int NWG, bool KMAJOR_B, typename TC, bool AMN = false>
 inline cudaError_t launch_tile(const Problem& p, int batch, int split,
                                cudaStream_t stream) {
-  auto kernel = gemm_tile_kernel<NWG, KMAJOR_B, TC, KLIM>;
+  auto kernel = gemm_tile_kernel<NWG, KMAJOR_B, TC, AMN>;
   constexpr int bytes = tile_smem_bytes<NWG>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -543,25 +566,32 @@ inline cudaError_t launch_tile(const Problem& p, int batch, int split,
   return cudaGetLastError();
 }
 
-template <typename TC, bool KLIM>
+// AMN (an M-major A) takes the tile path with a row-major B only
+template <typename TC, bool AMN = false>
 inline cudaError_t launch_path(const Problem& p, bool b_kmajor, int batch,
                                int path, int bm, int split,
                                cudaStream_t stream) {
-  if (path == kSkinny) {
-    dim3 grid((p.N + kSkinnyBN - 1) / kSkinnyBN, split, batch);
-    if (b_kmajor)
-      gemm_skinny_kernel<true, TC, KLIM>
-          <<<grid, kSkinnyThreads, 0, stream>>>(p);
-    else
-      gemm_skinny_kernel<false, TC, KLIM>
-          <<<grid, kSkinnyThreads, 0, stream>>>(p);
-    return cudaGetLastError();
+  if constexpr (AMN) {
+    if (path != kTile || b_kmajor) return cudaErrorInvalidValue;
+    return bm == 128 ? launch_tile<2, false, TC, true>(p, batch, split,
+                                                       stream)
+                     : launch_tile<1, false, TC, true>(p, batch, split,
+                                                       stream);
+  } else {
+    if (path == kSkinny) {
+      dim3 grid((p.N + kSkinnyBN - 1) / kSkinnyBN, split, batch);
+      if (b_kmajor)
+        gemm_skinny_kernel<true, TC><<<grid, kSkinnyThreads, 0, stream>>>(p);
+      else
+        gemm_skinny_kernel<false, TC><<<grid, kSkinnyThreads, 0, stream>>>(p);
+      return cudaGetLastError();
+    }
+    if (bm == 128)
+      return b_kmajor ? launch_tile<2, true, TC>(p, batch, split, stream)
+                      : launch_tile<2, false, TC>(p, batch, split, stream);
+    return b_kmajor ? launch_tile<1, true, TC>(p, batch, split, stream)
+                    : launch_tile<1, false, TC>(p, batch, split, stream);
   }
-  if (bm == 128)
-    return b_kmajor ? launch_tile<2, true, TC, KLIM>(p, batch, split, stream)
-                    : launch_tile<2, false, TC, KLIM>(p, batch, split, stream);
-  return b_kmajor ? launch_tile<1, true, TC, KLIM>(p, batch, split, stream)
-                  : launch_tile<1, false, TC, KLIM>(p, batch, split, stream);
 }
 
 inline bool aligned16(const void* ptr, long long ld, long long batch) {
@@ -573,10 +603,12 @@ inline bool aligned16(const void* ptr, long long ld, long long batch) {
 // `path` (kSkinny needs M <= 16; kTile with bm 64 or 128), `split` (a
 // divisor of the K steps; > 1 needs `scratch` of split·batch·M·N floats,
 // and a batched C contiguous, batch_c == M·N). `rows` (or null): each
-// batch entry's valid rows; `klim` (or null): each batch entry's K depth,
-// taken only where KLIM. Returns the first launch error, checked after
-// each launch; cudaErrorInvalidValue for a plan the kernels do not take.
-template <bool KLIM = false, typename TC>
+// batch entry's valid rows. AMN: A is M-major, (K, M) with leading
+// dimension M, on the tile path with a row-major B, and `klim` (or null):
+// each batch entry's K depth. Returns the first launch error, checked
+// after each launch; cudaErrorInvalidValue for a plan the kernels do not
+// take.
+template <bool AMN = false, typename TC>
 inline int launch_gemm_bf16_tc(const __nv_bfloat16* A,
                                const __nv_bfloat16* B, TC* C,
                                const int* rows, int M, int N, int K, int ldb,
@@ -592,7 +624,7 @@ inline int launch_gemm_bf16_tc(const __nv_bfloat16* A,
   if (!ok_path || K < 0 || split < 1 || (ksteps > 0 && ksteps % split) ||
       (ksteps == 0 && split != 1) || (split > 1 && scratch == nullptr) ||
       (split > 1 && batch > 1 && batch_c != (long long)M * N) ||
-      ldb < (b_kmajor ? K : N) || (klim != nullptr && !KLIM))
+      ldb < (b_kmajor ? K : N) || (klim != nullptr && !AMN))
     return (int)cudaErrorInvalidValue;
   Problem p;
   p.A = A;
@@ -607,19 +639,19 @@ inline int launch_gemm_bf16_tc(const __nv_bfloat16* A,
   p.batch_b = batch_b;
   p.batch_c = batch_c;
   p.ksteps_per_split = split > 1 ? ksteps / split : ksteps;
-  p.a_vec = aligned16(A, K, batch_a);
+  p.a_vec = aligned16(A, AMN ? M : K, batch_a);
   p.b_vec = aligned16(B, ldb, batch_b);
   cudaError_t err;
   if (split == 1) {
     p.C = C;
     p.split_stride = 0;
-    err = launch_path<TC, KLIM>(p, b_kmajor, batch, path, bm, 1, stream);
+    err = launch_path<TC, AMN>(p, b_kmajor, batch, path, bm, 1, stream);
   } else {
     const long long total = (long long)batch * M * N;
     p.C = scratch;
     p.split_stride = total;
-    err = launch_path<float, KLIM>(p, b_kmajor, batch, path, bm, split,
-                                   stream);
+    err = launch_path<float, AMN>(p, b_kmajor, batch, path, bm, split,
+                                  stream);
     if (err != cudaSuccess) return (int)err;
     long long blocks = (total + 255) / 256;
     if (blocks > 4096) blocks = 4096;

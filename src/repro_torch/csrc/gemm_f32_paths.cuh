@@ -28,13 +28,19 @@
 // With a row limit (one int per batch entry, read on the device: no host
 // sync), rows r >= row_limit[z] of batch entry z are never read from A and
 // are written as zeros; a block whose rows all lie past the limit copies
-// no B, so a batch entry with no rows reads none of its B. With a K limit
-// (the same, one int per batch entry), batch entry z contracts over k <
-// k_limit[z] only: A's columns and B's k rows past it are never read, and
-// a block or a K split with nothing left stores zeros (gmm_blocks_dw: dw[e]
-// = x[e]^T dy[e] over the expert's group_sizes[e] rows). Both limits come
+// no B, so a batch entry with no rows reads none of its B. Row limits come
 // with the kRowLimit entries, on the tile path (row-major or K-major B)
-// and the grouped skinny path (row-major B).
+// and the grouped skinny path (row-major B). With a K limit (the same,
+// one int per batch entry; the kAMajorM entries only), batch entry z
+// contracts over k < k_limit[z] only: A's and B's k rows past it are
+// never read, and a block or a K split with nothing left stores zeros
+// (gmm_blocks_dw: dw[e] = x[e]^T dy[e] over the expert's group_sizes[e]
+// rows).
+// An M-major A (kAMajorM entries: each batch entry's A stored (K, M) and
+// read in place, gmm_blocks_dw's x (C, d) as xᵀ) takes the tile path with
+// a row-major B: its stage holds A as [k][m] rows of BM floats, read back
+// one float a row (the thread's rows lie 16 apart), so a 4-deep slice of
+// k costs 4·TM + TN shared loads for TM x TN x 4 FMA.
 // It carries matmul's f32 entry (batch 1), winograd_tile_matmul (the 16
 // GEMMs of Winograd F(2x2,3x3)), matmul_packed (panels, f32 or bf16 x),
 // matmul_dequant_int8 and matmul_dequant_int4 (int8 and int4, f32 or bf16
@@ -231,27 +237,16 @@ __device__ __forceinline__ void cp_async_wait() {
 // Copy the 4 floats at (row, col..col+3) of a row-major matrix with
 // leading dimension ld into the 16-byte shared slot dst; elements outside
 // [0, nrows) x [0, ncols) are zero. vec: ncols, ld and the base are
-// multiples of 4 floats, so the 4 are wholly inside or outside; RAGGED
-// (a K limit, which need not be a multiple of 4): ld and the base are,
-// and a copy that ncols cuts short reads only the floats before it.
-template <bool RAGGED = false>
+// multiples of 4 floats, so the 4 are wholly inside or outside.
 __device__ __forceinline__ void load4(uint32_t dst, const float* src,
                                       long long ld, int row, int nrows,
                                       int col, int ncols, int vec) {
   if (vec) {
-    if constexpr (RAGGED) {
-      const int valid = row < nrows ? min(max(ncols - col, 0), 4) : 0;
-      cp_async16(dst,
-                 valid ? (const void*)(src + (size_t)row * ld + col)
-                       : (const void*)src,
-                 4 * valid);
-    } else {
-      const bool ok = row < nrows && col < ncols;
-      cp_async16(dst,
-                 ok ? (const void*)(src + (size_t)row * ld + col)
-                    : (const void*)src,
-                 ok ? 16 : 0);
-    }
+    const bool ok = row < nrows && col < ncols;
+    cp_async16(dst,
+               ok ? (const void*)(src + (size_t)row * ld + col)
+                  : (const void*)src,
+               ok ? 16 : 0);
   } else {
     float v[4];
 #pragma unroll
@@ -265,13 +260,10 @@ __device__ __forceinline__ void load4(uint32_t dst, const float* src,
   }
 }
 
-// The same for the 8 bf16 at (row, col..col+7); vec: multiples of 8 (a
-// bf16 A comes only with panels, never with a K limit).
-template <bool RAGGED = false>
+// The same for the 8 bf16 at (row, col..col+7); vec: multiples of 8.
 __device__ __forceinline__ void load4(uint32_t dst, const __nv_bfloat16* src,
                                       long long ld, int row, int nrows,
                                       int col, int ncols, int vec) {
-  static_assert(!RAGGED, "a K limit comes with an f32 A only");
   if (vec) {
     const bool ok = row < nrows && col < ncols;
     cp_async16(dst,
@@ -393,35 +385,53 @@ __device__ __forceinline__ const float* b_panel(const Problem& p,
 }
 
 // A's rows [m0, m0 + BM) x k [k0, k0 + kTileBK), zero past kend (the
-// split's end, or a K limit where RAGGED) and past row mrows (M, or the
-// batch entry's row limit)
-template <int BM, typename TX, bool RAGGED = false>
+// split's end) and past row mrows (M, or the batch entry's row limit)
+template <int BM, typename TX>
 __device__ __forceinline__ void a_tile_load(const Problem& p, const TX* A,
                                             uint32_t sa, int m0, int mrows,
                                             int k0, int kend) {
   constexpr int PER = ATile<TX>::PER, CQ = kTileBK / PER;
   for (int q = threadIdx.x; q < BM * CQ; q += kThreads) {
     const int r = q / CQ, c = (q % CQ) * PER;
-    load4<RAGGED>(sa + (r * ATile<TX>::LD + c) * (int)sizeof(TX), A, p.K,
-                  m0 + r, mrows, k0 + c, kend, p.a_vec);
+    load4(sa + (r * ATile<TX>::LD + c) * (int)sizeof(TX), A, p.K, m0 + r,
+          mrows, k0 + c, kend, p.a_vec);
+  }
+}
+
+// An M-major A's k rows [k0, k0 + kTileBK) x columns [m0, m0 + BM) as
+// [k][m] rows of BM floats (the A region of a stage holds them: BM·kLDA
+// floats), zero past kend (the split's end or a K limit: whole rows) and
+// past column mrows
+template <int BM>
+__device__ __forceinline__ void a_tile_load_mn(const Problem& p,
+                                               const float* A, uint32_t sa,
+                                               int m0, int mrows, int k0,
+                                               int kend) {
+  for (int q = threadIdx.x; q < kTileBK * (BM / 4); q += kThreads) {
+    const int k = q / (BM / 4), c = (q % (BM / 4)) * 4;
+    load4(sa + (k * BM + c) * 4, A, p.M, k0 + k, kend, m0 + c, mrows,
+          p.a_vec);
   }
 }
 
 // one K step: k in [k0, k0 + kTileBK), zero past kend (the split's end),
 // A's rows zero past mrows. B: as b_panel gives it for a row-major B
-template <int BM, int BN, bool KMAJOR, typename TX, bool RAGGED = false>
+template <int BM, int BN, bool KMAJOR, typename TX, bool AMN = false>
 __device__ __forceinline__ void tile_load(const Problem& p, const TX* A,
                                           const float* B, uint32_t sa,
                                           int m0, int mrows, int n0, int k0,
                                           int kend) {
   constexpr int BK = kTileBK;
   const uint32_t sb = sa + Tile<BM, BN, KMAJOR, TX>::A_BYTES;
-  a_tile_load<BM, TX, RAGGED>(p, A, sa, m0, mrows, k0, kend);
+  if constexpr (AMN)
+    a_tile_load_mn<BM>(p, A, sa, m0, mrows, k0, kend);
+  else
+    a_tile_load<BM, TX>(p, A, sa, m0, mrows, k0, kend);
   if constexpr (KMAJOR) {  // BN rows of B^T, BK k each
     for (int q = threadIdx.x; q < BN * (BK / 4); q += kThreads) {
       const int n = q / (BK / 4), c = (q % (BK / 4)) * 4;
-      load4<RAGGED>(sb + (n * kLDA + c) * 4, B, p.ldb, n0 + n, p.N, k0 + c,
-                    kend, p.b_vec);
+      load4(sb + (n * kLDA + c) * 4, B, p.ldb, n0 + n, p.N, k0 + c, kend,
+            p.b_vec);
     }
   } else {  // BK rows of k, BN n each
     for (int q = threadIdx.x; q < BK * (BN / 4); q += kThreads) {
@@ -536,11 +546,13 @@ __device__ __forceinline__ int depth_of(const Problem& p, int bz) {
 
 // two blocks an SM (at most 128 registers a thread): a split tile grid
 // runs two waves side by side. LIM: 0 no limits; 1 p.row_limit may be
-// given; 2 p.k_limit is given too (its copies zero-fill a K limit that is
-// no multiple of 4; the other kernels keep the whole-float4 copies)
-template <int BM, int BN, int LAYOUT, typename TX, int LIM>
+// given; 2 p.k_limit may be given too (with AMN: A is M-major, f32, with
+// a row-major B, and a K limit cuts whole rows of both)
+template <int BM, int BN, int LAYOUT, typename TX, int LIM, bool AMN = false>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_f32_tile_kernel(Problem p) {
+  static_assert(!AMN || (LAYOUT == kRowMajorB && sizeof(TX) == 4),
+                "an M-major A comes f32, with a row-major B");
   constexpr bool LIMIT = LIM > 0, KLIM = LIM == 2;
   constexpr bool KMAJOR = LAYOUT == kKMajorB;
   using TL = Tile<BM, BN, KMAJOR, TX>;
@@ -571,8 +583,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nks)
-      tile_load<BM, BN, KMAJOR, TX, KLIM>(p, A, B, ring + s * TL::STAGE, m0,
-                                    mrows, n0, kbeg + s * BK, kend);
+      tile_load<BM, BN, KMAJOR, TX, AMN>(p, A, B, ring + s * TL::STAGE, m0,
+                                         mrows, n0, kbeg + s * BK, kend);
     cp_async_commit();
   }
   for (int t = 0; t < nks; ++t) {
@@ -580,9 +592,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // stage t landed; the slot of step t - 1 is free
     const int nt = t + kStages - 1;
     if (nt < nks)
-      tile_load<BM, BN, KMAJOR, TX, KLIM>(p, A, B,
-                                    ring + (nt % kStages) * TL::STAGE, m0,
-                                    mrows, n0, kbeg + nt * BK, kend);
+      tile_load<BM, BN, KMAJOR, TX, AMN>(
+          p, A, B, ring + (nt % kStages) * TL::STAGE, m0, mrows, n0,
+          kbeg + nt * BK, kend);
     cp_async_commit();
     const float* St = smem_t + (t % kStages) * (TL::STAGE / 4);
     const TX* As = reinterpret_cast<const TX*>(St);
@@ -605,6 +617,28 @@ __global__ void __launch_bounds__(kThreads, 2)
             acc[i][j] = fmaf(a4.z, bt[j].z, acc[i][j]);
             acc[i][j] = fmaf(a4.w, bt[j].w, acc[i][j]);
           }
+        }
+      } else if constexpr (AMN) {
+        const float* Am = reinterpret_cast<const float*>(St);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float av[TM], bv[TN];
+#pragma unroll
+          for (int i = 0; i < TM; ++i) av[i] = Am[(kk + q) * BM + ty + 16 * i];
+#pragma unroll
+          for (int jj = 0; jj < TN / 4; ++jj) {
+            const float4 b4 = *reinterpret_cast<const float4*>(
+                &Bs[(kk + q) * BN + tx * 4 + 64 * jj]);
+            bv[4 * jj] = b4.x;
+            bv[4 * jj + 1] = b4.y;
+            bv[4 * jj + 2] = b4.z;
+            bv[4 * jj + 3] = b4.w;
+          }
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
         }
       } else {
         float4 a4[TM];
@@ -1051,8 +1085,7 @@ __device__ __forceinline__ void skinny_store(const Problem& p,
 
 // row-major B or its panel: columns [n0, n0 + 128) of split blockIdx.y.
 // GROUPED: batch entry blockIdx.z, whose rows past its row limit read no
-// x and no B and are stored as zeros (their sums never take an FMA), and
-// whose k rows past its K limit are not read
+// x and no B and are stored as zeros (their sums never take an FMA)
 template <int MT, typename TX, bool GROUPED>
 __global__ void __launch_bounds__(kThreads)
     gemm_f32_skinny_kernel(Problem p) {
@@ -1061,8 +1094,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n0 = blockIdx.x * kSkinnyCols, sp = blockIdx.y;
   const int bz = GROUPED ? blockIdx.z : 0;
   const int kb0 = sp * p.kps * kBK;
-  const int kn =
-      max(0, min(p.kps * kBK, (GROUPED ? depth_of(p, bz) : p.K) - kb0));
+  const int kn = max(0, min(p.kps * kBK, p.K - kb0));
   const int M = GROUPED ? rows_of(p, bz) : p.M;
   const int ncols = min(kSkinnyCols, p.N - n0);
   const int CG = (ncols + 3) / 4;  // float4 columns
@@ -1387,14 +1419,15 @@ inline cudaError_t launch_smem(K kernel, dim3 grid, int bytes,
   return cudaGetLastError();
 }
 
-template <int LAYOUT, typename TX, int LIM>
+template <int LAYOUT, typename TX, int LIM, bool AMN = false>
 struct TileLaunch {
   const Problem& p;
   cudaStream_t stream;
   template <int BM, int BN>
   cudaError_t go() const {
     dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.batch * p.split);
-    return launch_smem(gemm_f32_tile_kernel<BM, BN, LAYOUT, TX, LIM>, grid,
+    return launch_smem(gemm_f32_tile_kernel<BM, BN, LAYOUT, TX, LIM, AMN>,
+                       grid,
                        Tile<BM, BN, LAYOUT == kKMajorB, TX>::BYTES, p,
                        stream);
   }
@@ -1573,10 +1606,17 @@ inline int finish_split(const Problem& p, cudaError_t err, TC* C,
 // compiles only the kernels its entries launch): kPanels, B is
 // LinearPacked's panels (x f32 or bf16; else B is row-major or K-major
 // with an f32 x); kStreamPath, the stream path; kRowLimit, a batch with
-// per-entry row and K limits (p.row_limit, p.k_limit) on the tile path
-// (row-major or K-major B) and on the grouped skinny path (row-major B),
-// which takes the batch on blockIdx.z.
-enum EntryFlags : unsigned { kPanels = 1, kStreamPath = 2, kRowLimit = 4 };
+// per-entry row limits (p.row_limit) on the tile path (row-major or
+// K-major B) and on the grouped skinny path (row-major B), which takes the
+// batch on blockIdx.z; kAMajorM, an M-major f32 A ((K, M) a batch entry,
+// leading dimension M) with per-entry K limits (p.k_limit) on the tile
+// path with a row-major B (kRowLimit too), and nothing else.
+enum EntryFlags : unsigned {
+  kPanels = 1,
+  kStreamPath = 2,
+  kRowLimit = 4,
+  kAMajorM = 8
+};
 
 // f32 B: C[z] = A[z] · B[z] on `stream` as the host planner decided. p
 // holds the operands, shapes, strides, layout and row limits; `path`
@@ -1592,47 +1632,57 @@ inline int launch_planned(Problem p, bool kmajor, int path, int bm, int bn,
                           int split, int blocks, float* scratch,
                           cudaStream_t stream) {
   constexpr bool PANELS = FLAGS & kPanels, STREAM = FLAGS & kStreamPath,
-                 LIMIT = FLAGS & kRowLimit;
+                 LIMIT = FLAGS & kRowLimit, AMN = FLAGS & kAMajorM;
   TX* C = static_cast<TX*>(p.C);
   if (p.batch <= 0 || p.M <= 0 || p.N <= 0) return (int)cudaGetLastError();
-  // a K-major B takes row limits on the tile path, and no K limit
-  const bool kmajor_ok =
-      !kmajor || (sizeof(TX) == 4 && !PANELS && p.k_limit == nullptr &&
-                  (!LIMIT || path == kTile));
-  const bool ok_path =
-      (path == kSkinny && kmajor_ok) ||
-      (path == kTile && tile_shape_ok(bm, bn) && kmajor_ok) ||
-      (STREAM && path == kStream && !kmajor && p.row_limit == nullptr &&
-       p.k_limit == nullptr && p.K <= kStreamMaxK && split == 1 &&
-       bm == kStreamBM && bn == kStreamBN && blocks > 0);
-  if (((p.row_limit != nullptr || p.k_limit != nullptr) && !LIMIT) ||
-      !ok_path || !plan_split(p, path, split, scratch, C, LIMIT))
-    return (int)cudaErrorInvalidValue;
-  p.c_vec = aligned16(p.C) && p.N % 4 == 0 && p.bsc % 4 == 0;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (path == kSkinny) {
-    if constexpr (LIMIT) {
-      err = by_rows(p.M, SkinnyLaunch<TX, true>{p, false, stream});
-    } else {
-      err = by_rows(p.M, SkinnyLaunch<TX, false>{p, kmajor, stream});
-    }
-  } else if constexpr (PANELS) {
-    err = by_tile_shape(bm, bn, TileLaunch<kPanelsB, TX, 0>{p, stream});
+  if constexpr (AMN) {
+    static_assert(LIMIT && !PANELS && !STREAM && sizeof(TX) == 4,
+                  "an M-major A comes f32, with K limits");
+    if (path != kTile || kmajor || !tile_shape_ok(bm, bn) ||
+        p.row_limit != nullptr ||
+        !plan_split(p, path, split, scratch, C, true))
+      return (int)cudaErrorInvalidValue;
+    p.c_vec = aligned16(p.C) && p.N % 4 == 0 && p.bsc % 4 == 0;
+    return finish_split(
+        p, by_tile_shape(bm, bn, TileLaunch<kRowMajorB, TX, 2, true>{p,
+                                                                   stream}),
+        C, stream);
   } else {
-    static_assert(sizeof(TX) == 4, "a bf16 x comes only with panels");
-    constexpr int LIM = LIMIT ? 1 : 0;
-    if (path == kTile && kmajor) {
-      err = by_tile_shape(bm, bn, TileLaunch<kKMajorB, TX, LIM>{p, stream});
-    } else if (path == kTile && LIMIT && p.k_limit != nullptr) {
-      if constexpr (LIMIT)
-        err = by_tile_shape(bm, bn, TileLaunch<kRowMajorB, TX, 2>{p, stream});
-    } else if (path == kTile) {
-      err = by_tile_shape(bm, bn, TileLaunch<kRowMajorB, TX, LIM>{p, stream});
-    } else if constexpr (STREAM) {
-      err = launch_stream<TX>(p, blocks, stream);
+    // a K-major B takes row limits on the tile path
+    const bool kmajor_ok =
+        !kmajor || (sizeof(TX) == 4 && !PANELS && (!LIMIT || path == kTile));
+    const bool ok_path =
+        (path == kSkinny && kmajor_ok) ||
+        (path == kTile && tile_shape_ok(bm, bn) && kmajor_ok) ||
+        (STREAM && path == kStream && !kmajor && p.row_limit == nullptr &&
+         p.K <= kStreamMaxK && split == 1 && bm == kStreamBM &&
+         bn == kStreamBN && blocks > 0);
+    if (p.k_limit != nullptr || (p.row_limit != nullptr && !LIMIT) ||
+        !ok_path || !plan_split(p, path, split, scratch, C, LIMIT))
+      return (int)cudaErrorInvalidValue;
+    p.c_vec = aligned16(p.C) && p.N % 4 == 0 && p.bsc % 4 == 0;
+    cudaError_t err = cudaErrorInvalidValue;
+    if (path == kSkinny) {
+      if constexpr (LIMIT) {
+        err = by_rows(p.M, SkinnyLaunch<TX, true>{p, false, stream});
+      } else {
+        err = by_rows(p.M, SkinnyLaunch<TX, false>{p, kmajor, stream});
+      }
+    } else if constexpr (PANELS) {
+      err = by_tile_shape(bm, bn, TileLaunch<kPanelsB, TX, 0>{p, stream});
+    } else {
+      static_assert(sizeof(TX) == 4, "a bf16 x comes only with panels");
+      constexpr int LIM = LIMIT ? 1 : 0;
+      if (path == kTile && kmajor) {
+        err = by_tile_shape(bm, bn, TileLaunch<kKMajorB, TX, LIM>{p, stream});
+      } else if (path == kTile) {
+        err = by_tile_shape(bm, bn, TileLaunch<kRowMajorB, TX, LIM>{p, stream});
+      } else if constexpr (STREAM) {
+        err = launch_stream<TX>(p, blocks, stream);
+      }
     }
+    return finish_split(p, err, C, stream);
   }
-  return finish_split(p, err, C, stream);
 }
 
 inline Problem make_problem(const void* A, const void* B, void* C,
@@ -1656,9 +1706,8 @@ inline Problem make_problem(const void* A, const void* B, void* C,
 // that a library that never calls it compiles none of its kernels), B
 // row-major (K,N) or K-major (N,K) with leading dimension ldb; batch entry
 // z of A, B and C starts bsa, bsb and bsc floats after entry z - 1, and
-// holds data in its first row_limit[z] rows where row_limit is given, and
-// contracts over its first k_limit[z] k where k_limit is (kRowLimit). The
-// plan and FLAGS as in launch_planned.
+// holds data in its first row_limit[z] rows where row_limit is given
+// (kRowLimit). The plan and FLAGS as in launch_planned.
 template <unsigned FLAGS, typename T>
 inline int launch_gemm_f32_batched(const T* A, const float* B, T* C,
                                    int batch, long long bsa, long long bsb,
@@ -1666,8 +1715,7 @@ inline int launch_gemm_f32_batched(const T* A, const float* B, T* C,
                                    int ldb, bool kmajor, int path, int bm,
                                    int bn, int split, int blocks,
                                    float* scratch, cudaStream_t stream,
-                                   const int* row_limit = nullptr,
-                                   const int* k_limit = nullptr) {
+                                   const int* row_limit = nullptr) {
   if (batch > 0 && M > 0 && N > 0 && ldb < (kmajor ? K : N))
     return (int)cudaErrorInvalidValue;
   Problem p = make_problem(A, B, C, nullptr, M, N, K, ldb);
@@ -1676,7 +1724,6 @@ inline int launch_gemm_f32_batched(const T* A, const float* B, T* C,
   p.bsb = bsb;
   p.bsc = bsc;
   p.row_limit = row_limit;
-  p.k_limit = k_limit;
   p.a_vec = aligned16(A) && K % 4 == 0 && bsa % 4 == 0;
   p.b_vec = aligned16(B) && ldb % 4 == 0 && (kmajor ? K : N) % 4 == 0 &&
             bsb % 4 == 0;

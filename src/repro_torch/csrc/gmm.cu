@@ -15,18 +15,7 @@
 // w at any C), group_sizes as the row limit on both. Ragged C, d and n are
 // masked in the kernels; nothing is padded in device memory.
 //
-// gmm_blocks_dw: the weight gradient of the same GEMM, which the reference
-// computes with jnp in its custom VJP (repro/models/moe.py,
-// _grouped_ffn_bwd: dwg = blk.T @ dg; no Pallas twin). out(E,d,n) =
-// x(E,C,d)ᵀ · dy(E,C,n) per expert, contracted over the expert's first
-// group_sizes[e] rows only (the same templates, group_sizes as each
-// batch entry's K limit): rows past the group are never read, whatever
-// they hold (the next expert's tokens), an expert with no rows writes
-// zeros and reads nothing, and a K split wholly past the group writes
-// zero partials. The A operand is xᵀ (E,d,C), copied contiguous by the
-// wrapper. Bound at granite-moe-3b-a800m's training microbatch (E 40, C
-// 824, d 1536, n 512, ~410 rows an expert): by operations at the
-// tensor-core rate in bf16, on the CUDA cores in f32.
+// gmm_blocks_dw, the weight gradient of the same GEMM, is gmm_dw.cu.
 //
 // Plain C entry points, loaded with ctypes by
 // repro_torch/kernels/_native.py.
@@ -61,35 +50,6 @@ int repro_gmm_blocks_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
       x, w, out, group_sizes, C, n, d, kmajor ? d : n, kmajor != 0, E,
       (long long)C * d, (long long)d * n, (long long)C * n, path, bm, split,
       scratch, static_cast<cudaStream_t>(stream));
-}
-
-// xt (E,d,C) (x's blocks transposed), dy (E,C,n), out (E,d,n); all
-// row-major f32, contiguous; expert e contracts over k < group_sizes[e]
-// (all C where group_sizes is null). path, bm, bn and split as
-// plan_f32_gemm decided for (d, n, C, batch=E, row_limit=True); split > 1
-// needs split·E·d·n floats of scratch.
-int repro_gmm_blocks_dw_f32(const float* xt, const float* dy, float* out,
-                            const int* group_sizes, int E, int C, int d,
-                            int n, int path, int bm, int bn, int split,
-                            float* scratch, void* stream) {
-  using namespace repro_torch::f32;
-  return launch_gemm_f32_batched<kRowLimit>(
-      xt, dy, out, E, (long long)d * C, (long long)C * n, (long long)d * n,
-      d, n, C, n, false, path, bm, bn, split, 1, scratch,
-      static_cast<cudaStream_t>(stream), nullptr, group_sizes);
-}
-
-// The same in bf16: f32 accumulator, each output rounded to bf16 once;
-// path, bm and split as plan_bf16_gemm decided for (d, n, C, E).
-int repro_gmm_blocks_dw_bf16(const __nv_bfloat16* xt,
-                             const __nv_bfloat16* dy, __nv_bfloat16* out,
-                             const int* group_sizes, int E, int C, int d,
-                             int n, int path, int bm, int split,
-                             float* scratch, void* stream) {
-  return repro_torch::tc::launch_gemm_bf16_tc<true>(
-      xt, dy, out, nullptr, d, n, C, n, false, E, (long long)d * C,
-      (long long)C * n, (long long)d * n, path, bm, split, scratch,
-      static_cast<cudaStream_t>(stream), group_sizes);
 }
 
 }  // extern "C"

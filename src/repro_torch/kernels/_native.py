@@ -32,7 +32,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("matmul", "conv_winograd", "flash_attention", "flash_attention_bwd",
-           "decode_attention", "quant", "gmm", "ssd",
+           "decode_attention", "quant", "gmm", "gmm_dw", "ssd",
            "ssd_bwd")  # csrc/<name>.cu
 HEADERS = ("gemm_f32_paths.cuh", "gemm_bf16_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -57,9 +57,10 @@ ARGTYPES = {
     "repro_flash_attention_bf16": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 4
     + [_P],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, D, causal,
-    # window, softcap, dp, stream
+    # window, softcap, dp, [route, split (bf16),] stream
     "repro_flash_attention_bwd_f32": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
-    "repro_flash_attention_bwd_bf16": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+    "repro_flash_attention_bwd_bf16": [_P] * 10 + [_I] * 7
+    + [_F, _I, _I, _I, _P],
     # q, k, v, k_scale, v_scale, pos, o, scratch, B, W, H, KV, D, window,
     # softcap, hg, hgroups, lpr, chunk, split, stream
     "repro_decode_attention_f32": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 5
@@ -78,10 +79,12 @@ ARGTYPES = {
     # scratch, stream
     "repro_gmm_blocks_f32": [_P] * 4 + [_I] * 9 + [_P, _P],
     "repro_gmm_blocks_bf16": [_P] * 4 + [_I] * 8 + [_P, _P],
-    # xt, dy, out, group_sizes, E, C, d, n, path, bm, [bn,] split, scratch,
-    # stream
+    # x, dy, out, group_sizes, E, C, d, n, path, bm, [bn,] split, scratch,
+    # stream (x read M-major in place)
     "repro_gmm_blocks_dw_f32": [_P] * 4 + [_I] * 8 + [_P, _P],
     "repro_gmm_blocks_dw_bf16": [_P] * 4 + [_I] * 7 + [_P, _P],
+    # x, dy, out, group_sizes, E, C, d, n, blocks, stream
+    "repro_gmm_blocks_dw_tma_bf16": [_P] * 4 + [_I] * 5 + [_P],
     # x, dt, A, Bm, Cm, D, init, y, final, cum, cb, states, B, S, H, P, N,
     # Q, stream
     "repro_ssd_scan_f32": [_P] * 12 + [_I] * 6 + [_P],

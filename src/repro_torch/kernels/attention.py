@@ -43,14 +43,18 @@ the kernel for each query row's log-sum-exp as well (``lse`` (B, H, S) f32,
 m + log l of the scaled, softcapped scores; the inference path passes
 null), and its backward is ``flash_attention_bwd`` (``csrc/
 flash_attention_bwd.cu``, which replaces no Pallas kernel: the JAX package
-differentiates its jnp attention). That kernel recomputes P = exp(s - lse)
-tile by tile in f32 on the CUDA cores, in three launches (δ = rowsum(dO∘o);
-dK and dV a key tile of one kv head, looping over its query heads, so the
-GQA sum needs no atomics; dQ a query tile), counted as one.
+differentiates its jnp attention). It recomputes P = exp(s - lse) tile
+by tile in three launches (δ = rowsum(dO∘o); dK and dV a key tile of one
+kv head, looping over its query heads, so the GQA sum needs no atomics; dQ
+a query tile), counted as one, along ``plan_flash_bwd``'s route: in bf16
+with D <= 128 every product on the tensor cores (``mma.sync`` m16n8k16
+from ``ldmatrix`` fragments of bf16 tiles, P and dS rounded once to bf16
+in registers as the A fragments of their products, as the forward rounds
+p), in f32 (IEEE, no TF32) and for a wider bf16 head on the CUDA cores.
 ``flash_attention_bwd_plain`` spells out the same formulas over the whole
 score matrix in f32. Bound on an H100 SXM at smollm-360m's training shape
 (4, 512, 15/5, 64) in bf16: ~7.0 GFLOP of the causal products, 7 µs at the
-tensor-core peak (the CUDA cores' 67 TFLOP/s make it ~105 µs).
+tensor-core peak.
 
 Decode. One new token per row, q (B, H, D), against a KV cache k, v
 (B, W, KV, D) that is a ring buffer: slot w holds position
@@ -378,6 +382,80 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+FLASH_BWD_MMA_MAX_D = 128   # the tensor-core route's widest head
+_BWD_MMA_ROWS = 64          # rows (keys or queries) a tensor-core block
+_BWD_MMA_THREADS = 128      # a warp group: four warps of 16 rows
+
+
+class FlashBwdPlan(NamedTuple):
+    route: str     # "mma" (bf16 on the tensor cores) or "simt" (CUDA cores)
+    rows: int      # keys a dK/dV block, query rows a dQ block; as many
+                   # of the other side a tile of its ring
+    dp: int        # D padded in shared memory
+    split: int     # warp groups that split a dK/dV block's query items
+    threads: int   # threads a dQ block (a dK/dV block: split times that)
+    smem: int      # dynamic shared memory a dQ block, bytes
+    smem_dkdv: int     # dynamic shared memory a dK/dV block, bytes
+    blocks_dkdv: int   # blocks of the dK/dV launch
+    blocks_dq: int     # blocks of the dQ launch
+
+
+def _bwd_items(S: int, rows: int, causal: bool,
+               window: Optional[int]) -> List[int]:
+    """Query tiles that each key tile of a dK/dV block visits."""
+    out = []
+    for k0 in range(0, S, rows):
+        qt0 = k0 // rows if causal else 0
+        q_end = min(S, k0 + rows - 1 + window) if window else S
+        out.append(-(-q_end // rows) - qt0)
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_flash_bwd(B: int, S: int, H: int, KV: int, D: int,
+                   dtype: torch.dtype, causal: bool = True,
+                   window: Optional[int] = None) -> FlashBwdPlan:
+    """How ``flash_attention_bwd``'s kernels cut (B, S, H, KV, D), from the
+    shapes and masks alone, so a training step can be captured in a CUDA
+    graph. bf16 with D <= ``FLASH_BWD_MMA_MAX_D``: the tensor-core route,
+    D padded to a multiple of 16, 64-row blocks of four 16-row warps
+    against 64-row tiles of the other side (a 2-deep ring); a dK/dV
+    block's query items split over two warp groups (their sums added in
+    group order) where the grid leaves the card under 1.5 blocks an SM, so
+    its heaviest block sets the time: smollm-360m's causal (4, 512, 15/5)
+    microbatch, 160 blocks, the first key tile's holding 24 items (0.0970
+    ms of device time split, 0.1082 not, on an H100 SXM), but not its
+    batch of 8 (320 blocks: 0.1486 ms unsplit, 0.1556 split).
+    f32 (IEEE, no TF32) and bf16 with a wider head: the CUDA-core route at
+    the forward's widths for the dtype, 64-row tiles (32 above 128) of 256
+    threads. Raises ``ValueError`` for D > ``FLASH_MAX_D``."""
+    if D > FLASH_MAX_D:
+        raise ValueError(f"flash_attention_bwd: the CUDA kernel takes "
+                         f"head_dim up to {FLASH_MAX_D}, got {D}")
+    if dtype not in FLASH_DP:
+        raise TypeError(f"flash_attention_bwd: no CUDA kernel for {dtype}")
+    if dtype == torch.bfloat16 and D <= FLASH_BWD_MMA_MAX_D:
+        dp, rows = -(-D // 16) * 16, _BWD_MMA_ROWS
+        tile = rows * (dp + 8) * 2
+        blocks = B * KV * -(-S // rows)
+        # a dK/dV block's items (query head, query tile) run one after
+        # another in its warp group: split them over two groups where the
+        # grid leaves the card under 1.5 blocks an SM, so the heaviest
+        # blocks (the first key tiles under a causal mask) set the time
+        most = (H // KV) * max(_bwd_items(S, rows, causal, window))
+        split = 2 if 2 * blocks < 3 * SMS and most > 1 else 1
+        smem_kv = 2 * tile + 4 * split * tile + 4 * split * rows * 4
+        return FlashBwdPlan("mma", rows, dp, split, _BWD_MMA_THREADS,
+                            2 * tile + 4 * tile + 4 * rows * 4, smem_kv,
+                            blocks, B * H * -(-S // rows))
+    dp = next(w for w in FLASH_DP[dtype] if w >= D)
+    rows = 32 if dp > 128 else 64
+    ld, lp = dp + 1, rows + 1
+    smem = 4 * (4 * rows * ld + 2 * rows * lp + 2 * rows)
+    return FlashBwdPlan("simt", rows, dp, 1, 256, smem, smem,
+                        B * KV * -(-S // rows), B * H * -(-S // rows))
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
@@ -385,8 +463,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         softcap: Optional[float] = None):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` given its output ``o``,
     the rows' ``lse`` (B, H, S) f32 and the output's gradient ``do``: the
-    kernel on CUDA tensors (three launches counted as one), the plain
-    version on CPU tensors."""
+    kernels on CUDA tensors along ``plan_flash_bwd``'s route (three
+    launches counted as one), the plain version on CPU tensors."""
     _check(q, k, v)
     B, S, H, D = q.shape
     KV = k.shape[2]
@@ -405,10 +483,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention_bwd: window must be positive, "
                          f"got {window}")
-    if D > FLASH_MAX_D:
-        raise ValueError(f"flash_attention_bwd: the CUDA kernel takes "
-                         f"head_dim up to {FLASH_MAX_D}, got {D}")
-    dp = next(w for w in FLASH_DP[q.dtype] if w >= D)
+    plan = plan_flash_bwd(B, S, H, KV, D, q.dtype, causal, window)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
     if B and S and H and D:
@@ -417,13 +492,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         fn = (lib.repro_flash_attention_bwd_bf16
               if q.dtype == torch.bfloat16
               else lib.repro_flash_attention_bwd_f32)
+        route = ((int(plan.route == "mma"), plan.split)
+                 if q.dtype == torch.bfloat16 else ())
         with _native.on_device(q.device):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                     B, S, H, KV, D, int(causal),
                     int(window) if window is not None else 0,
-                    float(softcap) if softcap else 0.0, dp,
+                    float(softcap) if softcap else 0.0, plan.dp, *route,
                     _native.current_stream(q.device))
         _native.check(rc, "flash_attention_bwd")
         with _lock:

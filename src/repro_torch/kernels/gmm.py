@@ -47,19 +47,26 @@ K-major B of either path; f32: the batched tile path, which
 is the weight gradient, dw[e] = x[e]ᵀ·dy[e] with x (E, C, d) and dy (E, C,
 n), out (E, d, n) in x's dtype with an f32 accumulator, contracted over
 the first ``group_sizes[e]`` rows only (the reference's ``blk.T @ dg`` in
-``_grouped_ffn_bwd``, whose masked rows add zeros). The kernels
-(``repro_gmm_blocks_dw_*``) take the group sizes as each expert's K limit:
-rows past it are never read, whatever they hold (the next expert's
-tokens), a K step wholly past it is not taken, an expert with no rows
-writes zeros and reads nothing, and a K split past it writes zero
-partials. It runs on the same templates along ``plan_bf16_gemm(d, n, C,
-E)`` and ``plan_f32_gemm(d, n, C, False, E, True)``, with xᵀ (E, d, C)
-copied contiguous as the A operand (an A read in place is later work, as
-for ``matmul``'s dw). At granite-moe-3b-a800m's training microbatch (E 40,
-C 824, d 1536, n 512; ~410 rows an expert) both products are bound by
-operations at the tensor-core rate in bf16; the K limit halves dw's
-reads and work against full blocks. Neither wrapper is differentiable
-itself: the MoE layer's autograd Functions (``models.moe``) call them.
+``_grouped_ffn_bwd``, whose masked rows add zeros). Its kernels
+(``csrc/gmm_dw.cu``) read x and dy in place, with no copy: the
+contraction runs over the token rows, so x is the product's A operand
+M-major. They take the group sizes as each expert's K limit: rows past it
+never reach the result, whatever they hold (the next expert's tokens), a
+K step wholly past it is not taken, and an expert with no rows writes
+zeros. ``matmul.plan_gmm_dw`` picks the route from the shapes and the
+operands' alignment: in bf16 with d and n multiples of 8 and 16-byte
+aligned bases, the "tma" kernel (persistent blocks, one an SM, a TMA
+producer warp feeding a 5-deep ring to two ``wgmma`` warpgroups, 128 x 128
+output tiles; the rows past a group zeroed in shared memory); any other
+bf16 shape the ``cp.async`` tile path of ``gemm_bf16_tc.cuh`` with its A
+read M-major (``plan_bf16_gemm``'s tiles and split, never the skinny
+path); f32 the batched tile path of ``gemm_f32_paths.cuh`` with its A read
+M-major (``plan_f32_gemm``'s tile plan). At granite-moe-3b-a800m's
+training microbatch (E 40, C 824, d 1536, n 512; ~410 rows an expert)
+dw is bound by its bytes in bf16 (0.039 ms routed) and by operations in
+f32; the K limit halves its reads and work against full blocks. Neither
+wrapper is differentiable itself: the MoE layer's autograd Functions
+(``models.moe``) call them.
 
 ``gmm_blocks_plain`` is the plain version (``ref.gmm_ref``): the f32
 einsum, cast to x's dtype, rows past the group sizes set to zero;
@@ -77,8 +84,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _native
-from repro_torch.kernels.matmul import (launch_bf16, launch_f32,
-                                        plan_bf16_gemm, plan_f32_gemm)
+from repro_torch.kernels.matmul import (count_gemm_path, launch_bf16,
+                                        launch_f32, plan_bf16_gemm,
+                                        plan_f32_gemm, plan_gmm_dw)
 
 launches = {"gmm_blocks": 0, "gmm_blocks_dw": 0}
 _lock = threading.Lock()
@@ -194,17 +202,23 @@ def gmm_blocks_dw(x: torch.Tensor, dy: torch.Tensor,
     n = dy.shape[2]
     out = torch.empty((E, d, n), dtype=x.dtype, device=x.device)
     if E and d and n:
-        xt = x.transpose(1, 2).contiguous()   # the A operand (E, d, C)
-        lib = _native.library("gmm")
-        args = (xt.data_ptr(), dy.data_ptr(), out.data_ptr(), gs_ptr, E, C,
+        lib = _native.library("gmm_dw")
+        aligned = (x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+                   and out.data_ptr() % 16 == 0)
+        plan = plan_gmm_dw(d, n, C, E, x.dtype, aligned)
+        args = (x.data_ptr(), dy.data_ptr(), out.data_ptr(), gs_ptr, E, C,
                 d, n)
-        if x.dtype == torch.bfloat16:
-            launch_bf16("gmm_blocks_dw", lib.repro_gmm_blocks_dw_bf16,
-                        plan_bf16_gemm(d, n, C, E), x.device, E * d * n,
-                        *args)
+        if plan.path == "tma":
+            with _native.on_device(x.device):
+                rc = lib.repro_gmm_blocks_dw_tma_bf16(
+                    *args, plan.blocks, _native.current_stream(x.device))
+            _native.check(rc, "gmm_blocks_dw")
+            count_gemm_path(plan)
+        elif x.dtype == torch.bfloat16:
+            launch_bf16("gmm_blocks_dw", lib.repro_gmm_blocks_dw_bf16, plan,
+                        x.device, E * d * n, *args)
         else:
-            launch_f32("gmm_blocks_dw", lib.repro_gmm_blocks_dw_f32,
-                       plan_f32_gemm(d, n, C, False, E, True), x.device,
-                       E * d * n, *args)
+            launch_f32("gmm_blocks_dw", lib.repro_gmm_blocks_dw_f32, plan,
+                       x.device, E * d * n, *args)
         _count("gmm_blocks_dw")
     return out

@@ -100,9 +100,10 @@ import torch.nn.functional as F
 from repro_torch.kernels import _native
 
 launches = {"matmul": 0, "matmul_bf16": 0, "matmul_packed": 0}
-# launches of the bf16 tensor-core template (matmul and gmm_blocks) by
-# path; "split" counts the launches of either path that split K
-gemm_paths = {"tile": 0, "skinny": 0, "split": 0}
+# launches of the bf16 tensor-core kernels (matmul, gmm_blocks and
+# gmm_blocks_dw) by path ("tma": gmm_blocks_dw's TMA + wgmma kernel);
+# "split" counts the launches of any path that split K
+gemm_paths = {"tile": 0, "skinny": 0, "tma": 0, "split": 0}
 _lock = threading.Lock()
 
 
@@ -121,8 +122,8 @@ _PATH_CODE = {"skinny": 0, "tile": 1, "stream": 2}
 
 
 class GemmPlan(NamedTuple):
-    path: str     # "skinny" (M <= 16), "tile" or "stream" (f32, batched,
-                  # short K)
+    path: str     # "skinny" (M <= 16), "tile", "stream" (f32, batched,
+                  # short K) or "tma" (bf16 gmm_blocks_dw, persistent)
     bm: int       # rows a block: 16 (skinny); bf16 tile 64 / 128 (one /
                   # two warpgroups); f32 tile 64, 96 or 128; stream 128
     bn: int       # columns a block: bf16 64 (skinny), 128 (tile); f32 128
@@ -143,8 +144,14 @@ def plan_bf16_gemm(M: int, N: int, K: int, batch: int = 1) -> GemmPlan:
     blocks; where none does (smollm-360m's (64,960)x(960,960): 8 tiles,
     15 steps), by the steps themselves, one a block, as near the card's
     width as the K steps allow."""
+    return _plan_bf16(M, N, K, batch, True)
+
+
+def _plan_bf16(M: int, N: int, K: int, batch: int,
+               skinny: bool) -> GemmPlan:
+    """``plan_bf16_gemm``; without ``skinny``, the tile path at any M."""
     ksteps = -(-K // GEMM_BK)
-    if M <= SKINNY_MAX_M:
+    if skinny and M <= SKINNY_MAX_M:
         path, bm, bn = "skinny", SKINNY_MAX_M, 64
     else:
         path, bn = "tile", 128
@@ -159,7 +166,8 @@ def plan_bf16_gemm(M: int, N: int, K: int, batch: int = 1) -> GemmPlan:
     return GemmPlan(path, bm, bn, split, ksteps, tiles * split)
 
 
-def _count_path(plan: GemmPlan) -> None:
+def count_gemm_path(plan: GemmPlan) -> None:
+    """Count a launch along ``plan`` in ``gemm_paths``."""
     with _lock:
         gemm_paths[plan.path] += 1
         if plan.split > 1:
@@ -179,7 +187,7 @@ def launch_bf16(kernel: str, fn, plan: GemmPlan, device, out_elems: int,
                 None if scratch is None else scratch.data_ptr(),
                 _native.current_stream(device))
     _native.check(rc, kernel)
-    _count_path(plan)
+    count_gemm_path(plan)
 
 
 def b_layout(w: torch.Tensor) -> Optional[Tuple[bool, int]]:
@@ -234,9 +242,10 @@ def plan_f32_gemm(M: int, N: int, K: int, kmajor: bool = False,
     items are fewer) walk the 128 x 64 items, each block a contiguous
     run. At batch 1, M <= 16 takes the skinny path (128 columns a block,
     32 for a K-major w), split as ``_f32_skinny_split`` says within the x
-    slice a block holds. ``row_limit`` (the f32 ``gmm_blocks`` and
-    ``gmm_blocks_dw``: a batch with a row or K limit per entry) plans
-    without the stream path, which takes neither, and takes the skinny
+    slice a block holds. ``row_limit`` (the f32 ``gmm_blocks``: a batch
+    with a row limit per entry; ``gmm_blocks_dw`` takes the tile plan
+    alone) plans without the stream path, which takes none, and takes the
+    skinny
     path at M <= 16 at any batch for a row-major w, split over batch x
     column blocks; a K-major w with row limits (``gmm_blocks``' dx)
     takes the tile path at any M. Otherwise the tile
@@ -265,6 +274,12 @@ def plan_f32_gemm(M: int, N: int, K: int, kmajor: bool = False,
                                   F32_X_FLOATS // (F32_BK * max(M, 1)))
         return GemmPlan("skinny", SKINNY_MAX_M, bn, split, ksteps,
                         tiles * split)
+    return _f32_tile_plan(M, N, K, batch)
+
+
+def _f32_tile_plan(M: int, N: int, K: int, batch: int) -> GemmPlan:
+    """``plan_f32_gemm``'s tile plan of ``batch`` (M,K)x(K,N) GEMMs."""
+    ksteps = -(-K // F32_BK)
     best = None
     for bn in F32_TILE_BN:
         if bn == 128 and N <= 64:
@@ -284,6 +299,34 @@ def plan_f32_gemm(M: int, N: int, K: int, kmajor: bool = False,
                     best = (key, GemmPlan("tile", bm, bn, d, ksteps,
                                           tiles * d))
     return best[1]
+
+
+# gmm_blocks_dw's TMA + wgmma kernel (csrc/gmm_dw.cu): 128 x 128 output
+# tiles, stages of 64 token rows, the group sizes of at most 1024 experts
+# held in shared memory
+DW_TMA_TILE = 128
+DW_TMA_BK = 64
+DW_TMA_MAX_E = 1024
+
+
+def plan_gmm_dw(d: int, n: int, C: int, E: int, dtype: torch.dtype,
+                aligned: bool = True) -> GemmPlan:
+    """The route and tiles of ``gmm_blocks_dw`` for E experts' (d, C)x(C,
+    n) products, from the shapes and whether both operands' bases lie on
+    16 bytes (``aligned``). bf16 with d and n multiples of 8 (TMA's 16-byte
+    strides), aligned bases and at most ``DW_TMA_MAX_E`` experts: "tma",
+    ``DW_TMA_TILE`` x ``DW_TMA_TILE`` tiles walked by ``min(tiles, SMS)``
+    persistent blocks (``ksteps`` of ``DW_TMA_BK`` rows, no split). Any
+    other bf16 shape: the tile path at ``plan_bf16_gemm``'s tiles and split
+    (its A read M-major; the skinny path takes no M-major A). f32:
+    ``plan_f32_gemm``'s tile plan."""
+    if dtype == torch.float32:
+        return _f32_tile_plan(d, n, C, E)
+    if aligned and d % 8 == 0 and n % 8 == 0 and E <= DW_TMA_MAX_E:
+        tiles = E * -(-d // DW_TMA_TILE) * -(-n // DW_TMA_TILE)
+        return GemmPlan("tma", DW_TMA_TILE, DW_TMA_TILE, 1,
+                        -(-C // DW_TMA_BK), max(1, min(tiles, SMS)))
+    return _plan_bf16(d, n, C, E, False)
 
 
 def launch_f32(kernel: str, fn, plan: GemmPlan, device, out_elems: int,

@@ -65,7 +65,7 @@ KERNELS = {
     "gmm_blocks": ("src/repro_torch/csrc/gmm.cu",
                    "src/repro/kernels/gmm.py:36"),
     # no Pallas kernel: the reference's custom VJP computes dw with jnp
-    "gmm_blocks_dw": ("src/repro_torch/csrc/gmm.cu",
+    "gmm_blocks_dw": ("src/repro_torch/csrc/gmm_dw.cu",
                       "none (the reference's custom VJP computes dw with "
                       "jnp: src/repro/models/moe.py:163)"),
     "ssd_scan": ("src/repro_torch/csrc/ssd.cu",
@@ -94,6 +94,8 @@ def reset_launch_counts() -> None:
 
 
 def gemm_path_counts() -> Dict[str, int]:
-    """Launches of the bf16 tensor-core template (``matmul``,
-    ``gmm_blocks`` and ``gmm_blocks_dw``) by path: tile, skinny, and those that split K."""
+    """Launches of the bf16 tensor-core kernels (``matmul``,
+    ``gmm_blocks`` and ``gmm_blocks_dw``) by path: tile, skinny, tma
+    (``gmm_blocks_dw``'s TMA + ``wgmma`` kernel), and those that split
+    K."""
     return dict(_mm.gemm_paths)

@@ -154,6 +154,108 @@ def test_flash_bwd_bf16_matches_jax_grad():
         assert _rel(_np(t.grad), w) <= 2e-2
 
 
+def _mma_route_emulation(q, k, v, o, lse, do, causal, window, softcap):
+    """The tensor-core route's arithmetic (``csrc/flash_attention_bwd.cu``,
+    ``fab_mma_*_kernel``) in torch f32 on bf16 inputs: the score and dO·vᵀ
+    products summed in f32; P = exp(s - lse) and dS = P∘(dP - δ)[·(1 -
+    t²)]·scale formed in f32 and each rounded once to bf16 before its
+    products (dV = Pᵀ·dO, dK = dSᵀ·q, dQ = dS·k, summed in f32); δ =
+    rowsum(dO∘o) in f32; each gradient rounded to bf16 once."""
+    f, b = torch.float32, torch.bfloat16
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    qf, kf, vf, of, dof = (t.to(f) for t in (q, k, v, o, do))
+    kf, vf = (t.repeat_interleave(rep, dim=2) for t in (kf, vf))
+    scale = 1.0 / math.sqrt(D)
+    x = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    t = torch.zeros_like(x)
+    if softcap:
+        t = torch.tanh(x / softcap)
+        x = softcap * t
+    mask = A._mask(S, causal, window, q.device)
+    p = torch.where(mask, torch.exp(x - lse[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * of).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - delta) * (1 - t * t) * scale
+    pb, dsb = p.to(b).to(f), ds.to(b).to(f)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pb, dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsb, qf)
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsb, kf)
+    KV = k.shape[2]
+    dk = dk.reshape(B, S, KV, rep, D).sum(3)
+    dv = dv.reshape(B, S, KV, rep, D).sum(3)
+    return dq.to(b), dk.to(b), dv.to(b)
+
+
+@pytest.mark.parametrize("case", [
+    # B, S, H, KV, D, causal, window, softcap
+    (2, 40, 6, 2, 64, True, None, None),     # causal, GQA
+    (1, 48, 4, 2, 80, True, 9, 5.0),         # window + softcap
+    (1, 37, 4, 1, 67, True, None, None),     # ragged, D off the grid
+], ids=["causal_gqa", "window_softcap", "ragged_d67"])
+def test_flash_bwd_mma_rounding_matches_jax_grad(case):
+    """The tensor-core route's rounding points (P and dS rounded to bf16
+    before their products), emulated at a small shape on bf16 inputs with
+    the plain forward's o and lse: within 2e-2 of ``jax.vjp`` of
+    ``flash_attention_ref`` on the same bf16 inputs and of
+    ``flash_attention_bwd_plain`` (unrounded P and dS), per gradient; the
+    route ``plan_flash_bwd`` gives that shape is the tensor cores."""
+    B, S, H, KV, D, causal, window, softcap = case
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    assert A.plan_flash_bwd(B, S, H, KV, D, torch.bfloat16, causal,
+                            window).route == "mma"
+    q, k, v, do = _flash_inputs(B, S, H, KV, D, seed=5)
+    want = _flash_ref_grads(q, k, v, do, "bfloat16", **kw)
+    tq, tk, tv, tdo = (_tensor(x, "bfloat16") for x in (q, k, v, do))
+    o, lse = A.flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    got = _mma_route_emulation(tq, tk, tv, o, lse, tdo, causal, window,
+                               softcap)
+    plain = A.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, **kw)
+    for g, w, pl in zip(got, want, plain):
+        assert g.dtype == torch.bfloat16
+        assert _rel(_np(g), w) <= 2e-2
+        assert _rel(_np(g), _np(pl)) <= 2e-2
+
+
+def test_plan_flash_bwd_routes_and_tiles():
+    """``plan_flash_bwd`` from the shapes and masks alone: bf16 heads up to
+    128 on the tensor cores, D padded to a multiple of 16 (64, 80, 128; 67
+    to 80), 64-row blocks of 4 warps (a dK/dV block split over two warp
+    groups where its heaviest block sets the time), 64-row tiles of DP + 8
+    bf16 and the ring's lse and δ in shared memory; a 256-wide bf16 head
+    and every f32
+    shape on the CUDA cores at the forward's widths (f32 D 80 at 96), in
+    64-row tiles (32 above 128) of 256 threads; D past 256 refused."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for D, dp in ((64, 64), (80, 80), (128, 128), (67, 80), (16, 16)):
+        p = A.plan_flash_bwd(4, 512, 15, 5, D, bf)
+        assert (p.route, p.dp, p.rows, p.threads) == ("mma", dp, 64, 128)
+        tile = 64 * (dp + 8) * 2
+        assert p.smem == 6 * tile + 4 * 64 * 4
+        assert p.smem_dkdv == (2 + 4 * p.split) * tile + 4 * p.split * 256
+        assert (p.blocks_dkdv, p.blocks_dq) == (4 * 5 * 8, 4 * 15 * 8)
+    # the causal smollm-360m microbatch: 160 dK/dV blocks, the first key
+    # tile's holding 3 heads x 8 query tiles, so two warp groups share
+    # them; its batch of 8 (320 blocks), zamba2's (4, 512, 32/32, 80)
+    # (1024) and a windowed (1, 1024, 32/16, 128) (256) fill the card
+    assert A.plan_flash_bwd(4, 512, 15, 5, 64, bf).split == 2
+    for shape in ((8, 512, 15, 5, 64), (4, 512, 32, 32, 80),
+                  (1, 1024, 32, 16, 128)):
+        assert A.plan_flash_bwd(*shape, bf, True, 256).split == 1
+    p = A.plan_flash_bwd(1, 256, 4, 4, 256, bf)
+    assert (p.route, p.dp, p.rows, p.threads, p.split) == ("simt", 256, 32,
+                                                           256, 1)
+    assert (p.blocks_dkdv, p.blocks_dq) == (4 * 8, 4 * 8)
+    for D, dp in ((64, 64), (80, 96), (128, 128)):
+        p = A.plan_flash_bwd(8, 512, 15, 5, D, f32)
+        assert (p.route, p.dp, p.rows, p.threads) == ("simt", dp, 64, 256)
+    # the masks change no route, width or tile
+    assert A.plan_flash_bwd(1, 1024, 32, 16, 128, bf, True, 256)[:3] == \
+        A.plan_flash_bwd(1, 1024, 32, 16, 128, bf, False, None)[:3]
+    with pytest.raises(ValueError, match="head_dim"):
+        A.plan_flash_bwd(1, 64, 2, 1, 300, bf)
+
+
 def test_flash_inference_takes_no_function():
     """Without grad (grad mode off, or no input requiring grad) the call is
     the plain wrapper: no ``grad_fn``."""
@@ -300,7 +402,8 @@ def test_flash_function_passes_lse_and_bwd_its_args(fake_kernels):
     """Under grad the forward hands ``repro_flash_attention_bf16`` an lse
     buffer (inference passes None); the backward reaches
     ``repro_flash_attention_bwd_bf16`` with that lse, a delta scratch, the
-    masks, softcap and the padded width, one launch counted each."""
+    masks, softcap, the padded width, the tensor-core route and the
+    planned split, one launch counted each."""
     B, S, H, KV, D = 2, 100, 6, 2, 80
     q = torch.zeros(B, S, H, D, dtype=torch.bfloat16, requires_grad=True)
     k = torch.zeros(B, S, KV, D, dtype=torch.bfloat16, requires_grad=True)
@@ -315,7 +418,8 @@ def test_flash_function_passes_lse_and_bwd_its_args(fake_kernels):
     assert bwd[3] == fwd[3]                               # o
     assert bwd[6] is not None                             # delta scratch
     assert bwd[10:18] == (B, S, H, KV, D, 1, 33, 7.5)
-    assert bwd[18] == 80
+    plan = A.plan_flash_bwd(B, S, H, KV, D, torch.bfloat16, True, 33)
+    assert bwd[18:21] == (80, 1, plan.split)     # dp, the mma route, split
     assert q.grad.shape == q.shape and k.grad.shape == k.shape
     counts = ops.launch_counts()
     assert counts["flash_attention"] == 1

@@ -144,6 +144,84 @@ def test_gmm_blocks_dw_ignores_rows_past_the_groups():
     assert torch.equal(got[1], torch.full((3, 4), 4.0))
 
 
+def test_gmm_blocks_dw_plain_nan_past_groups_matches_reference_bwd():
+    """The three dw of the reference's ``_grouped_ffn_bwd`` (dwg = blkᵀ·dg,
+    dwu = blkᵀ·du, dwd = hᵀ·dyb, scanned over the experts) against
+    ``gmm_blocks_dw_plain`` on the same blocks with every row past a
+    group NaN in both operands (where the kernel's rows hold the next
+    expert's tokens): the rows within the groups alone reach the result,
+    an expert with no rows gives zeros."""
+    E, d, ff, C = 3, 16, 24, 12
+    sizes = np.array([5, 0, 9])
+    M = int(sizes.sum())
+    rng = _rng(E, d, ff, C, 9)
+    xs = (rng.standard_normal((M, d)) * 0.5).astype(np.float32)
+    wg, wu = ((rng.standard_normal((E, d, ff)) * d ** -0.5).astype(
+        np.float32) for _ in range(2))
+    wd = (rng.standard_normal((E, ff, d)) * ff ** -0.5).astype(np.float32)
+    dy = rng.standard_normal((M, d)).astype(np.float32)
+    _, _, dwg, dwu, dwd = RM._grouped_ffn_bwd(
+        C, (jnp.asarray(xs), jnp.asarray(sizes), jnp.asarray(wg),
+            jnp.asarray(wu), jnp.asarray(wd)), jnp.asarray(dy))
+    # the blocks of the reference's scan body, in f32 numpy
+    offsets = np.cumsum(sizes) - sizes
+    rows = offsets[:, None] + np.arange(C)[None, :]
+    keep = (np.arange(C)[None, :] < sizes[:, None])[..., None]
+    blk = np.pad(xs, ((0, C), (0, 0)))[rows]
+    dyb = np.where(keep, np.pad(dy, ((0, C), (0, 0)))[rows], 0)
+    g, u = blk @ wg, blk @ wu
+    sg = 1 / (1 + np.exp(-g))
+    silu_g = g * sg
+    h = silu_g * u
+    dh = dyb @ np.swapaxes(wd, 1, 2)
+    du = dh * silu_g
+    dg = dh * u * (sg * (1 + g * (1 - sg)))
+    gs = torch.tensor(sizes, dtype=torch.int32)
+
+    def nan_past(a):
+        return torch.from_numpy(np.where(keep, a, np.nan).astype(np.float32))
+
+    for a, b, want in ((blk, dg, dwg), (blk, du, dwu), (h, dyb, dwd)):
+        got = gmm_blocks_dw_plain(nan_past(a), nan_past(b), gs)
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, want) <= 1e-5
+        assert not got[1].any()
+
+
+def test_gmm_dw_plan_routes_by_alignment_and_divisibility():
+    """``plan_gmm_dw``: bf16 with d and n multiples of 8 and aligned bases
+    takes the TMA kernel (``min(tiles, SMS)`` persistent blocks of 128 x 128
+    tiles, ``ceil(C / 64)`` K steps); an unaligned base or a d or n off the
+    8-element grid takes the tile path at ``plan_bf16_gemm``'s tiles and
+    split, never the skinny path (which takes no M-major A); f32 takes
+    ``plan_f32_gemm``'s tile plan."""
+    from repro_torch.kernels.gmm import plan_gmm_dw
+    from repro_torch.kernels.matmul import (SMS, plan_bf16_gemm,
+                                            plan_f32_gemm)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    assert plan_gmm_dw(1536, 512, 824, 40, bf) == ("tma", 128, 128, 1, 13,
+                                                   SMS)
+    # few tiles: one persistent block a tile (chip_smoke.py's ragged TMA
+    # row: boxes past d 200 and n 72, six tiles)
+    assert plan_gmm_dw(64, 64, 100, 3, bf) == ("tma", 128, 128, 1, 2, 3)
+    assert plan_gmm_dw(200, 72, 40, 3, bf) == ("tma", 128, 128, 1, 1, 6)
+    for d, n, aligned in ((1536, 512, False), (20, 512, True),
+                          (1536, 9, True), (12, 40, True)):
+        p = plan_gmm_dw(d, n, 824, 40, bf, aligned)
+        q = plan_bf16_gemm(d, n, 824, 40)
+        assert p.path == "tile", (d, n, aligned)
+        if q.path == "tile":
+            assert p == q
+        else:   # d <= 16: the tile path in 64-row tiles
+            assert p.bm == 64 and q.path == "skinny"
+    for d, n in ((1536, 512), (12, 40), (8, 8)):
+        p = plan_gmm_dw(d, n, 824, 40, f32)
+        assert p.path == "tile"
+        if d > 16:
+            assert p == plan_f32_gemm(d, n, 824, False, 40, True)
+
+
 def test_gmm_blocks_dw_bf16_rounds_once():
     """bf16 in, an f32 sum, the result rounded to bf16 once."""
     rng = _rng(7)
@@ -250,14 +328,17 @@ def test_gmm_dx_wrapper_reads_w_kmajor_in_place(fake_kernels, E, C, d, n,
 @pytest.mark.parametrize("E,C,d,n", TRAIN_SHAPES)
 def test_gmm_dw_wrapper_passes_group_sizes_as_k_limits(fake_kernels, E, C,
                                                        d, n, dtype):
-    """``gmm_blocks_dw(x, dy, gs)`` hands ``repro_gmm_blocks_dw_*`` xᵀ
-    (a contiguous copy, the A operand), dy in place, the group sizes as
-    they lie (each expert's K limit, read on the device) and the plan of
-    (d, n, C) (bf16: ``plan_bf16_gemm(d, n, C, E)``; f32:
-    ``plan_f32_gemm(d, n, C, False, E, True)``), a scratch only for a
-    split; one ``gmm_blocks_dw`` launch counted, none of ``gmm_blocks``."""
-    from repro_torch.kernels.matmul import (_PATH_CODE, plan_bf16_gemm,
-                                            plan_f32_gemm)
+    """``gmm_blocks_dw(x, dy, gs)`` hands its kernel x and dy in place (no
+    xᵀ copy: x is read M-major), the group sizes as they lie (each
+    expert's K limit, read on the device) and ``plan_gmm_dw``'s plan of
+    (d, n, C, E): in bf16 at granite's shape (d, n multiples of 8, aligned)
+    ``repro_gmm_blocks_dw_tma_bf16`` with its persistent blocks, at the
+    ragged shape ``repro_gmm_blocks_dw_bf16`` on the tile path with a
+    scratch only for a split; in f32 ``repro_gmm_blocks_dw_f32`` on the
+    tile path. One ``gmm_blocks_dw`` launch counted, none of
+    ``gmm_blocks``; a bf16 launch counted by its path."""
+    from repro_torch.kernels.gmm import plan_gmm_dw
+    from repro_torch.kernels.matmul import _PATH_CODE
 
     x = torch.zeros(E, C, d, dtype=dtype)
     dy = torch.zeros(E, C, n, dtype=dtype)
@@ -265,17 +346,25 @@ def test_gmm_dw_wrapper_passes_group_sizes_as_k_limits(fake_kernels, E, C,
     out = ops.gmm_blocks_dw(x, dy, gs)
     assert out.shape == (E, d, n) and out.dtype == dtype
     (name, args), = fake_kernels
-    assert args[0] != x.data_ptr()
-    assert args[1:8] == (dy.data_ptr(), out.data_ptr(), gs.data_ptr(), E, C,
-                         d, n)
-    if dtype == torch.bfloat16:
+    assert args[:8] == (x.data_ptr(), dy.data_ptr(), out.data_ptr(),
+                        gs.data_ptr(), E, C, d, n)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, out))
+    p = plan_gmm_dw(d, n, C, E, dtype, aligned)
+    if dtype == torch.bfloat16 and p.path == "tma":
+        assert name == "repro_gmm_blocks_dw_tma_bf16"
+        assert (E, C, d, n) == (40, 824, 1536, 512)
+        assert args[8] == p.blocks and len(args) == 10
+        assert p.blocks == 132
+        assert ops.gemm_path_counts()["tma"] == 1
+    elif dtype == torch.bfloat16:
         assert name == "repro_gmm_blocks_dw_bf16"
-        p = plan_bf16_gemm(d, n, C, E)
+        assert p.path == "tile"
         assert args[8:11] == (_PATH_CODE[p.path], p.bm, p.split)
         assert (args[11] is None) == (p.split == 1)
+        assert ops.gemm_path_counts()["tile"] == 1
     else:
         assert name == "repro_gmm_blocks_dw_f32"
-        p = plan_f32_gemm(d, n, C, False, E, True)
+        assert p.path == "tile"
         assert args[8:12] == (_PATH_CODE[p.path], p.bm, p.bn, p.split)
         assert (args[12] is None) == (p.split == 1)
     counts = ops.launch_counts()
@@ -285,18 +374,27 @@ def test_gmm_dw_wrapper_passes_group_sizes_as_k_limits(fake_kernels, E, C,
 def test_plans_at_the_training_microbatch():
     """The plans the backward's products take at granite's training
     microbatch (E 40, C 824, d 1536, ff 512), frozen: dx (dh (C, ff, d),
-    dblk (C, d, ff)) and dw (dwg (d, ff, C), dwd (ff, d, C)) on the bf16
-    tile path with 128-row tiles and no split (1120 to 3360 tiles), and
-    on the f32 tile path in 128 x 128 tiles, likewise unsplit."""
+    dblk (C, d, ff)) on the bf16 tile path with 128-row tiles and no split
+    (1120 to 3360 tiles) and on the f32 tile path in 128 x 128 tiles,
+    likewise unsplit; dw (dwg (d, ff, C), dwd (ff, d, C)) through
+    ``plan_gmm_dw``: in bf16 the TMA kernel's 128 x 128 tiles over 132
+    persistent blocks, 13 K steps of 64 rows; in f32 the tile path in 128 x
+    128 tiles, unsplit, its 52 K steps of 16."""
+    from repro_torch.kernels.gmm import plan_gmm_dw
     from repro_torch.kernels.matmul import plan_bf16_gemm, plan_f32_gemm
 
     E, C, d, ff = 40, 824, 1536, 512
-    for M, N, K in ((C, ff, d), (C, d, ff), (d, ff, C), (ff, d, C)):
+    for M, N, K in ((C, ff, d), (C, d, ff)):
         p = plan_bf16_gemm(M, N, K, E)
         assert (p.path, p.bm, p.split) == ("tile", 128, 1), (M, N, K)
-        for kmajor in ((True,) if M == C else (False,)):
-            q = plan_f32_gemm(M, N, K, kmajor, E, True)
-            assert (q.path, q.bm, q.bn, q.split) == ("tile", 128, 128, 1)
+        q = plan_f32_gemm(M, N, K, True, E, True)
+        assert (q.path, q.bm, q.bn, q.split) == ("tile", 128, 128, 1)
+    for M, N in ((d, ff), (ff, d)):
+        p = plan_gmm_dw(M, N, C, E, torch.bfloat16)
+        assert p == ("tma", 128, 128, 1, 13, 132), (M, N)
+        q = plan_gmm_dw(M, N, C, E, torch.float32)
+        assert (q.path, q.bm, q.bn, q.split, q.ksteps) == ("tile", 128,
+                                                           128, 1, 52)
 
 
 # ---------------------------------------------------------------------------

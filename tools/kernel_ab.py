@@ -77,9 +77,13 @@ DECODE_ROWS = [("smollm_B1_W82", 1, 82, 15, 5, 64),
                ("granite_B4_W4096", 4, 4096, 24, 8, 64)]
 
 # (row, B, S, H, KV, D, dtype, window, softcap): the training path's
-# attention backward (smollm-360m's microbatch of 4 x 512 in bf16, the
-# batch of 8 in f32) and a windowed, softcapped shape of gemma2's kind
+# attention backward (smollm-360m's microbatch of 4 x 512 and the batch of
+# 8 in bf16, the batch of 8 in f32; zamba2-2.7b's microbatch, head dim 80)
+# and a windowed, softcapped shape of gemma2's kind
 FLASH_BWD_ROWS = [("smollm_mb", 4, 512, 15, 5, 64, "bfloat16", None, None),
+                  ("smollm_B8", 8, 512, 15, 5, 64, "bfloat16", None, None),
+                  ("zamba2_mb", 4, 512, 32, 32, 80, "bfloat16", None,
+                   None),
                   ("smollm_B8_f32", 8, 512, 15, 5, 64, "float32", None,
                    None),
                   ("gemma2_window_softcap", 1, 1024, 32, 16, 128,
@@ -174,7 +178,8 @@ LIBRARY = {"decode": "decode_attention", "matmul": "matmul",
            "flash": "flash_attention", "flash_bwd": "flash_attention_bwd",
            "winograd": "conv_winograd",
            "ssd_scan": "ssd", "packed": "matmul", "dequant_int8": "quant",
-           "dequant_int4": "quant", "gmm_f32": "gmm", "gmm_bwd": "gmm"}
+           "dequant_int4": "quant", "gmm_f32": "gmm",
+           "gmm_bwd": ("gmm", "gmm_dw")}
 
 
 def main() -> int:
@@ -260,7 +265,7 @@ def main() -> int:
             return None
 
     def row(kernel, name, fn, plain, library, plan=None,
-            library_graph=True):
+            library_graph=True, profiled=False):
         torch.cuda.synchronize()
         try:
             with torch.cuda.stream(stream):
@@ -282,15 +287,24 @@ def main() -> int:
                                      and device_ms(library)) or None}
         if args.phases:
             rec["phases_ms"] = phases(fn)
+        if profiled:   # one ruler for the kernel and an uncapturable library
+            rec["profiled_ms"] = sum(phases(fn).values())
+            rec["library_profiled_ms"] = (library
+                                          and sum(phases(library).values()))
         print(json.dumps(rec), flush=True)
 
     def phases(fn, n=10):
-        """Device ms a call of each kernel that ``fn`` launches, by name."""
+        """Device ms a call of each kernel that ``fn`` launches, by name
+        (``torch.profiler``, the calls on the row's stream, as
+        ``chip_smoke.py``'s ``profiled_ms`` takes them)."""
         from torch.profiler import ProfilerActivity, profile
+        with torch.cuda.stream(stream):
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
+            with torch.cuda.stream(stream):
+                for _ in range(n):
+                    fn()
             torch.cuda.synchronize()
         out = {}
         for e in prof.key_averages():
@@ -303,7 +317,9 @@ def main() -> int:
 
     # the libraries the chosen rows launch, built together (one nvcc each)
     from repro_torch.kernels import _native
-    libs = {LIBRARY[k] for k in only} & set(_native.SOURCES)
+    libs = {lib for k in only
+            for lib in ((LIBRARY[k],) if isinstance(LIBRARY[k], str)
+                        else LIBRARY[k])} & set(_native.SOURCES)
     if "flash_bwd" in only:    # its rows run the forward for o and lse
         libs.add("flash_attention")
     _native.build_all(sorted(libs))
@@ -445,8 +461,23 @@ def main() -> int:
         def plain():
             return A.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
 
-        row("flash_attention_bwd", name, call, plain, lib,
-            {"window": win, "softcap": cap}, library_graph=False)
+        plan = {"window": win, "softcap": cap}
+        if hasattr(A, "plan_flash_bwd"):
+            plan.update(A.plan_flash_bwd(B, S, H, KV, D, dt, True,
+                                         win)._asdict())
+        row("flash_attention_bwd", name, call, plain, lib, plan,
+            library_graph=False, profiled=True)
+        if args.variants and plan.get("route") == "mma":
+            # the other dK/dV split
+            orig = A.plan_flash_bwd
+            var = orig(B, S, H, KV, D, dt, True, win)
+            var = var._replace(split=3 - var.split)
+            A.plan_flash_bwd = lambda *a, var=var: var
+            try:
+                row("flash_attention_bwd", f"{name}_split{var.split}", call,
+                    plain, None, var._asdict())
+            finally:
+                A.plan_flash_bwd = orig
 
     from repro_torch.kernels import conv_winograd as CW
     for name, T, C, O in WINO_ROWS if "winograd" in only else []:
@@ -685,8 +716,11 @@ def main() -> int:
 
             def lib(xm=xm, dym=dym):
                 return torch.bmm(xm.transpose(1, 2), dym)
+        plan = {"rows": int(gs.sum()), "experts": E, "C": C}
+        if kind == "dw" and hasattr(GMM, "plan_gmm_dw"):
+            plan.update(GMM.plan_gmm_dw(K, N, C, E, dt)._asdict())
         row("gmm_blocks" if kind == "dx" else "gmm_blocks_dw", name, call,
-            plain, lib, {"rows": int(gs.sum()), "experts": E, "C": C})
+            plain, lib, plan)
 
     if args.ptxas:
         for lib_name, log in _native.build_logs.items():
