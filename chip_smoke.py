@@ -92,13 +92,18 @@ Run from the root of a checkout, on a machine with a CUDA card and
      ``torch.bmm`` on the masked blocks, two launches bitwise equal, each
      output handed a NaN-filled block, a device time, each row printing
      its plan; ``ssd_scan_bwd`` (the backward of the
-     scan, six launches counted as one) at mamba2-2.7b's training
+     scan, five launches counted as one) at mamba2-2.7b's training
      microbatch (B 4, S 512, two 256-token chunks) in bf16 and f32,
-     zamba2-2.7b's (N 64) in bf16, and mamba2 at S 1024 from a random
-     state under a nonzero gradient of the final state, its seven
-     gradients against ``ssd_scan_bwd_plain`` on the kernel forward's
-     cum, CB and chunk-entry states, two launches bitwise equal, each
-     output handed a NaN-filled block, a device time; with
+     zamba2-2.7b's (N 64) in bf16, mamba2 at S 1024 from a random state
+     under a nonzero gradient of the final state, a ragged bf16 shape
+     (35 heads in groups of 2, P 48, N 96, Q 200) and a ragged one in
+     bf16 and f32 (a 320-token chunk whose fifth row tile's dCB terms go
+     through global memory, P 40, N 72),
+     its seven gradients against ``ssd_scan_bwd_plain`` on the kernel
+     forward's cum, CB and chunk-entry states, two launches bitwise
+     equal, each output handed a NaN-filled block, a device time, each
+     row printing its ``plan_ssd_bwd`` plan and each launch's device time
+     (``torch.profiler``); with
      ``--kernels-only`` the script stops here (a first check of a new
      kernel, without the paths or a result line);
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
@@ -242,8 +247,10 @@ Run from the root of a checkout, on a machine with a CUDA card and
      groups) each leaf within ``TRAIN_BF16_TOL`` or each block in
      lockstep (mamba blocks and each shared-block application, the
      amplification printed), two steps bitwise equal, the loss falling
-     over ``SSM_TRAIN_CURVE`` = 10 steps, ms a step, tokens/s, a step's
-     device busy and idle;
+     over ``SSM_TRAIN_CURVE`` = 10 steps (peak lr 3e-3; zamba2's at
+     ``HYBRID_TRAIN_LR`` 1e-3 to below ``HYBRID_TRAIN_FALL`` of its
+     first), ms a step, tokens/s, a step's device busy
+     and idle;
   8. fails unless every kernel of a path launched during that path's runs
      (each path's launch counts are zeroed just before its runs and read
      just after; the fleet's are its served requests' own;
@@ -373,6 +380,14 @@ SSM_TRAIN_F32_DEPTH = 2
 HYBRID_TRAIN_DEPTH = 12
 HYBRID_TRAIN_F32_DEPTH = 6
 SSM_TRAIN_CURVE = 10
+# the hybrid's curve peaks at lr 1e-3 and must end below HYBRID_TRAIN_FALL
+# of its first loss: at 3e-3 a bf16 zamba2-2.7b at 12 layers spikes after
+# the warmup (the loss 1.19 at step 4, ~14 at step 6) under every rounding
+# of the backward's sums tried, so whether its last loss ended below its
+# first was a draw (PERF.md §6); at 1e-3 every such rounding falls from
+# ~10.9 to ~1e-3, a ten-thousandth
+HYBRID_TRAIN_LR = 1e-3
+HYBRID_TRAIN_FALL = 1e-2
 # whole-model MoE runs, kernels against plain: the share of (token, expert)
 # assignments that must agree (a wrong hidden state routes near k/E = 0.2)
 ROUTE_AGREE = 0.9
@@ -2219,10 +2234,11 @@ def lockstep_block_grads(params, cfg, batch, dev):
 
 
 def train_steps_held(gates, cfg, params, batch, curve, calls, gate_step,
-                     card, extra):
-    """``make_train_step`` (remat, lr 3e-3, warmup 5) on ``batch``: two
+                     card, extra, lr=3e-3, fall=1.0):
+    """``make_train_step`` (remat, peak ``lr``, warmup 5) on ``batch``: two
     steps from copies of one state must give bitwise-equal params and
-    moments; the loss over ``curve`` steps must fall; ms a step, tokens/s,
+    moments; the loss over ``curve`` steps must end below ``fall`` times
+    its first; ms a step, tokens/s,
     and two steps' device busy and idle (``profile_steps``, the kernels
     named by ``extra``)."""
     import numpy as np
@@ -2233,7 +2249,7 @@ def train_steps_held(gates, cfg, params, batch, curve, calls, gate_step,
     from repro_torch.train import make_train_step
 
     L, n, tokens = cfg.num_layers, TRAIN_MICRO, TRAIN_BATCH * TRAIN_SEQ
-    step = make_train_step(cfg, lr=3e-3, warmup=5, total_steps=curve,
+    step = make_train_step(cfg, lr=lr, warmup=5, total_steps=curve,
                            num_microbatches=n, remat=True)
     opt = adamw_init(params)
     p2, o2 = pytree.tree_map(lambda t: t.detach().clone(), (params, opt))
@@ -2260,14 +2276,14 @@ def train_steps_held(gates, cfg, params, batch, curve, calls, gate_step,
             losses.append(mi["loss"])
     losses = losses[:1] + [t.item() for t in losses[1:]]
     dt = time.perf_counter() - t0
-    print(f"  loss over {curve} steps on batch_at(0) (lr 3e-3, warmup 5): "
+    print(f"  loss over {curve} steps on batch_at(0) (lr {lr:g}, warmup 5): "
           + " ".join(f"{x:.4f}" for x in losses))
     print(f"  {cfg.dtype} train step, {L} layers, {tokens} tokens in {n} "
           f"microbatches, remat: {dt * 1e3 / (curve - 1):.1f} ms/step "
           f"wall, {tokens * (curve - 1) / dt:,.0f} tokens/s ({card})")
-    gates.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-                f"the loss does not fall over {curve} steps: "
-                f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    gates.check(all(np.isfinite(losses)) and losses[-1] < fall * losses[0],
+                f"the loss does not fall below {fall:g} of its first over "
+                f"{curve} steps: {losses[0]:.4f} -> {losses[-1]:.4f}")
     state = [params, opt]
 
     def one_step(i):
@@ -2595,7 +2611,9 @@ def ssm_training_path(dev, card: str) -> dict:
     blocks and each application of the shared block; run and printed
     either way, with the amplification); two ``make_train_step`` steps from
     copies of one state bitwise equal; the loss falling over
-    ``SSM_TRAIN_CURVE`` steps on ``batch_at(0)``; ms a step, tokens/s and a
+    ``SSM_TRAIN_CURVE`` steps on ``batch_at(0)`` (the hybrid's at peak lr
+    ``HYBRID_TRAIN_LR``, to below ``HYBRID_TRAIN_FALL`` of its first); ms a
+    step, tokens/s and a
     step's device busy and idle. Launch gates a microbatch: ``ssd_scan``
     once a mamba layer (twice with remat), ``ssd_scan_bwd`` once;
     ``flash_attention`` once a shared-block application (twice with
@@ -2631,9 +2649,10 @@ def ssm_training_path(dev, card: str) -> dict:
         gates.launched(label, mm, counts[mm], (4 * F - 1 if remat else 3 * F)
                        * n)
 
-    for arch, f32_depth, depth in (
-            ("mamba2-2.7b", SSM_TRAIN_F32_DEPTH, SSM_TRAIN_DEPTH),
-            ("zamba2-2.7b", HYBRID_TRAIN_F32_DEPTH, HYBRID_TRAIN_DEPTH)):
+    for arch, f32_depth, depth, lr, fall in (
+            ("mamba2-2.7b", SSM_TRAIN_F32_DEPTH, SSM_TRAIN_DEPTH, 3e-3, 1.0),
+            ("zamba2-2.7b", HYBRID_TRAIN_F32_DEPTH, HYBRID_TRAIN_DEPTH,
+             HYBRID_TRAIN_LR, HYBRID_TRAIN_FALL)):
         base = get_config(arch)
         print(f"ssm training path: {base.name} full width (d_model "
               f"{base.d_model}, {base.ssm_heads} SSM heads of P "
@@ -2694,7 +2713,7 @@ def ssm_training_path(dev, card: str) -> dict:
         train_steps_held(gates, cfg, params, batch, SSM_TRAIN_CURVE,
                          plain_calls, gate_step, card,
                          ("ssd_bwd", "ssd_", "gemm_", "fab_", "elementwise",
-                          "reduce"))
+                          "reduce"), lr, fall)
         del params, batch
         torch.cuda.empty_cache()
     print(f"  ssm training path launches: "
@@ -2999,7 +3018,8 @@ def main() -> None:
     from repro_torch.kernels.matmul import (matmul_packed_plain, matmul_plain,
                                             plan_bf16_gemm, plan_f32_gemm)
     from repro_torch.kernels.ssd import _ssd_forward as ssd_forward
-    from repro_torch.kernels.ssd import (plan_ssd, ssd_scan_bwd_plain,
+    from repro_torch.kernels.ssd import (plan_ssd, plan_ssd_bwd,
+                                         ssd_scan_bwd_plain,
                                          ssd_scan_plain)
     from repro_torch.models.cnn import build_cnn
 
@@ -3119,6 +3139,27 @@ def main() -> None:
             stream.synchronize()
         total = sum(e.self_device_time_total for e in prof.key_averages())
         return total / 1e3 / n if total > 0 else None
+
+    def launch_split(fn, n=3):
+        """Device ms a call of each kernel ``fn`` launches, by name
+        (``torch.profiler`` over ``n`` calls on the check stream)."""
+        from torch.profiler import ProfilerActivity, profile
+        with torch.cuda.stream(stream):
+            fn()
+        stream.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with torch.cuda.stream(stream):
+                for _ in range(n):
+                    fn()
+            stream.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                m = re.search(r"(\w+_kernel)", e.key)
+                key = m.group(1) if m else e.key[:60]
+                ms = e.self_device_time_total / 1e3 / n
+                out[key] = out.get(key, 0.0) + ms
+        return out
 
     def bound(flops, nbytes, dtype="float32"):
         t_ops, t_bytes = flops / peaks[dtype], nbytes / peaks["bytes"]
@@ -4026,12 +4067,16 @@ def main() -> None:
 
     print("kernels vs plain versions (ssd_scan_bwd, the backward of the scan: "
           "mamba2-2.7b's training microbatch (B 4, S 512, two chunks) in "
-          "bf16 and f32, zamba2-2.7b's (N 64) in bf16, and mamba2 at S 1024 "
-          "from a random state under a nonzero gradient of the final state; "
-          "the forward's cum, CB and chunk-entry states from the kernels; "
-          "the seven gradients each held to the plain backward's; the bound "
+          "bf16 and f32, zamba2-2.7b's (N 64) in bf16, mamba2 at S 1024 "
+          "from a random state under a nonzero gradient of the final state, "
+          "a ragged bf16 shape (35 heads, P 48, N 96, Q 200) and a ragged "
+          "one in bf16 and f32 (a 320-token chunk, P 40, N 72); the "
+          "forward's cum, CB and chunk-entry states from the kernels; the "
+          "seven gradients each held to the plain backward's; each row's "
+          "plan_ssd_bwd plan and each launch's device time; the bound "
           "counts the products over each chunk's lower triangle at x's "
           "type's peak; library: none, no one PyTorch call computes it):")
+    t_rows, t_split = time.perf_counter(), 0.0
     for tag, B, S, H, P, N, Q, dt, init in [
             ("mamba2_mb", 4, 512, 80, 64, 128, 256, torch.bfloat16, False),
             ("mamba2_mb_f32", 4, 512, 80, 64, 128, 256, torch.float32,
@@ -4039,7 +4084,13 @@ def main() -> None:
             ("zamba2_mb_N64", 4, 512, 80, 64, 64, 256, torch.bfloat16,
              False),
             ("mamba2_S1024_init_dfinal", 1, 1024, 80, 64, 128, 256,
-             torch.bfloat16, True)]:
+             torch.bfloat16, True),
+            ("ragged_H35_P48_N96_Q200", 1, 400, 35, 48, 96, 200,
+             torch.bfloat16, True),
+            ("ragged_Q320_P40_N72", 1, 640, 6, 40, 72, 320, torch.bfloat16,
+             False),
+            ("ragged_Q320_P40_N72_f32", 1, 640, 6, 40, 72, 320,
+             torch.float32, False)]:
         x = rand(B, S, H, P, dtype=dt, scale=0.3)
         sdt = (torch.from_numpy(np.abs(rng.standard_normal(
             (B, S, H))).astype(np.float32)) * 0.3).to(dev)
@@ -4064,9 +4115,13 @@ def main() -> None:
                   + 4 * (3 * B * S * H + 4 * H + B * nc * pairs)
                   + 4 * B * nc * H * N * P
                   + 4 * B * H * P * N * (1 + int(init)))
+        bplan = plan_ssd_bwd(B, S, H, P, N, Q, dt)
         r = check(f"ssd_scan_bwd {tag} B={B} S={S} H={H} P={P} N={N} Q={Q} "
-                  f"{dname} init_state={init} d_final={init} (six launches: "
-                  f"din, pass, chunk, dcb, bc, ad)",
+                  f"{dname} init_state={init} d_final={init} (five launches: "
+                  f"din, pass, chunk, bc, scan; {bplan.heads} heads a chunk "
+                  f"block in {bplan.groups} groups, blocks {bplan.blocks}, "
+                  f"{bplan.smem} B of shared memory, {bplan.scratch} B of "
+                  f"scratch)",
                   lambda: ops.ssd_scan_bwd(x, sdt, A, Bm, Cm, D, cum, cb,
                                            ins, dy, dfin),
                   lambda: ssd_scan_bwd_plain(x, sdt, A, Bm, Cm, D, cum, cb,
@@ -4076,8 +4131,17 @@ def main() -> None:
                            ((H,), torch.float32), ((B, S, N), dt),
                            ((B, S, N), dt), ((H,), torch.float32),
                            ((B, H, P, N), torch.float32)])
-        results.setdefault("ssd_scan_bwd", {})[tag] = r
+        t0 = time.perf_counter()
+        split = launch_split(lambda: ops.ssd_scan_bwd(
+            x, sdt, A, Bm, Cm, D, cum, cb, ins, dy, dfin))
+        t_split += time.perf_counter() - t0
+        print(f"    device ms a launch: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+        results.setdefault("ssd_scan_bwd", {})[tag] = {
+            **r, "heads": bplan.heads, "launch_ms": split}
         del x, sdt, Bm, Cm, dy, cum, cb, ins
+    print(f"  [ssd_scan_bwd rows: {time.perf_counter() - t_rows:.1f} s, of "
+          f"which the launch splits {t_split:.1f} s]")
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     print(f"  [kernel phases done at {time.perf_counter() - t_start:.1f} s]")

@@ -106,6 +106,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Copy the 4 bytes at src into the shared slot dst (cached in L1)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src));
+}
+
 // Copy the 8 bf16 at (row, col..col+7) of a row-major matrix with leading
 // dimension ld into the 16-byte shared slot dst; elements outside
 // [0, nrows) x [0, ncols) are zero.

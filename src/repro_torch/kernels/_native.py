@@ -34,7 +34,7 @@ CSRC = _PKG / "csrc"
 SOURCES = ("matmul", "conv_winograd", "flash_attention", "flash_attention_bwd",
            "decode_attention", "quant", "gmm", "gmm_dw", "ssd",
            "ssd_bwd")  # csrc/<name>.cu
-HEADERS = ("gemm_f32_paths.cuh", "gemm_bf16_tc.cuh")
+HEADERS = ("gemm_f32_paths.cuh", "gemm_bf16_tc.cuh", "ssd_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -90,10 +90,10 @@ ARGTYPES = {
     "repro_ssd_scan_f32": [_P] * 12 + [_I] * 6 + [_P],
     "repro_ssd_scan_bf16": [_P] * 12 + [_I] * 6 + [_P],
     # x, dt, A, Bm, Cm, D, cum, cb, ins, dy, dfinal, dx, ddt, dA, dBm, dCm,
-    # dD, dinit, ds, dlast, dbh, dch, dcbh, dcb, dad, B, S, H, P, N, Q,
-    # stream
-    "repro_ssd_scan_bwd_f32": [_P] * 25 + [_I] * 6 + [_P],
-    "repro_ssd_scan_bwd_bf16": [_P] * 25 + [_I] * 6 + [_P],
+    # dD, dinit, ds, dlast, dbc, dcb, dcum, dd, insb, B, S, H, P, N, Q,
+    # heads, stream
+    "repro_ssd_scan_bwd_f32": [_P] * 25 + [_I] * 7 + [_P],
+    "repro_ssd_scan_bwd_bf16": [_P] * 25 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

@@ -64,16 +64,19 @@ the initial state), 2′ (the chunk states' terms), 1′ (C·Bᵀ and the
 within-chunk cumulative sum). The reference has no twin: it trains by
 ``jax.grad`` of its jnp ``ssd_chunked``. ``ssd_scan_bwd_plain`` runs the
 same phases as tensor code by the explicit formulas (not autograd), in
-f32. The kernel runs every product as an f32 FMA on the CUDA cores, in
-both dtypes, and sums each head's terms of dB, dC and dCB through f32
-scratch in head order: no atomics, two launches give the same bits. At
-mamba2-2.7b's training microbatch (B 4, S 512) it needs ~16 GFLOP and
-moves ~100 MB: 0.242 ms at the f32 peak, 0.030 ms of bytes.
+f32. The kernels' chunk kernel takes one block a (b, chunk, 64-row tile,
+group of heads) and sums the group's terms of dB, dC and dCB on chip, in
+head order; ``plan_ssd_bwd`` picks the group from the shapes. bf16 runs
+the products on the tensor cores (the forward's hi + lo split of an f32
+operand), f32 on the CUDA cores in IEEE f32. No atomics: two launches
+give the same bits. At mamba2-2.7b's training microbatch (B 4, S 512) it
+needs ~16 GFLOP and moves ~100 MB: 0.242 ms at the f32 peak, 0.030 ms of
+bytes.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernels or raise — there is no fallback. ``launches`` counts
 one per wrapper call that launches the phases (``ssd_scan``: four
-kernels; ``ssd_scan_bwd``: six).
+kernels; ``ssd_scan_bwd``: five).
 """
 from __future__ import annotations
 
@@ -238,6 +241,71 @@ def plan_ssd(B: int, S: int, H: int, P: int, N: int, Q: int,
                     heads * -(-N // SSD_TILE),
                     B * H * -(-N // _PASS_COLS),
                     heads * t))
+
+
+# the backward's chunk kernel: one block a (b, chunk, 64-row tile, group of
+# heads). Its shared memory mirrors csrc/ssd_bwd.cu's ChunkSmem<T>::bytes:
+# the fixed tiles (ChunkSmem<T>::kFixed), up to SSD_BWD_HELD row tiles of
+# dCB terms (kSmemTiles), and per row of the chunk (2 kBufs + 1) floats
+# (f32: three; bf16: five, cum and dt doubled)
+SSD_BWD_HELD = 4                            # kSmemTiles
+SSD_BWD_MAX_SMEM = 232448                   # kMaxSmem: an H100 block's
+_SMS = 132                                  # an H100's SMs
+_BWD_FIXED_SMEM = {torch.float32: 147456,   # ChunkSmem<T>::kFixed
+                   torch.bfloat16: 151040}
+_BWD_PASS_ROWS = 32                         # kPassRows: the pass kernel's
+
+
+class SsdBwdPlan(NamedTuple):
+    heads: int        # heads a chunk block walks, in order (its group)
+    groups: int       # ceil(H / heads): partial sums of dB, dC and dCB
+    blocks: Tuple[int, int, int, int, int]  # din, pass, chunk, bc, scan
+    smem: int         # the chunk kernel's dynamic shared memory, bytes
+    scratch: int      # bytes of scratch the wrapper allocates
+
+
+def ssd_bwd_plan(B: int, S: int, H: int, P: int, N: int, Q: int,
+                 dtype: torch.dtype, heads: int) -> SsdBwdPlan:
+    """``ssd_scan_bwd``'s cut of (B, S, H, P, N, Q) with chunk blocks of
+    ``heads`` heads (``plan_ssd_bwd`` picks them). Raises ``ValueError``
+    for what the kernels refuse: P > 64, N > 128, S not a multiple of Q,
+    or a chunk whose rows need more shared memory than a block has."""
+    plan_ssd(B, S, H, P, N, Q, dtype)
+    nc, t = S // Q, -(-Q // SSD_TILE)
+    smem = (_BWD_FIXED_SMEM[dtype] + min(t, SSD_BWD_HELD) * SSD_TILE ** 2 * 4
+            + (20 if dtype == torch.bfloat16 else 12) * Q)
+    if smem > SSD_BWD_MAX_SMEM:
+        raise ValueError(f"ssd_scan_bwd: chunk={Q} needs {smem} bytes of "
+                         f"shared memory a block, more than "
+                         f"{SSD_BWD_MAX_SMEM}")
+    heads = max(1, min(heads, H))
+    groups = -(-H // heads)
+    n64, n32 = -(-N // SSD_TILE), -(-N // _BWD_PASS_ROWS)
+    floats = (B * nc * H * N * P * (2 if dtype == torch.bfloat16 else 1)
+              + B * nc * H * n32 + 2 * groups * B * S * N
+              + groups * B * nc * Q * Q + B * nc * H * t * (Q + 1))
+    return SsdBwdPlan(heads, groups,
+                      (H * B * nc * n64, n32 * B * H, groups * B * nc * t,
+                       t * B * nc * 2 * n64, H),
+                      smem, 4 * floats)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_ssd_bwd(B: int, S: int, H: int, P: int, N: int, Q: int,
+                 dtype: torch.dtype = torch.float32) -> SsdBwdPlan:
+    """How ``ssd_scan_bwd``'s kernels cut (B, S, H, P, N, Q), from the
+    shapes alone (so a backward can be captured in a CUDA graph): the chunk
+    kernel's group of heads, the fewest that keep its grid within two waves
+    of one block an SM (its shared memory) on the 132 SMs. Fewer heads a
+    block mean more blocks to balance the heavy first row tiles against the
+    light last ones, but more per-block work and more partial sums of dB,
+    dC and dCB; on an H100 the group at two waves was the fastest timed, and
+    one head fewer (a third wave begun) ran 25 % slower (``PERF.md`` §6).
+    Raises as ``ssd_bwd_plan`` does."""
+    plan_ssd(B, S, H, P, N, Q, dtype)
+    groups = max(1, min(H, 2 * _SMS // (B * (S // Q) * -(-Q // SSD_TILE))))
+    heads = -(-H // groups)
+    return ssd_bwd_plan(B, S, H, P, N, Q, dtype, heads)
 
 
 # ---------------------------------------------------------------------------
@@ -454,9 +522,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  dy: torch.Tensor, dfinal: Optional[torch.Tensor] = None):
     """(dx, ddt, dA, dBm, dCm, dD, d init) of ``ssd_scan`` given the
     forward's ``cum``, ``CB``, ``ins`` and the gradients of y and of the
-    final state (None: zero): the ``csrc/ssd_bwd.cu`` kernels on CUDA
-    tensors (six launches counted as one), the plain version on CPU
-    tensors."""
+    final state (None: zero): the ``csrc/ssd_bwd.cu`` kernels along
+    ``plan_ssd_bwd`` on CUDA tensors (five launches counted as one), the
+    plain version on CPU tensors."""
     _check_bwd(x, dt, A, Bm, Cm, D, cum, CB, ins, dy, dfinal)
     f32 = torch.float32
     ts = [x, dt, A, Bm, Cm, D, cum, CB, ins, dy] + (
@@ -471,7 +539,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     B, S, H, P = x.shape
     N, nc = Bm.shape[-1], cum.shape[1]
     Q = cum.shape[3]
-    plan_ssd(B, S, H, P, N, Q, x.dtype)  # the forward's limits
+    plan = plan_ssd_bwd(B, S, H, P, N, Q, x.dtype)
     dev = x.device
     dx, dBm, dCm = (torch.empty_like(x), torch.empty_like(Bm),
                     torch.empty_like(Cm))
@@ -480,17 +548,22 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dD = torch.empty((H,), dtype=f32, device=dev)
     dinit = torch.empty((B, H, P, N), dtype=f32, device=dev)
     if B and S and H:
-        # scratch: d in_c, then ds_c in place (B,nc,H,N,P); exp(cum_last)
-        # ⟨in_c, g⟩ (B,nc,H); each head's terms of dB and dC (B,S,H,N) and
-        # of dCB (B,nc,H,Q,Q), and their sum dCB (B,nc,Q,Q); each chunk's
-        # and head's terms of dA and dD (B,nc,H) x 2
+        # scratch: d in_c, then ds_c in place (B,nc,H,N,P; bf16: ds_c as
+        # its hi + lo bf16 halves in the same bytes); the pass's row
+        # blocks' terms of <in_c, g> (B,nc,H,ceil(N/32)); each head group's
+        # sums of dB and dC (2,G,B,S,N) and of dCB (G,B,nc,Q,Q); each head's
+        # and tile's dcum terms (B,nc,H,tiles,Q) and dD terms (B,nc,H,tiles);
+        # bf16: in_c's hi + lo halves (B,nc,H,N,2P)
+        G, t = plan.groups, -(-Q // SSD_TILE)
         ds = torch.empty((B, nc, H, N, P), dtype=f32, device=dev)
-        dlast = torch.empty((B, nc, H), dtype=f32, device=dev)
-        dbh = torch.empty((B, S, H, N), dtype=f32, device=dev)
-        dch = torch.empty((B, S, H, N), dtype=f32, device=dev)
-        dcbh = torch.empty((B, nc, H, Q, Q), dtype=f32, device=dev)
-        dcb = torch.empty((B, nc, Q, Q), dtype=f32, device=dev)
-        dad = torch.empty((2, B, nc, H), dtype=f32, device=dev)
+        dlast = torch.empty((B, nc, H, -(-N // _BWD_PASS_ROWS)), dtype=f32,
+                            device=dev)
+        dbc = torch.empty((2, G, B, S, N), dtype=f32, device=dev)
+        dcb = torch.empty((G, B, nc, Q, Q), dtype=f32, device=dev)
+        dcum = torch.empty((B, nc, H, t, Q), dtype=f32, device=dev)
+        dd = torch.empty((B, nc, H, t), dtype=f32, device=dev)
+        insb = (torch.empty((B, nc, H, N, 2 * P), dtype=x.dtype, device=dev)
+                if x.dtype == torch.bfloat16 else None)
         lib = _native.library("ssd_bwd")
         fn = (lib.repro_ssd_scan_bwd_bf16 if x.dtype == torch.bfloat16
               else lib.repro_ssd_scan_bwd_f32)
@@ -502,8 +575,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
                     dBm.data_ptr(), dCm.data_ptr(), dD.data_ptr(),
                     dinit.data_ptr(), ds.data_ptr(), dlast.data_ptr(),
-                    dbh.data_ptr(), dch.data_ptr(), dcbh.data_ptr(),
-                    dcb.data_ptr(), dad.data_ptr(), B, S, H, P, N, Q,
+                    dbc.data_ptr(), dcb.data_ptr(), dcum.data_ptr(),
+                    dd.data_ptr(), None if insb is None else insb.data_ptr(),
+                    B, S, H, P, N, Q, plan.heads,
                     _native.current_stream(dev))
         _native.check(rc, "ssd_scan_bwd")
         with _lock:

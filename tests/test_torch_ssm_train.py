@@ -363,39 +363,72 @@ def test_ssd_function_hands_the_backward_the_forwards_buffers(fake_kernels,
     assert fname == f"repro_ssd_scan_{sfx}"
     assert bname == f"repro_ssd_scan_bwd_{sfx}"
     assert fa[12:18] == ba[25:31] == (B, S, H, P, N, Q)
+    assert ba[31] == SSD.plan_ssd_bwd(B, S, H, P, N, Q, dtype).heads
     # x, dt, A, Bm, Cm, D in place; the forward's cum, cb and states
     assert ba[:6] == tuple(t.data_ptr() for t in (x, dt, A, Bm, Cm, D))
     assert ba[6:9] == fa[9:12]
     assert (ba[10] is None) != dfinal
-    assert len(ba) == 32 and ba[31] == 0
+    assert (ba[24] is None) == (dtype == torch.float32)  # bf16: in_c split
+    assert len(ba) == 33 and ba[32] == 0
     counts = ops.launch_counts()
     assert counts["ssd_scan"] == 1 and counts["ssd_scan_bwd"] == 1
 
 
-def test_ssd_bwd_wrapper_scratch_and_refusals(fake_kernels):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_wrapper_scratch_and_refusals(fake_kernels, monkeypatch,
+                                              dtype):
     """The CUDA branch hands the C entry its seven outputs (of the
-    documented shapes) and seven scratch pointers, and refuses P > 64 and
-    N > 128 (``ValueError``), the forward's limits."""
+    documented shapes), six f32 scratch tensors of the documented shapes
+    and in bf16 a seventh, in_c's hi + lo halves (no per-head (B, S, H, N)
+    or (B, nc, H, Q, Q) scratch: the chunk kernel sums dB, dC and dCB over
+    each group of heads on chip), and the plan's group of heads, and
+    refuses P > 64 and N > 128 (``ValueError``), the forward's limits."""
     B, S, H, P, N, Q = 2, 64, 3, 8, 4, 32
-    t = [torch.from_numpy(a) for a in _inputs(B, S // Q, Q, H, P, N, 8)]
-    cum = torch.zeros(B, S // Q, H, Q)
-    CB = torch.zeros(B, S // Q, Q, Q)
-    ins = torch.zeros(B, S // Q, H, N, P)
+    nc = S // Q
+    t = [torch.from_numpy(a) for a in _inputs(B, nc, Q, H, P, N, 8)]
+    for i in (0, 3, 4, 7):   # x, Bm, Cm, dy in the kernel's dtype
+        t[i] = t[i].to(dtype)
+    cum = torch.zeros(B, nc, H, Q)
+    CB = torch.zeros(B, nc, Q, Q)
+    ins = torch.zeros(B, nc, H, N, P)
+    made = []
+    empty = torch.empty
+
+    def recorded(*shape, **kw):
+        out = empty(*shape, **kw)
+        made.append(tuple(out.shape))
+        return out
+
+    monkeypatch.setattr(torch, "empty", recorded)
     out = ops.ssd_scan_bwd(*t[:6], cum, CB, ins, t[7], None)
+    monkeypatch.setattr(torch, "empty", empty)
     assert [tuple(o.shape) for o in out] == [
         (B, S, H, P), (B, S, H), (H,), (B, S, N), (B, S, N), (H,),
         (B, H, P, N)]
+    plan = SSD.plan_ssd_bwd(B, S, H, P, N, Q, dtype)
+    G, tiles = plan.groups, 1
+    bf16 = dtype == torch.bfloat16
+    scratch = [(B, nc, H, N, P), (B, nc, H, 1), (2, G, B, S, N),
+               (G, B, nc, Q, Q), (B, nc, H, tiles, Q), (B, nc, H, tiles)]
+    scratch += [(B, nc, H, N, 2 * P)] if bf16 else []
+    assert made[-len(scratch):] == scratch
+    assert (B, S, H, N) not in made and (B, nc, H, Q, Q) not in made
+    assert 4 * sum(int(np.prod(s)) for s in scratch[:6]) + (
+        2 * int(np.prod(scratch[6])) if bf16 else 0) == plan.scratch
     (name, args), = fake_kernels
-    assert name == "repro_ssd_scan_bwd_f32"
+    assert name == f"repro_ssd_scan_bwd_{'bf16' if bf16 else 'f32'}"
     assert args[11:18] == tuple(o.data_ptr() for o in out)
-    assert all(isinstance(a, int) for a in args[18:25])   # the scratch
+    assert all(isinstance(a, int) for a in args[18:24])   # the scratch
+    assert isinstance(args[24], int) if bf16 else args[24] is None
+    assert args[25:32] == (B, S, H, P, N, Q, plan.heads)
     for P2, N2 in ((65, 4), (8, 129)):
         x = torch.zeros(B, S, H, P2)
         Bm = torch.zeros(B, S, N2)
         with pytest.raises(ValueError, match="P <= 64"):
-            ops.ssd_scan_bwd(x, t[1], t[2], Bm, Bm, t[5], cum,
-                             CB, torch.zeros(B, S // Q, H, N2, P2),
-                             torch.zeros_like(x), None)
+            ops.ssd_scan_bwd(x.to(dtype), t[1], t[2], Bm.to(dtype),
+                             Bm.to(dtype), t[5], cum, CB,
+                             torch.zeros(B, nc, H, N2, P2),
+                             torch.zeros_like(x).to(dtype), None)
 
 
 # ---------------------------------------------------------------------------

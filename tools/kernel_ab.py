@@ -1,9 +1,12 @@
 """Time ``decode_attention``, the f32 ``matmul``, ``flash_attention``,
 ``flash_attention_bwd``, ``winograd_tile_matmul``, ``ssd_scan``,
-``matmul_packed``, ``matmul_dequant_int8``, ``matmul_dequant_int4``, the
-f32 ``gmm_blocks`` and the MoE backward's products (``gmm_blocks`` with w
-read K-major, ``gmm_blocks_dw``) of one source tree of the PyTorch port on
-a CUDA card, so that two commits can be compared on one card.
+``ssd_scan_bwd``, ``matmul_packed``, ``matmul_dequant_int8``,
+``matmul_dequant_int4``, the f32 ``gmm_blocks`` and the MoE backward's
+products (``gmm_blocks`` with w read K-major, ``gmm_blocks_dw``) of one
+source tree of the PyTorch port on a CUDA card, so that two commits can be
+compared on one card; with ``--only ssm_step`` also the device busy time
+of a bf16 mamba2 and zamba2 training step (``ssd_bwd``'s kernels' share
+beside it).
 
 Each row calls the tree's own wrapper (``repro_torch.kernels.ops``) at a
 decode, GEMM, prefill, Winograd, SSD-scan, packed-GEMM, int8- or
@@ -18,8 +21,8 @@ beside the PyTorch library call (SDPA, ``torch.matmul``, ``torch.bmm``;
 takes it, SDPA's backward through autograd for ``flash_attention_bwd``
 (by events only: autograd's backward does not run on a capturing
 stream); ``torch.bmm`` on the masked blocks for the MoE backward's rows;
-none for ``ssd_scan``, ``matmul_dequant_int4``, a routed f32
-``gmm_blocks`` and a packed bf16 x) timed both ways,
+none for ``ssd_scan``, ``ssd_scan_bwd``, ``matmul_dequant_int4``, a
+routed f32 ``gmm_blocks`` and a packed bf16 x) timed both ways,
 and the output's error against the tree's plain version (the worst of y
 and the final state for ``ssd_scan``). A row whose input the tree's
 wrapper refuses (the parent's ``matmul_packed`` with a bf16 x) prints
@@ -42,7 +45,8 @@ with K slices of at least 4 and 8 steps, every other cut of
 ``flash_plans``, and for Winograd the stream path at one block an SM and
 the batched tile path's other tiles, and for the f32 ``gmm_blocks`` the
 batched tile path's other tiles and the batched skinny path split 2, 4
-and 8 ways. ``--ptxas`` prints what ``ptxas -v``
+and 8 ways, and for ``ssd_scan_bwd`` the head groups ``plan_ssd_bwd``
+did not pick. ``--ptxas`` prints what ``ptxas -v``
 said of each kernel of the libraries the rows built (registers, stack
 frame, spills). Rows run for the kernels named by ``--only`` (default:
 all eleven). The plan is printed where the tree's wrapper launches along
@@ -53,6 +57,7 @@ it. Without a CUDA card it exits 2.
     python3 tools/kernel_ab.py --only dequant_int8,gmm_f32
     python3 tools/kernel_ab.py --only flash_bwd --phases
     python3 tools/kernel_ab.py --only gmm_bwd
+    python3 tools/kernel_ab.py --only ssd_bwd,ssm_step --phases
 """
 from __future__ import annotations
 
@@ -102,6 +107,25 @@ FLASH_ROWS = [("smollm_S64", 1, 64, 15, 5, 64, "bfloat16"),
 # (row, T, C, O): resnet50@224's 3x3/s1 stages as 16 batched GEMMs
 WINO_ROWS = [("stem", 12544, 3, 64), ("stage0", 12544, 64, 64),
              ("stage1", 3136, 128, 128), ("stage2", 784, 256, 256)]
+
+# (row, B, S, H, P, N, Q, dtype, init and d final): ssd_scan's backward at
+# chip_smoke.py's four rows: mamba2-2.7b's training microbatch (B 4, S
+# 512) in bf16 and f32, zamba2-2.7b's (N 64), and mamba2 at S 1024 from a
+# random state under a gradient of the final state
+SSD_BWD_ROWS = [("mamba2_mb", 4, 512, 80, 64, 128, 256, "bfloat16", False),
+                ("mamba2_mb_f32", 4, 512, 80, 64, 128, 256, "float32",
+                 False),
+                ("zamba2_mb_N64", 4, 512, 80, 64, 64, 256, "bfloat16", False),
+                ("mamba2_S1024_init_dfinal", 1, 1024, 80, 64, 128, 256,
+                 "bfloat16", True)]
+
+# (row, arch, layers): the bf16 training steps whose backward runs
+# ssd_scan_bwd, at chip_smoke.py's depths and batch (8 x 512 tokens in two
+# microbatches, remat, SyntheticPipeline seed 0, weights from seed 0)
+SSM_STEP_ROWS = [("mamba2_8_layers", "mamba2-2.7b", 8),
+                 ("zamba2_12_layers", "zamba2-2.7b", 12)]
+# --variants: ssd_scan_bwd's chunk kernel at these groups of heads too
+SSD_BWD_GROUPS = (2, 4, 5, 8, 9, 10, 16, 20)
 
 # (row, B, S, H, P, N, Q, dtype): mamba2-2.7b's scan at S 1024 in bf16
 # (its served precision) and f32 (its whole-model gates), zamba2-2.7b's N
@@ -177,7 +201,10 @@ GMM_BWD_ROWS = [(f"{prod}_{g}{'' if dt == 'bfloat16' else '_f32'}", kind,
 LIBRARY = {"decode": "decode_attention", "matmul": "matmul",
            "flash": "flash_attention", "flash_bwd": "flash_attention_bwd",
            "winograd": "conv_winograd",
-           "ssd_scan": "ssd", "packed": "matmul", "dequant_int8": "quant",
+           "ssd_scan": "ssd", "ssd_bwd": ("ssd", "ssd_bwd"),
+           "ssm_step": ("matmul", "flash_attention", "flash_attention_bwd",
+                        "ssd", "ssd_bwd"),
+           "packed": "matmul", "dequant_int8": "quant",
            "dequant_int4": "quant", "gmm_f32": "gmm",
            "gmm_bwd": ("gmm", "gmm_dw")}
 
@@ -193,11 +220,12 @@ def main() -> int:
                     help="also print each row's kernels by device time "
                          "(torch.profiler over 10 calls)")
     ap.add_argument("--only", default="decode,matmul,flash,flash_bwd,"
-                    "winograd,ssd_scan,packed,dequant_int8,dequant_int4,"
-                    "gmm_f32,gmm_bwd",
+                    "winograd,ssd_scan,ssd_bwd,packed,dequant_int8,"
+                    "dequant_int4,gmm_f32,gmm_bwd",
                     help="comma-separated: decode, matmul, flash, "
-                         "flash_bwd, winograd, ssd_scan, packed, "
-                         "dequant_int8, dequant_int4, gmm_f32, gmm_bwd")
+                         "flash_bwd, winograd, ssd_scan, ssd_bwd, packed, "
+                         "dequant_int8, dequant_int4, gmm_f32, gmm_bwd, "
+                         "ssm_step (not in the default)")
     args = ap.parse_args()
     only = set(args.only.split(","))
 
@@ -538,6 +566,92 @@ def main() -> int:
                 if hasattr(SSD, "plan_ssd") else None)
         row("ssd_scan", name, call, plain, None,
             plan and {"blocks": plan.blocks})
+
+    for name, B, S, H, P, N, Q, dname, init in (
+            SSD_BWD_ROWS if "ssd_bwd" in only else []):
+        dt = getattr(torch, dname)
+        x = rand(B, S, H, P, dtype=dt) * 0.3
+        sdt = rand(B, S, H).abs() * 0.3
+        a_neg = -torch.linspace(0.5, 2.0, H, device=dev)
+        Bm, Cm = rand(B, S, N, dtype=dt) * 0.3, rand(B, S, N, dtype=dt) * 0.3
+        D = rand(H)
+        st = rand(B, H, P, N) * 0.3 if init else None
+        dy = rand(B, S, H, P, dtype=dt)
+        dfin = rand(B, H, P, N) if init else None
+        with torch.cuda.stream(stream):
+            _, _, (cum, cb, ins) = SSD._ssd_forward(x, sdt, a_neg, Bm, Cm, D,
+                                                    Q, st, True)
+        stream.synchronize()
+
+        def call():
+            return ops.ssd_scan_bwd(x, sdt, a_neg, Bm, Cm, D, cum, cb, ins,
+                                    dy, dfin)
+
+        def plain():
+            return SSD.ssd_scan_bwd_plain(x, sdt, a_neg, Bm, Cm, D, cum, cb,
+                                          ins, dy, dfin)
+
+        has_plan = hasattr(SSD, "plan_ssd_bwd")
+        plan = SSD.plan_ssd_bwd(B, S, H, P, N, Q, dt) if has_plan else None
+        row("ssd_scan_bwd", name, call, plain, None,
+            plan and plan._asdict())
+        if args.variants and has_plan:   # the head groups not picked
+            orig = SSD.plan_ssd_bwd
+            for hg in SSD_BWD_GROUPS:
+                if hg == plan.heads or hg > H:
+                    continue
+                var = SSD.ssd_bwd_plan(B, S, H, P, N, Q, dt, hg)
+                SSD.plan_ssd_bwd = lambda *a, var=var: var
+                try:
+                    row("ssd_scan_bwd", f"{name}_heads{hg}", call, plain,
+                        None, var._asdict())
+                finally:
+                    SSD.plan_ssd_bwd = orig
+        del x, sdt, Bm, Cm, dy, cum, cb, ins
+
+    for name, arch, layers in SSM_STEP_ROWS if "ssm_step" in only else []:
+        # one bf16 training step's device busy time (every kernel's device
+        # time under torch.profiler, two steps after one to warm up) and
+        # its ssd_scan_bwd kernels' share
+        import dataclasses
+
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch import pytree
+        from repro_torch.configs import get_config
+        from repro_torch.data import SyntheticPipeline
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import adamw_init
+        from repro_torch.train import make_train_step
+
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        for p in pytree.leaves(params):
+            p.requires_grad_(True)
+        batch = SyntheticPipeline(cfg, 8, 512, microbatches=2, seed=0,
+                                  device=dev).batch_at(0)
+        step = make_train_step(cfg, lr=3e-3, warmup=5, total_steps=10,
+                               num_microbatches=2, remat=True)
+        state = [params, adamw_init(params)]
+
+        def one():
+            state[0], state[1], _ = step(state[0], state[1], batch)
+
+        one()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                one()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3 / 2
+        bwd = sum(e.self_device_time_total for e in kern
+                  if "ssd_bwd" in e.key) / 1e3 / 2
+        print(json.dumps({"label": args.label, "kernel": "ssm_step",
+                          "row": name, "busy_ms": busy,
+                          "ssd_bwd_ms": bwd}), flush=True)
+        del params, state, batch
+        torch.cuda.empty_cache()
 
     for name, M, K, N, dname in PACKED_ROWS if "packed" in only else []:
         dt = getattr(torch, dname)
