@@ -197,7 +197,7 @@ Run from the root of a checkout, on a machine with a CUDA card and
      worst block's reported, the ``BatchedServer`` run of the request mix
      with the kernels (no plain run: at this amplification token
      agreement says where greedy ties fall); in f32 at
-     ``HYBRID_F32_DEPTH`` layers (12, two groups: a cut) ``forward``
+     ``HYBRID_F32_DEPTH`` layers (6, one group: a cut) ``forward``
      against the all-plain forward and decode by steps against
      ``forward`` over 256 tokens (LLM gate); then the input modes:
      musicgen-medium (all 48 layers, ``embeddings``: 512 frame
@@ -250,7 +250,24 @@ Run from the root of a checkout, on a machine with a CUDA card and
      over ``SSM_TRAIN_CURVE`` = 10 steps (peak lr 3e-3; zamba2's at
      ``HYBRID_TRAIN_LR`` 1e-3 to below ``HYBRID_TRAIN_FALL`` of its
      first), ms a step, tokens/s, a step's device busy
-     and idle;
+     and idle; then the roofline phase (``roofline_path``):
+     ``launch.dryrun.build_step``'s ``prefill_step`` on a (1,
+     ``ROOFLINE_SEQ``) prompt, smollm-360m at all 32 layers and
+     zamba2-2.7b at ``HYBRID_DEPTH``, counted by ``roofline.op_cost`` on
+     the card and on meta (the counts must be equal), its compute and
+     memory terms at the data-sheet rates against the device busy time
+     (``torch.profiler``; roofline / busy <= ``ROOFLINE_SHARE``) and
+     ``model_flops`` <= the counted flops. Three runs also collect the
+     prefill cache (``forward(collect_cache=True)``): the moe path's
+     32-token forward (against its decode under the forward's routing),
+     the hybrid path's f32 forward over one chunk and the input-modes
+     path's musicgen forwards (against ``decode_by_steps``): each one's
+     logits bitwise equal to the forward without collecting, and every
+     cache leaf within the LLM gate of the state its decode steps leave
+     (musicgen bf16, whose decode the path only reports: reported). Each
+     kernel row of a costed wrapper prints its cost function's flops and
+     bytes (``_native.costed``) beside the row's own, within ``COST_TOL``
+     where the row counts whole tensors;
   8. fails unless every kernel of a path launched during that path's runs
      (each path's launch counts are zeroed just before its runs and read
      just after; the fleet's are its served requests' own;
@@ -285,8 +302,9 @@ first, its files evicted again: it pays no audit.
 
 ``LLM_DEPTH``, ``LOSSY_DEPTH`` and ``SERVE_DEPTH`` (8 of smollm-360m's
 32 blocks), ``MOE_DEPTH`` (16 of granite's 32 layers), ``SSM_DEPTH`` and
-``SSM_F32_DEPTH`` (32 and 16 of mamba2's 64), ``VLM_DEPTH`` (2
-of internvl2's 80), ``MUSICGEN_DECODE`` (32 steps) and the training
+``SSM_F32_DEPTH`` (32 and 16 of mamba2's 64),
+``HYBRID_F32_DEPTH`` (6 of zamba2's 54), ``VLM_DEPTH`` (2 of internvl2's
+80), ``MUSICGEN_DECODE`` (16 steps) and the training
 paths' depths are cuts for the run's time limit: those phases are host
 work (``decide()``'s profiling, cache writes, the software CRC-32C, one
 dispatch per op) and grow with depth; the kernels run at full width
@@ -314,10 +332,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# peak rates by card (NVIDIA data sheets, dense): f32 without tensor
-# cores, bf16 on the tensor cores, memory
-PEAKS = {"sxm": {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12},
-         "pcie": {"float32": 51e12, "bfloat16": 756e12, "bytes": 2.0e12}}
+# peak rates of an H100 PCIe (NVIDIA data sheet, dense): f32 without
+# tensor cores, bf16 on the tensor cores, memory; an SXM card's come from
+# repro_torch.launch.mesh, the port's own constants (``peak_rates``)
+PCIE_PEAKS = {"float32": 51e12, "bfloat16": 756e12, "bytes": 2.0e12}
+
+
+def peak_rates(name: str) -> dict:
+    """The rates the bounds divide by: ``launch.mesh``'s H100 SXM
+    constants, or the PCIe card's."""
+    from repro_torch.launch import mesh as M
+
+    if "PCIe" in name:
+        return dict(PCIE_PEAKS)
+    return {"float32": M.PEAK_FLOPS_F32, "bfloat16": M.PEAK_FLOPS_BF16,
+            "bytes": M.HBM_BW}
+
 
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PATH_TOL = 1e-4
@@ -333,7 +363,9 @@ LLM_ATOL, LLM_RTOL = 0.1, 0.05
 # slower host, 1104.9 s on an H100 SXM; its batched mix at 64 layers was
 # ~90 s of host-bound decode steps, its 512 f32 decode steps at 32 layers
 # ~40 s), musicgen-medium's decode at 32 steps and internvl2-76b at 2
-# layers
+# layers. With the roofline phase and the cache gates a run took 1122.7
+# s, so since then musicgen's decode runs 16 steps and zamba2's f32 path
+# 6 layers (one group; 12 before)
 LLM_DEPTH = 8
 LOSSY_DEPTH = 8
 SERVE_DEPTH = 8
@@ -342,8 +374,18 @@ MOE_F32_DEPTH = 4   # the f32 granite forward: a cut of its 32 layers
 SSM_DEPTH = 32
 SSM_F32_DEPTH = 16
 HYBRID_DEPTH = 54
-HYBRID_F32_DEPTH = 12  # the f32 zamba2 forward and decode: a cut of its 54
-MUSICGEN_DECODE = 32   # musicgen-medium's decode steps against forward
+HYBRID_F32_DEPTH = 6  # the f32 zamba2 forward and decode: a cut of its 54
+# musicgen-medium's decode steps against forward
+MUSICGEN_DECODE = 16
+# the roofline phase: a (1, 1024) prefill step of dryrun.build_step on the
+# card, smollm-360m at all 32 layers and zamba2-2.7b at HYBRID_DEPTH; the
+# most the roofline time (max of its compute and memory terms at the
+# data-sheet rates) may be of the measured device busy time
+ROOFLINE_SEQ = 1024
+ROOFLINE_SHARE = 1.05
+# the kernel rows: the cost function's flops and bytes within this share
+# of the row's own count where the row counts whole tensors
+COST_TOL = 0.01
 # internvl2-76b's layers: a cut of its 80 (the whole model, ~141 GB in
 # bf16, does not fit one 80 GB card; 4 layers and the two heads ~11 GB
 # fit, 2 for the run's time)
@@ -539,11 +581,13 @@ def report_batched(got, want, steps, dt, dt_p, picks, picks_p) -> bool:
     return finished
 
 
-def profile_steps(label, step, n, extra=()) -> None:
+def profile_steps(label, step, n, extra=()):
     """Device busy time of ``step(0) .. step(n-1)`` under the profiler,
     kernels only (an aten op's device time is its kernels' again), and the
     five kernels with the most device time plus any whose name holds one of
-    ``extra``. A breakdown only: reported, never gated."""
+    ``extra``; returns the busy ms a step (None where the profiler fails
+    or shows no device time). Reported; only the roofline phase gates on
+    it."""
     import torch
 
     try:
@@ -577,8 +621,10 @@ def profile_steps(label, step, n, extra=()) -> None:
               + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.4f}"
                           f" ms/step in {e.count / n:g} launches"
                           for e in top) + sums)
+        return busy / n if busy > 0 else None
     except Exception as e:  # a breakdown only: report it, never fail on it
         print(f"  profiler: unavailable ({type(e).__name__}: {e})")
+        return None
 
 
 def evict(store) -> tuple:
@@ -1371,9 +1417,10 @@ def counted(gates, label, fn):
     return out, counts
 
 
-def decode_by_steps(params, cfg, dev, key, inputs, n):
+def decode_by_steps(params, cfg, dev, key, inputs, n, with_state=False):
     """``n`` teacher-forced ``decode_step``s of ``inputs[:, t:t + 1]``
-    under ``key`` ("tokens" or "embeds") from a zero state: (B, n, V)."""
+    under ``key`` ("tokens" or "embeds") from a zero state: (B, n, V), and
+    the state the steps leave where ``with_state``."""
     import torch
 
     from repro_torch.models import transformer as T
@@ -1384,7 +1431,68 @@ def decode_by_steps(params, cfg, dev, key, inputs, n):
         lg, state = T.decode_step(params, state, {key: inputs[:, t:t + 1]},
                                   t, cfg)
         outs.append(lg[:, 0])
-    return torch.stack(outs, 1)
+    return (torch.stack(outs, 1), state) if with_state \
+        else torch.stack(outs, 1)
+
+
+def cache_pairs(cfg, cache, state, n):
+    """(name, prefill cache leaf, its decode-state counterpart) of every
+    leaf of ``forward(collect_cache=True)``'s cache: K/V rows 0..n-1 of
+    the decode caches, the conv and SSM states."""
+    rows = slice(0, n)
+    if cfg.family in ("ssm", "hybrid"):
+        (cx, cB, cC), ssm = cache["mamba"]
+        out = [("conv_x", cx, state["conv_x"]),
+               ("conv_B", cB, state["conv_B"]),
+               ("conv_C", cC, state["conv_C"]), ("ssm", ssm, state["ssm"])]
+        if cfg.family == "hybrid":
+            k, v = cache["shared_kv"]
+            out += [("shared_k", k, state["shared_k"][:, :, rows]),
+                    ("shared_v", v, state["shared_v"][:, :, rows])]
+        return out
+    if cfg.local_global_pattern:
+        (kl, vl), (kg, vg) = cache["local"], cache["global"]
+        return [("k_local", kl, state["k_local"][:, :, rows]),
+                ("v_local", vl, state["v_local"][:, :, rows]),
+                ("k_global", kg, state["k_global"][:, :, rows]),
+                ("v_global", vg, state["v_global"][:, :, rows])]
+    k, v = cache["kv"]
+    return [("k", k, state["k"][:, :, rows]), ("v", v, state["v"][:, :, rows])]
+
+
+def cache_gates(gates, label, cfg, params, batch, logits, state, n,
+                gated=True):
+    """``forward(collect_cache=True)`` on ``batch``: its logits bitwise
+    equal to ``logits`` (the same forward without collecting), and every
+    cache leaf within the LLM gate (atol, rtol) of the state that ``n``
+    decode steps left (reported only, not ``gated``, where the path holds
+    its decode to nothing)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    got, _, (cache, _) = T.forward(params, batch, cfg, collect_cache=True)
+    torch.cuda.synchronize()
+    same = torch.equal(got, logits)
+    gates.check(same, f"{label}: collecting the cache changes the logits")
+    worst, bad = (0.0, "-"), []
+    for name, c, st in cache_pairs(cfg, cache, state, n):
+        ok = tuple(c.shape) == tuple(st.shape) and bool(torch.isclose(
+            c.float(), st.float(), rtol=LLM_RTOL, atol=LLM_ATOL).all())
+        worst = max(worst, (rel_err(c, st), name))
+        if not ok:
+            bad.append(name)
+    print(f"  {label}: prefill cache ({len(cache_pairs(cfg, cache, state, n))}"
+          f" leaves) vs the state of {n} decode steps: worst max|d|/max|state|"
+          f" {worst[0]:.3e} ({worst[1]}); leaves outside the LLM gate "
+          f"{bad or 'none'}"
+          + ("" if gated else " (reported, not gated)")
+          + f"; logits bitwise equal to the forward without collecting: "
+          f"{same}")
+    if gated:
+        gates.check(not bad, f"{label}: cache leaves {bad} leave the LLM "
+                    f"gate of the decode state")
+    del got, cache
 
 
 def moe_path(dev, depth: int) -> dict:
@@ -1532,10 +1640,10 @@ def moe_path(dev, depth: int) -> dict:
                 outs.append(lg[:, 0])
         torch.cuda.synchronize()
         return torch.stack(outs, 1), [torch.cat(dlog[l::depth])
-                                      for l in range(depth)]
+                                      for l in range(depth)], state
 
     ops.reset_launch_counts()
-    dec, dlog = decode()
+    dec, dlog, _ = decode()
     counts = ops.launch_counts()
     gates.add(counts)
     print(f"  bf16 template launches by path (decode, {Sd} steps): "
@@ -1545,8 +1653,12 @@ def moe_path(dev, depth: int) -> dict:
           f"vs forward {dmax:.4e}, rows within the gate {int(ok.sum())}/"
           f"{len(ok)}")
     agreement("decode by steps vs forward", dlog, flog)
+    dec_r, _, dstate = decode(replay)
     gates.logits(f"decode by steps vs forward ({Sd} tokens, kernels) under "
-                 f"the forward's routing", decode(replay)[0], fl)
+                 f"the forward's routing", dec_r, fl)
+    cache_gates(gates, f"prefill cache, forward (1, {Sd})", ncfg, params,
+                {"tokens": dtoks}, fl, dstate, Sd)
+    del dec_r, dstate
     gates.launched("decode", "gmm_blocks", counts["gmm_blocks"],
                    3 * depth * Sd)
     gates.launched("decode", "decode_attention", counts["decode_attention"],
@@ -1914,10 +2026,13 @@ def hybrid_path(dev, depth: int, f32_depth: int) -> dict:
     fl, counts = counted(gates, f"f32 forward (1, {Sd})", lambda: T.forward(
         params, {"tokens": toks[:, :Sd]}, cfg)[0])
     forward_gates(cfg, f"f32 forward (1, {Sd})", counts)
-    dec, counts = counted(gates, f"f32 decode, {Sd} steps B=1",
-                          lambda: decode_by_steps(params, cfg, dev, "tokens",
-                                                  toks, Sd))
+    (dec, dstate), counts = counted(
+        gates, f"f32 decode, {Sd} steps B=1",
+        lambda: decode_by_steps(params, cfg, dev, "tokens", toks, Sd, True))
     gates.logits(f"f32 decode by steps vs forward ({Sd} tokens)", dec, fl)
+    cache_gates(gates, f"f32 prefill cache, forward (1, {Sd})", cfg, params,
+                {"tokens": toks[:, :Sd]}, fl, dstate, Sd)
+    del dstate
     gates.launched("f32 decode", "decode_attention",
                    counts["decode_attention"], f32_depth // every * Sd)
     gates.launched("f32 decode", "matmul", counts["matmul"],
@@ -2034,10 +2149,16 @@ def modes_path(dev, music_decode: int, vlm_depth: int) -> dict:
         with plain_kernels():
             ref, _, _ = T.forward(params, {"embeds": emb}, cfg)
         fl = T.forward(params, {"embeds": emb[:, :Sd]}, cfg)[0]
-        dec, counts = counted(gates, f"musicgen {dt} decode, {Sd} steps B=1",
-                              lambda: decode_by_steps(params, cfg, dev,
-                                                      "embeds", emb, Sd))
+        (dec, dstate), counts = counted(
+            gates, f"musicgen {dt} decode, {Sd} steps B=1",
+            lambda: decode_by_steps(params, cfg, dev, "embeds", emb, Sd,
+                                    True))
         gate_decode(cfg, f"musicgen {dt} decode", counts, Sd)
+        # bf16: the path reports its decode against forward, not gated
+        cache_gates(gates, f"musicgen {dt} prefill cache, forward (1, {Sd})",
+                    cfg, params, {"embeds": emb[:, :Sd]}, fl, dstate, Sd,
+                    gated=dt == "float32")
+        del dstate
         if dt == "float32":
             gates.logits(f"musicgen f32 forward (1, {S}) vs all-plain",
                          logits, ref)
@@ -2729,6 +2850,106 @@ def ssm_training_path(dev, card: str) -> dict:
 
 # the hand-written kernel each CNN registry kernel launches, once a layer
 # per forward (``direct`` convs run cuDNN, the reference's lax.conv)
+def roofline_path(dev, card: str) -> dict:
+    """The roofline report on the card: ``launch.dryrun.build_step``'s
+    ``prefill_step`` (``forward(collect_cache=True)``, the last position's
+    logits and the cache) on a (1, ``ROOFLINE_SEQ``) prompt at full width,
+    random weights from seed 0 drawn on the card: smollm-360m at all 32
+    layers and zamba2-2.7b at ``HYBRID_DEPTH`` (its bf16 ``matmul``,
+    ``flash_attention`` and ``ssd_scan`` kernels). Each step is counted by
+    ``roofline.op_cost`` on the card (the launch counts zeroed just
+    before and read just after) and again on meta; the report prints
+    flops, bytes, the compute and memory terms at the data-sheet rates,
+    the bottleneck, ``useful_flops_ratio``, the count's peak live bytes
+    beside ``torch.cuda.max_memory_allocated`` and the measured device
+    busy time (``profile_steps``: ``torch.profiler``, after a warm run). Gates: the meta
+    count equals the card count (flops, bytes, transcendentals, ops, the
+    kernels' calls and costs); ``model_flops`` <= the counted flops;
+    max(compute, memory) / device busy <= ``ROOFLINE_SHARE`` (a share
+    over 1 means the count is wrong); each kernel of the step launched
+    its expected times. Returns the launch counts of the counted runs."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.roofline.analysis import roofline_terms
+
+    gates = PathGates("roofline path")
+    sc = ShapeConfig(f"prefill_{ROOFLINE_SEQ}", ROOFLINE_SEQ, 1, "prefill")
+    for arch, over in (("smollm-360m", None),
+                       ("zamba2-2.7b", {"num_layers": HYBRID_DEPTH})):
+        t_arch = time.perf_counter()
+        step = dryrun.build_step(arch, sc, device=dev, cfg_overrides=over)
+        cfg = step.cfg
+        with torch.no_grad():
+            step.fn(*step.args)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        _, cost, arg_b, out_b, _ = dryrun.count_step(step)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        gates.add(counts)
+        peak_alloc = torch.cuda.max_memory_allocated(dev)
+        with torch.no_grad():
+            busy = profile_steps(f"{arch} prefill_step (1, {ROOFLINE_SEQ})",
+                                 lambda i: step.fn(*step.args), 3)
+        del step
+        torch.cuda.empty_cache()
+        meta = dryrun.build_step(arch, sc, device="meta", cfg_overrides=over)
+        _, mcost, *_ = dryrun.count_step(meta)
+        r = roofline_terms(
+            arch=arch, shape=sc.name, mesh_name="1x1", chips=1,
+            flops=cost.flops, hbm_bytes=cost.hbm_bytes,
+            model_flops=meta.model_flops, peak_flops=M.PEAK_FLOPS_BF16,
+            hbm_bw=M.HBM_BW, peak_memory_bytes=cost.peak_bytes)
+        roof_ms = max(r.compute_s, r.memory_s) * 1e3
+        share = roof_ms / busy if busy else float("inf")
+        same = (cost.totals() == mcost.totals() and cost.ops == mcost.ops
+                and cost.kernels == mcost.kernels)
+        print(f"  roofline, {arch} ({cfg.num_layers} layers, {cfg.dtype}) "
+              f"prefill_step (1, {ROOFLINE_SEQ}) on {card}: flops="
+              f"{cost.flops:.6e} bytes={cost.hbm_bytes:.6e} "
+              f"transcendentals={cost.transcendentals:.6e} ops={cost.ops}; "
+              f"compute_s={r.compute_s * 1e3:.4f} ms memory_s="
+              f"{r.memory_s * 1e3:.4f} ms (data-sheet rates) bottleneck="
+              f"{r.bottleneck} useful_flops_ratio={r.useful_flops_ratio:.4f}"
+              f" (model_flops {r.model_flops:.6e}); peak live bytes "
+              f"{cost.peak_bytes / 1e9:.4f} GB (args {arg_b / 1e9:.4f}, "
+              f"outputs {out_b / 1e9:.4f}) beside max_memory_allocated "
+              f"{peak_alloc / 1e9:.4f} GB; device busy "
+              f"{busy if busy is None else round(busy, 4)} ms; roofline / "
+              f"busy = {share:.4f} (gate "
+              f"{ROOFLINE_SHARE}); meta count equal: {same}; kernels "
+              + json.dumps({k: [int(v[0]), v[1], v[2]]
+                            for k, v in sorted(cost.kernels.items())})
+              + f"; top bytes {cost.top_hbm(4)}; "
+              f"{time.perf_counter() - t_arch:.1f} s")
+        gates.check(same, f"{arch}: the meta count {mcost.totals()} "
+                    f"{mcost.ops} ops is not the card's {cost.totals()} "
+                    f"{cost.ops} ops")
+        gates.check(r.model_flops <= cost.flops,
+                    f"{arch}: model_flops {r.model_flops:.4e} above the "
+                    f"counted {cost.flops:.4e}")
+        gates.check(busy is not None and share <= ROOFLINE_SHARE,
+                    f"{arch}: roofline {roof_ms:.4f} ms over the device "
+                    f"busy {busy} ms ({share:.4f} > {ROOFLINE_SHARE})")
+        attn = (cfg.num_layers // cfg.shared_attn_every
+                if cfg.family == "hybrid" else cfg.num_layers)
+        gates.launched(arch, "flash_attention", counts["flash_attention"],
+                       attn)
+        gates.launched(arch, "matmul_bf16", counts["matmul_bf16"])
+        if cfg.family == "hybrid":
+            gates.launched(arch, "ssd_scan", counts["ssd_scan"],
+                           cfg.num_layers)
+        del meta
+    gates.finish()
+    return {k: gates.main[k] for k in ("matmul_bf16", "flash_attention",
+                                       "ssd_scan")}
+
+
 CNN_KERNELS = {("conv2d", "im2col_sgemm"): "matmul",
                ("conv2d", "winograd_f2x3"): "winograd_tile_matmul",
                ("linear", "direct"): "matmul",
@@ -3032,7 +3253,7 @@ def main() -> None:
     dev = resolve_device("cuda")
     set_f32_precision()
     name = torch.cuda.get_device_name(0)
-    peaks = PEAKS["pcie" if "PCIe" in name else "sxm"]
+    peaks = peak_rates(name)
     t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {name} count {torch.cuda.device_count()}")
@@ -3199,7 +3420,7 @@ def main() -> None:
     def check(label, kernel, plain, library, flops, nbytes,
               dtype="float32", peak=None, exact=False, repeat_equal=False,
               nan_out=None, nan_scratch=None, library_graph=True,
-              profiled=False):
+              profiled=False, whole=True):
         """A kernel returning a tuple is held to its plain version output
         by output, each to its own max|plain|: the worst is reported. With
         ``repeat_equal`` a second launch on the same inputs must give the
@@ -3211,14 +3432,24 @@ def main() -> None:
         (autograd's backward does not run on a capturing stream).
         ``profiled``: the kernel and the library call are also timed by
         ``profiled_ms`` (the summed device time of their own kernels), the
-        one ruler that both take."""
+        one ruler that both take. A costed wrapper's cost function
+        (``_native.costed``: its flops and bytes from the shapes) is
+        printed beside the row's own count; where the row counts whole
+        tensors (``whole``) they must agree within ``COST_TOL``, where it
+        counts only the rows within groups or the visible cache entries
+        the cost function's is the upper figure, printed only."""
         torch.cuda.synchronize()  # inputs were copied on the default stream
         scratch = (((nan_scratch,), torch.float32) if nan_scratch
                    else None)
+        costs = []
         with torch.cuda.stream(stream):
             nan_block(scratch)
             nan_ptrs = nan_block(nan_out)
-            got = kernel()
+            _native.cost_sinks.append(lambda *c: costs.append(c[:3]))
+            try:
+                got = kernel()
+            finally:
+                _native.cost_sinks.pop()
             hits = sum(o.data_ptr() in nan_ptrs for o in outputs(got))
             ref = plain()
             if repeat_equal:
@@ -3280,9 +3511,24 @@ def main() -> None:
         if not finite or err / scale > tol:
             fail(f"{label}: kernel disagrees with its plain version "
                  f"(rel {err / scale:.3e} > {tol})")
+        cost = {}
+        if costs:
+            cf, cb = sum(c[1] for c in costs), sum(c[2] for c in costs)
+            off = max(abs(cf - flops) / max(flops, 1),
+                      abs(cb - nbytes) / max(nbytes, 1))
+            print(f"    cost function ({'+'.join(c[0] for c in costs)}): "
+                  f"flops={cf:.6g} bytes={cb:.6g}; the row's flops="
+                  f"{flops:.6g} bytes={nbytes:.6g}: "
+                  + (f"within {off:.2e} (gate {COST_TOL})" if whole else
+                     "the cost function's the upper figure (the row counts "
+                     "rows within groups or visible entries; not gated)"))
+            if whole and off > COST_TOL:
+                fail(f"{label}: the cost function's count is {off:.2e} off "
+                     f"the row's")
+            cost = {"cost_flops": cf, "cost_bytes": cb}
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                **dev}
+                **dev, **cost}
 
     print("kernels vs plain versions (resnet50@224 shapes):")
     results = {}
@@ -3634,7 +3880,7 @@ def main() -> None:
                   lambda: decode_attention_plain(q, k, v, p, **kw), lib,
                   4 * H * D * n_vis,
                   n_vis * entry_b + 2 * B * H * D * es + 4 * B, dname,
-                  repeat_equal=True)
+                  repeat_equal=True, whole=n_vis == B * W)
         results.setdefault("decode_attention", {})[tag] = {
             **r, "split": plan.split, "chunk": plan.chunk}
 
@@ -3835,7 +4081,7 @@ def main() -> None:
                   lambda: ops.gmm_blocks(x, w, gs),
                   lambda: gmm_blocks_plain(x, w, gs), None,
                   2 * rows * d * n, 2 * (rows * d + active * d * n + E * C * n),
-                  "bfloat16", repeat_equal=True)
+                  "bfloat16", repeat_equal=True, whole=False)
         results["gmm_blocks"][tag] = {**r, "experts_read": active}
     for dt in (torch.float32, torch.bfloat16):
         E3, C3, d3, n3 = 3, 40, 20, 9
@@ -3852,7 +4098,8 @@ def main() -> None:
                   2 * 57 * d3 * n3,
                   x.element_size() * (57 * d3 + 2 * d3 * n3 + E3 * C3 * n3),
                   dname, repeat_equal=True, nan_out=((E3, C3, n3), dt),
-                  nan_scratch=split * E3 * C3 * n3 if split > 1 else None)
+                  nan_scratch=split * E3 * C3 * n3 if split > 1 else None,
+                  whole=False)
         results["gmm_blocks"][f"sweep_group_sizes_{dname}"] = r
     # the f32 entry at granite-moe-3b-a800m's widths, along plan_f32_gemm(
     # C, n, d, batch=E, row_limit=True): the batched skinny path at
@@ -3891,7 +4138,7 @@ def main() -> None:
                   2 * rows * d * n,
                   4 * (rows * d + active * d * n + E * C * n),
                   repeat_equal=True, nan_out=((E, C, n), torch.float32),
-                  nan_scratch=scratch)
+                  nan_scratch=scratch, whole=False)
         results["gmm_blocks"][tag] = {**r, "path": plan.path,
                                       "experts_read": active}
 
@@ -3942,7 +4189,7 @@ def main() -> None:
                           lambda: torch.bmm(xm, wt), 2 * rows * K * N,
                           es * (rows * K + active * K * N + E * C * N),
                           dname, repeat_equal=True,
-                          nan_out=((E, C, N), dt))
+                          nan_out=((E, C, N), dt), whole=gtag == "full")
                 results["gmm_blocks"][f"bwd_{tag}_{gtag}{sfx}"] = {
                     **r, "path": plan.path, "experts_read": active}
             # dw: (tag, d_in of x, d_out of dy): x (E,C,K), dy (E,C,N);
@@ -3972,7 +4219,8 @@ def main() -> None:
                           lambda: torch.bmm(xm.transpose(1, 2), dym),
                           2 * rows * K * N,
                           es * (rows * K + rows * N + E * K * N), dname,
-                          repeat_equal=True, nan_out=((E, K, N), dt))
+                          repeat_equal=True, nan_out=((E, K, N), dt),
+                          whole=gtag == "full")
                 results.setdefault("gmm_blocks_dw", {})[ntag] = {
                     **r, "path": plan.path}
         del x, w, wt, xm, dy, dym
@@ -4009,7 +4257,8 @@ def main() -> None:
                   2 * rows * d_in * d_out,
                   x.element_size() * (rows * (d_in + d_out)
                                       + E * d_in * d_out), dname,
-                  repeat_equal=True, nan_out=((E, d_in, d_out), dt))
+                  repeat_equal=True, nan_out=((E, d_in, d_out), dt),
+                  whole=False)
         results["gmm_blocks_dw"][tag] = {**r, "path": plan.path}
     del x, dy
 
@@ -4453,6 +4702,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"  [ssm training path done at "
           f"{time.perf_counter() - t_start:.1f} s]")
+
+    # -- 7f. the roofline report: a prefill step counted on the card --------
+    for k, n in roofline_path(dev, card).items():
+        launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    print(f"  [roofline path done at {time.perf_counter() - t_start:.1f} s]")
 
     # -- 8. report ----------------------------------------------------------
     main_shape = {"winograd_tile_matmul": "stage0", "matmul": "im2col_s1b0",

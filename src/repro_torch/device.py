@@ -4,7 +4,9 @@ Entry points take an explicit ``device`` and default to ``"cuda"``. Asking
 for CUDA on a machine without a visible GPU raises: the port never carries
 on silently on the CPU. ``device="cpu"`` is for the caller that asks for
 it (the CPU tests), and then every kernel wrapper takes its plain PyTorch
-version.
+version; ``device="meta"`` is for the dry run (``launch.dryrun``), where
+every tensor has a shape and a dtype and no data, and a kernel wrapper
+returns its outputs' shapes and records its cost without running.
 
 Work on a CUDA device runs on explicit streams, never on the legacy
 default stream: each pipeline runtime owns one exec stream and staging
@@ -31,7 +33,8 @@ def as_device(device: DeviceLike) -> torch.device:
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for and
-    no CUDA device is visible."""
+    no CUDA device is visible. ``"meta"`` (shapes and dtypes only, no
+    data: the dry run) is taken where the caller names it."""
     dev = as_device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -41,7 +44,7 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         set_f32_precision()
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
 

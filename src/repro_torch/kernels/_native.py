@@ -13,11 +13,25 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0, so a refused launch (too many threads,
 too much shared memory, no kernel image for this card) never passes
 unseen.
+
+The dry run and the step counter (``roofline.op_cost``). A wrapper that a
+model step reaches is ``costed``: each outermost call reports the kernel's
+cost to every registered counter (``cost_sinks``), the FLOPs the function
+computes and the bytes it must move (each input read once, each output
+written once: the ``bound_ms`` column's count), and the aten ops it issues
+inside (its plain version on the CPU, its outputs and scratch on the
+card) are not counted again (``inside_kernel``). On ``meta`` tensors
+(shape and dtype, no data) a costed wrapper's ``on_cpu(..., meta=True)``
+checks them as it checks CUDA tensors and returns False, and the wrapper
+returns empty ``meta`` outputs of the kernel's shapes and dtypes before
+any launch: it never runs its plain version there. The other wrappers
+refuse meta tensors.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,7 +39,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -216,9 +230,49 @@ def on_device(device: torch.device):
     return torch.cuda.device(device)
 
 
+# -- cost accounting ----------------------------------------------------------
+# callables (kernel, flops, bytes, out) that the step counters register
+# while they count
+cost_sinks: List[Callable[[str, float, float, Any], None]] = []
+_tls = threading.local()
+
+
+def inside_kernel() -> bool:
+    """True while this thread runs inside a costed wrapper, whose ops the
+    wrapper's own cost stands for."""
+    return getattr(_tls, "depth", 0) > 0
+
+
+def costed(kernel: str, cost: Callable[..., Tuple[float, float]]):
+    """Decorator for a kernel wrapper: ``cost(out, *args, **kwargs)``
+    gives (flops, bytes) of one call from its arguments' and outputs'
+    shapes (never their values: no host sync), reported with the outputs
+    to every registered counter once the outermost costed call returns.
+    With no counter registered the wrapper runs as it is."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if not cost_sinks:
+                return fn(*args, **kwargs)
+            depth = getattr(_tls, "depth", 0)
+            _tls.depth = depth + 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                _tls.depth = depth
+            if depth == 0:
+                flops, nbytes = cost(out, *args, **kwargs)
+                for sink in list(cost_sinks):
+                    sink(kernel, float(flops), float(nbytes), out)
+            return out
+        return inner
+    return wrap
+
+
 def on_cpu(kernel: str, *ts,
            dtypes: Tuple[torch.dtype, ...] = (torch.float32,),
-           each: Optional[Sequence[Tuple[torch.dtype, ...]]] = None) -> bool:
+           each: Optional[Sequence[Tuple[torch.dtype, ...]]] = None,
+           meta: bool = False) -> bool:
     """True when every tensor lies on the CPU (the wrapper then runs the
     plain version). Otherwise the tensors must share one of ``dtypes``
     (float32 unless the kernel takes more), or, where ``each`` is given,
@@ -232,7 +286,12 @@ def on_cpu(kernel: str, *ts,
     stop there silently. ``matmul``, ``flash_attention`` and ``ssd_scan``
     have backward kernels and reach this only with grad mode off (inside
     their autograd Functions), as ``gmm_blocks`` and ``gmm_blocks_dw`` do
-    inside the MoE layer's (``models.moe``)."""
+    inside the MoE layer's (``models.moe``).
+
+    Where ``meta`` (a costed wrapper, which has a meta branch), tensors
+    that all lie on ``meta`` (the dry run) are checked as CUDA tensors
+    are, and this returns False: the wrapper then returns its outputs'
+    shapes without a launch. Any other wrapper refuses meta tensors."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
             f"{kernel}: no backward kernel yet, so no gradient flows through "
@@ -241,9 +300,12 @@ def on_cpu(kernel: str, *ts,
     devs = {t.device for t in ts}
     if {d.type for d in devs} == {"cpu"}:
         return True
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
-        raise ValueError(f"{kernel}: tensors must lie on the CPU or on one "
-                         f"CUDA device, got {sorted(map(str, devs))}")
+    if len(devs) != 1 or next(iter(devs)).type not in (
+            ("cuda", "meta") if meta else ("cuda",)):
+        where = ("on the CPU, on one CUDA device or on meta" if meta
+                 else "on the CPU or on one CUDA device")
+        raise ValueError(f"{kernel}: tensors must lie {where}, got "
+                         f"{sorted(map(str, devs))}")
     if each is None:
         kinds = {t.dtype for t in ts}
         if len(kinds) != 1 or next(iter(kinds)) not in dtypes:

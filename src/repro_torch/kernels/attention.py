@@ -266,6 +266,52 @@ def plan_flash(B: int, S: int, H: int, KV: int, D: int,
     return min(plans, key=key)
 
 
+def visible_pairs(S: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs one head's prefill attends: the causal triangle
+    (query r sees keys 0..r), cut by a window to the last ``window`` keys
+    up to r; without the causal mask, keys after r too. The cost
+    functions count FLOPs over these pairs only."""
+    w = S if window is None else min(int(window), S)
+    if causal:
+        return w * (w + 1) // 2 + (S - w) * w
+    return S * S - (S - w) * (S - w + 1) // 2
+
+
+def flash_cost(out, q, k, v, causal, window, softcap,
+               want_lse) -> Tuple[float, float]:
+    """4·D FLOPs a visible pair a head (q·kᵀ and p·v); q, k, v read once,
+    o (and the rows' lse) written once."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    return (4 * B * H * D * visible_pairs(S, causal, window),
+            q.element_size() * 2 * B * S * (H + KV) * D
+            + (4 * B * H * S if want_lse else 0))
+
+
+def flash_bwd_cost(out, q, k, v, o, lse, do, *, causal=True, window=None,
+                   softcap=None) -> Tuple[float, float]:
+    """10·D FLOPs a visible pair a head (the scores recomputed, dP, dV, dQ,
+    dK); q, k, v, o, do and lse read once, dq, dk, dv written once."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    return (10 * B * H * D * visible_pairs(S, causal, window),
+            q.element_size() * 4 * B * S * (H + KV) * D + 4 * B * H * S)
+
+
+def decode_cost(out, q, k, v, pos, *, window=None, softcap=None,
+                k_scale=None, v_scale=None) -> Tuple[float, float]:
+    """4·H·D FLOPs a cache entry; every entry of the cache read once (the
+    visible ones depend on ``pos``, which lies on the device: an upper
+    bound until the cache is full), q and pos read, the output written."""
+    B, H, D = q.shape
+    W, KV = k.shape[1], k.shape[2]
+    entry = 2 * KV * D * k.element_size() + (
+        2 * KV * 4 if k_scale is not None else 0)
+    return (4 * H * D * B * W,
+            B * W * entry + 2 * B * H * D * q.element_size() + 4 * B)
+
+
+@_native.costed("flash_attention", flash_cost)
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool, window: Optional[int],
                    softcap: Optional[float], want_lse: bool
@@ -274,7 +320,7 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     writing the rows' log-sum-exp too where ``want_lse``."""
     _check(q, k, v)
     if _native.on_cpu("flash_attention", q, k, v,
-                      dtypes=(torch.float32, torch.bfloat16)):
+                      dtypes=(torch.float32, torch.bfloat16), meta=True):
         if want_lse:
             return flash_attention_plain(q, k, v, causal=causal,
                                          window=window, softcap=softcap,
@@ -289,7 +335,7 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if want_lse else None)
-    if B and S and H and D:
+    if B and S and H and D and not q.is_meta:
         lib = _native.library("flash_attention")
         fn = (lib.repro_flash_attention_bf16 if q.dtype == torch.bfloat16
               else lib.repro_flash_attention_f32)
@@ -456,6 +502,7 @@ def plan_flash_bwd(B: int, S: int, H: int, KV: int, D: int,
                         B * KV * -(-S // rows), B * H * -(-S // rows))
 
 
+@_native.costed("flash_attention_bwd", flash_bwd_cost)
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
@@ -477,7 +524,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dt = (torch.float32, torch.bfloat16)
     if _native.on_cpu("flash_attention_bwd", q, k, v, o, lse, do,
                       each=(dt, (q.dtype,), (q.dtype,), (q.dtype,),
-                            (torch.float32,), (q.dtype,))):
+                            (torch.float32,), (q.dtype,)), meta=True):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, softcap=softcap)
     if window is not None and window <= 0:
@@ -486,7 +533,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plan = plan_flash_bwd(B, S, H, KV, D, q.dtype, causal, window)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
-    if B and S and H and D:
+    if B and S and H and D and not q.is_meta:
         delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
         lib = _native.library("flash_attention_bwd")
         fn = (lib.repro_flash_attention_bwd_bf16
@@ -614,6 +661,7 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhw,bwhd->bhd", p, vf).to(q.dtype)
 
 
+@_native.costed("decode_attention", decode_cost)
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor, *, window: Optional[int] = None,
                      softcap: Optional[float] = None,
@@ -627,7 +675,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if quant:
         ts += [k_scale, v_scale]
         each += [(torch.float32,)] * 2
-    if _native.on_cpu("decode_attention", *ts, each=each):
+    if _native.on_cpu("decode_attention", *ts, each=each, meta=True):
         return decode_attention_plain(q, k, v, pos, window=window,
                                       softcap=softcap, k_scale=k_scale,
                                       v_scale=v_scale)
@@ -638,7 +686,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {window}")
     plan = plan_decode(B, W, H, KV, D)
     out = torch.empty_like(q)
-    if B and H:
+    if B and H and not q.is_meta:
         # the splits' (acc, m, l) in f32, merged by the second kernel
         scratch = (torch.empty(plan.split * B * H * (D + 2),
                                dtype=torch.float32, device=q.device)

@@ -79,7 +79,7 @@ reduction count once).
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -145,6 +145,30 @@ def _count(name: str) -> None:
         launches[name] += 1
 
 
+def gmm_blocks_cost(out, x, w, group_sizes=None) -> Tuple[float, float]:
+    """Every capacity block: 2·E·C·d·n; x, w and the group sizes read
+    once, the output written once. The group sizes lie on the device (a
+    dry run has none), so rows past them count too: an upper bound of the
+    work a routing needs."""
+    E, C, d = x.shape
+    n = w.shape[2]
+    return (2 * E * C * d * n, x.element_size() * (E * C * d + E * C * n)
+            + w.element_size() * E * d * n
+            + (0 if group_sizes is None else 4 * E))
+
+
+def gmm_blocks_dw_cost(out, x, dy, group_sizes=None) -> Tuple[float, float]:
+    """Every row of the capacity blocks: 2·E·C·d·n; x, dy and the group
+    sizes read once, dw written once (an upper bound, as for
+    ``gmm_blocks``)."""
+    E, C, d = x.shape
+    n = dy.shape[2]
+    return (2 * E * C * d * n, x.element_size() * (E * C * d + E * d * n)
+            + dy.element_size() * E * C * n
+            + (0 if group_sizes is None else 4 * E))
+
+
+@_native.costed("gmm_blocks", gmm_blocks_cost)
 def gmm_blocks(x: torch.Tensor, w: torch.Tensor,
                group_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (E, C, d) @ w (E, d, n) -> (E, C, n) in x's dtype; rows past
@@ -159,7 +183,7 @@ def gmm_blocks(x: torch.Tensor, w: torch.Tensor,
     # (not contiguous) on the card
     kmajor = not w.is_contiguous() and w.transpose(1, 2).is_contiguous()
     if _native.on_cpu("gmm_blocks", x, w.transpose(1, 2) if kmajor else w,
-                      dtypes=(torch.float32, torch.bfloat16)):
+                      dtypes=(torch.float32, torch.bfloat16), meta=True):
         if group_sizes is not None and group_sizes.device.type != "cpu":
             raise ValueError("gmm_blocks: group_sizes on another device")
         return gmm_blocks_plain(x, w, group_sizes)
@@ -167,7 +191,7 @@ def gmm_blocks(x: torch.Tensor, w: torch.Tensor,
     E, C, d = x.shape
     n = w.shape[2]
     out = torch.empty((E, C, n), dtype=x.dtype, device=x.device)
-    if E and C and n:
+    if E and C and n and not x.is_meta:
         lib = _native.library("gmm")
         args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), gs_ptr, E, C, d,
                 n, int(kmajor))
@@ -183,6 +207,7 @@ def gmm_blocks(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+@_native.costed("gmm_blocks_dw", gmm_blocks_dw_cost)
 def gmm_blocks_dw(x: torch.Tensor, dy: torch.Tensor,
                   group_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (E, C, d)ᵀ @ dy (E, C, n) -> (E, d, n) in x's dtype, expert e
@@ -193,7 +218,7 @@ def gmm_blocks_dw(x: torch.Tensor, dy: torch.Tensor,
                          f"{tuple(dy.shape)}")
     _check_group_sizes("gmm_blocks_dw", group_sizes, x.shape[0])
     if _native.on_cpu("gmm_blocks_dw", x, dy,
-                      dtypes=(torch.float32, torch.bfloat16)):
+                      dtypes=(torch.float32, torch.bfloat16), meta=True):
         if group_sizes is not None and group_sizes.device.type != "cpu":
             raise ValueError("gmm_blocks_dw: group_sizes on another device")
         return gmm_blocks_dw_plain(x, dy, group_sizes)
@@ -201,7 +226,7 @@ def gmm_blocks_dw(x: torch.Tensor, dy: torch.Tensor,
     E, C, d = x.shape
     n = dy.shape[2]
     out = torch.empty((E, d, n), dtype=x.dtype, device=x.device)
-    if E and d and n:
+    if E and d and n and not x.is_meta:
         lib = _native.library("gmm_dw")
         aligned = (x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
                    and out.data_ptr() % 16 == 0)

@@ -385,6 +385,15 @@ class _Matmul(torch.autograd.Function):
         return dx, dw, None
 
 
+def matmul_cost(out, x, w, out_dtype=None) -> Tuple[float, float]:
+    """2·M·N·K; x and w read once, the output written once."""
+    M, K = x.shape
+    N = w.shape[1]
+    return (2 * M * N * K, x.element_size() * M * K
+            + w.element_size() * K * N + out.element_size() * M * N)
+
+
+@_native.costed("matmul", matmul_cost)
 def _matmul(x: torch.Tensor, w: torch.Tensor,
             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
@@ -396,12 +405,12 @@ def _matmul(x: torch.Tensor, w: torch.Tensor,
     # (not contiguous) on the card
     kmajor, ldb = b_layout(w) or (False, 0)
     if _native.on_cpu("matmul", x, w.T if kmajor else w,
-                      dtypes=(torch.float32, torch.bfloat16)):
+                      dtypes=(torch.float32, torch.bfloat16), meta=True):
         return matmul_plain(x, w, out_dtype)
     M, K = x.shape
     N = w.shape[1]
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    if M and N:
+    if M and N and not x.is_meta:
         lib = _native.library("matmul")
         if x.dtype == torch.bfloat16:
             fn = (lib.repro_matmul_bf16_f32out if out_dtype == torch.float32

@@ -45,6 +45,8 @@ integer, f32 and bf16 tensors, so each names a dtype set per argument
 from __future__ import annotations
 
 import threading
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import _native
@@ -121,22 +123,38 @@ _F32 = (torch.float32,)
 _X = (torch.float32, torch.bfloat16)
 
 
+def dequant_int8_cost(out, q, scale) -> Tuple[float, float]:
+    """One multiply an element; q and the scales read, f32 written."""
+    K, N = q.shape
+    return K * N, K * N + 4 * N + 4 * K * N
+
+
+def dequant_int4_cost(out, packed, scale, K) -> Tuple[float, float]:
+    """One multiply an element; the packed nibbles and the scales read,
+    f32 written."""
+    N = packed.shape[1]
+    return K * N, packed.shape[0] * N + 4 * N + 4 * K * N
+
+
+@_native.costed("dequant_int8", dequant_int8_cost)
 def dequant_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """(K, N) int8 + (1, N) f32 scale -> (K, N) f32."""
     if q.dim() != 2:
         raise ValueError(f"dequant_int8: q must be (K, N), got {tuple(q.shape)}")
     K, N = q.shape
     _check_scale("dequant_int8", scale, N)
-    if _native.on_cpu("dequant_int8", q, scale, each=((torch.int8,), _F32)):
+    if _native.on_cpu("dequant_int8", q, scale, each=((torch.int8,), _F32),
+                      meta=True):
         return dequant_int8_plain(q, scale)
     out = torch.empty((K, N), dtype=torch.float32, device=q.device)
-    if K and N:
+    if K and N and not q.is_meta:
         lib = _native.library("quant")
         _launch("dequant_int8", lib.repro_dequant_int8, q.data_ptr(),
                 scale.data_ptr(), out.data_ptr(), K, N, device=q.device)
     return out
 
 
+@_native.costed("dequant_int4", dequant_int4_cost)
 def dequant_int4(packed: torch.Tensor, scale: torch.Tensor,
                  K: int) -> torch.Tensor:
     """((K+1)//2, N) packed uint8 + (1, N) f32 scale -> (K, N) f32."""
@@ -144,10 +162,10 @@ def dequant_int4(packed: torch.Tensor, scale: torch.Tensor,
     N = packed.shape[1]
     _check_scale("dequant_int4", scale, N)
     if _native.on_cpu("dequant_int4", packed, scale,
-                      each=((torch.uint8,), _F32)):
+                      each=((torch.uint8,), _F32), meta=True):
         return dequant_int4_plain(packed, scale, K)
     out = torch.empty((K, N), dtype=torch.float32, device=packed.device)
-    if K and N:
+    if K and N and not packed.is_meta:
         lib = _native.library("quant")
         _launch("dequant_int4", lib.repro_dequant_int4, packed.data_ptr(),
                 scale.data_ptr(), out.data_ptr(), K, N, device=packed.device)

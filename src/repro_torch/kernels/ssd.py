@@ -311,6 +311,46 @@ def plan_ssd_bwd(B: int, S: int, H: int, P: int, N: int, Q: int,
 # ---------------------------------------------------------------------------
 # the wrapper
 # ---------------------------------------------------------------------------
+def ssd_cost(out, x, dt, A, Bm, Cm, D, chunk, init_state,
+             keep) -> Tuple[float, float]:
+    """The products over each chunk's lower triangle: C·Bᵀ once a (b,
+    chunk) (every head shares B and C), a head's product with x on those
+    pairs, C·state and the state update on Q x N x P; x, dt, A, Bm, Cm,
+    D (and the initial state) read once, y and the final state (and the
+    kept cum, CB and chunk-entry states) written once."""
+    B, S, H, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    nc, pairs = S // Q, Q * (Q + 1) // 2
+    es = x.element_size()
+    nbytes = (es * (2 * B * S * H * P + 2 * B * S * N)
+              + 4 * (B * S * H + 2 * H)
+              + 4 * B * H * P * N * (1 + int(init_state is not None)))
+    if keep:
+        nbytes += 4 * (B * S * H + B * nc * Q * Q + B * nc * H * N * P)
+    return (2 * B * nc * pairs * N
+            + 2 * B * H * nc * (pairs * P + 2 * Q * N * P)), nbytes
+
+
+def ssd_bwd_cost(out, x, dt, A, Bm, Cm, D, cum, CB, ins, dy,
+                 dfinal=None) -> Tuple[float, float]:
+    """d in_c, the chunk products (4 off the diagonal and 2 on it, Q x N x
+    P a head and chunk), dy_i·x_j and dx on the lower triangle's pairs, dC
+    and dB from dCB once a (b, chunk); each input read once (CB's lower
+    triangle), each output written once."""
+    B, S, H, P = x.shape
+    N, nc, Q = Bm.shape[-1], cum.shape[1], cum.shape[3]
+    pairs = Q * (Q + 1) // 2
+    es = x.element_size()
+    flops = (2 * B * nc * H * (4 * Q * N * P + 2 * pairs * P)
+             + 4 * B * nc * pairs * N)
+    nbytes = (es * (3 * B * S * H * P + 4 * B * S * N)
+              + 4 * (3 * B * S * H + 4 * H + B * nc * pairs)
+              + 4 * B * nc * H * N * P
+              + 4 * B * H * P * N * (1 + int(dfinal is not None)))
+    return flops, nbytes
+
+
+@_native.costed("ssd_scan", ssd_cost)
 def _ssd_forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
                  chunk: int, init_state: Optional[torch.Tensor], keep: bool
@@ -327,7 +367,7 @@ def _ssd_forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     io = (torch.float32, torch.bfloat16)
     if _native.on_cpu("ssd_scan", *ts,
                       each=[io, (f32,), (f32,), (x.dtype,), (x.dtype,),
-                            (f32,), (f32,)][:len(ts)]):
+                            (f32,), (f32,)][:len(ts)], meta=True):
         cum, CB = ssd_cum_cb(dt, A, Bm, Cm, chunk)
         states = ssd_chunk_states(x, dt, Bm, cum)
         ins, final = ssd_state_passing(states, cum, init_state)
@@ -342,7 +382,9 @@ def _ssd_forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cum = torch.empty((B, nc, H, Q), dtype=f32, device=x.device)
     cb = torch.empty((B, nc, Q, Q), dtype=f32, device=x.device)
     states = torch.empty((B, nc, H, N, P), dtype=f32, device=x.device)
-    if B and S and H:
+    if x.is_meta:
+        pass  # the dry run: the outputs' shapes, no launch
+    elif B and S and H:
         lib = _native.library("ssd")
         fn = (lib.repro_ssd_scan_bf16 if x.dtype == torch.bfloat16
               else lib.repro_ssd_scan_f32)
@@ -516,6 +558,7 @@ def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             dCc.reshape(B, S, N).to(Cm.dtype), dD, dinit)
 
 
+@_native.costed("ssd_scan_bwd", ssd_bwd_cost)
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
                  cum: torch.Tensor, CB: torch.Tensor, ins: torch.Tensor,
@@ -533,7 +576,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if _native.on_cpu("ssd_scan_bwd", *ts,
                       each=[io, (f32,), (f32,), (x.dtype,), (x.dtype,),
                             (f32,), (f32,), (f32,), (f32,), (x.dtype,),
-                            (f32,)][:len(ts)]):
+                            (f32,)][:len(ts)], meta=True):
         return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, D, cum, CB, ins, dy,
                                   dfinal)
     B, S, H, P = x.shape
@@ -547,7 +590,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA = torch.empty((H,), dtype=f32, device=dev)
     dD = torch.empty((H,), dtype=f32, device=dev)
     dinit = torch.empty((B, H, P, N), dtype=f32, device=dev)
-    if B and S and H:
+    if x.is_meta:
+        pass  # the dry run: the outputs' shapes, no launch
+    elif B and S and H:
         # scratch: d in_c, then ds_c in place (B,nc,H,N,P; bf16: ds_c as
         # its hi + lo bf16 halves in the same bytes); the pass's row
         # blocks' terms of <in_c, g> (B,nc,H,ceil(N/32)); each head group's

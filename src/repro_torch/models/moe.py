@@ -65,15 +65,17 @@ from repro_torch.models import layers as L
 MOE_TOKEN_BLOCK = 16_384
 
 
-def moe_init(cfg, g: torch.Generator, n: int) -> dict:
+def moe_init(cfg, g: torch.Generator, n: int, *, device=None) -> dict:
     """``n`` layers' MoE weights stacked (n, ...), the reference's shapes
-    and scales (``moe_init``), drawn from ``g`` on ``g.device``."""
+    and scales (``moe_init``), drawn from ``g`` on ``device`` (default
+    ``g.device``; ``"meta"``: shapes only)."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     dt = getattr(torch, cfg.dtype)
+    dev = device or g.device
 
     def normal(shape, scale, dtype):
         return (torch.randn((n, *shape), generator=g, dtype=torch.float32,
-                            device=g.device) * scale).to(dtype)
+                            device=dev) * scale).to(dtype)
 
     scale = 1.0 / math.sqrt(d)
     return {

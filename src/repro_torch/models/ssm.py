@@ -90,13 +90,14 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 # ---------------------------------------------------------------------------
 # full Mamba2 block
 # ---------------------------------------------------------------------------
-def mamba_init(cfg, g: torch.Generator, n: int) -> dict:
+def mamba_init(cfg, g: torch.Generator, n: int, *, device=None) -> dict:
     """``n`` layers' mixer weights stacked (n, ...), the reference's tree,
-    shapes and scales (``mamba_init``), drawn from ``g`` on ``g.device``."""
+    shapes and scales (``mamba_init``), drawn from ``g`` on ``device``
+    (default ``g.device``; ``"meta"``: shapes only)."""
     d, di, H = cfg.d_model, cfg.ssm_inner, cfg.ssm_heads
     N, K = cfg.ssm_state, cfg.ssm_conv_width
     dt = getattr(torch, cfg.dtype)
-    dev = g.device
+    dev = device or g.device
 
     def normal(shape, scale):
         return (torch.randn((n, *shape), generator=g, dtype=torch.float32,

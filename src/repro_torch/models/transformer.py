@@ -63,7 +63,18 @@ autograd Functions, the MoE layer's (``moe._GroupedFFN``, whose backward
 runs ``gmm_blocks`` and ``gmm_blocks_dw``) and ``ssd_scan``'s
 (``ssd._SsdScan``, whose backward is ``ssd_scan_bwd``), and the token
 embedding is read with ``F.embedding``, whose backward sums the rows
-deterministically. The prefill cache (``collect_cache``) is not ported.
+deterministically.
+
+``forward(collect_cache=True)`` also returns the prefill cache in the
+reference's pytree, leaf for leaf: ``{"kv": (k, v)}`` with leaves (L, B,
+S, KV, hd) (the post-RoPE keys and values the attention read) for dense,
+moe, vlm and audio; ``{"local": (k, v), "global": (k, v)}`` with (L/2,
+...) leaves for gemma2's pairs; ``{"mamba": ((conv_x, conv_B, conv_C),
+ssm)}`` with (L, ...) leaves for ssm; and for hybrid the mamba states
+shaped (G, every, ...) with ``"shared_kv": (k, v)`` (G, B, S, KV, hd),
+one per application of the shared block. Collecting only keeps what the
+blocks compute anyway, so the logits are the same bits, with or without
+remat.
 """
 from __future__ import annotations
 
@@ -119,23 +130,27 @@ def _groups(cfg: ArchConfig) -> int:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _normal(g: torch.Generator, shape, scale: float, dt) -> torch.Tensor:
+def _normal(g: torch.Generator, shape, scale: float, dt,
+            device) -> torch.Tensor:
     return (torch.randn(shape, generator=g, dtype=torch.float32,
-                        device=g.device) * scale).to(dt)
+                        device=device) * scale).to(dt)
 
 
-def init_params(cfg: ArchConfig, g: torch.Generator) -> Params:
+def init_params(cfg: ArchConfig, g: torch.Generator, *,
+                device=None) -> Params:
     """Random weights from ``g`` in the reference's tree and scales (embed
     N(0, .02²), projections N(0, 1/fan_in), norms zero), stacked (L, ...)
     per block weight, in ``cfg.dtype``, on ``g``'s device (the CPU for a
     default generator; a CUDA generator draws a full-width model on the
-    card, with no f32 copy on the host). ``embed`` for the ``tokens`` and
+    card, with no f32 copy on the host). ``device="meta"`` builds the same
+    tree of shapes and dtypes with no data and draws nothing
+    (``launch.specs.params_shape``). ``embed`` for the ``tokens`` and
     ``vlm`` modes, ``lm_head`` for an untied head or the ``embeddings``
     mode; the hybrid family's mamba ``blocks`` and its one ``shared``
     attention block, drawn once and not stacked."""
     _check_family(cfg)
     dt = _dtype(cfg)
-    dev = g.device
+    dev = torch.device(device) if device is not None else g.device
     d, V, Lr = cfg.d_model, cfg.vocab_size, cfg.num_layers
 
     def zeros(*shape):
@@ -143,32 +158,33 @@ def init_params(cfg: ArchConfig, g: torch.Generator) -> Params:
 
     params: Params = {}
     if cfg.input_mode in ("tokens", "vlm"):
-        params["embed"] = _normal(g, (V, d), 0.02, dt)
+        params["embed"] = _normal(g, (V, d), 0.02, dt, dev)
     if not cfg.tie_embeddings or cfg.input_mode == "embeddings":
-        params["lm_head"] = _normal(g, (d, V), 1.0 / math.sqrt(d), dt)
+        params["lm_head"] = _normal(g, (d, V), 1.0 / math.sqrt(d), dt, dev)
     if cfg.family in ("ssm", "hybrid"):
         params["blocks"] = {"ln1": zeros(Lr, d),
-                            "mamba": SSM.mamba_init(cfg, g, Lr)}
+                            "mamba": SSM.mamba_init(cfg, g, Lr, device=dev)}
     else:
-        params["blocks"] = _attn_blocks_init(cfg, g, Lr)
+        params["blocks"] = _attn_blocks_init(cfg, g, Lr, dev)
     if cfg.family == "hybrid":
-        params["shared"] = _layer(_attn_blocks_init(cfg, g, 1), 0)
+        params["shared"] = _layer(_attn_blocks_init(cfg, g, 1, dev), 0)
     params["final_norm"] = zeros(d)
     return params
 
 
-def _attn_blocks_init(cfg: ArchConfig, g: torch.Generator, n: int) -> Params:
+def _attn_blocks_init(cfg: ArchConfig, g: torch.Generator, n: int,
+                      device) -> Params:
     """``n`` attention blocks (norms, attention, MLP or MoE) stacked
-    (n, ...)."""
+    (n, ...) on ``device``."""
     dt = _dtype(cfg)
     d, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd, ff = cfg.head_dim, cfg.d_ff
 
     def dense(shape):
-        return _normal(g, (n, *shape), 1.0 / math.sqrt(shape[0]), dt)
+        return _normal(g, (n, *shape), 1.0 / math.sqrt(shape[0]), dt, device)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=g.device)
+        return torch.zeros(shape, dtype=dt, device=device)
 
     attn = {"wq": dense((d, H * hd)), "wk": dense((d, KV * hd)),
             "wv": dense((d, KV * hd)), "wo": dense((H * hd, d))}
@@ -177,7 +193,7 @@ def _attn_blocks_init(cfg: ArchConfig, g: torch.Generator, n: int) -> Params:
         attn["k_norm"] = zeros(n, hd)
     blocks = {"ln1": zeros(n, d), "ln2": zeros(n, d), "attn": attn}
     if cfg.is_moe:
-        blocks["moe"] = MOE.moe_init(cfg, g, n)
+        blocks["moe"] = MOE.moe_init(cfg, g, n, device=device)
     else:
         blocks["mlp"] = {"w_gate": dense((d, ff)), "w_up": dense((d, ff)),
                          "w_down": dense((ff, d))}
@@ -209,10 +225,14 @@ def _ffn(bp, xn, cfg):
     return L.mlp_apply(bp["mlp"], xn), None
 
 
-def _attn_block_seq(bp, x, cfg, positions, window):
-    h, _ = L.attn_apply_seq(
+def _attn_block_seq(bp, x, cfg, positions, window, kv_out=None):
+    """(x, aux or None); with a list ``kv_out`` the attention's (k, v)
+    (B, S, KV, hd) is appended to it."""
+    h, kv = L.attn_apply_seq(
         bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg, positions,
         window=window)
+    if kv_out is not None:
+        kv_out.append(kv)
     x = x + h
     h2, aux = _ffn(bp, L.rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
     return x + h2, aux
@@ -282,14 +302,17 @@ def _remat_unit(cfg: ArchConfig, remat_group: int) -> int:
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
-            *, remat: bool = False, remat_group: int = 1):
-    """Full-sequence forward. Returns (logits, aux_loss, (None, mask)), the
-    reference's return shape: the aux loss sums the MoE layers'
-    load-balance losses (zero for the other families); the prefill cache
-    (``collect_cache``) is not ported, decode starts from
-    ``init_decode_state``. ``remat`` (under grad) checkpoints the blocks
-    as ``_remat_unit`` groups them, a mamba block at a time for ssm and a
-    group (its mamba blocks and the shared block) at a time for hybrid."""
+            *, remat: bool = False, remat_group: int = 1,
+            collect_cache: bool = False):
+    """Full-sequence forward. Returns (logits, aux_loss, (cache, mask)),
+    the reference's return shape: the aux loss sums the MoE layers'
+    load-balance losses (zero for the other families); the cache is
+    ``None`` unless ``collect_cache``, and then the family's prefill cache
+    (the module docstring), which seeds decode at position S. ``remat``
+    (under grad) checkpoints the blocks as ``_remat_unit`` groups them, a
+    mamba block at a time for ssm and a group (its mamba blocks and the
+    shared block) at a time for hybrid; a checkpointed unit hands its
+    part of the cache out with x."""
     _check_family(cfg)
     x, loss_mask = _embed_input(params, cfg, batch)
     B, S, _ = x.shape
@@ -301,23 +324,29 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
 
     def run(x, aux, lo: int, hi: int):
         """Blocks lo .. hi - 1; a hybrid unit is one group, its mamba
-        blocks and then the shared block."""
+        blocks and then the shared block. Returns (x, aux, the units' (k,
+        v) pairs, their mamba states), the last two empty unless
+        collecting."""
+        kvs = [] if collect_cache else None
+        states = []
         for i in range(lo, hi):
             if cfg.family in ("ssm", "hybrid"):
-                x, _ = _mamba_block_seq(layers[i], x, cfg)
+                x, st = _mamba_block_seq(layers[i], x, cfg)
+                if collect_cache:
+                    states.append(st)
                 continue
             window = cfg.sliding_window
             if cfg.local_global_pattern and i % 2 == 1:
                 window = None  # (local, global) pairs: odd layers are global
-            x, a = _attn_block_seq(layers[i], x, cfg, positions, window)
+            x, a = _attn_block_seq(layers[i], x, cfg, positions, window, kvs)
             if a is not None:
                 aux = aux + a
         if cfg.family == "hybrid":
             x, a = _attn_block_seq(params["shared"], x, cfg, positions,
-                                   cfg.sliding_window)
+                                   cfg.sliding_window, kvs)
             if a is not None:
                 aux = aux + a
-        return x, aux
+        return x, aux, kvs or [], states
 
     # the checkpointed unit: a mamba block (ssm), a group (hybrid, as the
     # reference's jax.checkpoint(group)), else _remat_unit's blocks
@@ -326,16 +355,41 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     ckpt = remat and torch.is_grad_enabled()
     if not ckpt and cfg.family != "hybrid":
         unit = cfg.num_layers
+    kvs, states = [], []
     for lo in range(0, cfg.num_layers, unit):
         if ckpt:
             # each unit's aux leaves its checkpoint with x, summed in
             # layer order
-            x, aux = checkpoint(
+            x, aux, kv, st = checkpoint(
                 lambda x, aux, lo=lo: run(x, aux, lo, lo + unit), x, aux,
                 use_reentrant=False)
         else:
-            x, aux = run(x, aux, lo, lo + unit)
-    return _lm_logits(params, cfg, x), aux, (None, loss_mask)
+            x, aux, kv, st = run(x, aux, lo, lo + unit)
+        kvs += kv
+        states += st
+    cache = _prefill_cache(cfg, kvs, states) if collect_cache else None
+    return _lm_logits(params, cfg, x), aux, (cache, loss_mask)
+
+
+def _stack_kv(kvs) -> tuple:
+    return (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
+
+
+def _prefill_cache(cfg: ArchConfig, kvs, states) -> Params:
+    """The reference's prefill cache from the blocks' (k, v) pairs and
+    mamba states ((conv_x, conv_B, conv_C), ssm), in layer order."""
+    if cfg.family in ("ssm", "hybrid"):
+        conv = tuple(torch.stack([c[j] for c, _ in states]) for j in range(3))
+        mamba = (conv, torch.stack([s for _, s in states]))
+        if cfg.family == "ssm":
+            return {"mamba": mamba}
+        lead = (_groups(cfg), cfg.shared_attn_every)
+        mamba = (tuple(c.view(*lead, *c.shape[1:]) for c in mamba[0]),
+                 mamba[1].view(*lead, *mamba[1].shape[1:]))
+        return {"mamba": mamba, "shared_kv": _stack_kv(kvs)}
+    if cfg.local_global_pattern:
+        return {"local": _stack_kv(kvs[0::2]), "global": _stack_kv(kvs[1::2])}
+    return {"kv": _stack_kv(kvs)}
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,

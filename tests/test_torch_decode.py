@@ -185,10 +185,10 @@ def test_decode_attention_wrapper_checks():
     with pytest.raises(ValueError):
         ops.decode_attention(q, k.to(torch.int8), k.to(torch.int8), pos,
                              k_scale=torch.ones(2, 8, 2))
-    # neither a CPU nor a CUDA tensor: no plain fallback, no launch
+    # split across devices (meta, the dry run's, beside the CPU): no plain
+    # fallback, no launch
     with pytest.raises(ValueError):
-        ops.decode_attention(q.to("meta"), k.to("meta"), k.to("meta"),
-                             pos.to("meta"))
+        ops.decode_attention(q.to("meta"), k, k, pos)
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,14 @@ def test_scan_covers_the_port():
                  "src/repro_torch/models/moe.py",
                  "src/repro_torch/models/ssm.py",
                  "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/models/sharding.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/specs.py",
+                 "src/repro_torch/launch/presets.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/roofline/__init__.py",
+                 "src/repro_torch/roofline/op_cost.py",
+                 "src/repro_torch/roofline/analysis.py",
                  "chip_smoke.py"):
         assert must in names
 

@@ -159,9 +159,10 @@ def test_wrappers_reject_bad_shapes_and_devices():
         ops.winograd_tile_matmul(torch.zeros(16, 4, 8), torch.zeros(16, 7, 3))
     with pytest.raises(ValueError):
         ops.matmul_packed(x, torch.zeros(1, 1, 128, 128), K=9, N=3)
-    # neither a CPU nor a CUDA tensor: no plain fallback, no launch
+    # split across devices (meta, the dry run's, beside the CPU): no plain
+    # fallback, no launch
     with pytest.raises(ValueError):
-        ops.matmul(x.to("meta"), torch.zeros(8, 3, device="meta"))
+        ops.matmul(x.to("meta"), torch.zeros(8, 3))
 
 
 def test_packed_and_int4_wrappers_reject_bad_shapes_and_devices():
@@ -281,10 +282,10 @@ def test_tied_head_reads_embed_in_place(monkeypatch):
 
 
 def test_matmul_refuses_kmajor_w_off_cpu_and_cuda():
-    # a K-major w on neither a CPU nor a CUDA device: no fallback
+    # a K-major w on another device than x (meta, the dry run's, beside
+    # the CPU): no fallback
     with pytest.raises(ValueError):
-        ops.matmul(torch.zeros(4, 8, device="meta"),
-                   torch.zeros(3, 8, device="meta").T)
+        ops.matmul(torch.zeros(4, 8, device="meta"), torch.zeros(3, 8).T)
 
 
 # (M, K, N, batch): every matmul_bf16 and gmm_blocks bf16 row of

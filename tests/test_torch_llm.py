@@ -238,11 +238,11 @@ def test_flash_attention_rejects_bad_inputs(monkeypatch):
     with pytest.raises(ValueError):
         ops.flash_attention(q, torch.zeros(1, 8, 2, 32),
                             torch.zeros(1, 8, 2, 16))
-    # neither a CPU nor a CUDA tensor: no plain fallback, no launch
+    # split across devices (meta, the dry run's, beside the CPU): no plain
+    # fallback, no launch
     with pytest.raises(ValueError):
-        ops.flash_attention(q.to("meta"), torch.zeros(1, 8, 2, 32,
-                                                      device="meta"),
-                            torch.zeros(1, 8, 2, 32, device="meta"))
+        ops.flash_attention(q.to("meta"), torch.zeros(1, 8, 2, 32),
+                            torch.zeros(1, 8, 2, 32))
     # the CUDA kernel takes any head dim up to 256: a larger one is refused
     # before any launch, naming the limit (the CUDA branch, taken here on
     # CPU tensors, stops there)

@@ -244,9 +244,10 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         ops.matmul_dequant_int4(torch.zeros(2, 8),
                                 torch.zeros(4, 4, dtype=torch.uint8), s, K=7)
-    # neither a CPU nor a CUDA tensor: no plain fallback, no launch
+    # split across devices (meta, the dry run's, beside the CPU): no plain
+    # fallback, no launch
     with pytest.raises(ValueError):
-        ops.dequant_int8(q.to("meta"), s.to("meta"))
+        ops.dequant_int8(q.to("meta"), s)
 
 
 # ---------------------------------------------------------------------------
