@@ -103,9 +103,23 @@ Run from the root of a checkout, on a machine with a CUDA card and
      forward's cum, CB and chunk-entry states, two launches bitwise
      equal, each output handed a NaN-filled block, a device time, each
      row printing its ``plan_ssd_bwd`` plan and each launch's device time
-     (``torch.profiler``); with
+     (``torch.profiler``); then the archs path's shapes (``arch_rows``):
+     the bf16 ``matmul`` at qwen3-32b's 512-token prefill (q projection
+     (5120, 8192), MLP up (5120, 25600), untied head (5120, 151936)) and
+     gemma2-27b's 4608-token one (MLP up (4608, 36864), the tied head over
+     256000 reading ``embed`` K-major in place), beside ``torch.matmul``;
+     ``flash_attention`` at gemma2's (1, 4608, 32/16, 128) with window 4096
+     and softcap 50 (no library call) and qwen3-32b's (1, 512, 64/8, 128)
+     beside SDPA; ``gmm_blocks`` at qwen3-moe-30b-a3b's expert GEMMs (E
+     128, d 2048 -> 768 and 768 -> 2048) under a top-8-of-128 routing of
+     one and four decode tokens (C 8) and of a 512-token prefill (C 64),
+     beside ``torch.bmm`` on the masked blocks, each output first handed a
+     NaN-filled block; all with two launches bitwise equal and a device
+     time; with
      ``--kernels-only`` the script stops here (a first check of a new
-     kernel, without the paths or a result line);
+     kernel, without the paths or a result line); with ``--paths archs``
+     it runs the archs path's kernel rows and the archs path alone after
+     the build, then stops (exit 0, no result line);
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
      ``build_cnn`` through ``ColdEngine(store_fmt="super")``, ``decide`` with
      the real profiler, then ``run_cold``, and two more ``run_cold``s under
@@ -211,7 +225,30 @@ Run from the root of a checkout, on a machine with a CUDA card and
      whole model does not fit one card) ``forward`` on 256 prefix
      embeddings and 64 text tokens against the all-plain forward, then 32
      decode steps of text tokens against the all-plain decode (LLM gate);
-     then training (``training_path``): smollm-360m at full width on
+     then the archs path (``archs_path``, ``ARCHS_RUN``): the four archs
+     no other path runs, at full published width in bf16, each depth a
+     cut for the run's time: qwen3-moe-30b-a3b (128 experts of d_ff 768,
+     top-8, ``qk_norm``, 32/4 heads of 128 on d_model 2048, untied head
+     over 151936) at 8 of its 48 layers through ``moe_model``, granite's
+     gates without the batched server (``forward`` on 512 tokens, C 64,
+     against the all-plain forward under the kernels' routing replayed,
+     ``ROUTE_AGREE`` on the free-running routing, one MoE layer on
+     identical inputs, decode by steps against ``forward`` on 32 tokens
+     under the forward's routing, the prefill cache) and in f32 at 2
+     layers against the all-plain f32 forward under the replayed routing
+     (``PATH_TOL``); mistral-nemo-12b (32/8 heads of 128 on d_model 5120,
+     untied head over 131072) at 8 of 40, gemma2-27b (local/global pairs,
+     window 4096, softcaps 50 and 30, tied head over 256000) at 4 of 46
+     (two pairs) on a 4608-token prompt, past its window, and qwen3-32b
+     (``qk_norm``, 64/8 heads of 128 on d_model 5120, untied head over
+     151936) at 4 of 64 through ``dense_model``: ``forward`` against the
+     all-plain forward and 32 decode steps against the all-plain decode
+     by steps (LLM gate), the prefill cache of a 32-token forward against
+     the decode state, each block against its plain version in lockstep
+     (reported beside the whole model's difference), a forward's and 8
+     decode steps' device busy and idle; qwen3-32b also in f32 at 2
+     layers against the all-plain f32 forward (``PATH_TOL``); then
+     training (``training_path``): smollm-360m at full width on
      ``SyntheticPipeline(batch 8, seq 512, microbatches 2, seed 0)``; in
      f32 at ``TRAIN_F32_DEPTH`` = 4 of its 32 layers (a cut of depth) one
      step's loss and every gradient leaf against torch autograd through
@@ -275,7 +312,10 @@ Run from the root of a checkout, on a machine with a CUDA card and
      ``decode_step``, ``ssd_scan`` once a mamba layer per ``forward``,
      ``flash_attention`` once an attention layer or shared-block
      application per ``forward``, ``decode_attention`` once an attention
-     layer or application per ``decode_step``; a training step's
+     layer or application per ``decode_step``; the bf16 ``matmul`` 7 L + 1
+     times per ``forward`` or ``decode_step`` of a dense model of L layers
+     (the f32 one as many times in its f32 runs), the MoE router's f32
+     ``matmul`` once a layer; a training step's
      ``flash_attention_bwd`` once a layer a microbatch, ``flash_attention``
      once (twice with remat) and the matmul 3 x (7 L + 1) times a
      microbatch (4 x 7 L + 3 with remat), no plain version called; an MoE
@@ -300,11 +340,13 @@ follows it with that audit still landed (the store not reopened) and the
 audit of the cache entries the decided plan reads landed (and timed)
 first, its files evicted again: it pays no audit.
 
-``LLM_DEPTH``, ``LOSSY_DEPTH`` and ``SERVE_DEPTH`` (8 of smollm-360m's
-32 blocks), ``MOE_DEPTH`` (16 of granite's 32 layers), ``SSM_DEPTH`` and
-``SSM_F32_DEPTH`` (32 and 16 of mamba2's 64),
-``HYBRID_F32_DEPTH`` (6 of zamba2's 54), ``VLM_DEPTH`` (2 of internvl2's
-80), ``MUSICGEN_DECODE`` (16 steps) and the training
+``LLM_DEPTH`` and ``SERVE_DEPTH`` (4 of smollm-360m's 32 blocks; 8
+until the archs path came), ``LOSSY_DEPTH`` (8), ``MOE_DEPTH`` (16 of
+granite's 32 layers), ``SSM_DEPTH`` and ``SSM_F32_DEPTH`` (32 and 16 of
+mamba2's 64), ``HYBRID_F32_DEPTH`` (6 of zamba2's 54), ``VLM_DEPTH`` (2
+of internvl2's 80), ``MUSICGEN_DECODE`` (16 steps), ``ARCHS_RUN``'s
+depths (qwen3-moe-30b-a3b 8 of 48 and 2 in f32, mistral-nemo-12b 8 of
+40, gemma2-27b 4 of 46, qwen3-32b 4 of 64 and 2 in f32) and the training
 paths' depths are cuts for the run's time limit: those phases are host
 work (``decide()``'s profiling, cache writes, the software CRC-32C, one
 dispatch per op) and grow with depth; the kernels run at full width
@@ -365,10 +407,12 @@ LLM_ATOL, LLM_RTOL = 0.1, 0.05
 # ~40 s), musicgen-medium's decode at 32 steps and internvl2-76b at 2
 # layers. With the roofline phase and the cache gates a run took 1122.7
 # s, so since then musicgen's decode runs 16 steps and zamba2's f32 path
-# 6 layers (one group; 12 before)
-LLM_DEPTH = 8
+# 6 layers (one group; 12 before). To make room for the archs path the
+# smollm-360m cold-LLM and serving phases run 4 blocks (8 before; a run
+# with them at 8 took 930 s, and ~1105 s on its slowest host)
+LLM_DEPTH = 4
 LOSSY_DEPTH = 8
-SERVE_DEPTH = 8
+SERVE_DEPTH = 4
 MOE_DEPTH = 16
 MOE_F32_DEPTH = 4   # the f32 granite forward: a cut of its 32 layers
 SSM_DEPTH = 32
@@ -430,6 +474,18 @@ SSM_TRAIN_CURVE = 10
 # ~10.9 to ~1e-3, a ten-thousandth
 HYBRID_TRAIN_LR = 1e-3
 HYBRID_TRAIN_FALL = 1e-2
+# the archs path: the four archs no other path runs, at full published
+# width in bf16, each depth a cut for the run's time (not the card's
+# memory: whole, mistral-nemo-12b is 24.5 GB in bf16, qwen3-moe-30b-a3b
+# 61.1 GB). (arch, layers, prompt tokens, decode steps, f32 layers; 0: no
+# f32 arm). qwen3-moe's 512-token prompt fills expert blocks of C 64;
+# gemma2's four layers are two local/global pairs and its 4608-token
+# prompt runs past the 4096 window, so the local layers' mask binds on
+# the last 512 queries
+ARCHS_RUN = [("qwen3-moe-30b-a3b", 8, 512, 32, 2),
+             ("mistral-nemo-12b", 8, 512, 32, 0),
+             ("gemma2-27b", 4, 4608, 32, 0),
+             ("qwen3-32b", 4, 512, 32, 2)]
 # whole-model MoE runs, kernels against plain: the share of (token, expert)
 # assignments that must agree (a wrong hidden state routes near k/E = 0.2)
 ROUTE_AGREE = 0.9
@@ -440,6 +496,20 @@ LOSSY_BYTE_FLOORS = {"int8": 1.8, "int4": 3.0}
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def selected_paths():
+    """``--paths archs``: the paths to run alone, after the build and their
+    own kernel rows (None without the switch; ``archs`` is the one path
+    that runs alone)."""
+    argv = sys.argv[1:]
+    if "--paths" not in argv:
+        return None
+    i = argv.index("--paths")
+    paths = argv[i + 1].split(",") if i + 1 < len(argv) else []
+    if paths != ["archs"]:
+        fail(f"--paths {','.join(paths) or '?'}: only 'archs' runs alone")
+    return paths
 
 
 @contextlib.contextmanager
@@ -1268,12 +1338,13 @@ def serving_path(dev, depth: int) -> dict:
 
 
 @contextlib.contextmanager
-def routing_log(replay=None):
+def routing_log(replay=None, probs_log=None):
     """Record every MoE ``route`` call's top-k experts, (T, k) on their
     device (no host sync), in call order. With ``replay`` (such a record), each call takes the
     recorded experts in place of its own top k, weighted by its own
     probabilities renormalized over them: two runs then make the same
-    discrete choices and differ only by rounding."""
+    discrete choices and differ only by rounding. A list ``probs_log``
+    also gets each call's router probabilities (T, E)."""
     from repro_torch.models import moe as MOE
 
     log = []
@@ -1281,6 +1352,8 @@ def routing_log(replay=None):
 
     def recording(xf, router, cfg):
         probs, top_p, top_e = route(xf, router, cfg)
+        if probs_log is not None:
+            probs_log.append(probs.detach().clone())
         if replay is not None:
             top_e = replay[len(log)].to(probs.device)
             top_p = probs.gather(1, top_e)
@@ -1306,6 +1379,38 @@ def routing_agreement(a, b):
         same, total = same + int(hit.sum()), total + hit.numel()
         alike = hit.all(-1) if alike is None else alike & hit.all(-1)
     return same / max(total, 1), alike
+
+
+def near_ties(klog, plog, kprobs, pprobs, k: int) -> str:
+    """Where two runs' routings first differ (layer l: upstream of it the
+    runs differ by rounding only), each flipped token's gap between its
+    k-th and (k+1)-th router logit (the first run's) against how far
+    rounding moved its router logits between the runs (the spread of the
+    two runs' log-probability differences over the experts, which bounds
+    the change of any two experts' logit difference)."""
+    import torch
+
+    for l, (a, b) in enumerate(zip(klog, plog)):
+        flip = ~(a[:, :, None] == b[:, None, :]).any(-1).all(-1)
+        if flip.any():
+            break
+    else:
+        return "the routings never differ"
+    lk, lp = kprobs[l].clamp_min(1e-30).log(), pprobs[l].clamp_min(
+        1e-30).log()
+    srt = lk.sort(dim=-1, descending=True).values
+    gap = (srt[:, k - 1] - srt[:, k])[flip]
+    d = lk - lp
+    moved = (d.max(-1).values - d.min(-1).values)[flip]
+    within = int((gap <= moved).sum())
+    every = (srt[:, k - 1] - srt[:, k]).median().item()
+    return (f"first differing layer {l}: {int(flip.sum())} of {len(flip)} "
+            f"tokens took other experts; their {k}th-{k + 1}th router logit "
+            f"gap median {gap.median().item():.3e}, max {gap.max().item():.3e}"
+            f" (all tokens' median {every:.3e});"
+            f" their router logits moved by rounding between the runs: "
+            f"median {moved.median().item():.3e}; gap <= move for {within}/"
+            f"{int(flip.sum())}")
 
 
 def logits_gate(got, ref):
@@ -1497,33 +1602,15 @@ def cache_gates(gates, label, cfg, params, batch, logits, state, n,
 
 def moe_path(dev, depth: int) -> dict:
     """granite-moe-3b-a800m at full width, ``depth`` layers, bf16, random
-    weights from seed 0 drawn on the card: ``forward`` on a 512-token
-    prompt with the kernels against the all-plain forward; one MoE layer
-    on identical inputs, kernel against plain; decode by steps against
-    ``forward`` on a 32-token prompt; a ``BatchedServer`` run against the
-    plain kernels' run. A bf16 difference upstream of the f32 router can
-    flip a near-tie between experts, and a flipped token's hidden state
-    reaches the other tokens through attention; so each whole-model logits
-    gate compares two runs under the same routing (the second replays the
-    first's experts), and the free-running kernel and plain forwards must
-    share ``ROUTE_AGREE`` of their (token, expert) assignments. Last, the
-    model in f32 at ``MOE_F32_DEPTH`` layers (a cut): ``forward`` on the
-    512-token prompt against the all-plain f32 forward under the same
-    routing (within ``PATH_TOL`` of max|ref|, the f32 gate), so that
-    ``gmm_blocks``' f32 entry runs on the path. Returns
-    the launch counts of the main runs (the kernel forward, the decode
-    steps, the batched server and the f32 forward), each zeroed just
-    before it; launch gates are checked last, so a CPU rehearsal runs
-    every part."""
+    weights from seed 0 drawn on the card, through ``moe_model``'s gates
+    with a ``BatchedServer`` run and an f32 forward at ``MOE_F32_DEPTH``
+    layers (a cut). Returns the launch counts of the main runs (the kernel
+    forward, the decode steps, the batched server and the f32 forward),
+    each zeroed just before it; launch gates are checked last, so a CPU
+    rehearsal runs every part."""
     import dataclasses
 
-    import numpy as np
-    import torch
-
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.models import moe as MOE
-    from repro_torch.models import transformer as T
 
     cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
                               num_layers=depth)
@@ -1532,26 +1619,64 @@ def moe_path(dev, depth: int) -> dict:
           f"experts of d_ff {cfg.d_ff}, top-{cfg.top_k}, vocab "
           f"{cfg.vocab_size}), layers={depth} (of 32), {cfg.dtype}: forward, "
           f"decode_step, BatchedServer")
+    gates = PathGates("moe path")
+    moe_model(gates, cfg, dev, 32, MOE_F32_DEPTH, batched=True)
+    print(f"  moe path launches (forward + decode steps + batched + f32 "
+          f"forward): "
+          f"{json.dumps({k: n for k, n in gates.main.items() if n})}")
+    gates.finish()
+    return {"gmm_blocks": gates.main["gmm_blocks"],
+            "matmul": gates.main["matmul"]}
+
+
+def moe_model(gates, cfg, dev, of: int, f32_depth: int, batched: bool,
+              pre: str = "", S: int = 512, Sd: int = 32) -> None:
+    """An moe-family ``cfg`` (its depth cut from ``of`` layers) at full
+    width, random weights from seed 0 drawn on ``dev``: ``forward`` on an
+    ``S``-token prompt with the kernels against the all-plain forward; one
+    MoE layer on identical inputs, kernel against plain; decode by steps
+    against ``forward`` on an ``Sd``-token prompt and the prefill cache of
+    that forward; where ``batched``, a ``BatchedServer`` run against the plain
+    kernels' run. A bf16 difference upstream of the f32 router can flip a
+    near-tie between experts, and a flipped token's hidden state reaches
+    the other tokens through attention; so each whole-model logits gate
+    compares two runs under the same routing (the second replays the
+    first's experts), and the free-running kernel and plain forwards must
+    share ``ROUTE_AGREE`` of their (token, expert) assignments. Last, the
+    model in f32 at ``f32_depth`` layers (a cut): ``forward`` on the
+    ``S``-token prompt against the all-plain f32 forward under the same
+    routing (within ``PATH_TOL`` of max|ref|, the f32 gate), so that
+    ``gmm_blocks``' f32 entry runs on the path. Each check and launch
+    count goes to ``gates`` (labels led by ``pre``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    depth = cfg.num_layers
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
-    print(f"  weights: {n_params} params drawn on {dev} in "
+    print(f"  {pre}weights: {n_params} params drawn on {dev} in "
           f"{time.perf_counter() - t0:.2f} s")
-    gates = PathGates("moe path")
 
     def agreement(label, a, b):
         share, alike = routing_agreement(a, b)
-        print(f"  routing, {label}: {share:.4f} of (token, expert) "
+        print(f"  {pre}routing, {label}: {share:.4f} of (token, expert) "
               f"assignments agree; {int(alike.sum())}/{len(alike)} tokens "
               f"took the same experts in every layer")
         return share
 
-    # forward on a 512-token prompt: kernels against the all-plain forward
-    S = 512
+    # forward on an S-token prompt: kernels against the all-plain forward
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, size=(1, S))).to(dev)
-    with routing_log() as klog:
+    kprobs, pprobs = [], []
+    with routing_log(probs_log=kprobs) as klog:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         logits, aux, _ = T.forward(params, {"tokens": toks}, cfg)
@@ -1559,37 +1684,45 @@ def moe_path(dev, depth: int) -> dict:
         t_k = time.perf_counter() - t0
         counts = ops.launch_counts()
     gates.add(counts)
-    print(f"  bf16 template launches by path (forward): "
+    print(f"  {pre}bf16 template launches by path (forward): "
           f"{json.dumps(ops.gemm_path_counts())}")
-    with routing_log() as plog, plain_kernels():
+    with routing_log(probs_log=pprobs) as plog, plain_kernels():
         t0 = time.perf_counter()
         _, ref_aux, _ = T.forward(params, {"tokens": toks}, cfg)
         torch.cuda.synchronize()
         t_p = time.perf_counter() - t0
     with routing_log(replay=klog), plain_kernels():
         ref, _, _ = T.forward(params, {"tokens": toks}, cfg)
-    print(f"  forward (1, {S}): {t_k * 1e3:.1f} ms with the kernels "
+    print(f"  {pre}forward (1, {S}): {t_k * 1e3:.1f} ms with the kernels "
           f"(first call), {t_p * 1e3:.1f} ms all-plain; aux {aux.item():.5f} "
           f"(plain {ref_aux.item():.5f}); launches "
           f"{json.dumps({k: n for k, n in counts.items() if n})}")
     C = MOE.capacity(S, cfg)
     dropped = sum(int((torch.bincount(e.reshape(-1), minlength=cfg.num_experts)
                        - C).clamp_min(0).sum()) for e in klog)
-    print(f"  capacity C={C} a block: {dropped} of {S * cfg.top_k * depth} "
-          f"(token, expert) assignments dropped over the {depth} layers")
+    print(f"  {pre}capacity C={C} a block: {dropped} of "
+          f"{S * cfg.top_k * depth} (token, expert) assignments dropped "
+          f"over the {depth} layers")
     share = agreement("forward, kernels vs all-plain", klog, plog)
-    gates.check(share >= ROUTE_AGREE, f"only {share:.4f} of the forward's "
-                f"routing assignments agree with the all-plain forward's "
-                f"(< {ROUTE_AGREE})")
-    gates.logits(f"forward (1, {S}) vs all-plain under the kernels' routing",
+    if share < ROUTE_AGREE:
+        print(f"  {pre}routing near-ties: "
+              + near_ties(klog, plog, kprobs, pprobs, cfg.top_k))
+    del kprobs, pprobs
+    gates.check(share >= ROUTE_AGREE, f"{pre}only {share:.4f} of the "
+                f"forward's routing assignments agree with the all-plain "
+                f"forward's (< {ROUTE_AGREE})")
+    gates.logits(f"{pre}forward (1, {S}) vs all-plain under the kernels' "
+                 f"routing",
                  logits, ref)
-    gates.launched("forward", "gmm_blocks", counts["gmm_blocks"], 3 * depth)
-    gates.launched("forward", "flash_attention", counts["flash_attention"],
+    gates.launched(f"{pre}forward", "gmm_blocks", counts["gmm_blocks"],
+                   3 * depth)
+    gates.launched(f"{pre}forward", "flash_attention",
+                   counts["flash_attention"],
                    depth)
     # the f32 router GEMM: one matmul launch a layer
-    gates.launched("forward", "matmul", counts["matmul"], depth)
+    gates.launched(f"{pre}forward", "matmul", counts["matmul"], depth)
     del logits, ref
-    profile_steps(f"forward (1, {S})", lambda i: T.forward(
+    profile_steps(f"{pre}forward (1, {S})", lambda i: T.forward(
         params, {"tokens": toks}, cfg), 1,
         extra=("gemm", "flash", "fa_bf16"))
 
@@ -1607,13 +1740,14 @@ def moe_path(dev, depth: int) -> dict:
     ms_k = wall_ms(lambda: MOE.moe_apply(bp, xn, cfg))
     with plain_kernels():
         ms_p = wall_ms(lambda: MOE.moe_apply(bp, xn, cfg))
-    print(f"  one MoE layer on identical inputs (1, {S}, {cfg.d_model}), "
+    print(f"  {pre}one MoE layer on identical inputs (1, {S}, {cfg.d_model}), "
           f"C={MOE.capacity(S, cfg)}: max|d|/max|plain|={rel:.3e} (tol "
           f"{KERNEL_TOL['bfloat16']}); routing {share:.4f} alike; "
           f"{ms_k:.3f} ms with the kernels, {ms_p:.3f} ms plain")
     gates.check(rel <= KERNEL_TOL["bfloat16"]
                 and bool(torch.isfinite(y_k).all()),
-                f"one MoE layer disagrees with its plain version ({rel:.3e})")
+                f"{pre}one MoE layer disagrees with its plain version "
+                f"({rel:.3e})")
 
     # decode by steps against forward on a short prompt: free-running for
     # the launch counts and the routing agreement, then under the
@@ -1621,7 +1755,6 @@ def moe_path(dev, depth: int) -> dict:
     # time and never fills a block (C = 8), while a forward drops the
     # tokens past C; so this forward runs with a capacity factor of E/k,
     # which gives C >= T and drops nothing (decode's C is 8 either way)
-    Sd = 32
     dtoks = toks[:, :Sd]
     ncfg = dataclasses.replace(cfg, moe_capacity_factor=cfg.num_experts
                                / cfg.top_k)
@@ -1646,65 +1779,68 @@ def moe_path(dev, depth: int) -> dict:
     dec, dlog, _ = decode()
     counts = ops.launch_counts()
     gates.add(counts)
-    print(f"  bf16 template launches by path (decode, {Sd} steps): "
+    print(f"  {pre}bf16 template launches by path (decode, {Sd} steps): "
           f"{json.dumps(ops.gemm_path_counts())}")
     ok, dmax, _ = logits_gate(dec, fl)
-    print(f"  decode by steps, free-running ({Sd} tokens, kernels): max|d| "
-          f"vs forward {dmax:.4e}, rows within the gate {int(ok.sum())}/"
-          f"{len(ok)}")
+    print(f"  {pre}decode by steps, free-running ({Sd} tokens, kernels): "
+          f"max|d| vs forward {dmax:.4e}, rows within the gate "
+          f"{int(ok.sum())}/{len(ok)}")
     agreement("decode by steps vs forward", dlog, flog)
     dec_r, _, dstate = decode(replay)
-    gates.logits(f"decode by steps vs forward ({Sd} tokens, kernels) under "
-                 f"the forward's routing", dec_r, fl)
-    cache_gates(gates, f"prefill cache, forward (1, {Sd})", ncfg, params,
+    gates.logits(f"{pre}decode by steps vs forward ({Sd} tokens, kernels) "
+                 f"under the forward's routing", dec_r, fl)
+    cache_gates(gates, f"{pre}prefill cache, forward (1, {Sd})", ncfg, params,
                 {"tokens": dtoks}, fl, dstate, Sd)
     del dec_r, dstate
-    gates.launched("decode", "gmm_blocks", counts["gmm_blocks"],
+    gates.launched(f"{pre}decode", "gmm_blocks", counts["gmm_blocks"],
                    3 * depth * Sd)
-    gates.launched("decode", "decode_attention", counts["decode_attention"],
+    gates.launched(f"{pre}decode", "decode_attention",
+                   counts["decode_attention"],
                    depth * Sd)
-    gates.launched("decode", "matmul", counts["matmul"], depth * Sd)
+    gates.launched(f"{pre}decode", "matmul", counts["matmul"], depth * Sd)
 
     # where a decode step's time goes (B=1; reported, not gated)
     state = T.init_decode_state(cfg, 1, 64, device=dev)
     for t in range(4):  # warm
         T.decode_step(params, state, {"tokens": toks[:, t:t + 1]}, t, cfg)
-    profile_steps("8 decode steps B=1", lambda i: T.decode_step(
+    profile_steps(f"{pre}8 decode steps B=1", lambda i: T.decode_step(
         params, state, {"tokens": toks[:, 4 + i:5 + i]}, 4 + i, cfg), 8,
         extra=("decode_", "gemm_f32"))
 
     # BatchedServer: the serving path's request mix
-    got, steps, dt, counts, picks = batched_run(params, cfg, dev,
-                                                plain=False)
-    gates.add(counts)
-    with routing_log() as blog:
-        want, _, dt_p, _, picks_p = batched_run(params, cfg, dev, plain=True)
-    gates.check(report_batched(got, want, steps, dt, dt_p, picks, picks_p),
-                "a batched request did not finish with its token count")
-    print(f"  batched launches: "
-          f"{json.dumps({k: n for k, n in counts.items() if n})}")
-    gates.launched("batched", "gmm_blocks", counts["gmm_blocks"],
-                   3 * depth * steps)
-    gates.launched("batched", "decode_attention", counts["decode_attention"],
-                   depth * steps)
-    gates.launched("batched", "matmul", counts["matmul"], depth * steps)
-    # why the kernels' tokens leave the plain run's: the kernels' run
-    # again, replaying the plain run's routing (reported, not gated; its
-    # launches are not counted)
-    with routing_log(replay=blog):
-        got_r, _, dt, _, picks = batched_run(params, cfg, dev, plain=False)
-    print("  the kernels' batched run again, replaying the plain run's "
-          "routing:")
-    report_batched(got_r, want, steps, dt, dt_p, picks, picks_p)
+    if batched:
+        got, steps, dt, counts, picks = batched_run(params, cfg, dev,
+                                                    plain=False)
+        gates.add(counts)
+        with routing_log() as blog:
+            want, _, dt_p, _, picks_p = batched_run(params, cfg, dev,
+                                                    plain=True)
+        gates.check(report_batched(got, want, steps, dt, dt_p, picks, picks_p),
+                    "a batched request did not finish with its token count")
+        print(f"  batched launches: "
+              f"{json.dumps({k: n for k, n in counts.items() if n})}")
+        gates.launched("batched", "gmm_blocks", counts["gmm_blocks"],
+                       3 * depth * steps)
+        gates.launched("batched", "decode_attention",
+                       counts["decode_attention"],
+                       depth * steps)
+        gates.launched("batched", "matmul", counts["matmul"], depth * steps)
+        # why the kernels' tokens leave the plain run's: the kernels' run
+        # again, replaying the plain run's routing (reported, not gated; its
+        # launches are not counted)
+        with routing_log(replay=blog):
+            got_r, _, dt, _, picks = batched_run(params, cfg, dev, plain=False)
+        print("  the kernels' batched run again, replaying the plain run's "
+              "routing:")
+        report_batched(got_r, want, steps, dt, dt_p, picks, picks_p)
     del params, state
     torch.cuda.empty_cache()
 
     # the f32 entry of gmm_blocks on the path: the model in f32 at full
-    # width, its depth cut to MOE_F32_DEPTH layers (to spare the run's
-    # time: the bf16 runs above cover the whole depth), forward on the
-    # 512-token prompt against the all-plain f32 forward under the
-    # kernels' routing
-    c32 = dataclasses.replace(cfg, dtype="float32", num_layers=MOE_F32_DEPTH)
+    # width, its depth cut to f32_depth layers (to spare the run's time:
+    # the bf16 runs above cover the whole depth), forward on the 512-token
+    # prompt against the all-plain f32 forward under the kernels' routing
+    c32 = dataclasses.replace(cfg, dtype="float32", num_layers=f32_depth)
     p32 = T.init_params(c32, torch.Generator(device=dev).manual_seed(0))
     with routing_log() as klog:
         ops.reset_launch_counts()
@@ -1716,23 +1852,18 @@ def moe_path(dev, depth: int) -> dict:
     gates.add(counts)
     with routing_log(replay=klog), plain_kernels():
         ref, _, _ = T.forward(p32, {"tokens": toks}, c32)
-    print(f"  f32 forward (1, {S}), layers={MOE_F32_DEPTH} (of 32, a cut): "
-          f"{t_k * 1e3:.1f} ms with the kernels (first call); launches "
+    print(f"  {pre}f32 forward (1, {S}), layers={f32_depth} (of {of}, a "
+          f"cut): {t_k * 1e3:.1f} ms with the kernels (first call); launches "
           f"{json.dumps({k: n for k, n in counts.items() if n})}")
-    gates.relative(f"f32 forward (1, {S}) vs all-plain under the kernels' "
-                   f"routing", logits, ref)
-    gates.launched("f32 forward", "gmm_blocks", counts["gmm_blocks"],
-                   3 * MOE_F32_DEPTH)
-    gates.launched("f32 forward", "flash_attention",
-                   counts["flash_attention"], MOE_F32_DEPTH)
-    gates.launched("f32 forward", "matmul", counts["matmul"])
+    gates.relative(f"{pre}f32 forward (1, {S}) vs all-plain under the "
+                   f"kernels' routing", logits, ref)
+    gates.launched(f"{pre}f32 forward", "gmm_blocks", counts["gmm_blocks"],
+                   3 * f32_depth)
+    gates.launched(f"{pre}f32 forward", "flash_attention",
+                   counts["flash_attention"], f32_depth)
+    gates.launched(f"{pre}f32 forward", "matmul", counts["matmul"])
     del p32, logits, ref
-    print(f"  moe path launches (forward + decode steps + batched + f32 "
-          f"forward): "
-          f"{json.dumps({k: n for k, n in gates.main.items() if n})}")
-    gates.finish()
-    return {"gmm_blocks": gates.main["gmm_blocks"],
-            "matmul": gates.main["matmul"]}
+    torch.cuda.empty_cache()
 
 
 def ssm_path(dev, depth: int) -> dict:
@@ -2046,6 +2177,30 @@ def hybrid_path(dev, depth: int, f32_depth: int) -> dict:
                                        "matmul_bf16")}
 
 
+def gate_mm(gates, c, label, counts, n):
+    """A dense model's matmul launches: seven projections a block and the
+    head, once a forward or a token of decode (f32 ``matmul``, bf16
+    ``matmul_bf16``)."""
+    mm = "matmul" if c.dtype == "float32" else "matmul_bf16"
+    gates.launched(label, mm, counts[mm], (7 * c.num_layers + 1) * n)
+
+
+def gate_forward(gates, c, label, counts):
+    """A dense model's forward: ``flash_attention`` once a layer, and the
+    matmul as ``gate_mm``."""
+    gates.launched(label, "flash_attention", counts["flash_attention"],
+                   c.num_layers)
+    gate_mm(gates, c, label, counts, 1)
+
+
+def gate_decode(gates, c, label, counts, n):
+    """``n`` decode steps of a dense model: ``decode_attention`` once a
+    layer a step, and the matmul as ``gate_mm``."""
+    gates.launched(label, "decode_attention", counts["decode_attention"],
+                   c.num_layers * n)
+    gate_mm(gates, c, label, counts, n)
+
+
 def modes_path(dev, music_decode: int, vlm_depth: int) -> dict:
     """The ``embeddings`` and ``vlm`` input modes at full width, random
     weights from seed 0 drawn on the card. musicgen-medium (all 48 layers,
@@ -2072,21 +2227,6 @@ def modes_path(dev, music_decode: int, vlm_depth: int) -> dict:
     from repro_torch.models import transformer as T
 
     gates = PathGates("input-modes path")
-
-    def gate_mm(c, label, counts, n):
-        # seven projections a block, the head, once a token of decode
-        mm = "matmul" if c.dtype == "float32" else "matmul_bf16"
-        gates.launched(label, mm, counts[mm], (7 * c.num_layers + 1) * n)
-
-    def gate_forward(c, label, counts):
-        gates.launched(label, "flash_attention", counts["flash_attention"],
-                       c.num_layers)
-        gate_mm(c, label, counts, 1)
-
-    def gate_decode(c, label, counts, n):
-        gates.launched(label, "decode_attention", counts["decode_attention"],
-                       c.num_layers * n)
-        gate_mm(c, label, counts, n)
 
     # -- musicgen-medium: frame embeddings, untied head -----------------------
     base = get_config("musicgen-medium")
@@ -2145,7 +2285,7 @@ def modes_path(dev, music_decode: int, vlm_depth: int) -> dict:
         logits, counts = counted(gates, f"musicgen {dt} forward (1, {S})",
                                  lambda: T.forward(params, {"embeds": emb},
                                                    cfg)[0])
-        gate_forward(cfg, f"musicgen {dt} forward", counts)
+        gate_forward(gates, cfg, f"musicgen {dt} forward", counts)
         with plain_kernels():
             ref, _, _ = T.forward(params, {"embeds": emb}, cfg)
         fl = T.forward(params, {"embeds": emb[:, :Sd]}, cfg)[0]
@@ -2153,7 +2293,7 @@ def modes_path(dev, music_decode: int, vlm_depth: int) -> dict:
             gates, f"musicgen {dt} decode, {Sd} steps B=1",
             lambda: decode_by_steps(params, cfg, dev, "embeds", emb, Sd,
                                     True))
-        gate_decode(cfg, f"musicgen {dt} decode", counts, Sd)
+        gate_decode(gates, cfg, f"musicgen {dt} decode", counts, Sd)
         # bf16: the path reports its decode against forward, not gated
         cache_gates(gates, f"musicgen {dt} prefill cache, forward (1, {Sd})",
                     cfg, params, {"embeds": emb[:, :Sd]}, fl, dstate, Sd,
@@ -2186,7 +2326,7 @@ def modes_path(dev, music_decode: int, vlm_depth: int) -> dict:
     batch = {"prefix_embeds": pre, "tokens": toks}
     logits, counts = counted(gates, f"internvl2 forward (1, {P}+{Tt})",
                              lambda: T.forward(params, batch, cfg)[0])
-    gate_forward(cfg, "internvl2 forward", counts)
+    gate_forward(gates, cfg, "internvl2 forward", counts)
     with plain_kernels():
         ref, _, (_, mask) = T.forward(params, batch, cfg)
     gates.check(float(mask[:, :P].sum()) == 0 and float(mask.sum()) == Tt,
@@ -2200,7 +2340,7 @@ def modes_path(dev, music_decode: int, vlm_depth: int) -> dict:
         want = decode_by_steps(params, cfg, dev, "tokens", toks, Sd)
     gates.logits(f"internvl2 decode, {Sd} steps, vs all-plain decode", dec,
                  want)
-    gate_decode(cfg, "internvl2 decode", counts, Sd)
+    gate_decode(gates, cfg, "internvl2 decode", counts, Sd)
     profile_steps(f"internvl2 forward (1, {P + Tt})", lambda i: T.forward(
         params, batch, cfg), 1, extra=("fa_bf16",))
     state = T.init_decode_state(cfg, 1, 64, device=dev)
@@ -2216,6 +2356,153 @@ def modes_path(dev, music_decode: int, vlm_depth: int) -> dict:
     gates.finish()
     return {k: gates.main[k] for k in ("flash_attention", "decode_attention",
                                        "matmul", "matmul_bf16")}
+
+
+def dense_model(gates, cfg, dev, S: int, Sd: int, f32_depth: int,
+                pre: str) -> None:
+    """A dense ``cfg`` at full width, random weights from seed 0 drawn on
+    ``dev``: ``forward`` on an ``S``-token prompt (numpy seed 3) with the
+    kernels against the all-plain forward, ``Sd`` decode steps against the
+    all-plain decode by steps (both the LLM gate), the prefill cache of an
+    ``Sd``-token forward against the state the decode steps left; each
+    block against its plain version on the same input (lockstep, reported
+    beside the whole model's difference: its amplification); a forward's
+    and 8 decode steps' device time; where ``f32_depth``, the model in f32
+    at that depth (a cut) against the all-plain f32 forward (``PATH_TOL``).
+    Each check and launch count goes to ``gates``, labels led by ``pre``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    params = draw_model(cfg, dev)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(1, S))).to(dev)
+    batch = {"tokens": toks}
+    logits, counts = counted(gates, f"{pre}forward (1, {S})",
+                             lambda: T.forward(params, batch, cfg)[0])
+    gate_forward(gates, cfg, f"{pre}forward", counts)
+    with plain_kernels():
+        ref = T.forward(params, batch, cfg)[0]
+    whole = rel_err(logits, ref)
+    gates.logits(f"{pre}forward (1, {S}) vs all-plain", logits, ref)
+    del logits, ref
+    # each block in lockstep: its input the kernels' previous block's output
+    x = params["embed"][toks]
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    worst = (0.0, -1)
+    for i in range(cfg.num_layers):
+        window = (None if cfg.local_global_pattern and i % 2 == 1
+                  else cfg.sliding_window)
+        bp = T._layer(params["blocks"], i)
+        x, err = held(lambda: T._attn_block_seq(bp, x, cfg, positions,
+                                                window)[0])
+        worst = max(worst, (err, i))
+    print(f"  {pre}blocks in lockstep, each against its plain version on the "
+          f"same input: worst {worst[0]:.3e} (layer {worst[1]}, tol "
+          f"{KERNEL_TOL['bfloat16']}); the whole model's logits "
+          f"max|d|/max|ref| {whole:.3e}, {whole / max(worst[0], 1e-30):.1f}"
+          f"-fold (reported)")
+    del x
+
+    (dec, dstate), counts = counted(
+        gates, f"{pre}decode, {Sd} steps B=1",
+        lambda: decode_by_steps(params, cfg, dev, "tokens", toks, Sd, True))
+    gate_decode(gates, cfg, f"{pre}decode", counts, Sd)
+    with plain_kernels():
+        want = decode_by_steps(params, cfg, dev, "tokens", toks, Sd)
+    gates.logits(f"{pre}decode, {Sd} steps, vs all-plain decode", dec, want)
+    fl = T.forward(params, {"tokens": toks[:, :Sd]}, cfg)[0]
+    cache_gates(gates, f"{pre}prefill cache, forward (1, {Sd})", cfg, params,
+                {"tokens": toks[:, :Sd]}, fl, dstate, Sd)
+    del dec, want, dstate, fl
+
+    profile_steps(f"{pre}forward (1, {S})", lambda i: T.forward(
+        params, batch, cfg), 1, extra=("fa_bf16",))
+    state = T.init_decode_state(cfg, 1, 64, device=dev)
+    for t in range(4):  # warm
+        T.decode_step(params, state, {"tokens": toks[:, t:t + 1]}, t, cfg)
+    profile_steps(f"{pre}8 decode steps B=1", lambda i: T.decode_step(
+        params, state, {"tokens": toks[:, 4 + i:5 + i]}, 4 + i, cfg), 8,
+        extra=("decode_",))
+    del params, state
+    torch.cuda.empty_cache()
+    if not f32_depth:
+        return
+    c32 = dataclasses.replace(cfg, dtype="float32", num_layers=f32_depth)
+    p32 = draw_model(c32, dev)
+    logits, counts = counted(
+        gates, f"{pre}f32 forward (1, {S}), layers={f32_depth} (a cut)",
+        lambda: T.forward(p32, batch, c32)[0])
+    gate_forward(gates, c32, f"{pre}f32 forward", counts)
+    with plain_kernels():
+        ref = T.forward(p32, batch, c32)[0]
+    gates.relative(f"{pre}f32 forward (1, {S}) vs all-plain", logits, ref)
+    del p32, logits, ref
+    torch.cuda.empty_cache()
+
+
+def archs_path(dev) -> dict:
+    """The four archs no other path runs (``ARCHS_RUN``), each at its full
+    published width in bf16 (the configs' dtype), its depth cut for the
+    run's time, random weights from seed 0 drawn on the card.
+    qwen3-moe-30b-a3b (128 experts, top-8, ``qk_norm``, 32/4 heads of 128
+    on d_model 2048) through ``moe_model``'s gates without the batched
+    server, its f32 arm at 2 layers; mistral-nemo-12b (query width 4096 on
+    d_model 5120, untied head over 131072), gemma2-27b (two local/global
+    pairs, window 4096, softcaps 50 and 30, tied head over 256000; its
+    4608-token prompt runs past the window) and qwen3-32b (``qk_norm``,
+    64/8 heads of 128 on 5120, untied head over 151936; its f32 arm at 2
+    layers) through ``dense_model``'s. Returns the launch counts of the
+    kernels' runs, each zeroed just before it; launch gates are checked
+    last, so a CPU rehearsal runs every part."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    gates = PathGates("archs path")
+    for name, depth, S, Sd, f32_depth in ARCHS_RUN:
+        t0 = time.perf_counter()
+        full = get_config(name)
+        cfg = dataclasses.replace(full, num_layers=depth)
+        feats = [f"{'tied' if cfg.tie_embeddings else 'untied'} head over "
+                 f"{cfg.vocab_size}"]
+        if cfg.is_moe:
+            feats.insert(0, f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, "
+                            f"top-{cfg.top_k}")
+        else:
+            feats.insert(0, f"d_ff {cfg.d_ff}")
+        if cfg.qk_norm:
+            feats.append("qk_norm")
+        if cfg.local_global_pattern:
+            feats.append(f"local/global pairs, window {cfg.sliding_window}")
+        if cfg.attn_softcap:
+            feats.append(f"softcaps {cfg.attn_softcap:g}/"
+                         f"{cfg.final_softcap:g}")
+        print(f"archs path: {name} full width (d_model {cfg.d_model}, "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}: "
+              f"query width {cfg.num_heads * cfg.head_dim}, "
+              + ", ".join(feats) + f"), layers={depth} (of "
+              f"{full.num_layers}, a cut), {cfg.dtype}: forward (1, {S}), "
+              f"{Sd} decode steps"
+              + (f", f32 at {f32_depth} layers" if f32_depth else ""))
+        if cfg.is_moe:
+            moe_model(gates, cfg, dev, full.num_layers, f32_depth,
+                      batched=False, pre=f"{name} ", S=S, Sd=Sd)
+        else:
+            dense_model(gates, cfg, dev, S, Sd, f32_depth, pre=f"{name} ")
+        torch.cuda.empty_cache()
+        print(f"  [{name}: {time.perf_counter() - t0:.1f} s]")
+    print(f"  archs path launches (forwards + decode steps + f32 forwards): "
+          f"{json.dumps({k: n for k, n in gates.main.items() if n})}")
+    gates.finish()
+    return {k: gates.main.get(k, 0) for k in (
+        "flash_attention", "decode_attention", "matmul", "matmul_bf16",
+        "gmm_blocks")}
 
 
 @contextlib.contextmanager
@@ -3530,8 +3817,150 @@ def main() -> None:
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                 **dev, **cost}
 
-    print("kernels vs plain versions (resnet50@224 shapes):")
+    def visible_pairs(S, window):
+        rows = np.arange(S)
+        return int(np.minimum(rows + 1, window or S).sum())
+
     results = {}
+
+    def bf16_row(tag, M, K, N, kmajor, draw=rand):
+        """The bf16 ``matmul`` at (M, K) x (K, N) (``kmajor``: w a (N, K)
+        tensor passed as its .T) against its plain version and
+        ``torch.matmul``, inputs from ``draw``."""
+        x = draw(M, K, dtype=torch.bfloat16)
+        w = (draw(N, K, dtype=torch.bfloat16, scale=K ** -0.5).T if kmajor
+             else draw(K, N, dtype=torch.bfloat16, scale=K ** -0.5))
+        plan = plan_bf16_gemm(M, N, K)
+        r = check(f"matmul_bf16 {tag} ({M},{K})x({K},{N}) "
+                  f"{'K-major' if kmajor else 'row-major'} w, {plan.path} "
+                  f"path bm {plan.bm} split {plan.split} ({plan.blocks} "
+                  f"blocks)",
+                  lambda: ops.matmul(x, w), lambda: matmul_plain(x, w),
+                  lambda: torch.matmul(x, w),
+                  2 * M * N * K, 2 * (M * K + K * N + M * N), "bfloat16",
+                  repeat_equal=True)
+        results.setdefault("matmul_bf16", {})[tag] = {
+            **r, "path": plan.path, "split": plan.split}
+
+    def flash_row(tag, B, S, H, KV, D, win, cap, dt, draw=rand):
+        """Causal ``flash_attention`` (window ``win``, softcap ``cap``)
+        against its plain version and, where it computes the same
+        function (no window, no softcap), SDPA; inputs from ``draw``."""
+        q = draw(B, S, H, D, dtype=dt, scale=0.5)
+        k = draw(B, S, KV, D, dtype=dt, scale=0.5)
+        v = draw(B, S, KV, D, dtype=dt, scale=0.5)
+        kw = dict(causal=True, window=win, softcap=cap)
+        lib = None
+        if cap is None and win is None:
+            lib = (lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True))
+        dname = str(dt).replace("torch.", "")
+        plan = plan_flash(B, S, H, KV, D, dt, True, win)
+        r = check(f"flash_attention {tag} B={B} S={S} H={H} KV={KV} D={D} "
+                  f"window={win} softcap={cap} {dname}, bq {plan.bq} heads "
+                  f"{plan.heads} ksplit {plan.ksplit} bk {plan.bk} dp "
+                  f"{plan.dp} ({plan.blocks} blocks of {plan.threads} "
+                  f"threads)",
+                  lambda: ops.flash_attention(q, k, v, **kw),
+                  lambda: flash_attention_plain(q, k, v, **kw), lib,
+                  4 * B * H * D * visible_pairs(S, win),
+                  q.element_size() * 2 * B * S * (H + KV) * D, dname,
+                  repeat_equal=True)
+        results.setdefault("flash_attention", {})[tag] = {
+            **r, "plan": plan._asdict()}
+
+    def arch_rows():
+        """The kernels at the archs path's shapes, each beside the library
+        call that computes the same function where there is one. Inputs
+        drawn on the card (a generator seeded 5): numpy's would take
+        most of a minute for the 256000-wide head."""
+        g = torch.Generator(device=dev).manual_seed(5)
+
+        def rand(*shape, dtype=torch.float32, scale=1.0):
+            return (torch.randn(shape, generator=g, device=dev)
+                    * scale).to(dtype)
+
+        print("kernels vs plain versions (the archs path's shapes: the bf16 "
+              "matmul at qwen3-32b's 512-token prefill (q projection, MLP "
+              "up, untied head) and gemma2-27b's 4608-token one (MLP up, "
+              "the tied head reading embed (V, d) K-major in place); "
+              "flash_attention at gemma2's 4608 tokens (window 4096 binding, "
+              "softcap 50: no library call) and qwen3-32b's 64/8 heads; "
+              "gmm_blocks at qwen3-moe-30b-a3b's 128 experts, top-8, d 2048 "
+              "-> 768 and 768 -> 2048, at decode (C 8: one and four tokens) "
+              "and a 512-token prefill (C 64), beside torch.bmm on the "
+              "masked blocks):")
+        for row in [("qwen3_32b_q_prefill", 512, 5120, 8192, False),
+                    ("qwen3_32b_up_prefill", 512, 5120, 25600, False),
+                    ("qwen3_32b_head_prefill", 512, 5120, 151936, False),
+                    ("gemma2_up_prefill", 4608, 4608, 36864, False),
+                    ("gemma2_head_tied_prefill", 4608, 4608, 256000, True)]:
+            bf16_row(*row, draw=rand)
+        torch.cuda.empty_cache()
+        for row in [("gemma2_prefill4608_window_softcap", 1, 4608, 32, 16,
+                     128, 4096, 50.0, torch.bfloat16),
+                    ("qwen3_32b_prefill512", 1, 512, 64, 8, 128, None, None,
+                     torch.bfloat16)]:
+            flash_row(*row, draw=rand)
+        # qwen3-moe's expert GEMMs under a top-8-of-128 routing (numpy
+        # seed): one and four decode tokens (C 8, 8 and 32 rows) and a
+        # 512-token prefill (C 64, the counts clipped there); the bound
+        # counts the rows within the groups, the weights of the experts
+        # that have any and the whole output
+        E, k_top = 128, 8
+        cases = []
+        for T in (1, 4):
+            picks = np.concatenate([rng.choice(E, k_top, replace=False)
+                                    for _ in range(T)])
+            cases.append((f"decode_T{T}", 8, np.bincount(picks, minlength=E)))
+        picks = np.concatenate([rng.choice(E, k_top, replace=False)
+                                for _ in range(512)])
+        cases.append(("prefill512", 64, np.minimum(
+            np.bincount(picks, minlength=E), 64)))
+        for ptag, d, n in (("gate", 2048, 768), ("down", 768, 2048)):
+            for gtag, C, gs_np in cases:
+                x = rand(E, C, d, dtype=torch.bfloat16)
+                w = rand(E, d, n, dtype=torch.bfloat16, scale=d ** -0.5)
+                gs = torch.from_numpy(gs_np.astype(np.int32)).to(dev)
+                keep = (torch.arange(C, device=dev)[None, :]
+                        < gs[:, None])[..., None]
+                xm = torch.where(keep, x, torch.zeros(
+                    (), dtype=torch.bfloat16, device=dev))
+                rows, active = int(gs_np.sum()), int((gs_np > 0).sum())
+                plan = plan_bf16_gemm(C, n, d, E)
+                tag = f"qwen3_moe_{gtag}_{ptag}"
+                r = check(f"gmm_blocks {tag} ({E},{C},{d})x({E},{d},{n}) "
+                          f"bfloat16, {rows} rows in {active} experts, "
+                          f"{plan.path} path bm {plan.bm} split "
+                          f"{plan.split} ({plan.blocks} blocks)",
+                          lambda: ops.gmm_blocks(x, w, gs),
+                          lambda: gmm_blocks_plain(x, w, gs),
+                          lambda: torch.bmm(xm, w), 2 * rows * d * n,
+                          2 * (rows * d + active * d * n + E * C * n),
+                          "bfloat16", repeat_equal=True,
+                          nan_out=((E, C, n), torch.bfloat16), whole=False)
+                results.setdefault("gmm_blocks", {})[tag] = {
+                    **r, "path": plan.path, "experts_read": active}
+                del x, w, xm
+        torch.cuda.empty_cache()
+
+    paths = selected_paths()
+    if paths is not None:
+        # only the chosen paths and their kernel rows: a first check of a
+        # slice on the card, without a result line
+        t0 = time.perf_counter()
+        arch_rows()
+        print(f"  [archs kernel rows: {time.perf_counter() - t0:.1f} s]")
+        t0 = time.perf_counter()
+        archs_path(dev)
+        print(f"  [archs path done in {time.perf_counter() - t0:.1f} s, at "
+              f"{time.perf_counter() - t_start:.1f} s]")
+        print(f"chip_smoke: --paths {','.join(paths)}: stopped after the "
+              f"chosen paths")
+        sys.exit(0)
+
+    print("kernels vs plain versions (resnet50@224 shapes):")
     # resnet50's four Winograd stages along plan_f32_gemm(..., batch=16)'s
     # paths (stream: stem, stage0; tile: stage1, stage2), then ragged edges:
     # two column tiles of the stream path (its U slab swapped between
@@ -3702,32 +4131,15 @@ def main() -> None:
                 ("bwd_dw_up", 960, 2048, 2560, False),
                 ("bwd_dw_down", 2560, 2048, 960, False),
                 ("bwd_dw_head", 960, 2048, 49152, False)]
-    for tag, M, K, N, kmajor in mm_rows:
-        x = rand(M, K, dtype=torch.bfloat16)
-        w = (rand(N, K, dtype=torch.bfloat16, scale=K ** -0.5).T if kmajor
-             else rand(K, N, dtype=torch.bfloat16, scale=K ** -0.5))
-        plan = plan_bf16_gemm(M, N, K)
-        r = check(f"matmul_bf16 {tag} ({M},{K})x({K},{N}) "
-                  f"{'K-major' if kmajor else 'row-major'} w, {plan.path} "
-                  f"path bm {plan.bm} split {plan.split} ({plan.blocks} "
-                  f"blocks)",
-                  lambda: ops.matmul(x, w), lambda: matmul_plain(x, w),
-                  lambda: torch.matmul(x, w),
-                  2 * M * N * K, 2 * (M * K + K * N + M * N), "bfloat16",
-                  repeat_equal=True)
-        results["matmul_bf16"][tag] = {**r, "path": plan.path,
-                                       "split": plan.split}
-
-    def visible_pairs(S, window):
-        rows = np.arange(S)
-        return int(np.minimum(rows + 1, window or S).sum())
+    for row in mm_rows:
+        bf16_row(*row)
 
     # (tag, B, S, H, KV, D, window, softcap, dtype); causal throughout.
     # smollm-360m's cold prefill and a long one, granite-moe-3b-a800m's
     # 512-token prefill, zamba2-2.7b's head dim 80 in both dtypes, ragged
     # S, the head dims off the 16-byte grid (67: element loads), 100 and
     # 256, and a plan with two query heads a block
-    for tag, B, S, H, KV, D, win, cap, dt in [
+    for row in [
             ("prefill64", 1, 64, 15, 5, 64, None, None, torch.bfloat16),
             ("prefill2048", 1, 2048, 15, 5, 64, None, None, torch.bfloat16),
             ("granite512", 1, 512, 24, 8, 64, None, None, torch.bfloat16),
@@ -3750,29 +4162,7 @@ def main() -> None:
             # a batch with 8 query heads a kv head: two heads a block
             ("batched_gqa", 8, 256, 32, 4, 128, None, None,
              torch.bfloat16)]:
-        q = rand(B, S, H, D, dtype=dt, scale=0.5)
-        k = rand(B, S, KV, D, dtype=dt, scale=0.5)
-        v = rand(B, S, KV, D, dtype=dt, scale=0.5)
-        kw = dict(causal=True, window=win, softcap=cap)
-        lib = None
-        if cap is None and win is None:
-            lib = (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True))
-        dname = str(dt).replace("torch.", "")
-        plan = plan_flash(B, S, H, KV, D, dt, True, win)
-        r = check(f"flash_attention {tag} B={B} S={S} H={H} KV={KV} D={D} "
-                  f"window={win} softcap={cap} {dname}, bq {plan.bq} heads "
-                  f"{plan.heads} ksplit {plan.ksplit} bk {plan.bk} dp "
-                  f"{plan.dp} ({plan.blocks} blocks of {plan.threads} "
-                  f"threads)",
-                  lambda: ops.flash_attention(q, k, v, **kw),
-                  lambda: flash_attention_plain(q, k, v, **kw), lib,
-                  4 * B * H * D * visible_pairs(S, win),
-                  q.element_size() * 2 * B * S * (H + KV) * D, dname,
-                  repeat_equal=True)
-        results.setdefault("flash_attention", {})[tag] = {
-            **r, "plan": plan._asdict()}
+        flash_row(*row)
 
     print("kernels vs plain versions (flash_attention_bwd, the backward of "
           "prefill attention, along plan_flash_bwd's route: smollm-360m's "
@@ -4391,6 +4781,9 @@ def main() -> None:
         del x, sdt, Bm, Cm, dy, cum, cb, ins
     print(f"  [ssd_scan_bwd rows: {time.perf_counter() - t_rows:.1f} s, of "
           f"which the launch splits {t_split:.1f} s]")
+    t0 = time.perf_counter()
+    arch_rows()
+    print(f"  [archs kernel rows: {time.perf_counter() - t0:.1f} s]")
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     print(f"  [kernel phases done at {time.perf_counter() - t_start:.1f} s]")
@@ -4675,7 +5068,8 @@ def main() -> None:
             ("hybrid", lambda: hybrid_path(dev, HYBRID_DEPTH,
                                            HYBRID_F32_DEPTH)),
             ("input-modes", lambda: modes_path(dev, MUSICGEN_DECODE,
-                                               VLM_DEPTH))):
+                                               VLM_DEPTH)),
+            ("archs", lambda: archs_path(dev))):
         for k, n in run().items():
             launches[k] = launches.get(k, 0) + n
         torch.cuda.empty_cache()

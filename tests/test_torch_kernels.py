@@ -309,9 +309,16 @@ PLANNER_ROWS = [
     ((3, 129, 7, 1), "skinny"), ((100, 200, 49155, 1), "tile"),
     ((20, 37, 50, 1), "tile"), ((5, 1536, 49155, 1), "skinny"),
     ((1, 256, 100, 1), "skinny"),
+    # the archs path's rows: qwen3-32b's prefill, gemma2-27b's 4608 tokens
+    ((512, 5120, 8192, 1), "tile"), ((512, 5120, 25600, 1), "tile"),
+    ((512, 5120, 151936, 1), "tile"), ((4608, 4608, 36864, 1), "tile"),
+    ((4608, 4608, 256000, 1), "tile"),
     ((8, 1536, 512, 40), "skinny"), ((8, 512, 1536, 40), "skinny"),
     ((208, 1536, 512, 40), "tile"), ((64, 32, 48, 4), "tile"),
-    ((128, 128, 128, 8), "tile"), ((40, 20, 9, 3), "tile")]
+    ((128, 128, 128, 8), "tile"), ((40, 20, 9, 3), "tile"),
+    # qwen3-moe-30b-a3b's expert blocks: decode C 8, a prefill's C 64
+    ((8, 2048, 768, 128), "skinny"), ((8, 768, 2048, 128), "skinny"),
+    ((64, 2048, 768, 128), "tile"), ((64, 768, 2048, 128), "tile")]
 
 
 @pytest.mark.parametrize("shape,path", PLANNER_ROWS,

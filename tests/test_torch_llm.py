@@ -266,7 +266,10 @@ FLASH_PLAN_ROWS = [
     (2, 200, 8, 2, 32, 64, "bfloat16"), (2, 130, 4, 4, 128, None, "bfloat16"),
     (1, 300, 8, 2, 100, 128, "bfloat16"), (1, 200, 4, 2, 67, 64, "bfloat16"),
     (1, 256, 4, 4, 256, None, "bfloat16"),
-    (8, 256, 32, 4, 128, None, "bfloat16")]
+    (8, 256, 32, 4, 128, None, "bfloat16"),
+    # the archs path's: gemma2-27b past its window, qwen3-32b's 64/8 heads
+    (1, 4608, 32, 16, 128, 4096, "bfloat16"),
+    (1, 512, 64, 8, 128, None, "bfloat16")]
 
 
 @pytest.mark.parametrize("B,S,H,KV,D,window,dtype", FLASH_PLAN_ROWS)
