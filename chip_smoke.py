@@ -117,9 +117,10 @@ Run from the root of a checkout, on a machine with a CUDA card and
      NaN-filled block; all with two launches bitwise equal and a device
      time; with
      ``--kernels-only`` the script stops here (a first check of a new
-     kernel, without the paths or a result line); with ``--paths archs``
-     it runs the archs path's kernel rows and the archs path alone after
-     the build, then stops (exit 0, no result line);
+     kernel, without the paths or a result line); with ``--paths`` and
+     any of ``serving,moe,ssm,hybrid,archs`` it runs those paths alone
+     after the build (the archs path after its kernel rows), then stops
+     (exit 0, no result line);
   4. drives the CNN path: resnet50 at image 224, width 1.0, from
      ``build_cnn`` through ``ColdEngine(store_fmt="super")``, ``decide`` with
      the real profiler, then ``run_cold``, and two more ``run_cold``s under
@@ -173,12 +174,28 @@ Run from the root of a checkout, on a machine with a CUDA card and
      overlap the exec chain, 16 tokens must come back, ``decode_attention``
      must launch once a block for every ``decode_step``, the prefill
      logits must pass the LLM gate and the KV reservation must leave the
-     ``MemoryBudget``; then teacher-forced ``decode_step`` over 48 tokens
+     ``MemoryBudget``; the same cold start with an eager decode server
+     (``graph=False``) is reported beside it (``decode_ready_s``, the
+     decode's seconds); then teacher-forced ``decode_step`` over 48 tokens
      with the kernels against the plain versions (bf16 cache, int8 cache,
      a 32-entry window ring; LLM gate) and a ``BatchedServer(max_batch=4,
      max_len=512)`` run of 6 greedy requests, each of which must finish
      with its token count (agreement with the plain run is reported,
-     and for each request that leaves it, its first flip);
+     and for each request that leaves it, its first flip); then gate (a)
+     on the bf16 cache, a 32-entry window ring past its wrap and the int8
+     cache. Every ``BatchedServer`` on the card replays one CUDA graph a
+     decode step (captured once, at its first step; the line of each run
+     prints the capture's seconds), but for the runs with a Python hook
+     in the step (the MoE paths' recorded or replayed routing), which
+     run eager (``graph=False``) and say so. Gate (a): a graphed and an
+     eager ``BatchedServer(max_batch=2, max_len=64)`` on the same params
+     take three requests (``LOCKSTEP_SHAPES``: three prompts replayed, a
+     recycled slot, 58 decode steps to position 52) in lockstep; after
+     every tick every decode's logits and every state leaf must be
+     bitwise equal, the launch counts equal (the graphed server's counted
+     through its replays) and the graphed server must capture once; ms a
+     step eager and graphed and 8 more decodes of each under the profiler
+     (busy, idle share) are printed;
   7. drives the moe family: granite-moe-3b-a800m at full width, 16 of
      its 32 layers (``MOE_DEPTH``, a cut), bf16, weights drawn on the
      card: ``forward``
@@ -190,15 +207,16 @@ Run from the root of a checkout, on a machine with a CUDA card and
      other's experts) and the free-running kernel and plain forwards must
      share 90 % of their (token, expert) assignments; the kernels'
      batched run is repeated replaying the plain run's routing
-     (reported); then the model in f32 at ``MOE_F32_DEPTH`` layers (a
-     cut): ``forward`` on the 512-token prompt against the all-plain f32
-     forward under the same routing (``PATH_TOL`` relative to max|ref|);
-     then
+     (reported), then gate (a); then the model in f32 at
+     ``MOE_F32_DEPTH`` layers (a cut): ``forward`` on the 512-token
+     prompt against the all-plain f32 forward under the same routing
+     (``PATH_TOL`` relative to max|ref|); then
      the ssm family: mamba2-2.7b at full width, 32 of its 64 layers
      (``SSM_DEPTH``, a cut): in bf16 ``forward`` on 1024 tokens, each
      layer held to its plain version on the same input and the whole
      model's difference from the all-plain forward reported, and the same
-     ``BatchedServer`` run; in f32 at ``SSM_F32_DEPTH`` layers (16, a
+     ``BatchedServer`` run and gate (a); in f32 at ``SSM_F32_DEPTH``
+     layers (16, a
      cut) ``forward`` against the all-plain forward and decode by steps
      against ``forward`` over two 256-token chunks (LLM gate); then the
      hybrid family: zamba2-2.7b at full width (d_model 2560, 32/32 heads of 80,
@@ -210,7 +228,7 @@ Run from the root of a checkout, on a machine with a CUDA card and
      difference from the all-plain forward and its amplification of the
      worst block's reported, the ``BatchedServer`` run of the request mix
      with the kernels (no plain run: at this amplification token
-     agreement says where greedy ties fall); in f32 at
+     agreement says where greedy ties fall) and gate (a); in f32 at
      ``HYBRID_F32_DEPTH`` layers (6, one group: a cut) ``forward``
      against the all-plain forward and decode by steps against
      ``forward`` over 256 tokens (LLM gate); then the input modes:
@@ -230,7 +248,8 @@ Run from the root of a checkout, on a machine with a CUDA card and
      cut for the run's time: qwen3-moe-30b-a3b (128 experts of d_ff 768,
      top-8, ``qk_norm``, 32/4 heads of 128 on d_model 2048, untied head
      over 151936) at 8 of its 48 layers through ``moe_model``, granite's
-     gates without the batched server (``forward`` on 512 tokens, C 64,
+     gates with the batched mix and gate (a) (``forward`` on 512
+     tokens, C 64,
      against the all-plain forward under the kernels' routing replayed,
      ``ROUTE_AGREE`` on the free-running routing, one MoE layer on
      identical inputs, decode by steps against ``forward`` on 32 tokens
@@ -246,7 +265,9 @@ Run from the root of a checkout, on a machine with a CUDA card and
      by steps (LLM gate), the prefill cache of a 32-token forward against
      the decode state, each block against its plain version in lockstep
      (reported beside the whole model's difference), a forward's and 8
-     decode steps' device busy and idle; qwen3-32b also in f32 at 2
+     decode steps' device busy and idle, the ``BatchedServer`` mix
+     against the plain versions' run (graphed both) and gate (a);
+     qwen3-32b also in f32 at 2
      layers against the all-plain f32 forward (``PATH_TOL``); then
      training (``training_path``): smollm-360m at full width on
      ``SyntheticPipeline(batch 8, seq 512, microbatches 2, seed 0)``; in
@@ -312,7 +333,10 @@ Run from the root of a checkout, on a machine with a CUDA card and
      ``decode_step``, ``ssd_scan`` once a mamba layer per ``forward``,
      ``flash_attention`` once an attention layer or shared-block
      application per ``forward``, ``decode_attention`` once an attention
-     layer or application per ``decode_step``; the bf16 ``matmul`` 7 L + 1
+     layer or application per ``decode_step`` (a graph replay counts as
+     the step it replays: the server adds its capture's counts at each
+     replay and takes back those of its warm-up and capture); the bf16
+     ``matmul`` 7 L + 1
      times per ``forward`` or ``decode_step`` of a dense model of L layers
      (the f32 one as many times in its f32 runs), the MoE router's f32
      ``matmul`` once a layer; a training step's
@@ -498,17 +522,23 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# the paths ``--paths`` runs alone, in the full run's order: each serves
+# its models through graphed ``BatchedServer``s
+ALONE = ("serving", "moe", "ssm", "hybrid", "archs")
+
+
 def selected_paths():
-    """``--paths archs``: the paths to run alone, after the build and their
-    own kernel rows (None without the switch; ``archs`` is the one path
-    that runs alone)."""
+    """``--paths serving,moe,ssm,hybrid,archs`` (any of them): the paths to
+    run alone after the build, ``archs`` after its own kernel rows (None
+    without the switch)."""
     argv = sys.argv[1:]
     if "--paths" not in argv:
         return None
     i = argv.index("--paths")
     paths = argv[i + 1].split(",") if i + 1 < len(argv) else []
-    if paths != ["archs"]:
-        fail(f"--paths {','.join(paths) or '?'}: only 'archs' runs alone")
+    if not paths or any(x not in ALONE for x in paths):
+        fail(f"--paths {','.join(paths) or '?'}: only "
+             f"{','.join(ALONE)} run alone")
     return paths
 
 
@@ -556,11 +586,16 @@ def plain_kernels():
 BATCH_SHAPES = [(8, 8), (64, 32), (23, 16), (40, 24), (12, 12), (57, 20)]
 
 
-def batched_run(params, cfg, dev, plain: bool):
+def batched_run(params, cfg, dev, plain: bool, hook: str = ""):
     """The ``BATCH_SHAPES`` requests, greedy, through a
-    ``BatchedServer(max_batch=4, max_len=512)`` (slots recycled). Returns
-    ({rid: tokens}, decode steps, seconds, the launch counts of the run,
-    zeroed just before it, {rid: [(slot, f32 logits row)]} of every pick)."""
+    ``BatchedServer(max_batch=4, max_len=512)`` (slots recycled), which
+    replays one CUDA graph a step (one capture, at its first step: fails
+    otherwise). ``hook`` names a Python hook inside the step (a routing
+    log), which a graph would run at its capture only: the server then
+    runs eager (``graph=False``), and its line says so. Returns ({rid:
+    tokens}, decode steps, seconds (the capture's included), the launch
+    counts of the run, zeroed just before it, {rid: [(slot, f32 logits
+    row)]} of every pick)."""
     import numpy as np
 
     from repro_torch.device import on_stream
@@ -569,7 +604,8 @@ def batched_run(params, cfg, dev, plain: bool):
 
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n, _ in BATCH_SHAPES]
-    srv = BatchedServer(params, cfg, max_batch=4, max_len=512, device=dev)
+    srv = BatchedServer(params, cfg, max_batch=4, max_len=512, device=dev,
+                        graph=not hook)
     for i, (p, (_, m)) in enumerate(zip(prompts, BATCH_SHAPES)):
         srv.submit(Request(rid=i, prompt=p, max_new_tokens=m))
     picks, pick = {}, srv._pick
@@ -592,8 +628,116 @@ def batched_run(params, cfg, dev, plain: bool):
     dt = time.perf_counter() - t0
     counts = ops.launch_counts()
     srv.close()
+    print(f"  BatchedServer run with the "
+          f"{'plain versions' if plain else 'kernels'}: "
+          + (f"eager ({hook} in the step)" if hook else
+             f"graphed, {srv.captures} capture in {srv.capture_s:.3f} s"
+             if srv.graphed else "eager (no graphs on the CPU)"))
+    if srv.captures != (1 if srv.graphed else 0):
+        fail(f"a graphed BatchedServer captured {srv.captures} graphs")
     return ({r.rid: r.out_tokens for r in done}, srv.decode_steps, dt,
             counts, picks)
+
+
+# gate (a)'s requests, (prompt length, new tokens) through 2 slots, prompts
+# from numpy seed 4: three prompts replayed, slot 1 recycled, 58 decode
+# steps over 34 ticks, to position 52 (a 32-entry ring wraps)
+LOCKSTEP_SHAPES = [(10, 16), (6, 12), (8, 24)]
+
+
+def graph_against_eager(gates, params, cfg, dev, label) -> None:
+    """Gate (a): a graphed and an eager ``BatchedServer(max_batch=2,
+    max_len=64)`` on the same params take the ``LOCKSTEP_SHAPES`` requests
+    in lockstep, tick by tick; after every tick each decode's logits and
+    every state leaf must be bitwise equal, and the two runs' launch
+    counts (the graphed one's counted through its replays) equal; the
+    graphed one captures once. Prints ms a step of each (the graphed one
+    without its capture), the capture's seconds, and the device busy time
+    and idle share of 8 more decodes of each under the profiler (their
+    launches count nowhere)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import on_stream
+    from repro_torch.kernels import ops
+    from repro_torch.serving import BatchedServer, Request
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n, _ in LOCKSTEP_SHAPES]
+    srvs, logs = [], []
+    for graph in (True, False):
+        srv = BatchedServer(params, cfg, max_batch=2, max_len=64, device=dev,
+                            graph=graph)
+        for i, (p, (_, m)) in enumerate(zip(prompts, LOCKSTEP_SHAPES)):
+            srv.submit(Request(rid=i, prompt=p, max_new_tokens=m))
+        log, decode = [], srv._decode
+
+        def recording(tok, pos, srv=srv, log=log, decode=decode):
+            lg = decode(tok, pos)
+            with on_stream(srv.stream):  # the graph's output is overwritten
+                log.append(lg.clone())
+            return lg
+
+        srv._decode = recording
+        srvs.append(srv)
+        logs.append(log)
+    g, e = srvs
+    wall, counts = [0.0, 0.0], [{}, {}]
+    ticks, diverged = 0, None
+    while ticks < 200 and any(s.queue or any(r is not None
+                                             for r in s.slot_req)
+                              for s in srvs):
+        for i, srv in enumerate(srvs):
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            srv.step()
+            torch.cuda.synchronize()
+            wall[i] += time.perf_counter() - t0
+            for k, n in ops.launch_counts().items():
+                if n != before[k]:
+                    counts[i][k] = counts[i].get(k, 0) + n - before[k]
+        same = (len(logs[0]) == len(logs[1])
+                and all(torch.equal(a, b) for a, b in zip(*logs))
+                and all(torch.equal(g.state[k], e.state[k])
+                        for k in g.state))
+        if not same and diverged is None:
+            diverged = ticks
+        for log in logs:
+            log.clear()
+        ticks += 1
+    steps = g.decode_steps
+    print(f"  {label}: graph against eager, BatchedServer(max_batch=2, "
+          f"max_len=64) in lockstep, prompts "
+          f"{[n for n, _ in LOCKSTEP_SHAPES]}, max_new_tokens "
+          f"{[m for _, m in LOCKSTEP_SHAPES]}: {steps} decode_steps over "
+          f"{ticks} ticks to position {int(g.pos.max())}; every decode's "
+          f"logits and every state leaf bitwise equal after every tick: "
+          f"{diverged is None}"
+          + ("" if diverged is None else f" (first differs at tick "
+                                         f"{diverged})")
+          + f"; ms a step eager {wall[1] * 1e3 / max(steps, 1):.3f}, "
+          f"graphed {(wall[0] - g.capture_s) * 1e3 / max(steps, 1):.3f} "
+          f"({g.captures} capture in {g.capture_s:.3f} s); launches "
+          f"graphed {json.dumps(counts[0])}, eager {json.dumps(counts[1])}")
+    gates.check(diverged is None, f"{label}: the graphed server's logits or "
+                f"state left the eager one's at tick {diverged}")
+    gates.check(steps == e.decode_steps >= 48 and not g.queue,
+                f"{label}: {steps} and {e.decode_steps} decode steps, not "
+                f"one count >= 48")
+    gates.check(counts[0] == counts[1], f"{label}: the graphed run's "
+                f"launches are not the eager run's")
+    gates.check(g.captures == (1 if g.graphed else 0) and not e.captures,
+                f"{label}: {g.captures} captures, not one a server")
+    tok = np.zeros((2, 1), np.int64)
+    for srv, kind in ((e, "eager"), (g, "graphed")):
+        del srv._decode              # the class's own, unrecorded
+        saved = ops.launch_counts()
+        profile_steps(f"{label} {kind} decode B=2 W=64",
+                      lambda i, srv=srv: srv._decode(tok, i), 8)
+        ops.add_launch_counts({k: saved[k] - n
+                               for k, n in ops.launch_counts().items()})
+    del srvs, g, e
 
 
 def report_batched(got, want, steps, dt, dt_p, picks, picks_p) -> bool:
@@ -1222,6 +1366,26 @@ def serving_path(dev, depth: int) -> dict:
         print(f"  tokens: {res.tokens}")
         print(f"  launches: "
               f"{json.dumps({k: n for k, n in cold_counts.items() if n})}")
+        # the same cold start with an eager decode server (reported; its
+        # launches count nowhere): what the graph's capture and replays
+        # change in decode_ready_s and the decode's seconds
+        saved = ops.launch_counts()
+        eager = cold_start_llm(eng, cfg, toks[0], max_new_tokens=16,
+                               server=srv, model_name="smollm", graph=False)
+        ops.add_launch_counts({k: saved[k] - n
+                               for k, n in ops.launch_counts().items()})
+        for kind, r in (("graphed", res), ("eager", eager)):
+            ready = r.decode_ready_s - max(r.first_token_s, r.decode_prep_s)
+            tick = r.decode_s * 1e3 / max(r.decode_ticks, 1)
+            print(f"  cold_start_llm, {kind} decode server: first_token_s="
+                  f"{r.first_token_s:.4f} decode_prep_s="
+                  f"{r.decode_prep_s:.4f} decode_ready_s="
+                  f"{r.decode_ready_s:.4f} (ready - max(first token, last "
+                  f"pack) {ready:.4f} s for {r.decode_steps - r.decode_ticks}"
+                  f" steps) decode_s={r.decode_s:.4f} ({tick:.3f} ms a tick "
+                  f"over {r.decode_ticks}); tokens as the graphed run's: "
+                  f"{r.tokens == res.tokens}")
+        del eager
         gate(res.first_token_before_last_prep,
              "first token not before the last decode prep")
         gate(res.overlapped_layers >= 1, "no weight prep overlapped")
@@ -1333,6 +1497,19 @@ def serving_path(dev, depth: int) -> dict:
          "a batched request did not finish with its token count")
     gates.launched("batched", "decode_attention", counts["decode_attention"],
                    depth * steps)
+    # gate (a): graphed against eager, bitwise, on the bf16 cache, a
+    # 32-entry ring past its wrap and the int8 cache
+    for arm, c, int8 in [("bf16 cache", cfg, False),
+                         ("window-32 ring", cfg.with_sliding_window(32),
+                          False),
+                         ("int8 cache", cfg, True)]:
+        saved = FLAGS["kv_cache_int8"]
+        FLAGS["kv_cache_int8"] = int8
+        try:
+            graph_against_eager(gates, pdev, c, dev,
+                                f"{cfg.name} [{arm}]")
+        finally:
+            FLAGS["kv_cache_int8"] = saved
     gates.finish()
     return {"decode_attention": cold_counts["decode_attention"]}
 
@@ -1813,26 +1990,30 @@ def moe_model(gates, cfg, dev, of: int, f32_depth: int, batched: bool,
                                                     plain=False)
         gates.add(counts)
         with routing_log() as blog:
-            want, _, dt_p, _, picks_p = batched_run(params, cfg, dev,
-                                                    plain=True)
+            want, _, dt_p, _, picks_p = batched_run(
+                params, cfg, dev, plain=True, hook="a routing log")
         gates.check(report_batched(got, want, steps, dt, dt_p, picks, picks_p),
                     "a batched request did not finish with its token count")
         print(f"  batched launches: "
               f"{json.dumps({k: n for k, n in counts.items() if n})}")
-        gates.launched("batched", "gmm_blocks", counts["gmm_blocks"],
+        gates.launched(f"{pre}batched", "gmm_blocks", counts["gmm_blocks"],
                        3 * depth * steps)
-        gates.launched("batched", "decode_attention",
+        gates.launched(f"{pre}batched", "decode_attention",
                        counts["decode_attention"],
                        depth * steps)
-        gates.launched("batched", "matmul", counts["matmul"], depth * steps)
+        gates.launched(f"{pre}batched", "matmul", counts["matmul"],
+                       depth * steps)
         # why the kernels' tokens leave the plain run's: the kernels' run
         # again, replaying the plain run's routing (reported, not gated; its
         # launches are not counted)
         with routing_log(replay=blog):
-            got_r, _, dt, _, picks = batched_run(params, cfg, dev, plain=False)
+            got_r, _, dt, _, picks = batched_run(
+                params, cfg, dev, plain=False, hook="a replayed routing")
         print("  the kernels' batched run again, replaying the plain run's "
               "routing:")
         report_batched(got_r, want, steps, dt, dt_p, picks, picks_p)
+        graph_against_eager(gates, params, cfg, dev,
+                            pre.strip() or cfg.name)
     del params, state
     torch.cuda.empty_cache()
 
@@ -1973,6 +2154,7 @@ def ssm_path(dev, depth: int) -> dict:
     # six projections a layer and the tied head, one launch each a step
     gates.launched("batched", "matmul_bf16", counts["matmul_bf16"],
                    (6 * depth + 1) * steps)
+    graph_against_eager(gates, params, cfg, dev, cfg.name)
     del params, state
     torch.cuda.empty_cache()
 
@@ -2138,6 +2320,7 @@ def hybrid_path(dev, depth: int, f32_depth: int) -> dict:
                    depth // every * steps)
     gates.launched("batched", "matmul_bf16", counts["matmul_bf16"],
                    mm_per_token(cfg) * steps)
+    graph_against_eager(gates, params, cfg, dev, cfg.name)
     del params, state
     torch.cuda.empty_cache()
 
@@ -2359,7 +2542,7 @@ def modes_path(dev, music_decode: int, vlm_depth: int) -> dict:
 
 
 def dense_model(gates, cfg, dev, S: int, Sd: int, f32_depth: int,
-                pre: str) -> None:
+                pre: str, batched: bool = False) -> None:
     """A dense ``cfg`` at full width, random weights from seed 0 drawn on
     ``dev``: ``forward`` on an ``S``-token prompt (numpy seed 3) with the
     kernels against the all-plain forward, ``Sd`` decode steps against the
@@ -2367,9 +2550,13 @@ def dense_model(gates, cfg, dev, S: int, Sd: int, f32_depth: int,
     ``Sd``-token forward against the state the decode steps left; each
     block against its plain version on the same input (lockstep, reported
     beside the whole model's difference: its amplification); a forward's
-    and 8 decode steps' device time; where ``f32_depth``, the model in f32
-    at that depth (a cut) against the all-plain f32 forward (``PATH_TOL``).
-    Each check and launch count goes to ``gates``, labels led by ``pre``."""
+    and 8 decode steps' device time; where ``batched``, the
+    ``BATCH_SHAPES`` mix through a graphed ``BatchedServer`` against the
+    plain versions' graphed run (``report_batched``, the finished gate,
+    the launch gates) and gate (a), graph against eager; where
+    ``f32_depth``, the model in f32 at that depth (a cut) against the
+    all-plain f32 forward (``PATH_TOL``). Each check and launch count goes
+    to ``gates``, labels led by ``pre``."""
     import dataclasses
 
     import numpy as np
@@ -2427,6 +2614,18 @@ def dense_model(gates, cfg, dev, S: int, Sd: int, f32_depth: int,
     profile_steps(f"{pre}8 decode steps B=1", lambda i: T.decode_step(
         params, state, {"tokens": toks[:, 4 + i:5 + i]}, 4 + i, cfg), 8,
         extra=("decode_",))
+    if batched:
+        got, steps, dt, counts, picks = batched_run(params, cfg, dev,
+                                                    plain=False)
+        gates.add(counts)
+        want, _, dt_p, _, picks_p = batched_run(params, cfg, dev, plain=True)
+        gates.check(report_batched(got, want, steps, dt, dt_p, picks,
+                                   picks_p),
+                    f"{pre}a batched request did not finish with its token "
+                    f"count")
+        gate_decode(gates, cfg, f"{pre}batched", counts, steps)
+        graph_against_eager(gates, params, cfg, dev,
+                            pre.strip() or cfg.name)
     del params, state
     torch.cuda.empty_cache()
     if not f32_depth:
@@ -2492,9 +2691,10 @@ def archs_path(dev) -> dict:
               + (f", f32 at {f32_depth} layers" if f32_depth else ""))
         if cfg.is_moe:
             moe_model(gates, cfg, dev, full.num_layers, f32_depth,
-                      batched=False, pre=f"{name} ", S=S, Sd=Sd)
+                      batched=True, pre=f"{name} ", S=S, Sd=Sd)
         else:
-            dense_model(gates, cfg, dev, S, Sd, f32_depth, pre=f"{name} ")
+            dense_model(gates, cfg, dev, S, Sd, f32_depth, pre=f"{name} ",
+                        batched=True)
         torch.cuda.empty_cache()
         print(f"  [{name}: {time.perf_counter() - t0:.1f} s]")
     print(f"  archs path launches (forwards + decode steps + f32 forwards): "
@@ -3947,15 +4147,25 @@ def main() -> None:
 
     paths = selected_paths()
     if paths is not None:
-        # only the chosen paths and their kernel rows: a first check of a
-        # slice on the card, without a result line
-        t0 = time.perf_counter()
-        arch_rows()
-        print(f"  [archs kernel rows: {time.perf_counter() - t0:.1f} s]")
-        t0 = time.perf_counter()
-        archs_path(dev)
-        print(f"  [archs path done in {time.perf_counter() - t0:.1f} s, at "
-              f"{time.perf_counter() - t_start:.1f} s]")
+        # only the chosen paths (the archs path after its kernel rows): a
+        # first check of a slice on the card, without a result line
+        runs = {"serving": lambda: serving_path(dev, SERVE_DEPTH),
+                "moe": lambda: moe_path(dev, MOE_DEPTH),
+                "ssm": lambda: ssm_path(dev, SSM_DEPTH),
+                "hybrid": lambda: hybrid_path(dev, HYBRID_DEPTH,
+                                              HYBRID_F32_DEPTH),
+                "archs": lambda: archs_path(dev)}
+        for path in [x for x in ALONE if x in paths]:
+            if path == "archs":
+                t0 = time.perf_counter()
+                arch_rows()
+                print(f"  [archs kernel rows: "
+                      f"{time.perf_counter() - t0:.1f} s]")
+            t0 = time.perf_counter()
+            runs[path]()
+            torch.cuda.empty_cache()
+            print(f"  [{path} path done in {time.perf_counter() - t0:.1f} "
+                  f"s, at {time.perf_counter() - t_start:.1f} s]")
         print(f"chip_smoke: --paths {','.join(paths)}: stopped after the "
               f"chosen paths")
         sys.exit(0)

@@ -109,10 +109,12 @@ def cold_start_llm(
     n_little: int = 3,
     server: Optional[Any] = None,     # ColdServer for admission (optional)
     model_name: Optional[str] = None,
+    graph: bool = True,
 ) -> ColdLLMResult:
     """Cold-start a ``build_llm_graph`` engine and serve ``max_new_tokens``
     greedily on the engine's device; see the module docstring for the
-    pipeline."""
+    pipeline. ``graph``: the decode server's steps replay one CUDA graph
+    on a card (captured at its first step, within ``decode_ready_s``)."""
     assert engine.plan is not None, "decide() first"
     prompt = np.asarray(prompt, np.int32).reshape(-1)
     x = prompt[None, :]
@@ -184,7 +186,7 @@ def cold_start_llm(
                         max_len=int(prompt.size + max_new_tokens + 2),
                         budget=(server.budget if server is not None
                                 else None),
-                        device=engine.device)
+                        device=engine.device, graph=graph)
     tokens = [first_token]
     decode_s = 0.0
     ready_steps = 0

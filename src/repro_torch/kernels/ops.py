@@ -8,7 +8,7 @@ in the JAX package). The registry kernels' ``execute`` bodies call these.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import conv_winograd as _wino
@@ -78,6 +78,9 @@ KERNELS = {
 
 _COUNTERS = (_mm.launches, _wino.launches, _attn.launches, _quant.launches,
              _gmm.launches, _ssd.launches)
+# each counter with the lock its wrappers bump it under
+_LOCKED = tuple(zip(_COUNTERS, (_mm._lock, _wino._lock, _attn._lock,
+                                _quant._lock, _gmm._lock, _ssd._lock)))
 
 
 def launch_counts() -> Dict[str, int]:
@@ -91,6 +94,22 @@ def reset_launch_counts() -> None:
     for c in _COUNTERS + (_mm.gemm_paths,):
         for k in c:
             c[k] = 0
+
+
+def add_launch_counts(launches: Dict[str, int],
+                      paths: Optional[Dict[str, int]] = None) -> None:
+    """Add ``launches`` (``launch_counts()`` keys) and ``paths``
+    (``gemm_path_counts()`` keys) to the counters; a count may be
+    negative. A CUDA graph's replay launches its kernels without calling
+    the wrappers, so its owner adds the counts of its capture here at
+    every replay."""
+    for c, lock in _LOCKED:
+        with lock:
+            for k in c:
+                c[k] += launches.get(k, 0)
+    with _mm._lock:
+        for k, n in (paths or {}).items():
+            _mm.gemm_paths[k] += n
 
 
 def gemm_path_counts() -> Dict[str, int]:

@@ -17,8 +17,12 @@ reference) — and is the plain whole-block reference of the tests.
 against a ring-buffer KV cache (optionally int8 with per-entry scales),
 read through ``kernels.ops.decode_attention``. It writes the new entry
 into the cache tensors in place (the reference returns updated copies)
-and returns them. The sharded read (``_flash_decode_sharded``) and the
-sequence-parallel prefill need a device mesh and stay out of the port.
+and returns them. Its position is a Python int or, as the reference's
+traced ``pos``, a 0-d integer tensor on the cache's device: then RoPE's
+positions, the ring slot and the writes are computed on the device, and
+one CUDA graph of the step serves every position. The sharded read
+(``_flash_decode_sharded``) and the sequence-parallel prefill need a
+device mesh and stay out of the port.
 """
 from __future__ import annotations
 
@@ -184,12 +188,34 @@ def _quantize_kv(k: torch.Tensor):
     return q.to(torch.int8), scale
 
 
+def _decode_positions(pos, B: int, W: int, device):
+    """The (B,) int32 positions of a decode step and its ring slot. An int
+    ``pos`` gives the slot as an int; a 0-d tensor ``pos`` a (1,) int64
+    index on its device, ``pos mod W`` computed there (nothing is read
+    back to the host)."""
+    if isinstance(pos, torch.Tensor):
+        p = pos.reshape(1)
+        return (p.to(torch.int32).expand(B).contiguous(),
+                torch.remainder(p.to(torch.int64), W))
+    pos = int(pos)
+    return torch.full((B,), pos, dtype=torch.int32, device=device), pos % W
+
+
+def _ring_write(cache: torch.Tensor, slot, new: torch.Tensor) -> None:
+    """``new`` (B, 1, ...) into entry ``slot`` of ``cache`` (B, W, ...), in
+    place: a slice for an int slot, ``index_copy_`` for a device index."""
+    if isinstance(slot, int):
+        cache[:, slot] = new[:, 0]
+    else:
+        cache.index_copy_(1, slot, new.to(cache.dtype))
+
+
 def attn_decode_step(
     p: dict,
     x: torch.Tensor,        # (B, 1, d)
     cache_k: torch.Tensor,  # (B, W, KV, hd), int8 when quantized
     cache_v: torch.Tensor,
-    pos: int,               # position of the new token, one for the batch
+    pos,                    # int or 0-d int tensor: the new token's position
     cfg,
     *,
     window: Optional[int] = None,
@@ -203,7 +229,6 @@ def attn_decode_step(
     B = x.shape[0]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     W = cache_k.shape[1]
-    pos = int(pos)
     quant = k_scale is not None
     q = _mm(x, p["wq"]).reshape(B, 1, H, hd)
     k = _mm(x, p["wk"]).reshape(B, 1, KV, hd)
@@ -211,20 +236,18 @@ def attn_decode_step(
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    posv = torch.full((B,), pos, dtype=torch.int32, device=x.device)
+    posv, slot = _decode_positions(pos, B, W, x.device)
     q = rope(q, posv[:, None], cfg.rope_theta)
     k = rope(k, posv[:, None], cfg.rope_theta)
-    slot = pos % W
     if quant:
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
-        cache_k[:, slot] = kq[:, 0]
-        cache_v[:, slot] = vq[:, 0]
-        k_scale[:, slot] = ks[:, 0]
-        v_scale[:, slot] = vs[:, 0]
+        for cache, new in ((cache_k, kq), (cache_v, vq), (k_scale, ks),
+                           (v_scale, vs)):
+            _ring_write(cache, slot, new)
     else:
-        cache_k[:, slot] = k[:, 0]
-        cache_v[:, slot] = v[:, 0]
+        _ring_write(cache_k, slot, k)
+        _ring_write(cache_v, slot, v)
     out = ops.decode_attention(q[:, 0].contiguous(), cache_k, cache_v, posv,
                                window=window, softcap=cfg.attn_softcap,
                                k_scale=k_scale, v_scale=v_scale)

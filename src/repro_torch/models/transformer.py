@@ -507,12 +507,14 @@ def _mamba_layer_decode(blocks, i, x, state, at, cfg):
 
 
 def decode_step(params: Params, state: Params,
-                batch: Dict[str, torch.Tensor], pos: int, cfg: ArchConfig):
+                batch: Dict[str, torch.Tensor], pos, cfg: ArchConfig):
     """One token decode for a batch at position ``pos`` (one for the
     batch, as in the reference): ``batch["embeds"]`` (B, 1, d) in the
-    ``embeddings`` mode, ``batch["tokens"]`` (B, 1) otherwise. Returns
-    (logits (B,1,V), state); the state's tensors are updated in place (an
-    ssm model ignores ``pos``)."""
+    ``embeddings`` mode, ``batch["tokens"]`` (B, 1) otherwise. ``pos`` is
+    an int or a 0-d integer tensor on the state's device, which the step
+    never reads back (the reference's traced ``pos``: a CUDA graph of the
+    step serves every position). Returns (logits (B,1,V), state); the
+    state's tensors are updated in place (an ssm model ignores ``pos``)."""
     _check_family(cfg)
     if cfg.input_mode == "embeddings":
         x = batch["embeds"].to(_dtype(cfg))

@@ -16,8 +16,10 @@ layers runs each layer's ops once). The rules are ``hlo_cost``'s:
   hbm bytes    : the operands plus the results of each op, each tensor by
                  the elements its strides reach (an expanded operand
                  counts once); gathers (``embedding``, ``index``) count
-                 their result twice and the indices, scatters three times
-                 their update, as ``hlo_cost`` counts slicing ops; view
+                 their result twice and the indices, scatters (and
+                 ``index_copy_``, a decode step's ring write at a device
+                 index) three times their update and the indices, as
+                 ``hlo_cost`` counts slicing ops; view
                  ops (``view``, ``reshape`` without a copy, ``transpose``,
                  ``expand``, ``slice``, ``select``, ...) and allocations
                  cost nothing, as ``bitcast`` and ``get-tuple-element``
@@ -73,7 +75,11 @@ _ELEMENTWISE = {
 _GATHERS = {"embedding", "index", "index_select", "gather"}
 _SCATTERS = {"index_add", "index_add_", "index_put", "index_put_",
              "scatter", "scatter_", "scatter_add", "scatter_add_",
-             "embedding_dense_backward"}
+             "embedding_dense_backward", "index_copy", "index_copy_"}
+# scatters whose update is the argument at this position, whatever its
+# dtype: a decode step's ring write at a device index (``index_copy_`` of
+# a bf16, f32 or int8 cache entry), ``hlo_cost``'s dynamic-update-slice
+_UPDATE_ARG = {"index_copy": 3, "index_copy_": 3}
 _FREE = {"empty", "empty_like", "empty_strided", "new_empty",
          "new_empty_strided", "_local_scalar_dense", "lift_fresh",
          "set_", "resize_", "record_stream"}
@@ -246,8 +252,12 @@ class OpCounter(TorchDispatchMode):
             idx = [t for t in ins if not t.is_floating_point()]
             nbytes = 2 * out_b + sum(tensor_bytes(t) for t in idx)
         elif kind == "scatter":
-            upd = [t for t in ins[1:] if t.is_floating_point()]
-            idx = [t for t in ins[1:] if not t.is_floating_point()]
+            if name in _UPDATE_ARG:
+                upd = [args[_UPDATE_ARG[name]]]
+                idx = [t for t in ins[1:] if t is not upd[0]]
+            else:
+                upd = [t for t in ins[1:] if t.is_floating_point()]
+                idx = [t for t in ins[1:] if not t.is_floating_point()]
             nbytes = (3 * sum(tensor_bytes(t) for t in upd)
                       + sum(tensor_bytes(t) for t in idx))
         else:

@@ -19,8 +19,26 @@ largest live position), the prompt replay that writes every row's cache
 at the replayed position, and a recycled slot that carries on from its
 old position.
 
-``jax.jit(decode_step)`` becomes a plain call: the kernels are built
-once, so nothing compiles per step. Sampling draws from an explicit
+``jax.jit(decode_step)``, one executable for every position, becomes one
+CUDA graph a server: ``(max_batch, max_len)`` is fixed at construction,
+and the position goes in as a 0-d tensor, so the step reads nothing
+back. Every decode (each prompt token replayed and each tick) copies its
+tokens and position into static buffers and replays the graph, which
+writes static logits (valid until the next decode). The graph is
+captured at the first decode, after one warm-up step (libraries loaded,
+lazy initialisation); the state's leaves are copied before the warm-up
+and put back after the capture, so both leave it bitwise as it was. The
+kernel wrappers count their launches in Python, which a replay never
+runs: the warm-up's and the capture's counts are taken back, and each
+replay adds the capture's (``ops.add_launch_counts``), so the counters
+read as if every step ran eagerly. ``graph=False`` runs the same body
+eagerly on the same buffers; so does a server on the CPU, which has no
+graphs (the CPU tests run the body the card captures). A Python hook
+inside the step (a recorded or replayed routing) would run at capture
+only: such a caller passes ``graph=False``. On a card a capture or a
+replay that fails raises; nothing falls back to eager.
+
+Sampling stays outside the graph. It draws from an explicit
 ``torch.Generator`` seeded 0 on the server's device, where the reference
 draws from ``jax.random.PRNGKey(0)``: the two give different numbers, so
 the port and the reference agree token for token on greedy requests
@@ -40,6 +58,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import new_stream, on_stream, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 
 
@@ -80,15 +99,31 @@ class Request:
     done_s: Optional[float] = None
 
 
+def _new_graph():
+    return torch.cuda.CUDAGraph()
+
+
+def _capturing(graph, stream):
+    """Capture on ``stream``; other threads may go on using the card."""
+    return torch.cuda.graph(graph, stream=stream,
+                            capture_error_mode="thread_local")
+
+
+def _minus(a: dict, b: dict) -> dict:
+    return {k: n - b.get(k, 0) for k, n in a.items() if n != b.get(k, 0)}
+
+
 class BatchedServer:
     def __init__(self, params, cfg: ArchConfig, *, max_batch: int = 4,
-                 max_len: int = 512, budget=None, device="cuda"):
+                 max_len: int = 512, budget=None, device="cuda",
+                 graph: bool = True):
         """``budget`` (a ``repro_torch.executor.server.MemoryBudget``,
         duck-typed ``reserve``/``release``) charges this server's KV-cache
         allocation to the SAME accounted pool the ColdServer's
         staged-weight LRU draws from. ``close()`` releases the
         reservation. ``params`` move to ``device`` (a no-op for tensors
-        already there)."""
+        already there). ``graph`` replays each decode step from one CUDA
+        graph on a card (``False``: eager; the CPU has no graphs)."""
         assert cfg.input_mode == "tokens", "server demo expects token models"
         self.device = resolve_device(device)
         self.stream = new_stream(self.device)
@@ -101,6 +136,11 @@ class BatchedServer:
             self.params = T.to_device(params, self.device)
             self.state = T.init_decode_state(cfg, max_batch, max_len,
                                              device=self.device)
+            # the step's static inputs: what a graph reads at each replay
+            self._tokens = torch.zeros((max_batch, 1), dtype=torch.int64,
+                                       device=self.device)
+            self._pos = torch.zeros((), dtype=torch.int64,
+                                    device=self.device)
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
@@ -119,13 +159,54 @@ class BatchedServer:
         self.decode_steps = 0                            # decode_step calls
         self._t0 = time.perf_counter()
         self._gen = torch.Generator(device=self.device).manual_seed(0)
+        self.graphed = graph and self.device.type == "cuda"
+        self._graph = None
+        self._logits = None       # the graph's static output
+        self._replay_counts = ({}, {})
+        self.captures = 0
+        self.capture_s = 0.0
+
+    def _body(self) -> torch.Tensor:
+        """The decode step on the static buffers: what a graph captures."""
+        logits, _ = T.decode_step(self.params, self.state,
+                                  {"tokens": self._tokens}, self._pos,
+                                  self.cfg)
+        return logits
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        start = ops.launch_counts(), ops.gemm_path_counts()
+        saved = {k: t.clone() for k, t in self.state.items()}
+        self._body()                                     # the warm-up
+        before = ops.launch_counts(), ops.gemm_path_counts()
+        graph = _new_graph()
+        with _capturing(graph, self.stream):
+            self._logits = self._body()
+        after = ops.launch_counts(), ops.gemm_path_counts()
+        self._replay_counts = (_minus(after[0], before[0]),
+                               _minus(after[1], before[1]))
+        # the warm-up and the capture count as no decode
+        ops.add_launch_counts(_minus(start[0], after[0]),
+                              _minus(start[1], after[1]))
+        for k, t in self.state.items():
+            t.copy_(saved[k])
+        self._graph = graph
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
 
     def _decode(self, batch_tok: np.ndarray, pos: int) -> torch.Tensor:
         with on_stream(self.stream):
-            toks = torch.from_numpy(batch_tok.astype(np.int64)).to(
-                self.device)
-            logits, self.state = T.decode_step(
-                self.params, self.state, {"tokens": toks}, pos, self.cfg)
+            self._tokens.copy_(torch.from_numpy(batch_tok.astype(np.int64)),
+                               non_blocking=True)
+            self._pos.fill_(int(pos))
+            if self.graphed:
+                if self._graph is None:
+                    self._capture()
+                self._graph.replay()
+                ops.add_launch_counts(*self._replay_counts)
+                logits = self._logits
+            else:
+                logits = self._body()
         self.decode_steps += 1
         return logits
 

@@ -282,8 +282,9 @@ def test_archs_path_rehearsal(monkeypatch, counted_plain):
     """``archs_path`` on ``torch.device("cpu")`` with the four configs
     reduced as above: every gate runs (the kernels' runs against the
     all-plain ones, routing agreement, the prefill cache, the f32 arms,
-    the launch gates) and passes; its returned launch counts are the
-    gates' sums."""
+    the batched mix against the plain run, the graph against the eager
+    server, the launch gates) and passes; its returned launch counts are
+    the gates' sums."""
     import repro_torch.configs as C
 
     cs = _chip_smoke()
@@ -302,23 +303,42 @@ def test_archs_path_rehearsal(monkeypatch, counted_plain):
              2 if f32 else 0) for a, _, _, _, f32 in cs.ARCHS_RUN]
     monkeypatch.setattr(cs, "ARCHS_RUN", plan)
     counts = cs.archs_path(torch.device("cpu"))
-    # each kernel's launches: forwards, decode steps and f32 forwards; the
-    # moe arch's router counts as the f32 matmul, its attention's four
-    # projections and head as the bf16 one
+    # each kernel's launches: forwards, decode steps (by steps, then the
+    # kernels' run of the batched mix) and f32 forwards; the moe arch's
+    # router counts as the f32 matmul, its attention's four projections
+    # and head as the bf16 one
+    mix = mix_steps(cs.BATCH_SHAPES, 4)
     want = dict.fromkeys(("flash_attention", "decode_attention", "matmul",
                           "matmul_bf16", "gmm_blocks"), 0)
     for a, L, _, Sd, f32 in plan:
         moe = a == "qwen3-moe-30b-a3b"
+        n = Sd + mix
         want["flash_attention"] += L + f32
-        want["decode_attention"] += L * Sd
+        want["decode_attention"] += L * n
         if moe:
-            want["gmm_blocks"] += 3 * L * (1 + Sd) + 3 * f32
-            want["matmul"] += L * (1 + Sd) + 5 * f32 + 1
-            want["matmul_bf16"] += (4 * L + 1) * (1 + Sd)
+            want["gmm_blocks"] += 3 * L * (1 + n) + 3 * f32
+            want["matmul"] += L * (1 + n) + 5 * f32 + 1
+            want["matmul_bf16"] += (4 * L + 1) * (1 + n)
         else:
-            want["matmul_bf16"] += (7 * L + 1) * (1 + Sd)
+            want["matmul_bf16"] += (7 * L + 1) * (1 + n)
             want["matmul"] += (7 * f32 + 1) if f32 else 0
     assert counts == want
+
+
+def mix_steps(shapes, slots: int) -> int:
+    """``decode_step`` calls of ``BatchedServer``'s schedule for requests
+    (prompt length, new tokens) through ``slots``: each prompt token
+    replayed at admission (which picks the first new token), then one
+    tick a step for the live slots."""
+    queue, live, steps = list(shapes), [], 0
+    while queue or live:
+        while queue and len(live) < slots:
+            n, m = queue.pop(0)
+            steps += n
+            live.append(m - 1)
+        steps += 1
+        live = [r - 1 for r in live if r > 1]
+    return steps
 
 
 def test_near_ties_names_the_flipped_tokens():
